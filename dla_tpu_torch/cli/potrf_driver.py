@@ -1,0 +1,151 @@
+"""Single-run POTRF driver — the ``--mode inplace`` subset of
+``dla_tpu/cli/potrf_driver.py`` on PyTorch.
+
+It keeps the reference's text contract (``v6_test.c:54-87``), which a sweep
+harness greps:
+
+- one ``Repeat i: <ms> ms <rate> Gflop/s`` line per repeat, printed as it
+  finishes (repeat 0 is the warm-up, which also builds the CUDA kernel);
+- ``Elapsed: <ms> ms`` and ``Performance: %.2f Gflop/s`` for the median of
+  the timed repeats, with the rate (1/3)·N³/t;
+- ``||A - LL^T||_inf / ||A||_inf = %.2e`` and ``PASS``/``FAIL`` against the
+  dtype-aware gate; the exit code is non-zero on FAIL.
+
+Only the factorization is timed, between two ``torch.cuda.synchronize()``
+calls; the input is regenerated from its seed before each repeat, untimed
+(``v6_test.c:54-57`` times dpotrf only). ``CHOLESKY_N``/``CHOLESKY_B`` in
+the environment set N and NB when the flags do not.
+
+Usage:
+    python -m dla_tpu_torch.cli.potrf_driver --n 16384 --nb 1024 --dtype s --mode inplace
+    python -m dla_tpu_torch.cli.potrf_driver --n 512 --nb 128 --dtype d --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="dla-potrf-torch",
+        description="Tiled Cholesky (POTRF) driver — PyTorch/CUDA port",
+    )
+    ap.add_argument("--n", type=int, default=None, help="matrix dimension N")
+    ap.add_argument("--nb", type=int, default=None, help="panel width NB")
+    ap.add_argument("--dtype", default=None,
+                    help="d|float64, s|float32, h|bfloat16 (storage)")
+    ap.add_argument("--mode", choices=["inplace"], default="inplace",
+                    help="factorization formulation (only inplace is ported)")
+    ap.add_argument("--bump", type=float, default=None, help="diagonal bump (default: N)")
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--precision", choices=["default", "high", "highest"], default=None,
+                    help="matmul precision tier (default: library policy)")
+    ap.add_argument("--diag", choices=["lax", "twolevel"], default="lax",
+                    help="diagonal-block factor")
+    ap.add_argument("--kb", type=int, default=None,
+                    help="trailing-update k-split, must divide NB (default 256)")
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="timed repeats after the warm-up repeat 0")
+    ap.add_argument("--no-check", action="store_true", help="skip the residual")
+    ap.add_argument("--gate", type=float, default=None,
+                    help="PASS threshold (default: dtype-aware)")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return ap
+
+
+def _gate(n: int, dtype: str) -> float:
+    """The reference driver's dtype-aware gate (``potrf_driver.py:808-819``)."""
+    if dtype == "float64":
+        return 1e-10  # the reference's gate (v6_test.c:87)
+    if dtype == "float32":
+        return max(1e-10, n * 2e-7)
+    return max(1e-10, n**0.5 * 2e-4)  # bf16 storage, fp32 accumulation
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("[dla-potrf] --device cuda: no CUDA device is available "
+              "(torch.cuda.is_available() is False); use --device cpu",
+              file=sys.stderr)
+        return 2
+
+    from dla_tpu_torch.algos import potrf_inplace
+    from dla_tpu_torch.ops import plgsy
+    from dla_tpu_torch.utils.config import RunConfig
+    from dla_tpu_torch.utils.flops import gflops, potrf_flops
+    from dla_tpu_torch.validate import residual_potrf
+
+    cfg = RunConfig.layered(
+        n=args.n, nb=args.nb, dtype=args.dtype, bump=args.bump, seed=args.seed,
+        mode=args.mode, check=False if args.no_check else None,
+    )
+    if cfg.dtype not in ("float64", "float32", "bfloat16"):
+        print(f"[dla-potrf] dtype {cfg.dtype} is not ported yet (ROADMAP.md)",
+              file=sys.stderr)
+        return 2
+    dtype = getattr(torch, cfg.dtype)
+    device = torch.device(args.device)
+    bump = float(cfg.n) if cfg.bump is None else cfg.bump
+    tb = 1024 if cfg.nb % 1024 == 0 else cfg.nb
+    kw = {"diag_factor": args.diag, "precision": args.precision}
+    if args.kb:
+        kw["kb"] = args.kb
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"[dla-potrf] N={cfg.n} NB={cfg.nb} dtype={cfg.dtype} mode={cfg.mode} "
+          f"seed={cfg.seed} device={name}", flush=True)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def fresh_a():
+        a = plgsy(cfg.n, bump=bump, seed=cfg.seed, dtype=dtype, device=device)
+        sync()
+        return a
+
+    def timed():
+        a = fresh_a()  # untimed: the factorization mutates its input
+        t0 = time.perf_counter()
+        l = potrf_inplace(a, nb=cfg.nb, tb=tb, **kw)
+        sync()
+        return l, time.perf_counter() - t0
+
+    flops = potrf_flops(cfg.n)
+    l, dt = timed()
+    print(f"Repeat 0: {dt * 1e3:.1f} ms {gflops(flops, dt):.2f} Gflop/s (warm-up)",
+          flush=True)
+    times = []
+    for i in range(1, max(1, args.repeats) + 1):
+        l = None  # free the previous factor before the next input exists
+        l, dt = timed()
+        times.append(dt)
+        print(f"Repeat {i}: {dt * 1e3:.1f} ms {gflops(flops, dt):.2f} Gflop/s",
+              flush=True)
+    tmed = sorted(times)[len(times) // 2]
+    print(f"Elapsed: {tmed * 1e3:.1f} ms")
+    print(f"Performance: {gflops(flops, tmed):.2f} Gflop/s", flush=True)
+
+    if not cfg.check:
+        return 0
+    l = torch.tril(l)
+    chunk = 4096 if cfg.n >= 16384 and cfg.n % 4096 == 0 else None
+    res = float(residual_potrf(fresh_a(), l, assume_symmetric=True,
+                               assume_tril=True, row_chunk=chunk))
+    print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
+    gate = args.gate if args.gate is not None else _gate(cfg.n, cfg.dtype)
+    if res < gate:  # False for NaN
+        print(f"PASS (residual < {gate:g})", flush=True)
+        return 0
+    print(f"FAIL (residual >= {gate:g})", flush=True)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

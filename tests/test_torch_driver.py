@@ -1,0 +1,74 @@
+"""dla_tpu_torch's POTRF driver and chip_smoke.py on the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from dla_tpu_torch.cli import potrf_driver
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _run(capsys, *argv):
+    rc = potrf_driver.main(list(argv))
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+@pytest.mark.parametrize("dtype,extra,gate", [
+    ("d", [], "1e-10"),
+    ("s", ["--precision", "high", "--diag", "twolevel", "--kb", "64"], "5.12e-05"),
+    ("h", ["--precision", "default"], "0.0032"),
+])
+def test_contract_lines_on_cpu(capsys, dtype, extra, gate):
+    rc, out, _ = _run(capsys, "--n", "256", "--nb", "64", "--dtype", dtype,
+                      "--device", "cpu", "--repeats", "2", *extra)
+    assert rc == 0, out
+    assert re.search(r"^Repeat 0: [\d.]+ ms [\d.]+ Gflop/s \(warm-up\)$", out, re.M)
+    assert len(re.findall(r"^Repeat [12]: [\d.]+ ms [\d.]+ Gflop/s$", out, re.M)) == 2
+    assert re.search(r"^Elapsed: [\d.]+ ms$", out, re.M)
+    assert re.search(r"^Performance: \d+\.\d\d Gflop/s$", out, re.M)
+    res = re.search(r"^\|\|A - LL\^T\|\|_inf / \|\|A\|\|_inf = (\S+)$", out, re.M)
+    assert res and float(res.group(1)) < float(gate)
+    assert f"PASS (residual < {gate})" in out
+
+
+def test_env_layering_and_no_check(capsys, monkeypatch):
+    monkeypatch.setenv("CHOLESKY_N", "128")
+    monkeypatch.setenv("CHOLESKY_B", "32")
+    rc, out, _ = _run(capsys, "--dtype", "d", "--device", "cpu", "--no-check")
+    assert rc == 0
+    assert "N=128 NB=32 dtype=float64 mode=inplace" in out
+    assert "LL^T" not in out and "PASS" not in out
+    rc, out, _ = _run(capsys, "--nb", "64", "--dtype", "d", "--device", "cpu", "--no-check")
+    assert "N=128 NB=64" in out
+
+
+def test_fail_gate_returns_nonzero(capsys):
+    rc, out, _ = _run(capsys, "--n", "128", "--nb", "32", "--dtype", "s", "--device", "cpu",
+                      "--gate", "1e-30")
+    assert rc == 1 and "FAIL (residual >= 1e-30)" in out
+
+
+def test_cuda_without_card_fails_clearly(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = _run(capsys, "--n", "128", "--nb", "32")
+    assert rc != 0 and "no CUDA device" in err and "Performance" not in out
+
+
+def test_unported_dtype(capsys):
+    rc, _, err = _run(capsys, "--n", "64", "--nb", "32", "--dtype", "z", "--device", "cpu")
+    assert rc == 2 and "not ported" in err
+
+
+def test_chip_smoke_refuses_without_card(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,146 @@
+"""dla_tpu_torch's CUDA kernel and main path on the card, held against the
+plain torch versions. Every test needs a CUDA device and skips without one.
+
+This file imports no jax, so that it runs where JAX is not installed; run it
+there past tests/conftest.py (which imports jax):
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+
+Tolerances, relative to ``scale = max_i ||p_i||²`` (= max |P·Pᵀ|): fp64
+1e-12; fp32 at every tier 1e-5 (the same partial products, summed in another
+order); bf16 storage 2^-6 of (max|c| + scale) (two bf16 roundings, each
+possibly one ulp apart).
+"""
+
+import pytest
+import torch
+
+import dla_tpu_torch as T
+from dla_tpu_torch.kernels import tiles
+from dla_tpu_torch.kernels.tiles import trailing_update_lower, trailing_update_lower_plain
+from dla_tpu_torch.utils import precision
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _lower_mask(m, tb, origin):
+    ti = torch.arange(m) // tb
+    return (ti[:, None] >= ti[None, :]) & (ti[:, None] >= origin) & (ti[None, :] >= origin)
+
+
+def _tol(dtype, c, p):
+    scale = (p.double() ** 2).sum(1).max().item()
+    if dtype == torch.float64:
+        return 1e-12 * scale
+    if dtype == torch.float32:
+        return 1e-5 * scale
+    return 2**-6 * (c.double().abs().max().item() + scale)
+
+
+CASES = [  # (m, tb, nb, origin, dtype, precision)
+    (96, 32, 32, 0, torch.float32, "high"),
+    (96, 32, 32, 1, torch.float32, "highest"),
+    (256, 64, 48, 2, torch.float32, "default"),
+    (200, 40, 24, 1, torch.float64, "high"),
+    (256, 128, 64, 1, torch.bfloat16, "high"),
+    (1024, 256, 256, 1, torch.float32, "high"),
+    (160, 32, 7, 1, torch.float32, "high"),  # k not a multiple of the kernel's k-step
+]
+
+
+@pytest.mark.parametrize("m,tb,nb,origin,dtype,prec", CASES)
+def test_kernel_matches_plain(cuda, m, tb, nb, origin, dtype, prec):
+    g = torch.Generator().manual_seed(m + nb)
+    c = torch.randn(m, m, generator=g, dtype=torch.float64).to(dtype)
+    p = torch.randn(m - origin * tb, nb, generator=g, dtype=torch.float64).to(dtype)
+    with precision.override(prec):
+        ref = trailing_update_lower_plain(c.clone(), p, tb=tb, origin=origin)
+        cd = c.to(cuda)
+        before = tiles.launches
+        out = trailing_update_lower(cd, p.to(cuda), tb=tb, origin=origin)
+        torch.cuda.synchronize()
+    assert out is cd and tiles.launches == before + 1
+    got = out.cpu()
+    mask = _lower_mask(m, tb, origin)
+    assert (got.double() - ref.double()).abs()[mask].max().item() <= _tol(dtype, c, p)
+    assert torch.equal(got[~mask], c[~mask])
+
+
+def test_alias_false_leaves_input(cuda):
+    c = torch.randn(128, 128, device=cuda)
+    p = torch.randn(128, 32, device=cuda)
+    keep = c.clone()
+    out = trailing_update_lower(c, p, tb=32, alias=False)
+    torch.cuda.synchronize()
+    assert torch.equal(c, keep) and not torch.equal(out, keep)
+
+
+def test_strided_panel_view(cuda):
+    c = torch.randn(128, 128, device=cuda, dtype=torch.float64)
+    big = torch.randn(128, 64, device=cuda, dtype=torch.float64)
+    p = big[:, 16:48]  # leading dimension 64, not 32
+    ref = trailing_update_lower_plain(c.cpu(), p.cpu(), tb=32)
+    out = trailing_update_lower(c, p, tb=32)
+    assert torch.allclose(out.cpu(), ref, rtol=1e-12, atol=1e-12)
+
+
+def test_column_major_input_raises(cuda):
+    c = torch.randn(64, 64, device=cuda).mT
+    with pytest.raises(ValueError, match="row-major"):
+        trailing_update_lower(c, torch.randn(64, 16, device=cuda), tb=32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_potrf_inplace_card_matches_cpu(cuda, dtype):
+    n = 512
+    kw = dict(nb=128, tb=64, kb=128, ib=64, precision="high")
+    a = T.plgsy(n, seed=3, dtype=dtype)
+    before = tiles.launches
+    lg = torch.tril(T.potrf_inplace(a.to(cuda), **kw)).cpu()
+    assert tiles.launches == before + n // 128 - 1
+    lc = torch.tril(T.potrf_inplace(a.clone(), **kw))
+    tol = 1e-10 if dtype == torch.float64 else 1e-5 * lc.abs().max().item()
+    assert (lg - lc).abs().max().item() <= tol
+    gate = 1e-10 if dtype == torch.float64 else n * 2e-7
+    assert float(T.residual_potrf(a.to(cuda), lg.to(cuda))) < gate
+
+
+def test_offsets_past_2_pow_31(cuda):
+    # m² > 2³¹ from m = 46341: the window's last tile sits past 32-bit offsets
+    m, tb, nb = 47104, 1024, 64
+    origin = m // tb - 1
+    c = torch.zeros(m, m, device=cuda)
+    p = torch.randn(tb, nb, device=cuda)
+    trailing_update_lower(c, p, tb=tb, origin=origin)
+    torch.cuda.synchronize()
+    o = origin * tb
+    ref = trailing_update_lower_plain(torch.zeros(tb, tb), p.cpu(), tb=tb)
+    assert (c[o:, o:].cpu() - ref).abs().max().item() <= _tol(torch.float32, c, p)
+    assert c[:o].abs().max().item() == 0 and c[o:, :o].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plgsy_same_bits_on_card(cuda, dtype):
+    for i0, j0 in [(0, 0), (131072, 17)]:
+        got = T.plgsy_tile(51, i0, j0, 96, 80, bump=5.0, dtype=dtype, device=cuda).cpu()
+        assert torch.equal(got, T.plgsy_tile(51, i0, j0, 96, 80, bump=5.0, dtype=dtype))
+    assert torch.equal(T.plgsy(300, seed=7, device=cuda).cpu(), T.plgsy(300, seed=7))
+
+
+def test_card_factor_reads_lower_only_and_nans_non_spd(cuda):
+    n, kw = 256, dict(nb=64, tb=32, ib=32)
+    a = T.plgsy(n, seed=5, dtype=torch.float64, device=cuda)
+    clean = torch.tril(T.potrf_inplace(a.clone(), **kw))
+    dirty = torch.tril(a) + torch.triu(torch.full_like(a, 123.0), 1)
+    assert torch.equal(torch.tril(T.potrf_inplace(dirty, **kw)), clean)
+    bad = a.clone()
+    bad[70, 70] = -5.0
+    lb = torch.tril(T.potrf_inplace(bad, **kw)).cpu()
+    assert torch.isnan(lb[64:]).any() and not torch.isnan(lb[:64, :64]).any()
