@@ -6,9 +6,11 @@ torch version beside it that runs on CPU tensors. The package imports torch
 and never jax, so it never imports ``dla_tpu`` either; the tests hold it
 against the JAX package on the same numpy inputs.
 
-This slice covers the single-device POTRF main path: ``plgsy`` →
-``potrf_inplace`` (panel in torch ops, trailing update in the kernel) →
-``residual_potrf``. Importing the package switches TF32 off
+Ported so far: the single-device POTRF main path, ``plgsy`` →
+``potrf_inplace`` (panel in torch ops, trailing update in a kernel) →
+``residual_potrf``, and the packed-storage path, ``plgsy_packed`` →
+``potrf_packed`` (the packed trailing update in a kernel) →
+``freivalds_packed``. Importing the package switches TF32 off
 (:func:`dla_tpu_torch.utils.precision.pin_ieee_fp32`).
 """
 
@@ -16,19 +18,32 @@ from dla_tpu_torch.utils.precision import pin_ieee_fp32
 
 pin_ieee_fp32()
 
-from dla_tpu_torch.algos import potrf, potrf_inplace  # noqa: E402
+from dla_tpu_torch.algos import (  # noqa: E402
+    freivalds_packed,
+    pack_tri,
+    plgsy_packed,
+    potrf,
+    potrf_inplace,
+    potrf_packed,
+    unpack_tri,
+)
 from dla_tpu_torch.ops import gemm, lange, plgsy, plgsy_tile, syrk, trsm  # noqa: E402
 from dla_tpu_torch.validate import cholesky_invariants, residual_potrf  # noqa: E402
 
 __all__ = [
     "cholesky_invariants",
+    "freivalds_packed",
     "gemm",
     "lange",
+    "pack_tri",
     "plgsy",
+    "plgsy_packed",
     "plgsy_tile",
     "potrf",
     "potrf_inplace",
+    "potrf_packed",
     "residual_potrf",
     "syrk",
     "trsm",
+    "unpack_tri",
 ]

@@ -1,0 +1,261 @@
+"""Packed (triangle-only) storage: Cholesky on about half the memory —
+counterpart of ``dla_tpu/algos/packed.py``.
+
+Layout, the reference's: the **column-slab packed lower triangle** with slab
+width ``tb`` (``n % tb == 0``). Block column ``j`` is stored as the dense
+``((nt-j)·tb, tb)`` slab ``A[j·tb:, j·tb:(j+1)·tb]``, row-major, and the slabs
+are stacked into one 2-D ``(n·(n+tb)/(2·tb), tb)`` buffer — n(n+tb)/2
+elements instead of n². The buffer has the same layout in both packages, so
+a JAX packed array crosses through ``utils.interop`` unchanged.
+
+Every algorithm below touches contiguous row ranges of that buffer.
+:func:`col_slab` returns a view, and :func:`potrf_packed` factors the buffer
+**in place** and returns it (the reference donates it to the same effect).
+
+This slice ports the factorization path and its matrix-free gate:
+:func:`plgsy_packed` → :func:`potrf_packed` → :func:`freivalds_packed`
+(through :func:`trmm_packed` and :func:`spd_matvec_streamed`). The packed
+serving functions (``trtri_packed``, ``lauum_packed``, ``potri_packed``,
+``solve_inverse_packed``, ``potrs_packed``, ``residual_posv_streamed``) are a
+later slice (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+from dla_tpu_torch.algos.potrf import DiagFactor, _blocktrsm_panel, _chol_tile
+from dla_tpu_torch.kernels.tiles import trailing_update_packed
+from dla_tpu_torch.ops import gemm, plgsy_tile
+from dla_tpu_torch.ops.lapack_like import _SLAB_ELEMS
+from dla_tpu_torch.utils import precision as _precision
+
+
+def packed_len(n: int, tb: int) -> int:
+    """Element count of the packed triangle: n·(n+tb)/2."""
+    _check(n, tb)
+    nt = n // tb
+    return tb * tb * nt * (nt + 1) // 2
+
+
+def packed_rows(n: int, tb: int) -> int:
+    """Leading dim of the packed (rows, tb) buffer: n·(n+tb)/(2·tb)."""
+    return packed_len(n, tb) // tb
+
+
+def _check(n: int, tb: int) -> None:
+    if n % tb:
+        raise ValueError(f"n={n} must be a multiple of tb={tb}")
+
+
+def _row_offset(j: int, nt: int, tb: int) -> int:
+    """Row offset of block column j's slab in the (rows, tb) buffer."""
+    return tb * (j * nt - j * (j - 1) // 2)
+
+
+def col_slab(packed: torch.Tensor, j: int, n: int, tb: int) -> torch.Tensor:
+    """Block column j as its ((nt-j)·tb, tb) row range — a **view** of the
+    buffer: writing to it writes to ``packed``."""
+    nt = n // tb
+    r0 = _row_offset(j, nt, tb)
+    return packed[r0 : r0 + (nt - j) * tb]
+
+
+def _set_col(packed: torch.Tensor, j: int, slab: torch.Tensor, n: int, tb: int) -> torch.Tensor:
+    """Write block column j in place (cast to the buffer's dtype)."""
+    col_slab(packed, j, n, tb).copy_(slab)
+    return packed
+
+
+def pack_tri(a: torch.Tensor, tb: int) -> torch.Tensor:
+    """Dense (n, n) → packed lower triangle, a (n·(n+tb)/(2·tb), tb) buffer
+    (reads only the slabs on and below the diagonal; each diagonal block is
+    copied whole, its strict upper included, as in the reference)."""
+    n = a.shape[-1]
+    _check(n, tb)
+    return torch.cat([a[j * tb :, j * tb : (j + 1) * tb] for j in range(n // tb)], dim=0)
+
+
+def unpack_tri(packed: torch.Tensor, n: int, tb: int) -> torch.Tensor:
+    """Packed → dense lower-triangular (strict upper zeroed: the diagonal
+    blocks carry whatever the source had above the diagonal)."""
+    _check(n, tb)
+    out = torch.zeros((n, n), dtype=packed.dtype, device=packed.device)
+    for j in range(n // tb):
+        out[j * tb :, j * tb : (j + 1) * tb] = col_slab(packed, j, n, tb)
+    return torch.tril(out)
+
+
+def _ctype(dtype: torch.dtype) -> torch.dtype:
+    """Compute dtype: bf16 storage computes in fp32."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def plgsy_packed(
+    n: int,
+    tb: int,
+    *,
+    bump: float | None = None,
+    seed: int = 51,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Packed lower triangle of the seeded SPD test matrix, generated slab by
+    slab (in row chunks) from the tile-local generator into one preallocated
+    buffer on ``device`` — no dense (n, n) square is ever built. Bit-identical
+    to the reference's ``plgsy_packed`` and to ``tril(plgsy(n))``."""
+    _check(n, tb)
+    if bump is None:
+        bump = float(n)  # same SPD default as plgsy (v6_test.c:46)
+    nt = n // tb
+    out = torch.empty((packed_rows(n, tb), tb), dtype=dtype, device=device)
+    chunk = max(1, _SLAB_ELEMS // tb)
+    for j in range(nt):
+        r0 = _row_offset(j, nt, tb)
+        for i in range(0, (nt - j) * tb, chunk):
+            rows = min(chunk, (nt - j) * tb - i)
+            out[r0 + i : r0 + i + rows] = plgsy_tile(
+                seed, j * tb + i, j * tb, rows, tb, bump=bump, dtype=dtype, device=device
+            )
+    return out
+
+
+def potrf_packed(
+    ap: torch.Tensor,
+    n: int,
+    tb: int,
+    *,
+    diag_factor: DiagFactor = "twolevel",
+    ib: int = 512,
+    precision: str | None = None,
+    trailing: Literal["xla", "pallas"] = "xla",
+    ktb: int = 1024,
+    kb: int | None = None,
+) -> torch.Tensor:
+    """Right-looking Cholesky **in packed space**. **Mutates ``ap``** and
+    returns it: peak device memory is one packed triangle (n(n+tb)/2
+    elements) plus one column slab. Per step: factor the diagonal block and
+    blocked-TRSM the panel (both shared with ``potrf_inplace``), then update
+    the trailing triangle.
+
+    ``trailing="pallas"`` (the reference's name, kept so that driver flags
+    line up) runs the trailing update through the hand-written kernel
+    (:func:`dla_tpu_torch.kernels.tiles.trailing_update_packed`, kernel tile
+    ``min(ktb, tb)``, ``kb`` checked against tb). It updates the lower
+    ktb-tile pairs only, so the ktb-tiles above the diagonal inside each
+    diagonal slab block stay stale: only :func:`unpack_tri`'s tril is
+    meaningful. ``trailing="xla"`` is the reference's per-slab GEMM loop.
+
+    bf16 storage computes the panel in fp32; the trailing update reads and
+    writes bf16 with fp32 accumulation. Real dtypes only.
+    """
+    _check(n, tb)
+    if ap.is_complex():
+        raise NotImplementedError(
+            "potrf_packed on complex dtypes is not ported yet; see ROADMAP.md Queue A"
+        )
+    if trailing not in ("xla", "pallas"):
+        raise ValueError(f"trailing must be 'xla' or 'pallas', got {trailing!r}")
+    nt = n // tb
+    ct = _ctype(ap.dtype)
+    with _precision.override(precision):
+        for k in range(nt):
+            colk = col_slab(ap, k, n, tb)
+            lkk = torch.tril(_chol_tile(colk[:tb].to(ct), diag_factor, ib=ib))
+            colk[:tb].copy_(lkk)
+            if k + 1 == nt:
+                break
+            lik = _blocktrsm_panel(lkk, colk[tb:].to(ct), ib=ib)
+            colk[tb:].copy_(lik)
+            if trailing == "pallas":
+                trailing_update_packed(ap, lik.to(ap.dtype), n=n, w=tb, k=k,
+                                       tb=min(ktb, tb), kb=kb)
+                continue
+            for j in range(k + 1, nt):
+                i0 = (j - k - 1) * tb  # lik rows j·tb.. of block column k
+                upd = gemm(-1.0, lik[i0:], lik[i0 : i0 + tb], 1.0,
+                           col_slab(ap, j, n, tb).to(ct), transb=True)
+                _set_col(ap, j, upd, n, tb)
+    return ap
+
+
+def trmm_packed(
+    lp: torch.Tensor, b: torch.Tensor, n: int, tb: int, *, trans: bool = False
+) -> torch.Tensor:
+    """Y = L·B (or Lᵀ·B) from the packed factor — one GEMM per block column
+    (the packed ``dtrmm`` of the matrix-free gate)."""
+    _check(n, tb)
+    vec = b.ndim == 1
+    bb = b[:, None] if vec else b
+    ct = _ctype(lp.dtype)
+    bb = bb.to(ct)
+    y = torch.zeros((n, bb.shape[-1]), dtype=ct, device=lp.device)
+    for j in range(n // tb):
+        colj = col_slab(lp, j, n, tb).to(ct)
+        if not trans:
+            y[j * tb :] = gemm(1.0, colj, bb[j * tb : (j + 1) * tb], 1.0, y[j * tb :])
+        else:
+            y[j * tb : (j + 1) * tb] = gemm(1.0, colj, bb[j * tb :], 0.0,
+                                           y[j * tb : (j + 1) * tb], transa=True)
+    return y[:, 0] if vec else y
+
+
+def _strips(n: int, cb: int, seed: int, bump: float, dtype: torch.dtype, device):
+    """The (n, cb) column strips of the seeded SPD matrix, one at a time."""
+    for j0 in range(0, n, cb):
+        yield j0, plgsy_tile(seed, 0, j0, n, cb, bump=bump, dtype=dtype, device=device)
+
+
+def spd_matvec_streamed(
+    x: torch.Tensor, n: int, *, seed: int = 51, bump: float | None = None, cb: int = 1024,
+) -> torch.Tensor:
+    """A·X for the seeded SPD generator matrix **without materializing A**:
+    (n, cb) column strips are generated on x's device in x's compute dtype
+    and accumulated in IEEE arithmetic (the reference pins
+    ``precision="highest"``) — O(n·cb) memory beside x. The reference's
+    ``dtype`` argument, which it does not read, is left out."""
+    cb = min(cb, n)
+    if n % cb:
+        raise ValueError(f"n={n} must be a multiple of cb={cb}")
+    if bump is None:
+        bump = float(n)
+    vec = x.ndim == 1
+    xx = x[:, None] if vec else x
+    xx = xx.to(_ctype(xx.dtype))
+    acc = torch.zeros((n, xx.shape[-1]), dtype=xx.dtype, device=xx.device)
+    for j0, strip in _strips(n, cb, seed, bump, xx.dtype, xx.device):
+        acc += strip @ xx[j0 : j0 + cb]
+    return acc[:, 0] if vec else acc
+
+
+def freivalds_packed(
+    lp: torch.Tensor, n: int, tb: int, *, seed: int = 51,
+    bump: float | None = None, nprobe: int = 2, key: int = 0,
+) -> torch.Tensor:
+    """Matrix-free Freivalds gate for a packed factor of the seeded SPD
+    matrix: ||A·x − L·(Lᵀ·x)||_inf / (||A||_inf · ||x||_inf), with A applied
+    by :func:`spd_matvec_streamed` and its norm accumulated over the same
+    streamed strips. The reference's contract and denominator.
+
+    The probe x is ``nprobe`` standard-normal columns drawn from a
+    ``torch.Generator`` seeded with ``key`` (on the CPU, then moved to the
+    factor's device, so the probe does not depend on the device). It is
+    *not* the reference's ``jax.random.normal(PRNGKey(key))``: torch cannot
+    reproduce those bits. The gate is a statistic of the probe, so the two
+    packages agree on it in magnitude, not in bits.
+    """
+    if bump is None:
+        bump = float(n)
+    ct = _ctype(lp.dtype)
+    cb = 1024 if n % 1024 == 0 else tb
+    g = torch.Generator().manual_seed(key)
+    x = torch.randn((n, nprobe), generator=g, dtype=ct).to(lp.device)
+    ax = spd_matvec_streamed(x, n, seed=seed, bump=bump, cb=cb)
+    y = trmm_packed(lp, trmm_packed(lp, x, n, tb, trans=True), n, tb)
+    na = torch.zeros((n,), dtype=ct, device=lp.device)
+    for _, strip in _strips(n, cb, seed, bump, ct, lp.device):
+        na += strip.abs().sum(dim=1)
+    denom = na.max() * x.abs().max()
+    return (ax - y).abs().max() / denom

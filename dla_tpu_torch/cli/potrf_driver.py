@@ -1,5 +1,5 @@
-"""Single-run POTRF driver — the ``--mode inplace`` subset of
-``dla_tpu/cli/potrf_driver.py`` on PyTorch.
+"""Single-run POTRF driver — the ``--mode inplace`` and ``--mode packed``
+subset of ``dla_tpu/cli/potrf_driver.py`` on PyTorch.
 
 It keeps the reference's text contract (``v6_test.c:54-87``), which a sweep
 harness greps:
@@ -8,16 +8,23 @@ harness greps:
   finishes (repeat 0 is the warm-up, which also builds the CUDA kernel);
 - ``Elapsed: <ms> ms`` and ``Performance: %.2f Gflop/s`` for the median of
   the timed repeats, with the rate (1/3)·N³/t;
-- ``||A - LL^T||_inf / ||A||_inf = %.2e`` and ``PASS``/``FAIL`` against the
-  dtype-aware gate; the exit code is non-zero on FAIL.
+- ``||A - LL^T||_inf / ||A||_inf = %.2e`` (``--mode inplace``) or, for the
+  packed triangle, the matrix-free ``freivalds ||(A - LL^T)x|| / (||A||
+  ||x||) = %.2e`` (``--mode packed``: a dense A and L need not fit beside
+  it), then ``PASS``/``FAIL`` against the dtype-aware gate; the exit code is
+  non-zero on FAIL.
 
 Only the factorization is timed, between two ``torch.cuda.synchronize()``
 calls; the input is regenerated from its seed before each repeat, untimed
-(``v6_test.c:54-57`` times dpotrf only). ``CHOLESKY_N``/``CHOLESKY_B`` in
+(``v6_test.c:54-57`` times dpotrf only). ``--mode packed`` generates the
+packed triangle directly (``plgsy_packed``) and never builds a dense square;
+NB is its slab width. ``CHOLESKY_N``/``CHOLESKY_B`` in
 the environment set N and NB when the flags do not.
 
 Usage:
     python -m dla_tpu_torch.cli.potrf_driver --n 16384 --nb 1024 --dtype s --mode inplace
+    python -m dla_tpu_torch.cli.potrf_driver --n 81920 --nb 4096 --dtype s --mode packed \
+        --trailing pallas --precision default --diag twolevel --kb 4096
     python -m dla_tpu_torch.cli.potrf_driver --n 512 --nb 128 --dtype d --device cpu
 """
 
@@ -37,8 +44,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nb", type=int, default=None, help="panel width NB")
     ap.add_argument("--dtype", default=None,
                     help="d|float64, s|float32, h|bfloat16 (storage)")
-    ap.add_argument("--mode", choices=["inplace"], default="inplace",
-                    help="factorization formulation (only inplace is ported)")
+    ap.add_argument("--mode", choices=["inplace", "packed"], default="inplace",
+                    help="factorization formulation: the dense in-place buffer, or "
+                         "triangle-only packed storage (NB = slab width)")
+    ap.add_argument("--trailing", choices=["xla", "pallas"], default="xla",
+                    help="packed mode's trailing update: the per-slab torch GEMM loop "
+                         "(xla) or the packed CUDA kernel (pallas)")
     ap.add_argument("--bump", type=float, default=None, help="diagonal bump (default: N)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--precision", choices=["default", "high", "highest"], default=None,
@@ -46,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--diag", choices=["lax", "twolevel"], default="lax",
                     help="diagonal-block factor")
     ap.add_argument("--kb", type=int, default=None,
-                    help="trailing-update k-split, must divide NB (default 256)")
+                    help="trailing-update k-split, must divide NB (default: the "
+                         "formulation's own, 256 inplace, min(NB, 512) packed)")
     ap.add_argument("--repeats", type=int, default=1,
                     help="timed repeats after the warm-up repeat 0")
     ap.add_argument("--no-check", action="store_true", help="skip the residual")
@@ -76,7 +88,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    from dla_tpu_torch.algos import potrf_inplace
+    from dla_tpu_torch.algos import freivalds_packed, plgsy_packed, potrf_inplace, potrf_packed
     from dla_tpu_torch.ops import plgsy
     from dla_tpu_torch.utils.config import RunConfig
     from dla_tpu_torch.utils.flops import gflops, potrf_flops
@@ -95,8 +107,9 @@ def main(argv=None) -> int:
     bump = float(cfg.n) if cfg.bump is None else cfg.bump
     tb = 1024 if cfg.nb % 1024 == 0 else cfg.nb
     kw = {"diag_factor": args.diag, "precision": args.precision}
-    if args.kb:
+    if args.kb and (cfg.mode == "inplace" or args.trailing == "pallas"):
         kw["kb"] = args.kb
+    packed = cfg.mode == "packed"
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[dla-potrf] N={cfg.n} NB={cfg.nb} dtype={cfg.dtype} mode={cfg.mode} "
           f"seed={cfg.seed} device={name}", flush=True)
@@ -106,14 +119,20 @@ def main(argv=None) -> int:
             torch.cuda.synchronize(device)
 
     def fresh_a():
-        a = plgsy(cfg.n, bump=bump, seed=cfg.seed, dtype=dtype, device=device)
+        gkw = dict(bump=bump, seed=cfg.seed, dtype=dtype, device=device)
+        a = plgsy_packed(cfg.n, cfg.nb, **gkw) if packed else plgsy(cfg.n, **gkw)
         sync()
         return a
+
+    def factor(a):
+        if packed:
+            return potrf_packed(a, cfg.n, cfg.nb, trailing=args.trailing, **kw)
+        return potrf_inplace(a, nb=cfg.nb, tb=tb, **kw)
 
     def timed():
         a = fresh_a()  # untimed: the factorization mutates its input
         t0 = time.perf_counter()
-        l = potrf_inplace(a, nb=cfg.nb, tb=tb, **kw)
+        l = factor(a)
         sync()
         return l, time.perf_counter() - t0
 
@@ -134,12 +153,21 @@ def main(argv=None) -> int:
 
     if not cfg.check:
         return 0
+    if packed:
+        res = float(freivalds_packed(l, cfg.n, cfg.nb, seed=cfg.seed, bump=bump))
+        print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
+        return _verdict(res, args.gate, cfg)
     l = torch.tril(l)
     chunk = 4096 if cfg.n >= 16384 and cfg.n % 4096 == 0 else None
     res = float(residual_potrf(fresh_a(), l, assume_symmetric=True,
                                assume_tril=True, row_chunk=chunk))
     print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
-    gate = args.gate if args.gate is not None else _gate(cfg.n, cfg.dtype)
+    return _verdict(res, args.gate, cfg)
+
+
+def _verdict(res: float, gate: float | None, cfg) -> int:
+    """Print PASS/FAIL against the gate; the exit code."""
+    gate = gate if gate is not None else _gate(cfg.n, cfg.dtype)
     if res < gate:  # False for NaN
         print(f"PASS (residual < {gate:g})", flush=True)
         return 0

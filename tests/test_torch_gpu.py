@@ -1,5 +1,6 @@
-"""dla_tpu_torch's CUDA kernel and main path on the card, held against the
-plain torch versions. Every test needs a CUDA device and skips without one.
+"""dla_tpu_torch's CUDA kernels, main path and packed path on the card, held
+against the plain torch versions. Every test needs a CUDA device and skips
+without one.
 
 This file imports no jax, so that it runs where JAX is not installed; run it
 there past tests/conftest.py (which imports jax):
@@ -17,7 +18,13 @@ import torch
 
 import dla_tpu_torch as T
 from dla_tpu_torch.kernels import tiles
-from dla_tpu_torch.kernels.tiles import trailing_update_lower, trailing_update_lower_plain
+from dla_tpu_torch.algos import packed as P
+from dla_tpu_torch.kernels.tiles import (
+    trailing_update_lower,
+    trailing_update_lower_plain,
+    trailing_update_packed,
+    trailing_update_packed_plain,
+)
 from dla_tpu_torch.utils import precision
 
 pytestmark = pytest.mark.gpu
@@ -144,3 +151,101 @@ def test_card_factor_reads_lower_only_and_nans_non_spd(cuda):
     bad[70, 70] = -5.0
     lb = torch.tril(T.potrf_inplace(bad, **kw)).cpu()
     assert torch.isnan(lb[64:]).any() and not torch.isnan(lb[:64, :64]).any()
+
+
+def _packed_visited(n, w, ktb, k):
+    """True on the packed elements the step-k update must touch."""
+    nt, base = n // w, (k + 1) * w
+    parts = []
+    for j in range(nt):
+        r = torch.arange(j * w, n) - base
+        c = torch.arange(j * w, (j + 1) * w) - base
+        parts.append((r[:, None] >= 0) & (c[None, :] >= 0)
+                     & (r.clamp(min=0)[:, None] // ktb >= c.clamp(min=0)[None, :] // ktb))
+    return torch.cat(parts)
+
+
+PACKED_CASES = [  # (n, w, ktb, k, dtype, precision)
+    (384, 96, 32, 0, torch.float32, "high"),  # w not a multiple of 64: blocks straddle slabs
+    (384, 96, 32, 1, torch.float32, "highest"),
+    (640, 160, 40, 1, torch.float32, "default"),
+    (768, 256, 128, 0, torch.float64, "high"),
+    (512, 128, 64, 1, torch.bfloat16, "high"),
+    (2048, 512, 256, 1, torch.float32, "high"),
+    (200, 40, 8, 2, torch.float64, "high"),
+]
+
+
+@pytest.mark.parametrize("n,w,ktb,k,dtype,prec", PACKED_CASES)
+def test_packed_kernel_matches_plain(cuda, n, w, ktb, k, dtype, prec):
+    g = torch.Generator().manual_seed(n + w + k)
+    c = torch.randn(P.packed_rows(n, w), w, generator=g, dtype=torch.float64).to(dtype)
+    p = torch.randn(n - (k + 1) * w, w, generator=g, dtype=torch.float64).to(dtype)
+    kw = dict(n=n, w=w, k=k, tb=ktb)
+    with precision.override(prec):
+        ref = trailing_update_packed_plain(c.clone(), p, **kw)
+        cd = c.to(cuda)
+        before = tiles.packed_launches
+        out = trailing_update_packed(cd, p.to(cuda), **kw)
+        torch.cuda.synchronize()
+    assert out is cd and tiles.packed_launches == before + 1
+    got = out.cpu()
+    mask = _packed_visited(n, w, ktb, k)
+    assert (got.double() - ref.double()).abs()[mask].max().item() <= _tol(dtype, c, p)
+    assert torch.equal(got[~mask], c[~mask])
+
+
+def test_packed_offsets_past_2_pow_31(cuda):
+    # rows·w = 2.28e9 elements: the last slab's diagonal block sits past 2³¹
+    n, w, ktb = 65536, 4096, 1024
+    nt = n // w
+    k = nt - 2  # the window is the last slab's diagonal block
+    packed = torch.zeros(P.packed_rows(n, w), w, device=cuda)
+    assert packed.numel() > 2**31
+    p = torch.randn(w, w, device=cuda)
+    trailing_update_packed(packed, p, n=n, w=w, k=k, tb=ktb)
+    torch.cuda.synchronize()
+    r0 = P._row_offset(nt - 1, nt, w)
+    ref = trailing_update_lower_plain(torch.zeros(w, w), p.cpu(), tb=ktb)
+    assert (packed[r0:].cpu() - ref).abs().max().item() <= _tol(torch.float32, packed, p)
+    assert packed[:r0].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("trailing", ["pallas", "xla"])
+def test_potrf_packed_card_matches_cpu(cuda, dtype, trailing):
+    n, w = 768, 256
+    kw = dict(trailing=trailing, ktb=128, ib=128, precision="high")
+    a = P.plgsy_packed(n, w, seed=3, dtype=dtype)
+    before = tiles.packed_launches
+    ad = a.to(cuda)
+    lg = P.potrf_packed(ad, n, w, **kw)
+    assert lg is ad
+    assert tiles.packed_launches == before + (n // w - 1 if trailing == "pallas" else 0)
+    lc = P.unpack_tri(P.potrf_packed(a.clone(), n, w, **kw), n, w)
+    lg = P.unpack_tri(lg.cpu(), n, w)
+    tol = 1e-10 if dtype == torch.float64 else 1e-5 * lc.abs().max().item()
+    assert (lg - lc).abs().max().item() <= tol
+    gate = 1e-10 if dtype == torch.float64 else n * 2e-7
+    assert float(P.freivalds_packed(ad, n, w, seed=3)) < gate
+
+
+def test_packed_layout_and_shape_checks_raise(cuda):
+    n, w = 384, 96
+    rows = P.packed_rows(n, w)
+    packed = torch.zeros(rows, w, device=cuda)
+    p = torch.zeros(n - w, w, device=cuda)
+    with pytest.raises(ValueError, match="row-major"):
+        trailing_update_packed(torch.zeros(w, rows, device=cuda).mT, p, n=n, w=w, k=0, tb=32)
+    with pytest.raises(ValueError, match="row-major"):
+        trailing_update_packed(packed, torch.zeros(w, n - w, device=cuda).mT, n=n, w=w, k=0,
+                               tb=32)
+    with pytest.raises(ValueError, match="panel shape"):
+        trailing_update_packed(packed, p[1:], n=n, w=w, k=0, tb=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        trailing_update_packed(packed, p.cpu(), n=n, w=w, k=0, tb=32)
+
+
+def test_plgsy_packed_same_bits_on_card(cuda):
+    got = P.plgsy_packed(384, 128, seed=7, dtype=torch.float64, device=cuda).cpu()
+    assert torch.equal(got, P.plgsy_packed(384, 128, seed=7, dtype=torch.float64))
