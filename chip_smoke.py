@@ -31,7 +31,24 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
    factorization, the matrix-free Freivalds value under the fp32 gate;
 8. the packed kernel path against the plain path: N=4096 fp32 on the card
    against the CPU, N=4096 fp64 under 1e-10, bf16 storage at N=16384;
-9. the driver with ``--mode packed --trailing pallas`` at phase 7's size.
+9. the driver with ``--mode packed --trailing pallas`` at phase 7's size;
+10. the df64 trailing-update kernel against its plain version on the card at
+    the f64x path's shapes (m=24576, tb=512, nb=1024, s=7, w=8, origin 0 and
+    24), plus an nk=2 case (w=9) and a tb=96 case: both planes must come back
+    **bit-identical** to the plain version, elements outside the visited
+    tiles bit-unchanged, one launch per call; kernel and plain times, and the
+    kernel's rate counted as s(s+1)/2 = 28 one-pass products;
+11. the f64x path, the reference's emulated-fp64 tier: ``plgsy(24576)`` in
+    fp32 with lo = 0 → ``potrf_df64(nb=1024, s=7, trailing="pallas",
+    tb=512)``, one warm-up and two timed repeats, the kernel launched
+    N/nb − 1 = 23 times per factorization, the blocked df64 residual under
+    1e-10 and the native fp64 residual of the same factor under it;
+    then the port's native fp64 ``potrf_inplace`` at the same N, timed once
+    beside it;
+12. the df64 kernel path against the plain path: N=4096 factored on the card
+    and through the plain versions on the CPU, max|ΔL| ≤ 1e-12·max|L|, both
+    df64 residuals under 1e-10;
+13. the driver with ``--mode df64 --trailing pallas`` at phase 11's size.
 
 Then the ``kernels`` JSON line, the total wall time, the card as
 ``nvidia-smi`` reports it, and last ``{"ok": true, "device": {...}}``.
@@ -62,6 +79,10 @@ PACKED_KW = dict(diag_factor="twolevel", ib=512, precision="default", trailing="
                  ktb=KTB_PACKED, kb=W_PACKED)
 N_PACKED64 = 32768  # fp64 kernel case: 81920 plus a clone would not fit beside the plain one
 N_PACKED_BF16 = 16384
+# the f64x path: the reference's emulated-fp64 tier (bench.py:536-611)
+N_DF64, NB_DF64, TB_DF64, S_DF64 = 24576, 1024, 512, 7
+DF64_KW = dict(nb=NB_DF64, s=S_DF64, trailing="pallas", tb=TB_DF64)
+N_DF64_CHECK = 4096
 
 
 def require(cond: bool, what: str) -> None:
@@ -388,6 +409,155 @@ def phase_packed_check(dev):
     require(rb < gate, "packed bf16 Freivalds value above the bf16 gate")
 
 
+# ---- 10. the df64 kernel against its plain version -------------------------------
+def df64_case(dev, tag, m, nb, tb, s, w, origin, iters):
+    from dla_tpu_torch.kernels import df64_tiles
+    from dla_tpu_torch.kernels.df64_tiles import trailing_update_df64_plain
+    from dla_tpu_torch.ops.df64 import slice_rows, to_df64
+
+    g = torch.Generator(device=dev).manual_seed(m + 7 * nb + origin)
+    ch, cl = to_df64(torch.randn(m, m, generator=g, device=dev, dtype=torch.float64))
+    p = torch.randn(m - origin * tb, nb, generator=g, device=dev, dtype=torch.float64)
+    sx = slice_rows(*to_df64(p), s=s, w=w)[0]
+    del p
+    kw = dict(origin=origin, tb=tb, w=w)
+    ref = trailing_update_df64_plain(ch.clone(), cl.clone(), sx, **kw)
+    out = (ch.clone(), cl.clone())
+    before = df64_tiles.launches
+    res = df64_tiles.trailing_update_df64(*out, sx, **kw)
+    sync()
+    require(res[0] is out[0] and res[1] is out[1] and df64_tiles.launches == before + 1,
+            "df64 kernel did not update the pair in place with one launch")
+    require(not torch.equal(out[0], ch), "the df64 kernel changed nothing")
+    ti = torch.arange(m, device=dev) // tb
+    visit = (ti[:, None] >= ti[None, :]) & (ti[:, None] >= origin) & (ti[None, :] >= origin)
+    for o, c in zip(out, (ch, cl)):
+        require(torch.equal(bits(torch.where(visit, 0, o)), bits(torch.where(visit, 0, c))),
+                "elements outside the visited tiles changed")
+    del visit, ch, cl
+    same = all(torch.equal(bits(o), bits(r)) for o, r in zip(out, ref))
+    err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+    k_ms = cuda_ms(lambda: df64_tiles.trailing_update_df64(*out, sx, **kw), iters)
+    p_ms = cuda_ms(lambda: trailing_update_df64_plain(*ref, sx, **kw), iters)
+    nt = m // tb - origin
+    flops = 2 * (nt * (nt + 1) // 2) * tb * tb * nb * (s * (s + 1) // 2)
+    name = f"m={m} tb={tb} nb={nb} s={s} w={w} origin={origin}"
+    print(f"trailing_update_df64 {name}: bits equal {same} (max_abs_err={err:.3e}) "
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, kernel {flops / k_ms / 1e9:.2f} TF/s "
+          f"one-pass {tag}", flush=True)
+    require(same, f"df64 kernel and plain version differ in their bits at {name}")
+    del out, ref, sx
+    torch.cuda.empty_cache()
+    return err, k_ms, p_ms
+
+
+def phase_df64_kernel(dev, tag):
+    m, nb, tb, s = N_DF64, NB_DF64, TB_DF64, S_DF64
+    path_case = df64_case(dev, tag, m, nb, tb, s, 8, 0, iters=2)
+    df64_case(dev, tag, m, nb, tb, s, 8, m // tb // 2, iters=3)  # origin 24: the half-way step
+    df64_case(dev, tag, 1024, 512, 128, 6, 9, 1, iters=5)  # nk = 2 chunks of kb = 256
+    df64_case(dev, tag, 384, 128, 96, s, 8, 0, iters=5)  # tb not a multiple of 64
+    return path_case
+
+
+# ---- 11. the f64x path ------------------------------------------------------------
+def phase_df64_path(dev, tag):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.algos import potrf_df64, residual_potrf_df64_blocked
+    from dla_tpu_torch.kernels import df64_tiles
+
+    n = N_DF64
+    per_fact = n // NB_DF64 - 1
+    times = []
+    df64_tiles.launches = 0
+    for rep in range(3):  # repeat 0 is the warm-up
+        lh = ll = None  # free the previous factor before the next input exists
+        ah = T.plgsy(n, bump=float(n), seed=51, device=dev)
+        al = torch.zeros_like(ah)
+        sync()
+        before = df64_tiles.launches
+        t0 = time.perf_counter()
+        lh, ll = potrf_df64(ah, al, **DF64_KW)
+        sync()
+        dt = time.perf_counter() - t0
+        require(lh is ah and ll is al, "potrf_df64 did not factor its pair in place")
+        require(df64_tiles.launches - before == per_fact,
+                f"{df64_tiles.launches - before} df64 kernel launches in one factorization, "
+                f"expected {per_fact}")
+        print(f"f64x path N={n} df64 s={S_DF64}: repeat {rep} {dt * 1e3:.1f} ms "
+              f"{n**3 / 3 / dt / 1e9:.2f} GFLOP/s{' (warm-up)' if rep == 0 else ''} {tag}",
+              flush=True)
+        if rep:
+            times.append(dt)
+        del ah, al
+    launches = df64_tiles.launches
+    require(launches == 3 * per_fact, "f64x path launch count")
+    tmed = statistics.median(times)
+    print(f"f64x path N={n}: median {tmed * 1e3:.1f} ms, {n**3 / 3 / tmed / 1e9:.2f} GFLOP/s, "
+          f"{launches} df64 kernel launches ({per_fact} per factorization) {tag}", flush=True)
+    require(lh.shape == (n, n) and bool(torch.isfinite(lh).all() and torch.isfinite(ll).all()),
+            "the df64 factor has non-finite entries")
+    a = T.plgsy(n, bump=float(n), seed=51, device=dev)
+    res = residual_potrf_df64_blocked(a, None, lh, ll, s=S_DF64, rc=2048)
+    l64 = lh.double() + ll.double()
+    del lh, ll
+    res64 = float(T.residual_potrf(a, l64, assume_symmetric=True, assume_tril=True,
+                                   row_chunk=min(n, 4096)))
+    print(f"f64x path ||A - LL^T||_inf / ||A||_inf = {res:.3e} (df64, blocked; gate 1e-10), "
+          f"native fp64 {res64:.3e}", flush=True)
+    require(res < 1e-10, "f64x path residual above the reference's 1e-10 gate")
+    # The df64 value bounds the fp64 one from above: an |h|+|l| sum, with the
+    # dropped slice pairs' and the lo plane's fp32 error on top. At this N
+    # that floor, not the factor, sets it (~4e-11 against ~4e-13 in fp64).
+    require(res64 <= res, "the native fp64 residual exceeds the df64 gate's value")
+    del a, l64
+    torch.cuda.empty_cache()
+    a64 = T.plgsy(n, bump=float(n), seed=51, dtype=torch.float64, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    l64 = T.potrf_inplace(a64, nb=NB_DF64, tb=NB_DF64, kb=NB_DF64, ib=512,
+                          diag_factor="twolevel")
+    sync()
+    dt64 = time.perf_counter() - t0
+    r64 = float(T.residual_potrf(T.plgsy(n, bump=float(n), seed=51, dtype=torch.float64,
+                                         device=dev), torch.tril(l64), assume_symmetric=True,
+                                 assume_tril=True, row_chunk=min(n, 4096)))
+    print(f"N={n} fp64 routes: df64 potrf_df64 {tmed * 1e3:.1f} ms "
+          f"({n**3 / 3 / tmed / 1e9:.2f} GFLOP/s), native fp64 potrf_inplace "
+          f"{dt64 * 1e3:.1f} ms ({n**3 / 3 / dt64 / 1e9:.2f} GFLOP/s, residual {r64:.3e}) "
+          f"{tag}", flush=True)
+    del a64, l64
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---- 12. df64 kernel path against plain path ---------------------------------------
+def phase_df64_check(dev):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.algos import potrf_df64, residual_potrf_df64_blocked
+    from dla_tpu_torch.kernels import df64_tiles
+    from dla_tpu_torch.ops import from_df64
+
+    n = N_DF64_CHECK
+    a = T.plgsy(n, seed=7)
+    before = df64_tiles.launches
+    lg = potrf_df64(a.to(dev, copy=True), torch.zeros(n, n, device=dev), **DF64_KW)
+    sync()
+    require(df64_tiles.launches - before == n // NB_DF64 - 1,
+            "df64 kernel launch count on the check path")
+    lc = potrf_df64(a.clone(), torch.zeros(n, n), **DF64_KW)
+    dl = (from_df64(*lg).cpu() - from_df64(*lc)).abs().max().item()
+    lmax = from_df64(*lc).abs().max().item()
+    ad = a.to(dev)
+    r_gpu = residual_potrf_df64_blocked(ad, None, *lg, s=S_DF64, rc=2048)
+    r_cpu = residual_potrf_df64_blocked(ad, None, lc[0].to(dev), lc[1].to(dev), s=S_DF64,
+                                        rc=2048)
+    print(f"df64 N={n}, kernel on the card vs plain on the CPU: max|dL|={dl:.3e} "
+          f"(max|L|={lmax:.3e}), residuals {r_gpu:.3e} vs {r_cpu:.3e} (gate 1e-10)", flush=True)
+    require(dl <= 1e-12 * lmax, "df64 kernel-path L disagrees with the plain path")
+    require(r_gpu < 1e-10 and r_cpu < 1e-10, "df64 check residual above 1e-10")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -420,17 +590,26 @@ def main() -> int:
     phase_driver(tag, ["--n", str(N_PACKED), "--nb", str(W_PACKED), "--dtype", "s",
                        "--mode", "packed", "--trailing", "pallas", "--precision", "default",
                        "--diag", "twolevel", "--kb", str(W_PACKED), "--repeats", "1"])  # 9
+    torch.cuda.empty_cache()
+    df64 = phase_df64_kernel(dev, tag)                                    # 10
+    df64_launches = phase_df64_path(dev, tag)                             # 11
+    phase_df64_check(dev)                                                 # 12
+    phase_driver(tag, ["--n", str(N_DF64), "--nb", str(NB_DF64), "--mode", "df64",
+                       "--trailing", "pallas", "--repeats", "1"])         # 13
 
     rows = []
-    for name, src, line, count, (err, k_ms, p_ms) in (
-        ("trailing_update_lower", "trailing_lower.cu", 328, lower_launches, lower),
-        ("trailing_update_packed", "trailing_packed.cu", 557, packed_launches, packed),
+    for name, src, replaces, count, (err, k_ms, p_ms) in (
+        ("trailing_update_lower", "trailing_lower.cu", "pallas_tiles.py:328", lower_launches,
+         lower),
+        ("trailing_update_packed", "trailing_packed.cu", "pallas_tiles.py:557",
+         packed_launches, packed),
+        ("trailing_update_df64", "trailing_df64.cu", "df64_tiles.py:110", df64_launches, df64),
     ):
         rows.append({
             "name": name,
             "route": "cuda",
             "source": f"dla_tpu_torch/kernels/csrc/{src}",
-            "replaces": f"dla_tpu/kernels/pallas_tiles.py:{line}",
+            "replaces": f"dla_tpu/kernels/{replaces}",
             "launches": count,
             "max_abs_err": err,
             "ms": k_ms,

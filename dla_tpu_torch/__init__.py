@@ -10,7 +10,11 @@ Ported so far: the single-device POTRF main path, ``plgsy`` →
 ``potrf_inplace`` (panel in torch ops, trailing update in a kernel) →
 ``residual_potrf``, and the packed-storage path, ``plgsy_packed`` →
 ``potrf_packed`` (the packed trailing update in a kernel) →
-``freivalds_packed``. Importing the package switches TF32 off
+``freivalds_packed``, and the emulated-fp64 path, ``to_df64`` →
+``potrf_df64`` (the df64 trailing update in a kernel) →
+``residual_potrf_df64_blocked`` (``dla_tpu_torch.ops`` and
+``dla_tpu_torch.algos`` export them, as the JAX package's subpackages do).
+Importing the package switches TF32 off
 (:func:`dla_tpu_torch.utils.precision.pin_ieee_fp32`).
 """
 

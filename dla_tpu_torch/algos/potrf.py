@@ -14,8 +14,9 @@ JAX package:
 3. the trailing matrix gets C ← C − P·Pᵀ in place over its lower tile pairs,
    through the Hopper kernel (:func:`dla_tpu_torch.kernels.tiles.trailing_update_lower`).
 
-The other formulations of the reference (blocked, masked, shrink, packed,
-df64) and the Pallas panel option are later slices (``ROADMAP.md``).
+The packed and df64 formulations live in ``algos/packed.py`` and
+``algos/potrf_df64.py``; the blocked, masked and shrink formulations and the
+Pallas panel option are later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Single-run POTRF driver — the ``--mode inplace`` and ``--mode packed``
-subset of ``dla_tpu/cli/potrf_driver.py`` on PyTorch.
+"""Single-run POTRF driver — the ``--mode inplace``, ``--mode packed`` and
+``--mode df64`` subset of ``dla_tpu/cli/potrf_driver.py`` on PyTorch.
 
 It keeps the reference's text contract (``v6_test.c:54-87``), which a sweep
 harness greps:
@@ -14,6 +14,16 @@ harness greps:
   it), then ``PASS``/``FAIL`` against the dtype-aware gate; the exit code is
   non-zero on FAIL.
 
+``--mode df64`` is the emulated-fp64 factorization (``algos/potrf_df64.py``):
+the dtype is forced to float64 and the gate to 1e-10. A is generated in fp64
+on the chosen device and split into its (hi, lo) fp32 pair; ``--slices`` sets
+s (default 7), ``--trailing pallas`` runs the df64 trailing kernel with
+tb = min(512, NB). The residual is evaluated in df64 on the device, by the
+strip gate up to N = 8192 (``DLA_TPU_DF64_STRIP_RESIDUAL_MAX``) and by the
+blocked gate above, when its working set fits the device's memory; where it
+does not, the reference's streaming df64 Freivalds gate would run, which is
+not ported yet, and the driver exits 2.
+
 Only the factorization is timed, between two ``torch.cuda.synchronize()``
 calls; the input is regenerated from its seed before each repeat, untimed
 (``v6_test.c:54-57`` times dpotrf only). ``--mode packed`` generates the
@@ -25,12 +35,15 @@ Usage:
     python -m dla_tpu_torch.cli.potrf_driver --n 16384 --nb 1024 --dtype s --mode inplace
     python -m dla_tpu_torch.cli.potrf_driver --n 81920 --nb 4096 --dtype s --mode packed \
         --trailing pallas --precision default --diag twolevel --kb 4096
+    python -m dla_tpu_torch.cli.potrf_driver --n 24576 --nb 1024 --mode df64 --trailing pallas
     python -m dla_tpu_torch.cli.potrf_driver --n 512 --nb 128 --dtype d --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 import sys
 import time
 
@@ -44,12 +57,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nb", type=int, default=None, help="panel width NB")
     ap.add_argument("--dtype", default=None,
                     help="d|float64, s|float32, h|bfloat16 (storage)")
-    ap.add_argument("--mode", choices=["inplace", "packed"], default="inplace",
-                    help="factorization formulation: the dense in-place buffer, or "
-                         "triangle-only packed storage (NB = slab width)")
+    ap.add_argument("--mode", choices=["inplace", "packed", "df64"], default="inplace",
+                    help="factorization formulation: the dense in-place buffer, "
+                         "triangle-only packed storage (NB = slab width), or emulated "
+                         "fp64 on a (hi, lo) fp32 pair")
     ap.add_argument("--trailing", choices=["xla", "pallas"], default="xla",
-                    help="packed mode's trailing update: the per-slab torch GEMM loop "
-                         "(xla) or the packed CUDA kernel (pallas)")
+                    help="packed and df64 modes' trailing update: the torch GEMM loop "
+                         "(xla) or the mode's CUDA kernel (pallas)")
+    ap.add_argument("--slices", type=int, default=None,
+                    help="df64 mode: bf16 slices per row (default 7)")
     ap.add_argument("--bump", type=float, default=None, help="diagonal bump (default: N)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--precision", choices=["default", "high", "highest"], default=None,
@@ -88,8 +104,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    from dla_tpu_torch.algos import freivalds_packed, plgsy_packed, potrf_inplace, potrf_packed
-    from dla_tpu_torch.ops import plgsy
+    from dla_tpu_torch.algos import (
+        freivalds_packed,
+        plgsy_packed,
+        potrf_df64,
+        potrf_inplace,
+        potrf_packed,
+    )
+    from dla_tpu_torch.ops import plgsy, to_df64
     from dla_tpu_torch.utils.config import RunConfig
     from dla_tpu_torch.utils.flops import gflops, potrf_flops
     from dla_tpu_torch.validate import residual_potrf
@@ -98,6 +120,10 @@ def main(argv=None) -> int:
         n=args.n, nb=args.nb, dtype=args.dtype, bump=args.bump, seed=args.seed,
         mode=args.mode, check=False if args.no_check else None,
     )
+    df64 = cfg.mode == "df64"
+    if df64:  # the mode IS the fp64 contract: validate at the 1e-10 gate
+        cfg = dataclasses.replace(cfg, dtype="float64")
+    slices = args.slices or 7
     if cfg.dtype not in ("float64", "float32", "bfloat16"):
         print(f"[dla-potrf] dtype {cfg.dtype} is not ported yet (ROADMAP.md)",
               file=sys.stderr)
@@ -120,13 +146,21 @@ def main(argv=None) -> int:
 
     def fresh_a():
         gkw = dict(bump=bump, seed=cfg.seed, dtype=dtype, device=device)
-        a = plgsy_packed(cfg.n, cfg.nb, **gkw) if packed else plgsy(cfg.n, **gkw)
+        if packed:
+            a = plgsy_packed(cfg.n, cfg.nb, **gkw)
+        elif df64:  # generated in fp64 where it is factored, then split
+            a = to_df64(plgsy(cfg.n, **gkw))
+        else:
+            a = plgsy(cfg.n, **gkw)
         sync()
         return a
 
     def factor(a):
         if packed:
             return potrf_packed(a, cfg.n, cfg.nb, trailing=args.trailing, **kw)
+        if df64:
+            return potrf_df64(*a, nb=cfg.nb, s=slices, trailing=args.trailing,
+                              tb=min(512, cfg.nb))
         return potrf_inplace(a, nb=cfg.nb, tb=tb, **kw)
 
     def timed():
@@ -157,12 +191,50 @@ def main(argv=None) -> int:
         res = float(freivalds_packed(l, cfg.n, cfg.nb, seed=cfg.seed, bump=bump))
         print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
         return _verdict(res, args.gate, cfg)
+    if df64:
+        res = _df64_residual(fresh_a(), l, cfg.n, slices, device)
+        if res is None:
+            return 2
+        print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
+        return _verdict(res, args.gate, cfg)
     l = torch.tril(l)
     chunk = 4096 if cfg.n >= 16384 and cfg.n % 4096 == 0 else None
     res = float(residual_potrf(fresh_a(), l, assume_symmetric=True,
                                assume_tril=True, row_chunk=chunk))
     print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
     return _verdict(res, args.gate, cfg)
+
+
+def _memory_bytes(device) -> int:
+    """What this process can hold on ``device``: the card's free memory plus
+    what its allocator already reserves, or the host's physical memory."""
+    import torch
+
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def _df64_residual(a, l, n: int, slices: int, device) -> float | None:
+    """The df64 gate as the reference driver picks it
+    (``dla_tpu/cli/potrf_driver.py:697-740``): the strip residual up to
+    ``DLA_TPU_DF64_STRIP_RESIDUAL_MAX`` (8192), the blocked residual above it
+    when its working set (both pairs and two strips of slices) fits; None,
+    with a message, where the reference would stream a Freivalds gate."""
+    from dla_tpu_torch.algos import residual_potrf_df64, residual_potrf_df64_blocked
+
+    (ah, al), (lh, ll) = a, l
+    rc = min(2048, n)
+    need = 4 * 4 * n * n + 4 * slices * rc * n
+    strip_max = int(os.environ.get("DLA_TPU_DF64_STRIP_RESIDUAL_MAX", 8192))
+    if n <= strip_max:
+        return float(residual_potrf_df64(ah, al, lh, ll, s=slices))
+    if need > _memory_bytes(device):
+        print(f"[dla-potrf] the blocked df64 residual needs {need} bytes, more than the "
+              "device holds; the streaming df64 Freivalds gate is not ported yet "
+              "(ROADMAP.md)", file=sys.stderr)
+        return None
+    return residual_potrf_df64_blocked(ah, al, lh, ll, s=slices, rc=rc)
 
 
 def _verdict(res: float, gate: float | None, cfg) -> int:

@@ -72,3 +72,35 @@ def test_chip_smoke_refuses_without_card(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("trailing,slices", [("xla", []), ("pallas", []), ("pallas", ["--slices", "6"])])
+def test_df64_mode_on_cpu(capsys, trailing, slices):
+    rc, out, _ = _run(capsys, "--mode", "df64", "--trailing", trailing, "--n", "512", "--nb", "128",
+                      "--device", "cpu", *slices)
+    assert rc == 0, out
+    assert "N=512 NB=128 dtype=float64 mode=df64" in out  # the mode forces fp64
+    assert re.search(r"^Performance: \d+\.\d\d Gflop/s$", out, re.M)
+    res = re.search(r"^\|\|A - LL\^T\|\|_inf / \|\|A\|\|_inf = (\S+)$", out, re.M)
+    assert res and float(res.group(1)) < 1e-10  # s=6 sits closer to the gate than s=7
+    assert "PASS (residual < 1e-10)" in out
+
+
+def test_df64_mode_picks_the_blocked_gate_past_the_strip_ceiling(capsys, monkeypatch):
+    import dla_tpu_torch.algos as A
+
+    calls = []
+    blocked = A.residual_potrf_df64_blocked
+
+    def spy(*args, **kw):
+        calls.append(kw["rc"])
+        return blocked(*args, **kw)
+
+    monkeypatch.setattr(A, "residual_potrf_df64_blocked", spy)
+    monkeypatch.setenv("DLA_TPU_DF64_STRIP_RESIDUAL_MAX", "256")
+    rc, out, _ = _run(capsys, "--mode", "df64", "--n", "512", "--nb", "128", "--device", "cpu",
+                      "--trailing", "pallas")
+    assert rc == 0 and calls == [512] and "PASS (residual < 1e-10)" in out
+    monkeypatch.setattr(potrf_driver, "_memory_bytes", lambda device: 1)  # too small for it
+    rc, out, err = _run(capsys, "--mode", "df64", "--n", "512", "--nb", "128", "--device", "cpu")
+    assert rc == 2 and "not ported yet" in err and "PASS" not in out and calls == [512]

@@ -249,3 +249,121 @@ def test_packed_layout_and_shape_checks_raise(cuda):
 def test_plgsy_packed_same_bits_on_card(cuda):
     got = P.plgsy_packed(384, 128, seed=7, dtype=torch.float64, device=cuda).cpu()
     assert torch.equal(got, P.plgsy_packed(384, 128, seed=7, dtype=torch.float64))
+
+
+# ---- the df64 trailing kernel (csrc/trailing_df64.cu) --------------------------------
+# Every slice product and every chunk sum is exact, so the kernel is held to the
+# plain version's bits, not to a tolerance.
+
+DF64_CASES = [  # (m, nb, tb, s, w, origin)
+    (1024, 1024, 512, 7, 8, 0),  # the f64x path's tb and nb
+    (1024, 1024, 512, 7, 8, 1),
+    (512, 512, 128, 6, 9, 1),  # nk = 2 chunks of kb = 256
+    (384, 128, 96, 7, 8, 0),  # tb not a multiple of the 64-wide blocks
+    (200, 7, 40, 5, 8, 1),  # a chunk shorter than the kernel's k-step
+]
+
+
+def _df64_inputs(m, nb, tb, s, w, origin, seed):
+    from dla_tpu_torch.ops.df64 import slice_rows, to_df64
+
+    g = torch.Generator().manual_seed(seed)
+    ch, cl = to_df64(torch.randn(m, m, generator=g, dtype=torch.float64))
+    p = torch.randn(m - origin * tb, nb, generator=g, dtype=torch.float64)
+    return ch, cl, slice_rows(*to_df64(p), s=s, w=w)[0]
+
+
+def _bits32(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("m,nb,tb,s,w,origin", DF64_CASES)
+def test_df64_kernel_same_bits_as_plain(cuda, m, nb, tb, s, w, origin):
+    from dla_tpu_torch.kernels import df64_tiles
+
+    ch, cl, sx = _df64_inputs(m, nb, tb, s, w, origin, seed=m + nb + origin)
+    kw = dict(origin=origin, tb=tb, w=w)
+    ref = df64_tiles.trailing_update_df64_plain(ch.clone(), cl.clone(), sx, **kw)
+    dh, dl = ch.to(cuda), cl.to(cuda)
+    before = df64_tiles.launches
+    out = df64_tiles.trailing_update_df64(dh, dl, [x.to(cuda) for x in sx], **kw)
+    torch.cuda.synchronize()
+    assert out[0] is dh and out[1] is dl and df64_tiles.launches == before + 1
+    mask = _lower_mask(m, tb, origin)
+    for got, want, orig in zip(out, ref, (ch, cl)):
+        got = got.cpu()
+        assert torch.equal(_bits32(got), _bits32(want))
+        assert torch.equal(_bits32(got[~mask]), _bits32(orig[~mask]))
+
+
+def test_df64_kernel_offsets_past_2_pow_31(cuda):
+    # two 46592² planes (2.17e9 elements each): the one far-corner tile pair
+    from dla_tpu_torch.kernels import df64_tiles
+
+    m, tb, origin, nb = 46592, 512, 90, 1024
+    assert m * m > 2**31 and m - origin * tb == tb
+    _, _, sx = _df64_inputs(tb, nb, tb, 7, 8, 0, seed=3)
+    ch = torch.zeros(m, m, device=cuda)
+    cl = torch.zeros(m, m, device=cuda)
+    df64_tiles.trailing_update_df64(ch, cl, [x.to(cuda) for x in sx], origin=origin, tb=tb)
+    torch.cuda.synchronize()
+    ref = df64_tiles.trailing_update_df64_plain(torch.zeros(tb, tb), torch.zeros(tb, tb), sx,
+                                                tb=tb)
+    o = origin * tb
+    for got, want in zip((ch, cl), ref):
+        assert torch.equal(_bits32(got[o:, o:].cpu()), _bits32(want))
+        assert got[:o].abs().max().item() == 0 and got[o:, :o].abs().max().item() == 0
+
+
+def test_df64_kernel_checks_raise(cuda):
+    from dla_tpu_torch.kernels import df64_tiles
+
+    ch = torch.zeros(256, 256, device=cuda)
+    sx = [torch.zeros(256, 64, dtype=torch.bfloat16, device=cuda)] * 3
+    with pytest.raises(ValueError, match="row-major"):
+        df64_tiles.trailing_update_df64(ch.mT, ch, sx, tb=64)
+    with pytest.raises(ValueError, match="row-major"):
+        df64_tiles.trailing_update_df64(ch, ch.clone(), [x.mT.contiguous().mT for x in sx], tb=64)
+    with pytest.raises(ValueError, match="at most"):
+        df64_tiles.trailing_update_df64(ch, ch.clone(), sx * 3, tb=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        df64_tiles.trailing_update_df64(ch, ch.clone(), [x.cpu() for x in sx], tb=64)
+
+
+def test_df64_elementwise_same_bits_on_card(cuda):
+    # torch's CUDA elementwise kernels neither contract nor reorder the EFTs
+    from dla_tpu_torch.ops import df64 as D
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(4096, generator=g) * torch.exp(torch.empty(4096).uniform_(-15, 15, generator=g))
+    y = torch.randn(4096, generator=g) * torch.exp(torch.empty(4096).uniform_(-15, 15, generator=g))
+    p, e = D.two_prod(x.to(cuda), y.to(cuda))
+    assert torch.equal(p.double() + e.double(), (x.double() * y.double()).to(cuda))
+    for name in ("two_sum", "two_prod"):
+        got = getattr(D, name)(x.to(cuda), y.to(cuda))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, getattr(D, name)(x, y)))
+    a = torch.randn(64, 300, generator=g, dtype=torch.float64)
+    want, mu = D.slice_rows(*D.to_df64(a), s=7)
+    got, mud = D.slice_rows(*D.to_df64(a.to(cuda)), s=7)
+    assert torch.equal(mud.cpu(), mu)
+    assert all(torch.equal(u.cpu().view(torch.int16), v.view(torch.int16)) for u, v in zip(got, want))
+    sq = D.df_sqrt(*D.to_df64(a.abs().to(cuda)))
+    assert all(torch.equal(u.cpu(), v) for u, v in zip(sq, D.df_sqrt(*D.to_df64(a.abs()))))
+
+
+@pytest.mark.parametrize("trailing", ["pallas", "xla"])
+def test_potrf_df64_card_matches_cpu(cuda, trailing):
+    from dla_tpu_torch.algos import potrf_df64, residual_potrf_df64
+    from dla_tpu_torch.kernels import df64_tiles
+    from dla_tpu_torch.ops import from_df64
+
+    n, kw = 512, dict(nb=128, tb=64, trailing=trailing)
+    a = T.plgsy(n, seed=3)
+    before = df64_tiles.launches
+    lg = potrf_df64(a.to(cuda), torch.zeros(n, n, device=cuda), **kw)
+    assert df64_tiles.launches == before + (n // 128 - 1 if trailing == "pallas" else 0)
+    lc = potrf_df64(a.clone(), torch.zeros(n, n), **kw)
+    dl = (from_df64(*lg).cpu() - from_df64(*lc)).abs().max().item()
+    assert dl <= 1e-12 * from_df64(*lc).abs().max().item()
+    ad = a.to(cuda)
+    assert float(residual_potrf_df64(ad, torch.zeros_like(ad), *lg)) < 1e-11
