@@ -48,9 +48,32 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
 12. the df64 kernel path against the plain path: N=4096 factored on the card
     and through the plain versions on the CPU, max|ΔL| ≤ 1e-12·max|L|, both
     df64 residuals under 1e-10;
-13. the driver with ``--mode df64 --trailing pallas`` at phase 11's size.
+13. the driver with ``--mode df64 --trailing pallas`` at phase 11's size;
+14. the panel kernels against their plain versions on the card:
+    ``panel_factor`` (kernel #4) at m=32768, nb=512 for the fp32 tiers and
+    fp64 at m=8192, with NaN above the diagonal, its diagonal phase timed
+    alone (m = nb); ``panel_apply`` (kernel #3) at m=15360, nb=1024, ib=256,
+    tb=1024 (the first panel of phase 17) for the fp32 tiers, beside
+    ``torch.linalg.solve_triangular`` at ``highest``;
+15. the reference's ``highest`` tier at its full size: ``plgsy(32768)`` →
+    ``potrf_shrink(nb=8192, panel="blocktrsm", trailing="pallas", tb=1024,
+    kb=256, trailing_alias=False, diag_factor="lax", precision="highest",
+    ib=512)``, a warm-up and three timed repeats, kernel #1 launched 3 times
+    per factorization, the residual under the fp32 gate;
+16. the ``panel_factor`` path at the same matrix: ``potrf_shrink(nb=512,
+    panel="pallas", trailing="pallas")`` at ``highest``, 64 panel_factor and
+    63 trailing launches per factorization;
+17. the ``panel_apply`` path at the main path's configuration:
+    ``potrf_inplace(panel="pallas", panel_ib=256)``, 15 panel_apply and 15
+    trailing launches per factorization, its median beside phase 3's;
+18. every ``potrf`` mode on the card against the plain versions on the CPU
+    at N=4096: the default ``mode="blocked"``, blocked with both kernels
+    (nb=512), masked (nb=512) and shrink with ``panel="invgemm"``;
+19. the driver with ``--mode shrink`` at phase 15's configuration.
 
-Then the ``kernels`` JSON line, the total wall time, the card as
+Then the ``kernels`` JSON line (each kernel's launches on its path, its
+error and times against the plain version, the bound, and the library call
+where one PyTorch call computes the same function), the total wall time, the card as
 ``nvidia-smi`` reports it, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, the script fails before
 printing any of those.
@@ -83,6 +106,18 @@ N_PACKED_BF16 = 16384
 N_DF64, NB_DF64, TB_DF64, S_DF64 = 24576, 1024, 512, 7
 DF64_KW = dict(nb=NB_DF64, s=S_DF64, trailing="pallas", tb=TB_DF64)
 N_DF64_CHECK = 4096
+# the reference's highest tier (bench.py:64-82, :242-275)
+N_HIGHEST = 32768
+HIGHEST_KW = dict(nb=8192, panel="blocktrsm", trailing="pallas", tb=1024, kb=256,
+                  trailing_alias=False, diag_factor="lax", precision="highest", ib=512)
+NB_PANEL_FACTOR = 512  # the panel_factor path: the kernel's largest nb
+PANEL_APPLY_KW = dict(MAIN_KW, panel="pallas", panel_ib=256)
+N_MODES = 4096  # every potrf mode, card against CPU
+
+# The card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): bf16
+# tensor cores, fp32 outside them, fp64 tensor cores; HBM3 bytes per second.
+PEAK = {"bf16": 989e12, "fp32": 67e12, "fp64": 67e12}
+HBM_RATE = 3.35e12
 
 
 def require(cond: bool, what: str) -> None:
@@ -117,6 +152,36 @@ def cuda_ms(fn, iters: int) -> float:
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def product_s(flops: float, dtype, prec: str) -> float:
+    """Least seconds for a matrix product of ``flops`` at the tier: fp64 on
+    the fp64 peak; bf16 operands, and fp32 at ``default``, one bf16 pass;
+    fp32 ``high`` three (bf16x3); fp32 ``highest`` on the non-tensor fp32
+    peak."""
+    if dtype == torch.float64:
+        return flops / PEAK["fp64"]
+    if dtype == torch.bfloat16 or prec == "default":
+        return flops / PEAK["bf16"]
+    if prec == "high":
+        return 3 * flops / PEAK["bf16"]
+    return flops / PEAK["fp32"]
+
+
+def bound(ops_s: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations'
+    time at peak and the bytes (each input read once, each output written
+    once) over the memory rate, and which of the two binds."""
+    bytes_s = nbytes / HBM_RATE
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def pair_bound(pairs: int, tb: int, nb: int, item: int, p_bytes: float, dtype, prec) -> dict:
+    """Bound of a trailing update over ``pairs`` tb×tb tile pairs: each
+    visited C tile read and written once, P read once."""
+    return bound(product_s(2 * pairs * tb * tb * nb, dtype, prec), 2 * pairs * tb * tb * item
+                 + p_bytes)
 
 
 def tolerance(dtype, c: torch.Tensor, p: torch.Tensor) -> float:
@@ -158,11 +223,16 @@ def lower_case(dev, tag, m, tb, nb, origin, dtype, prec, iters):
         tol = tolerance(dtype, c, p)
         k_ms = cuda_ms(lambda: tiles.trailing_update_lower(out, p, **kw), iters)
         p_ms = cuda_ms(lambda: trailing_update_lower_plain(ref, p, **kw), iters)
+    nt = m // tb - origin
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+               **pair_bound(nt * (nt + 1) // 2, tb, nb, c.element_size(),
+                            p.numel() * p.element_size(), dtype, prec))
     name = f"m={m} tb={tb} nb={nb} origin={origin} {str(dtype)[6:]}/{prec}"
     print(f"trailing_update_lower {name}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms {tag}", flush=True)
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}) {tag}", flush=True)
     require(err <= tol, f"kernel disagrees with the plain version at {name}")
-    return err, k_ms, p_ms
+    return row
 
 
 def phase_lower_kernel(dev, tag):
@@ -220,7 +290,7 @@ def phase_main_path(dev, tag):
     print(f"main path residual ||A - LL^T||_inf / ||A||_inf = {res:.3e} (gate {gate:g})",
           flush=True)
     require(res < gate, "main path residual above the fp32 gate")
-    return main_launches
+    return main_launches, tmed
 
 
 # ---- 4. kernel path against plain path -----------------------------------------
@@ -230,7 +300,7 @@ def phase_inplace_check(dev):
     n4 = N_CHECK
     kw4 = dict(nb=n4 // 4, tb=n4 // 16, kb=n4 // 4, ib=n4 // 8, diag_factor="twolevel",
                precision="high")
-    a_cpu = T.plgsy(n4, seed=7)
+    a_cpu = T.plgsy(n4, seed=7, device="cpu")
     l_gpu = T.potrf_inplace(a_cpu.to(dev, copy=True), **kw4)
     l_cpu = T.potrf_inplace(a_cpu.clone(), **kw4)
     lg, lc = torch.tril(l_gpu).cpu(), torch.tril(l_cpu)
@@ -301,13 +371,18 @@ def packed_case(dev, tag, n, w, ktb, k, dtype, prec, iters):
         del c
         k_ms = cuda_ms(lambda: tiles.trailing_update_packed(out, p, **kw), iters)
         p_ms = cuda_ms(lambda: trailing_update_packed_plain(ref, p, **kw), iters)
+    mt = (n - base) // ktb
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+               **pair_bound(mt * (mt + 1) // 2, ktb, w, out.element_size(),
+                            p.numel() * p.element_size(), dtype, prec))
     name = f"n={n} w={w} ktb={ktb} k={k} {str(dtype)[6:]}/{prec}"
     print(f"trailing_update_packed {name}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms {tag}", flush=True)
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}) {tag}", flush=True)
     require(err <= tol, f"packed kernel disagrees with the plain version at {name}")
     del out, ref, p
     torch.cuda.empty_cache()
-    return err, k_ms, p_ms
+    return row
 
 
 def phase_packed_kernel(dev, tag):
@@ -388,7 +463,7 @@ def phase_packed_check(dev):
     n4, w4 = N_CHECK, N_CHECK // 4
     kw4 = dict(diag_factor="twolevel", ib=512, precision="high", trailing="pallas",
                ktb=w4 // 4, kb=w4)
-    a_cpu = T.plgsy_packed(n4, w4, seed=7)
+    a_cpu = T.plgsy_packed(n4, w4, seed=7, device="cpu")
     lg = T.unpack_tri(factor(a_cpu.to(dev, copy=True), n4, w4, **kw4).cpu(), n4, w4)
     lc = T.unpack_tri(T.potrf_packed(a_cpu.clone(), n4, w4, **kw4), n4, w4)
     dl = (lg - lc).abs().max().item()
@@ -440,15 +515,21 @@ def df64_case(dev, tag, m, nb, tb, s, w, origin, iters):
     k_ms = cuda_ms(lambda: df64_tiles.trailing_update_df64(*out, sx, **kw), iters)
     p_ms = cuda_ms(lambda: trailing_update_df64_plain(*ref, sx, **kw), iters)
     nt = m // tb - origin
-    flops = 2 * (nt * (nt + 1) // 2) * tb * tb * nb * (s * (s + 1) // 2)
+    pairs = nt * (nt + 1) // 2
+    flops = 2 * pairs * tb * tb * nb * (s * (s + 1) // 2)
+    # s(s+1)/2 one-pass bf16 products; both fp32 planes of each visited tile
+    # read and written once, the slices read once
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+               **bound(flops / PEAK["bf16"], 2 * 2 * pairs * tb * tb * 4
+                       + sum(x.numel() * x.element_size() for x in sx)))
     name = f"m={m} tb={tb} nb={nb} s={s} w={w} origin={origin}"
     print(f"trailing_update_df64 {name}: bits equal {same} (max_abs_err={err:.3e}) "
           f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, kernel {flops / k_ms / 1e9:.2f} TF/s "
-          f"one-pass {tag}", flush=True)
+          f"one-pass, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}", flush=True)
     require(same, f"df64 kernel and plain version differ in their bits at {name}")
     del out, ref, sx
     torch.cuda.empty_cache()
-    return err, k_ms, p_ms
+    return row
 
 
 def phase_df64_kernel(dev, tag):
@@ -539,7 +620,7 @@ def phase_df64_check(dev):
     from dla_tpu_torch.ops import from_df64
 
     n = N_DF64_CHECK
-    a = T.plgsy(n, seed=7)
+    a = T.plgsy(n, seed=7, device="cpu")
     before = df64_tiles.launches
     lg = potrf_df64(a.to(dev, copy=True), torch.zeros(n, n, device=dev), **DF64_KW)
     sync()
@@ -556,6 +637,230 @@ def phase_df64_check(dev):
           f"(max|L|={lmax:.3e}), residuals {r_gpu:.3e} vs {r_cpu:.3e} (gate 1e-10)", flush=True)
     require(dl <= 1e-12 * lmax, "df64 kernel-path L disagrees with the plain path")
     require(r_gpu < 1e-10 and r_cpu < 1e-10, "df64 check residual above 1e-10")
+
+
+# ---- 14. the panel kernels against their plain versions ---------------------------
+def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
+    """Kernel #4 against its plain version. The diagonal block is SPD with
+    NaN above its diagonal, which neither version may read. Tolerance
+    1e-5·max|L| for fp32 (fp64: 1e-12): the diagonal phase rounds where the
+    plain version does, and the products sum the same partial products in
+    another order."""
+    from dla_tpu_torch.kernels import panel
+    from dla_tpu_torch.utils import precision
+
+    g = torch.Generator(device=dev).manual_seed(m + nb)
+    a = torch.randn(m, nb, generator=g, device=dev, dtype=torch.float64)
+    a[:nb] = a[:nb] @ a[:nb].mT + nb * torch.eye(nb, device=dev, dtype=torch.float64)
+    p = a.to(dtype)
+    p[:nb] += torch.triu(torch.full((nb, nb), float("nan"), device=dev, dtype=dtype), 1)
+    with precision.override(prec):
+        ref = panel.panel_factor_plain(p)
+        before = panel.panel_factor_launches
+        out = panel.panel_factor(p)
+        sync()
+        require(panel.panel_factor_launches == before + 1, "panel_factor: not one launch")
+        require(bool(torch.isfinite(out).all()), "panel_factor read above the diagonal")
+        err = (out.double() - ref.double()).abs().max().item()
+        tol = (1e-12 if dtype == torch.float64 else 1e-5) * ref.abs().max().item()
+        k_ms = cuda_ms(lambda: panel.panel_factor(p), iters)
+        a_ms = cuda_ms(lambda: panel.panel_factor(p[:nb]), iters)  # m = nb: the diagonal phase
+        p_ms = cuda_ms(lambda: panel.panel_factor_plain(p), 1)
+    # the diagonal phase's 2·nb³/3 rank-1 operations on the non-tensor peak,
+    # the 2·(m − nb)·nb² product at the tier; the panel read, the output written
+    item = p.element_size()
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+               **bound(2 * nb**3 / 3 / PEAK["fp64" if dtype == torch.float64 else "fp32"]
+                       + product_s(2 * (m - nb) * nb * nb, dtype, prec), 2 * m * nb * item))
+    name = f"m={m} nb={nb} {str(dtype)[6:]}/{prec}"
+    print(f"panel_factor {name}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.3f} ms "
+          f"(diagonal phase alone {a_ms:.3f} ms), plain {p_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}", flush=True)
+    require(err <= tol, f"panel_factor disagrees with the plain version at {name}")
+    return row
+
+
+def panel_apply_case(dev, tag, m, nb, ib, tb, prec, iters):
+    """Kernel #3 against its plain version. Tolerance, of max|X|: 1e-4 at
+    high and highest (the right-hand sides are summed in another order, so
+    their bf16x3 splits differ in the last fp32 bits); 2^-6 at default (one
+    bf16 pass: a right-hand side the two sum differently may round to
+    neighbouring bf16 values)."""
+    from dla_tpu_torch.kernels import panel
+    from dla_tpu_torch.utils import precision
+
+    g = torch.Generator(device=dev).manual_seed(m + nb + ib)
+    lkk = torch.tril(torch.randn(nb, nb, generator=g, device=dev)) + nb * torch.eye(nb, device=dev)
+    b = torch.randn(m, nb, generator=g, device=dev)
+    with precision.override(prec):
+        ref = panel.panel_apply_plain(lkk, b, ib=ib, tb=tb)
+        before = panel.panel_apply_launches
+        out = panel.panel_apply(lkk, b, ib=ib, tb=tb)
+        sync()
+        require(panel.panel_apply_launches == before + 1, "panel_apply: not one launch")
+        err = (out - ref).abs().max().item()
+        tol = (2**-6 if prec == "default" else 1e-4) * ref.abs().max().item()
+        k_ms = cuda_ms(lambda: panel.panel_apply(lkk, b, ib=ib, tb=tb), iters)
+        p_ms = cuda_ms(lambda: panel.panel_apply_plain(lkk, b, ib=ib, tb=tb), iters)
+    # the one PyTorch call for X·Lᵀ = B, IEEE fp32 (TF32 is off)
+    lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(lkk.mT, b, upper=True, left=False),
+                     iters)
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               **bound(product_s(m * nb * (nb + ib), torch.float32, prec),
+                       4 * (2 * m * nb + nb * nb)))
+    name = f"m={m} nb={nb} ib={ib} tb={tb} float32/{prec}"
+    print(f"panel_apply {name}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.3f} ms, "
+          f"plain {p_ms:.3f} ms, solve_triangular {lib_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}", flush=True)
+    require(err <= tol, f"panel_apply disagrees with the plain version at {name}")
+    return row
+
+
+def phase_panel_kernels(dev, tag):
+    rows = {}
+    for prec in ("highest", "high", "default"):
+        rows[("factor", prec)] = panel_factor_case(dev, tag, N_HIGHEST, NB_PANEL_FACTOR,
+                                                   torch.float32, prec, 5)
+    panel_factor_case(dev, tag, 8192, NB_PANEL_FACTOR, torch.float64, "high", 3)
+    nb = MAIN_KW["nb"]
+    for prec in ("high", "highest", "default"):
+        rows[("apply", prec)] = panel_apply_case(dev, tag, N_MAIN - nb, nb,
+                                                 PANEL_APPLY_KW["panel_ib"], min(1024, nb),
+                                                 prec, 5)
+    torch.cuda.empty_cache()
+    return rows[("factor", "highest")], rows[("apply", "high")]
+
+
+# ---- 15. to 17. the shrink tier and the two panel-kernel paths -----------------------
+def timed_path(dev, tag, name, n, factor, per_fact, reps):
+    """Factor ``plgsy(n)`` ``reps`` times after one warm-up, with every
+    launch count set to 0 just before and read just after; each repeat
+    must launch ``per_fact[k]`` times counter ``k`` (a (module, name) pair).
+    Returns the counts, the median, the last factor and its input."""
+    import dla_tpu_torch as T
+    from dla_tpu_torch.kernels import df64_tiles, panel, tiles
+
+    for mod, attr in ((tiles, "launches"), (tiles, "packed_launches"), (df64_tiles, "launches"),
+                      (panel, "panel_factor_launches"), (panel, "panel_apply_launches")):
+        setattr(mod, attr, 0)
+    times = []
+    for rep in range(reps + 1):
+        l = a = None  # free the previous pair before the next one exists
+        a = T.plgsy(n, seed=51, device=dev)
+        sync()
+        before = {k: getattr(*k) for k in per_fact}
+        t0 = time.perf_counter()
+        l = factor(a)
+        sync()
+        dt = time.perf_counter() - t0
+        for k, want in per_fact.items():
+            got = getattr(*k) - before[k]
+            require(got == want, f"{name}: {got} {k[1]} in one factorization, expected {want}")
+        print(f"{name}: repeat {rep} {dt * 1e3:.1f} ms {n**3 / 3 / dt / 1e9:.2f} GFLOP/s"
+              f"{' (warm-up)' if rep == 0 else ''} {tag}", flush=True)
+        if rep:
+            times.append(dt)
+    counts = {k[1]: getattr(*k) for k in per_fact}
+    require(all(counts[k[1]] == (reps + 1) * v for k, v in per_fact.items()),
+            f"{name}: launch counts {counts}")
+    tmed = statistics.median(times)
+    print(f"{name}: median {tmed * 1e3:.1f} ms, {n**3 / 3 / tmed / 1e9:.2f} GFLOP/s, "
+          f"launches {counts} {tag}", flush=True)
+    return counts, tmed, l, a
+
+
+def dense_residual(name, a, l, n):
+    import dla_tpu_torch as T
+
+    ltri = torch.tril(l)
+    require(ltri.shape == (n, n) and bool(torch.isfinite(ltri).all()),
+            f"{name}: the factor has non-finite entries")
+    res = float(T.residual_potrf(a, ltri, assume_symmetric=True, assume_tril=True,
+                                 row_chunk=min(n, 4096)))
+    gate = max(1e-10, n * 2e-7)  # the driver's fp32 gate
+    print(f"{name}: ||A - LL^T||_inf / ||A||_inf = {res:.3e} (gate {gate:g})", flush=True)
+    require(res < gate, f"{name}: residual above the fp32 gate")
+    return res
+
+
+def phase_highest_tier(dev, tag):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.kernels import tiles
+
+    n, nb = N_HIGHEST, HIGHEST_KW["nb"]
+    name = f"highest tier potrf_shrink N={n} nb={nb} blocktrsm/pallas fp32 highest"
+    _, tmed, l, a = timed_path(dev, tag, name, n, lambda a: T.potrf_shrink(a, **HIGHEST_KW),
+                               {(tiles, "launches"): n // nb - 1}, reps=3)
+    dense_residual(name, a, l, n)
+    del a, l
+    torch.cuda.empty_cache()
+    return tmed
+
+
+def phase_panel_factor_path(dev, tag):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.kernels import panel, tiles
+
+    n, nb = N_HIGHEST, NB_PANEL_FACTOR
+    name = f"panel_factor path potrf_shrink N={n} nb={nb} pallas/pallas fp32 highest"
+    counts, _, l, a = timed_path(
+        dev, tag, name, n,
+        lambda a: T.potrf_shrink(a, nb=nb, panel="pallas", trailing="pallas",
+                                 precision="highest"),
+        {(panel, "panel_factor_launches"): n // nb, (tiles, "launches"): n // nb - 1}, reps=2)
+    dense_residual(name, a, l, n)
+    del a, l
+    torch.cuda.empty_cache()
+    return counts["panel_factor_launches"]
+
+
+def phase_panel_apply_path(dev, tag, main_median):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.kernels import panel, tiles
+
+    n, nb = N_MAIN, PANEL_APPLY_KW["nb"]
+    name = f"panel_apply path potrf_inplace(panel='pallas') N={n} nb={nb} fp32 high"
+    per_fact = n // nb - 1
+    counts, tmed, l, _ = timed_path(
+        dev, tag, name, n, lambda a: T.potrf_inplace(a, **PANEL_APPLY_KW),
+        {(panel, "panel_apply_launches"): per_fact, (tiles, "launches"): per_fact}, reps=3)
+    print(f"N={n} fp32 high potrf_inplace median: panel='pallas' {tmed * 1e3:.1f} ms, "
+          f"panel='blocktrsm' (phase 3) {main_median * 1e3:.1f} ms {tag}", flush=True)
+    dense_residual(name, T.plgsy(n, seed=51, device=dev), l, n)
+    del l
+    torch.cuda.empty_cache()
+    return counts["panel_apply_launches"]
+
+
+# ---- 18. every potrf mode, card against CPU ----------------------------------------
+def phase_modes_check(dev):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.kernels import panel, tiles
+
+    n = N_MODES
+    a = T.plgsy(n, seed=7, device="cpu")
+    for kw, kernels in (
+        ({}, (0, 0)),  # the public default: mode="blocked", nb=256, xla panel and trailing
+        (dict(mode="blocked", nb=512, panel="pallas", trailing="pallas"), (n // 512, n // 512 - 1)),
+        (dict(mode="masked", nb=512), (0, 0)),
+        (dict(mode="shrink", panel="invgemm"), (0, 0)),
+    ):
+        before = (panel.panel_factor_launches, tiles.launches)
+        ad = a.to(dev)
+        lg = T.potrf(ad, **kw)
+        sync()
+        got = (panel.panel_factor_launches - before[0], tiles.launches - before[1])
+        require(got == kernels, f"potrf {kw}: launches {got}, expected {kernels}")
+        require(torch.equal(ad.cpu(), a), f"potrf {kw} changed its input")
+        lc = T.potrf(a, **kw)
+        dl = (lg.cpu() - lc).abs().max().item()
+        r_gpu = float(T.residual_potrf(a, lg.cpu()))
+        r_cpu = float(T.residual_potrf(a, lc))
+        print(f"potrf N={n} {kw or 'defaults'} fp32, card vs plain on the CPU: max|dL|={dl:.3e} "
+              f"(max|L|={lc.abs().max().item():.3e}), residuals {r_gpu:.3e} vs {r_cpu:.3e} "
+              f"(gate {n * 2e-7:g})", flush=True)
+        require(dl <= 1e-5 * lc.abs().max().item(), f"potrf {kw}: card and CPU disagree")
+        require(r_gpu < n * 2e-7 and r_cpu < n * 2e-7, f"potrf {kw}: residual above the gate")
 
 
 def main() -> int:
@@ -579,7 +884,7 @@ def main() -> int:
           f"{tag}", flush=True)
 
     lower = phase_lower_kernel(dev, tag)                                  # 2
-    lower_launches = phase_main_path(dev, tag)                            # 3
+    lower_launches, main_median = phase_main_path(dev, tag)               # 3
     phase_inplace_check(dev)                                              # 4
     phase_driver(tag, ["--n", str(N_MAIN), "--nb", str(NB_MAIN), "--dtype", "s",
                        "--mode", "inplace", "--repeats", "2"])            # 5
@@ -596,14 +901,26 @@ def main() -> int:
     phase_df64_check(dev)                                                 # 12
     phase_driver(tag, ["--n", str(N_DF64), "--nb", str(NB_DF64), "--mode", "df64",
                        "--trailing", "pallas", "--repeats", "1"])         # 13
+    torch.cuda.empty_cache()
+    pfactor, papply = phase_panel_kernels(dev, tag)                       # 14
+    phase_highest_tier(dev, tag)                                          # 15
+    pfactor_launches = phase_panel_factor_path(dev, tag)                  # 16
+    papply_launches = phase_panel_apply_path(dev, tag, main_median)       # 17
+    phase_modes_check(dev)                                                # 18
+    phase_driver(tag, ["--n", str(N_HIGHEST), "--nb", str(HIGHEST_KW["nb"]), "--dtype", "s",
+                       "--mode", "shrink", "--panel", "blocktrsm", "--trailing", "pallas",
+                       "--precision", "highest", "--kb", str(HIGHEST_KW["kb"]),
+                       "--repeats", "1"])                                  # 19
 
     rows = []
-    for name, src, replaces, count, (err, k_ms, p_ms) in (
+    for name, src, replaces, count, row in (
         ("trailing_update_lower", "trailing_lower.cu", "pallas_tiles.py:328", lower_launches,
          lower),
         ("trailing_update_packed", "trailing_packed.cu", "pallas_tiles.py:557",
          packed_launches, packed),
         ("trailing_update_df64", "trailing_df64.cu", "df64_tiles.py:110", df64_launches, df64),
+        ("panel_apply", "panel_apply.cu", "pallas_tiles.py:429", papply_launches, papply),
+        ("panel_factor", "panel_factor.cu", "pallas_tiles.py:270", pfactor_launches, pfactor),
     ):
         rows.append({
             "name": name,
@@ -611,9 +928,8 @@ def main() -> int:
             "source": f"dla_tpu_torch/kernels/csrc/{src}",
             "replaces": f"dla_tpu/kernels/{replaces}",
             "launches": count,
-            "max_abs_err": err,
-            "ms": k_ms,
-            "plain_ms": p_ms,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
         })
     print(json.dumps({"kernels": rows}))
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s {tag}", flush=True)

@@ -6,9 +6,10 @@ torch version beside it that runs on CPU tensors. The package imports torch
 and never jax, so it never imports ``dla_tpu`` either; the tests hold it
 against the JAX package on the same numpy inputs.
 
-Ported so far: the single-device POTRF main path, ``plgsy`` →
-``potrf_inplace`` (panel in torch ops, trailing update in a kernel) →
-``residual_potrf``, and the packed-storage path, ``plgsy_packed`` →
+Ported so far: the single-device POTRF formulations, ``plgsy`` →
+``potrf`` (``mode="blocked"|"masked"|"shrink"|"inplace"``, with the panel
+and trailing kernels on their ``"pallas"`` routes) → ``residual_potrf``,
+and the packed-storage path, ``plgsy_packed`` →
 ``potrf_packed`` (the packed trailing update in a kernel) →
 ``freivalds_packed``, and the emulated-fp64 path, ``to_df64`` →
 ``potrf_df64`` (the df64 trailing update in a kernel) →
@@ -27,11 +28,22 @@ from dla_tpu_torch.algos import (  # noqa: E402
     pack_tri,
     plgsy_packed,
     potrf,
+    potrf_blocked,
     potrf_inplace,
+    potrf_masked,
     potrf_packed,
+    potrf_shrink,
     unpack_tri,
 )
-from dla_tpu_torch.ops import gemm, lange, plgsy, plgsy_tile, syrk, trsm  # noqa: E402
+from dla_tpu_torch.ops import (  # noqa: E402
+    gemm,
+    lange,
+    plgsy,
+    plgsy_tile,
+    potrf_unblocked,
+    syrk,
+    trsm,
+)
 from dla_tpu_torch.validate import cholesky_invariants, residual_potrf  # noqa: E402
 
 __all__ = [
@@ -44,8 +56,12 @@ __all__ = [
     "plgsy_packed",
     "plgsy_tile",
     "potrf",
+    "potrf_blocked",
     "potrf_inplace",
+    "potrf_masked",
     "potrf_packed",
+    "potrf_shrink",
+    "potrf_unblocked",
     "residual_potrf",
     "syrk",
     "trsm",

@@ -8,7 +8,13 @@ from dla_tpu_torch.algos.packed import (
     potrf_packed,
     unpack_tri,
 )
-from dla_tpu_torch.algos.potrf import potrf, potrf_inplace
+from dla_tpu_torch.algos.potrf import (
+    potrf,
+    potrf_blocked,
+    potrf_inplace,
+    potrf_masked,
+    potrf_shrink,
+)
 from dla_tpu_torch.algos.potrf_df64 import (
     potrf_df64,
     residual_potrf_df64,
@@ -21,9 +27,12 @@ __all__ = [
     "packed_len",
     "plgsy_packed",
     "potrf",
+    "potrf_blocked",
     "potrf_df64",
     "potrf_inplace",
+    "potrf_masked",
     "potrf_packed",
+    "potrf_shrink",
     "residual_potrf_df64",
     "residual_potrf_df64_blocked",
     "unpack_tri",

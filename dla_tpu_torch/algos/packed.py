@@ -100,11 +100,12 @@ def plgsy_packed(
     bump: float | None = None,
     seed: int = 51,
     dtype: torch.dtype = torch.float32,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Packed lower triangle of the seeded SPD test matrix, generated slab by
     slab (in row chunks) from the tile-local generator into one preallocated
-    buffer on ``device`` — no dense (n, n) square is ever built. Bit-identical
+    buffer on ``device`` (the card unless the caller names another) — no
+    dense (n, n) square is ever built. Bit-identical
     to the reference's ``plgsy_packed`` and to ``tril(plgsy(n))``."""
     _check(n, tb)
     if bump is None:

@@ -1,5 +1,6 @@
-"""Single-run POTRF driver — the ``--mode inplace``, ``--mode packed`` and
-``--mode df64`` subset of ``dla_tpu/cli/potrf_driver.py`` on PyTorch.
+"""Single-run POTRF driver — the single-device ``--mode blocked|masked|
+shrink|inplace``, ``--mode packed`` and ``--mode df64`` subset of
+``dla_tpu/cli/potrf_driver.py`` on PyTorch.
 
 It keeps the reference's text contract (``v6_test.c:54-87``), which a sweep
 harness greps:
@@ -8,11 +9,16 @@ harness greps:
   finishes (repeat 0 is the warm-up, which also builds the CUDA kernel);
 - ``Elapsed: <ms> ms`` and ``Performance: %.2f Gflop/s`` for the median of
   the timed repeats, with the rate (1/3)·N³/t;
-- ``||A - LL^T||_inf / ||A||_inf = %.2e`` (``--mode inplace``) or, for the
+- ``||A - LL^T||_inf / ||A||_inf = %.2e`` (the dense modes) or, for the
   packed triangle, the matrix-free ``freivalds ||(A - LL^T)x|| / (||A||
   ||x||) = %.2e`` (``--mode packed``: a dense A and L need not fit beside
   it), then ``PASS``/``FAIL`` against the dtype-aware gate; the exit code is
   non-zero on FAIL.
+
+``--mode blocked|masked|shrink`` call ``potrf`` with that mode, wired as
+the reference driver wires them (``potrf_driver.py:533-539``): blocked and
+shrink take ``--panel``, ``--trailing`` and ``--diag``, shrink also
+``--kb``; masked takes none of them.
 
 ``--mode df64`` is the emulated-fp64 factorization (``algos/potrf_df64.py``):
 the dtype is forced to float64 and the gate to 1e-10. A is generated in fp64
@@ -33,6 +39,8 @@ the environment set N and NB when the flags do not.
 
 Usage:
     python -m dla_tpu_torch.cli.potrf_driver --n 16384 --nb 1024 --dtype s --mode inplace
+    python -m dla_tpu_torch.cli.potrf_driver --n 32768 --nb 8192 --dtype s --mode shrink \
+        --panel blocktrsm --trailing pallas --precision highest --kb 256
     python -m dla_tpu_torch.cli.potrf_driver --n 81920 --nb 4096 --dtype s --mode packed \
         --trailing pallas --precision default --diag twolevel --kb 4096
     python -m dla_tpu_torch.cli.potrf_driver --n 24576 --nb 1024 --mode df64 --trailing pallas
@@ -57,24 +65,31 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nb", type=int, default=None, help="panel width NB")
     ap.add_argument("--dtype", default=None,
                     help="d|float64, s|float32, h|bfloat16 (storage)")
-    ap.add_argument("--mode", choices=["inplace", "packed", "df64"], default="inplace",
-                    help="factorization formulation: the dense in-place buffer, "
+    ap.add_argument("--mode", choices=["blocked", "masked", "shrink", "inplace", "packed",
+                                       "df64"], default="inplace",
+                    help="factorization formulation: blocked, masked or shrinking "
+                         "dense (potrf's modes), the dense in-place buffer, "
                          "triangle-only packed storage (NB = slab width), or emulated "
                          "fp64 on a (hi, lo) fp32 pair")
+    ap.add_argument("--panel", choices=["xla", "pallas", "invgemm", "blocktrsm"],
+                    default="xla", help="blocked and shrink modes' panel: a triangular "
+                    "solve (xla), the panel_factor CUDA kernel (pallas), or, shrink "
+                    "only, inverse-GEMM or blocked TRSM")
     ap.add_argument("--trailing", choices=["xla", "pallas"], default="xla",
-                    help="packed and df64 modes' trailing update: the torch GEMM loop "
-                         "(xla) or the mode's CUDA kernel (pallas)")
+                    help="blocked, shrink, packed and df64 modes' trailing update: the "
+                         "torch GEMMs (xla) or the mode's CUDA kernel (pallas)")
     ap.add_argument("--slices", type=int, default=None,
                     help="df64 mode: bf16 slices per row (default 7)")
     ap.add_argument("--bump", type=float, default=None, help="diagonal bump (default: N)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--precision", choices=["default", "high", "highest"], default=None,
                     help="matmul precision tier (default: library policy)")
-    ap.add_argument("--diag", choices=["lax", "twolevel"], default="lax",
-                    help="diagonal-block factor")
+    ap.add_argument("--diag", choices=["lax", "unblocked", "twolevel"], default="lax",
+                    help="diagonal-block factor (not read by masked)")
     ap.add_argument("--kb", type=int, default=None,
                     help="trailing-update k-split, must divide NB (default: the "
-                         "formulation's own, 256 inplace, min(NB, 512) packed)")
+                         "formulation's own, 256 inplace, min(NB, 256) shrink, "
+                         "min(NB, 512) packed)")
     ap.add_argument("--repeats", type=int, default=1,
                     help="timed repeats after the warm-up repeat 0")
     ap.add_argument("--no-check", action="store_true", help="skip the residual")
@@ -107,6 +122,7 @@ def main(argv=None) -> int:
     from dla_tpu_torch.algos import (
         freivalds_packed,
         plgsy_packed,
+        potrf,
         potrf_df64,
         potrf_inplace,
         potrf_packed,
@@ -133,7 +149,10 @@ def main(argv=None) -> int:
     bump = float(cfg.n) if cfg.bump is None else cfg.bump
     tb = 1024 if cfg.nb % 1024 == 0 else cfg.nb
     kw = {"diag_factor": args.diag, "precision": args.precision}
-    if args.kb and (cfg.mode == "inplace" or args.trailing == "pallas"):
+    if cfg.mode in ("blocked", "shrink"):
+        kw.update(panel=args.panel, trailing=args.trailing)
+    if args.kb and (cfg.mode in ("inplace", "shrink") or (cfg.mode == "packed"
+                                                           and args.trailing == "pallas")):
         kw["kb"] = args.kb
     packed = cfg.mode == "packed"
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -161,6 +180,10 @@ def main(argv=None) -> int:
         if df64:
             return potrf_df64(*a, nb=cfg.nb, s=slices, trailing=args.trailing,
                               tb=min(512, cfg.nb))
+        if cfg.mode == "masked":
+            return potrf(a, nb=cfg.nb, mode="masked")
+        if cfg.mode in ("blocked", "shrink"):
+            return potrf(a, nb=cfg.nb, mode=cfg.mode, **kw)
         return potrf_inplace(a, nb=cfg.nb, tb=tb, **kw)
 
     def timed():

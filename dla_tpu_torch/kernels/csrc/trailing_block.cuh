@@ -5,7 +5,10 @@
 // into the column-slab packed triangle. They differ only in where element
 // (r, c) of the window lives, so the staging, the k-loop, the precision tiers
 // and the epilogue are here once, templated on an address functor
-// Addr(r, c) -> T*, and the two kernels cannot drift apart.
+// Addr(r, c) -> T*, and the two kernels cannot drift apart. The k-loop is
+// nt_block, a 64 x 64 block of A * B^T; the panel kernels (panel_factor.cu,
+// panel_apply.cu) form their products with it too, so every product of the
+// port's kernels follows one definition of the tiers.
 //
 // What a block computes. The window's w rows and columns are cut into
 // tb x tb tiles (the ragged last tile included). A 2-D grid of 64 x 64
@@ -76,18 +79,22 @@ __device__ __forceinline__ void subtract(__nv_bfloat16* c, float upd) {
   *c = __float2bfloat16_rn(__bfloat162float(*c) - round_bf16(upd));
 }
 
-template <typename T, int TIER, typename Addr>
-__global__ void __launch_bounds__(TPB)
-trailing_kernel(const T* __restrict__ p, long long w, long long nb, long long ldp,
-                long long tb, Addr addr) {
+// The 64 x 64 block a * b^T, accumulated in acc (and, at high, the bf16x3
+// cross terms hi*lo + lo*hi in accx; the product is acc + accx). a holds
+// ra valid rows (leading dimension lda), b rb valid rows (ldb), both k_len
+// columns wide; rows past ra or rb count as zero, so ra and rb may exceed
+// 64. Thread t owns rows t/16 + 16i and columns t%16 + 16j. Every thread of
+// the block must call it; it ends on a __syncthreads(). The pointers carry
+// no __restrict__: the panel kernels read back what they wrote earlier in
+// the same launch, which the read-only data path does not promise to see.
+template <typename T, int TIER>
+__device__ __forceinline__ void nt_block(const T* a, long long lda, long long ra, const T* b,
+                                         long long ldb, long long rb, long long k_len,
+                                         typename AccOf<T>::type (&acc)[TM][TM],
+                                         typename AccOf<T>::type (&accx)[TM][TM]) {
   using A = typename AccOf<T>::type;
   constexpr bool kSplit = TIER == kHigh;
   constexpr int kPlanes = kSplit ? 2 : 1;
-
-  const long long row0 = (long long)blockIdx.y * BM;
-  const long long col0 = (long long)blockIdx.x * BM;
-  const long long last_row = min(row0 + BM, w) - 1;
-  if (last_row / tb < col0 / tb) return;  // every element in an upper tile
 
   // [plane][k][row], padded so the transposed stores do not conflict
   __shared__ A sa[kPlanes][BK][BM + 1];
@@ -96,26 +103,22 @@ trailing_kernel(const T* __restrict__ p, long long w, long long nb, long long ld
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  A acc[TM][TM];
-  A accx[TM][TM];  // high only: the two cross terms hi*lo + lo*hi
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TM; ++j) acc[i][j] = accx[i][j] = A(0);
 
-  for (long long k0 = 0; k0 < nb; k0 += BK) {
+  for (long long k0 = 0; k0 < k_len; k0 += BK) {
 #pragma unroll
     for (int e = 0; e < LOADS; ++e) {
       const int idx = threadIdx.x + e * TPB;
       const int r = idx / BK;
       const int kk = idx % BK;
       const long long k = k0 + kk;
-      const long long ra = row0 + r;
-      const long long rb = col0 + r;
       A va = A(0), vb = A(0);
-      if (k < nb) {
-        if (ra < w) va = widen(p[ra * ldp + k]);
-        if (rb < w) vb = widen(p[rb * ldp + k]);
+      if (k < k_len) {
+        if (r < ra) va = widen(a[r * lda + k]);
+        if (r < rb) vb = widen(b[r * ldb + k]);
       }
       if constexpr (TIER == kHigh) {
         const float ha = round_bf16(va), hb = round_bf16(vb);
@@ -134,35 +137,55 @@ trailing_kernel(const T* __restrict__ p, long long w, long long nb, long long ld
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      A a[TM], b[TM];
+      A x[TM], y[TM];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        a[i] = sa[0][kk][ty + 16 * i];
-        b[i] = sb[0][kk][tx + 16 * i];
+        x[i] = sa[0][kk][ty + 16 * i];
+        y[i] = sb[0][kk][tx + 16 * i];
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = mad(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TM; ++j) acc[i][j] = mad(x[i], y[j], acc[i][j]);
       if constexpr (kSplit) {
-        A al[TM], bl[TM];
+        A xl[TM], yl[TM];
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
-          al[i] = sa[kPlanes - 1][kk][ty + 16 * i];
-          bl[i] = sb[kPlanes - 1][kk][tx + 16 * i];
+          xl[i] = sa[kPlanes - 1][kk][ty + 16 * i];
+          yl[i] = sb[kPlanes - 1][kk][tx + 16 * i];
         }
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
           for (int j = 0; j < TM; ++j) {
-            accx[i][j] = mad(a[i], bl[j], accx[i][j]);
-            accx[i][j] = mad(al[i], b[j], accx[i][j]);
+            accx[i][j] = mad(x[i], yl[j], accx[i][j]);
+            accx[i][j] = mad(xl[i], y[j], accx[i][j]);
           }
       }
     }
     __syncthreads();
   }
+}
 
+template <typename T, int TIER, typename Addr>
+__global__ void __launch_bounds__(TPB)
+trailing_kernel(const T* __restrict__ p, long long w, long long nb, long long ldp,
+                long long tb, Addr addr) {
+  using A = typename AccOf<T>::type;
+  constexpr bool kSplit = TIER == kHigh;
+
+  const long long row0 = (long long)blockIdx.y * BM;
+  const long long col0 = (long long)blockIdx.x * BM;
+  const long long last_row = min(row0 + BM, w) - 1;
+  if (last_row / tb < col0 / tb) return;  // every element in an upper tile
+
+  A acc[TM][TM];
+  A accx[TM][TM];  // high only: the two cross terms hi*lo + lo*hi
+  nt_block<T, TIER>(p + row0 * ldp, ldp, w - row0, p + col0 * ldp, ldp, w - col0, nb, acc,
+                    accx);
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const long long r = row0 + ty + 16 * i;

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dla_tpu_torch.ops.lapack_like import _sqrt_rn
+
 _F32 = torch.float32
 
 
@@ -116,13 +118,6 @@ def df_div(xh, xl, yh, yl):
     return quick_two_sum(s, e + q3)
 
 
-def _sqrt_rn(x):
-    """Correctly rounded fp32 sqrt. Torch's vectorized fp32 sqrt on the CPU
-    can miss by an ulp; its fp64 sqrt does not, and rounding that to fp32
-    rounds correctly too (53 ≥ 2·24 + 2 bits)."""
-    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
-
-
 def df_sqrt(xh, xl):
     """One df64 Newton step from the fp32 sqrt (doubles the precision)."""
     s = _sqrt_rn(xh)
@@ -138,13 +133,15 @@ def df_sqrt(xh, xl):
 def to_df64(a64, *, device=None):
     """Split an fp64 matrix into its (hi, lo) fp32 pair. ``a64`` is a numpy
     array (or anything ``np.asarray`` takes), split on the host and copied to
-    ``device``, or an fp64 tensor, split where it lies (``device`` moves the
-    pair). The split is exact either way."""
+    ``device``, the card unless the caller names another (``device="cpu"``);
+    or an fp64 tensor, split where it lies (``device`` moves the pair). The
+    split is exact either way."""
     if isinstance(a64, torch.Tensor):
         a = a64.to(torch.float64)
         hi = a.to(_F32)
         lo = (a - hi.to(torch.float64)).to(_F32)
         return hi.to(device or a.device), lo.to(device or a.device)
+    device = device or "cuda"
     a = np.asarray(a64, np.float64)
     hi = a.astype(np.float32)
     lo = (a - hi.astype(np.float64)).astype(np.float32)

@@ -5,6 +5,11 @@
   generator. It matches the JAX package bit for bit, so both packages factor
   the same matrix from the same seed.
 - ``lange`` ↔ ``CHAMELEON_dlange_Tile`` (``v6_test.c:72,84``).
+- ``potrf_unblocked``: the rank-1 column loop behind
+  ``diag_factor="unblocked"``.
+
+The generators build on the card unless the caller asks for another device
+(``device="cpu"``); without a card the default call raises.
 
 The generator's murmur3 hash works on uint32 with wraparound. Torch has no
 uint32 right shift on the CPU, so the hash runs in int64 and masks the low
@@ -57,7 +62,7 @@ def plgsy_tile(
     *,
     bump: float = 0.0,
     dtype: torch.dtype = torch.float32,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
     """The (mb × nb) tile of the global seeded symmetric matrix whose
     top-left element is global (i0, j0); ``bump`` is added on the global
@@ -81,7 +86,7 @@ def plgsy(
     bump: float | None = None,
     seed: int = 51,
     dtype: torch.dtype = torch.float32,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Full n×n seeded symmetric matrix with diagonal bump (default bump=n,
     as ``dplgsy_Tile((double)N, ChamLower, descA, seed)`` at ``v6_test.c:46``,
@@ -113,3 +118,29 @@ def lange(norm: str, a: torch.Tensor) -> torch.Tensor:
     if norm == "F":
         return torch.sqrt(torch.sum(torch.square(a)))
     raise ValueError(f"unknown norm {norm!r}")
+
+
+def potrf_unblocked(a: torch.Tensor) -> torch.Tensor:
+    """Unblocked lower Cholesky of one tile by n rank-1 updates, one per
+    column (``dla_tpu/ops/lapack_like.py:236``, the reference's scalar
+    diagonal-block loop, ``lapack_dpotrf_remix_c.c:24-36``). Only the lower
+    triangle is read; the strict upper triangle of the result is zero. The
+    update is A − l·lᴴ, so complex (Hermitian) tiles factor too."""
+    n = a.shape[-1]
+    acc = a.clone()
+    for j in range(n):
+        piv = _sqrt_rn(acc[j, j])
+        acc[j, j] = piv
+        col = acc[j + 1 :, j] / piv
+        acc[j + 1 :, j] = col
+        acc[j + 1 :, j + 1 :] -= torch.outer(col, col.conj())
+    return torch.tril(acc)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded sqrt. Torch's vectorized fp32 sqrt on the CPU can
+    miss by an ulp; its fp64 sqrt does not, and rounding that to fp32 rounds
+    correctly too (53 ≥ 2·24 + 2 bits)."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+    return torch.sqrt(x)

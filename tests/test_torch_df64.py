@@ -129,9 +129,9 @@ class TestElementwise:
     def test_to_from_df64(self):
         rng = np.random.default_rng(7)
         a = _wide(rng, 512, 30).reshape(16, 32)
-        assert _same_bits(JD.to_df64(a), TD.to_df64(a))
+        assert _same_bits(JD.to_df64(a), TD.to_df64(a, device="cpu"))
         ht, lt = TD.to_df64(torch.from_numpy(a))
-        assert _same_bits(TD.to_df64(a), (ht, lt)) and ht.dtype == torch.float32
+        assert _same_bits(TD.to_df64(a, device="cpu"), (ht, lt)) and ht.dtype == torch.float32
         back = TD.from_df64(ht, lt).numpy()
         assert np.array_equal(back, np.asarray(JD.from_df64(*JD.to_df64(a))))
         assert np.all(np.abs(back - a) <= 2.0**-48 * np.abs(a))  # ~49 bits survive
@@ -144,7 +144,7 @@ class TestSlicing:
         a = rng.standard_normal((64, 300)) * np.exp(rng.uniform(-12, 12, (64, 1)))
         a[5] = 0.0  # an all-zero row takes the scale 1
         js, jmu = jax.jit(lambda h, l: JD.slice_rows(h, l, s=s, w=w))(*JD.to_df64(a))
-        ts, tmu = TD.slice_rows(*TD.to_df64(a), s=s, w=w)
+        ts, tmu = TD.slice_rows(*TD.to_df64(a, device="cpu"), s=s, w=w)
         assert len(ts) == s and all(x.dtype == torch.bfloat16 for x in ts)
         assert _same_bits(js, ts) and _same_bits([jmu], [tmu])
 
@@ -186,7 +186,7 @@ class TestMatmul:
         rng = np.random.default_rng(10)
         a = rng.standard_normal((48, 4096)) * 3e-3  # rows like a Cholesky factor's:
         a[np.arange(48), np.arange(48)] = 150.0 + rng.random(48)  # long sums of small terms
-        ta = TD.to_df64(a)
+        ta = TD.to_df64(a, device="cpu")
         ref = TD.df64_matmul_nt(*ta, *ta, s=7)
         monkeypatch.setattr(TD, "_dot_nt_bf16",
                             lambda x, y: (x.double() @ y.double().mT).float())
@@ -194,7 +194,7 @@ class TestMatmul:
 
     def test_preslicing_matches(self):
         a = np.random.default_rng(8).standard_normal((64, 512))
-        ah, al = TD.to_df64(a)
+        ah, al = TD.to_df64(a, device="cpu")
         sx = TD.slice_rows(ah, al)[0]
         c1 = TD.df64_matmul_nt(ah, al, ah, al)
         c2 = TD.df64_matmul_nt(None, None, None, None, slices_a=sx, slices_b=sx)
@@ -224,7 +224,7 @@ class TestTrailing:
         sx = JD.slice_rows(*JD.to_df64(p), s=s, w=w)[0]
         ref = jax_trailing(ch, cl, list(sx), tb=tb, origin=origin, w=w)
         tch, tcl = _t(ch), _t(cl)
-        tsx = TD.slice_rows(*TD.to_df64(p), s=s, w=w)[0]
+        tsx = TD.slice_rows(*TD.to_df64(p, device="cpu"), s=s, w=w)[0]
         assert _same_bits(sx, tsx)
         before = df64_tiles.launches
         got = trailing_update_df64(tch, tcl, tsx, tb=tb, origin=origin, w=w)
@@ -297,7 +297,7 @@ class TestPotrf:
     @pytest.mark.parametrize("n,nb,tb", POTRF_CASES)
     def test_matches_jax_and_scipy(self, n, nb, tb, trailing):
         a, jlh, jll = _jax_factor(n, nb, trailing, tb)
-        ah, al = TD.to_df64(a)
+        ah, al = TD.to_df64(a, device="cpu")
         lh, ll = TP.potrf_df64(ah, al, nb=nb, trailing=trailing, tb=tb)
         assert lh is ah and ll is al  # factored in place
         l = TD.from_df64(lh, ll).numpy()
@@ -311,7 +311,7 @@ class TestPotrf:
     @pytest.mark.parametrize("trailing", ["xla", "pallas"])
     def test_reads_lower_triangle_only(self, trailing):
         n, nb, tb = 768, 256, 128
-        ah, al = TD.to_df64(_spd(n, 11))
+        ah, al = TD.to_df64(_spd(n, 11), device="cpu")
         clean = TP.potrf_df64(ah.clone(), al.clone(), nb=nb, trailing=trailing, tb=tb)
         up = torch.triu(torch.ones(n, n, dtype=torch.bool), 1)
         dirty = TP.potrf_df64(torch.where(up, 123.0, ah), torch.where(up, -7.0, al), nb=nb,
@@ -329,7 +329,7 @@ class TestPotrf:
     def test_non_spd_gives_nan(self):
         a = _spd(256, 13)
         a[70, 70] = -1e3
-        lh, _ = TP.potrf_df64(*TD.to_df64(a), nb=64, trailing="pallas", tb=64)
+        lh, _ = TP.potrf_df64(*TD.to_df64(a, device="cpu"), nb=64, trailing="pallas", tb=64)
         assert torch.isnan(lh[64:]).any() and not torch.isnan(lh[:64, :64]).any()
 
     def test_rejects_bad_shapes(self):
@@ -370,7 +370,7 @@ class TestGates:
         import dla_tpu_torch as T
 
         n = 512
-        a32 = T.plgsy(n, seed=51)
+        a32 = T.plgsy(n, seed=51, device="cpu")
         lh, ll = TP.potrf_df64(a32.clone(), torch.zeros_like(a32), nb=128)
         r_none = TP.residual_potrf_df64_blocked(a32, None, lh, ll, rc=128)
         r_zero = TP.residual_potrf_df64_blocked(a32, torch.zeros_like(a32), lh, ll, rc=128)
@@ -395,5 +395,5 @@ class TestGates:
 
 def test_bf16_slices_cross_as_bits():
     # slices move between the packages through ml_dtypes
-    s = TD.slice_rows(*TD.to_df64(np.linspace(-3, 3, 64).reshape(4, 16)), s=2)[0]
+    s = TD.slice_rows(*TD.to_df64(np.linspace(-3, 3, 64).reshape(4, 16), device="cpu"), s=2)[0]
     assert to_numpy(s[0]).dtype == ml_dtypes.bfloat16

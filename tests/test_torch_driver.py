@@ -104,3 +104,35 @@ def test_df64_mode_picks_the_blocked_gate_past_the_strip_ceiling(capsys, monkeyp
     monkeypatch.setattr(potrf_driver, "_memory_bytes", lambda device: 1)  # too small for it
     rc, out, err = _run(capsys, "--mode", "df64", "--n", "512", "--nb", "128", "--device", "cpu")
     assert rc == 2 and "not ported yet" in err and "PASS" not in out and calls == [512]
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("blocked", []),
+    ("blocked", ["--panel", "pallas", "--trailing", "pallas", "--diag", "unblocked"]),
+    ("masked", []),
+    ("shrink", ["--panel", "blocktrsm", "--trailing", "pallas", "--precision", "highest",
+                "--kb", "32"]),
+    ("shrink", ["--panel", "invgemm", "--diag", "twolevel"]),
+])
+def test_potrf_modes_on_cpu(capsys, mode, extra):
+    rc, out, _ = _run(capsys, "--mode", mode, "--n", "256", "--nb", "64", "--dtype", "s",
+                      "--device", "cpu", *extra)
+    assert rc == 0, out
+    assert f"N=256 NB=64 dtype=float32 mode={mode}" in out
+    res = re.search(r"^\|\|A - LL\^T\|\|_inf / \|\|A\|\|_inf = (\S+)$", out, re.M)
+    assert res and float(res.group(1)) < 256 * 2e-7
+    assert "PASS (residual < 5.12e-05)" in out
+
+
+def test_shrink_mode_wires_panel_trailing_and_kb(capsys, monkeypatch):
+    import dla_tpu_torch.algos as A
+
+    calls = []
+    monkeypatch.setattr(A, "potrf", lambda a, **kw: calls.append(kw) or torch.eye(a.shape[0]))
+    _run(capsys, "--mode", "shrink", "--n", "64", "--nb", "32", "--device", "cpu", "--panel",
+         "blocktrsm", "--trailing", "pallas", "--kb", "16", "--no-check")
+    _run(capsys, "--mode", "masked", "--n", "64", "--nb", "32", "--device", "cpu", "--panel",
+         "pallas", "--kb", "16", "--no-check")
+    assert calls[0] == dict(nb=32, mode="shrink", diag_factor="lax", precision=None,
+                            panel="blocktrsm", trailing="pallas", kb=16)
+    assert calls[-1] == dict(nb=32, mode="masked")  # masked takes none of them

@@ -108,7 +108,7 @@ def test_column_major_input_raises(cuda):
 def test_potrf_inplace_card_matches_cpu(cuda, dtype):
     n = 512
     kw = dict(nb=128, tb=64, kb=128, ib=64, precision="high")
-    a = T.plgsy(n, seed=3, dtype=dtype)
+    a = T.plgsy(n, seed=3, dtype=dtype, device="cpu")
     before = tiles.launches
     lg = torch.tril(T.potrf_inplace(a.to(cuda), **kw)).cpu()
     assert tiles.launches == before + n // 128 - 1
@@ -137,8 +137,9 @@ def test_offsets_past_2_pow_31(cuda):
 def test_plgsy_same_bits_on_card(cuda, dtype):
     for i0, j0 in [(0, 0), (131072, 17)]:
         got = T.plgsy_tile(51, i0, j0, 96, 80, bump=5.0, dtype=dtype, device=cuda).cpu()
-        assert torch.equal(got, T.plgsy_tile(51, i0, j0, 96, 80, bump=5.0, dtype=dtype))
-    assert torch.equal(T.plgsy(300, seed=7, device=cuda).cpu(), T.plgsy(300, seed=7))
+        assert torch.equal(got, T.plgsy_tile(51, i0, j0, 96, 80, bump=5.0, dtype=dtype,
+                                                 device="cpu"))
+    assert torch.equal(T.plgsy(300, seed=7, device=cuda).cpu(), T.plgsy(300, seed=7, device="cpu"))
 
 
 def test_card_factor_reads_lower_only_and_nans_non_spd(cuda):
@@ -216,7 +217,7 @@ def test_packed_offsets_past_2_pow_31(cuda):
 def test_potrf_packed_card_matches_cpu(cuda, dtype, trailing):
     n, w = 768, 256
     kw = dict(trailing=trailing, ktb=128, ib=128, precision="high")
-    a = P.plgsy_packed(n, w, seed=3, dtype=dtype)
+    a = P.plgsy_packed(n, w, seed=3, dtype=dtype, device="cpu")
     before = tiles.packed_launches
     ad = a.to(cuda)
     lg = P.potrf_packed(ad, n, w, **kw)
@@ -248,7 +249,8 @@ def test_packed_layout_and_shape_checks_raise(cuda):
 
 def test_plgsy_packed_same_bits_on_card(cuda):
     got = P.plgsy_packed(384, 128, seed=7, dtype=torch.float64, device=cuda).cpu()
-    assert torch.equal(got, P.plgsy_packed(384, 128, seed=7, dtype=torch.float64))
+    assert torch.equal(got, P.plgsy_packed(384, 128, seed=7, dtype=torch.float64,
+                                                 device="cpu"))
 
 
 # ---- the df64 trailing kernel (csrc/trailing_df64.cu) --------------------------------
@@ -358,7 +360,7 @@ def test_potrf_df64_card_matches_cpu(cuda, trailing):
     from dla_tpu_torch.ops import from_df64
 
     n, kw = 512, dict(nb=128, tb=64, trailing=trailing)
-    a = T.plgsy(n, seed=3)
+    a = T.plgsy(n, seed=3, device="cpu")
     before = df64_tiles.launches
     lg = potrf_df64(a.to(cuda), torch.zeros(n, n, device=cuda), **kw)
     assert df64_tiles.launches == before + (n // 128 - 1 if trailing == "pallas" else 0)
@@ -367,3 +369,109 @@ def test_potrf_df64_card_matches_cpu(cuda, trailing):
     assert dl <= 1e-12 * from_df64(*lc).abs().max().item()
     ad = a.to(cuda)
     assert float(residual_potrf_df64(ad, torch.zeros_like(ad), *lg)) < 1e-11
+
+
+# ---- the panel kernels (csrc/panel_factor.cu, csrc/panel_apply.cu) -------------------
+# Tolerances of max|out|: fp64 1e-12; fp32 1e-5 (panel_factor's diagonal
+# phase rounds where the plain version does, the products sum the same
+# partial products in another order); panel_apply 1e-4 at high and highest
+# (the right-hand sides are summed in another order before their bf16x3
+# split) and 2^-6 at default (one bf16 pass).
+
+PANEL_FACTOR_CASES = [  # (m, nb, dtype, precision)
+    (64, 64, torch.float32, "highest"),  # m = nb: the diagonal phase alone
+    (192, 64, torch.float32, "high"),
+    (256, 64, torch.float32, "default"),
+    (320, 64, torch.float64, "high"),
+    (150, 50, torch.float32, "high"),  # nb not a multiple of the 64-wide blocks
+    (2048, 512, torch.float32, "highest"),
+    (1024, 512, torch.float64, "high"),
+]
+
+
+@pytest.mark.parametrize("m,nb,dtype,prec", PANEL_FACTOR_CASES)
+def test_panel_factor_matches_plain(cuda, m, nb, dtype, prec):
+    from dla_tpu_torch.kernels import panel
+
+    g = torch.Generator().manual_seed(m + nb)
+    a = torch.randn(m, nb, generator=g, dtype=torch.float64)
+    a[:nb] = a[:nb] @ a[:nb].mT + nb * torch.eye(nb, dtype=torch.float64)
+    p = a.to(dtype)
+    p[:nb] += torch.triu(torch.full((nb, nb), float("nan"), dtype=dtype), 1)  # never read
+    with precision.override(prec):
+        ref = panel.panel_factor_plain(p)
+        before = panel.panel_factor_launches
+        got = panel.panel_factor(p.to(cuda))
+        torch.cuda.synchronize()
+    assert panel.panel_factor_launches == before + 1
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    tol = (1e-12 if dtype == torch.float64 else 1e-5) * ref.abs().max().item()
+    assert (got.double() - ref.double()).abs().max().item() <= tol
+
+
+PANEL_APPLY_CASES = [  # (m, nb, ib, tb, precision)
+    (128, 32, 16, 64, "high"),
+    (96, 32, 32, 32, "highest"),  # nk = 1
+    (64, 16, 8, 128, "default"),  # tb > m: clamped
+    (100, 40, 20, 100, "high"),  # a ragged last strip of 36 rows
+    (2048, 1024, 256, 1024, "high"),
+    (2048, 1024, 512, 1024, "highest"),
+]
+
+
+@pytest.mark.parametrize("m,nb,ib,tb,prec", PANEL_APPLY_CASES)
+def test_panel_apply_matches_plain(cuda, m, nb, ib, tb, prec):
+    from dla_tpu_torch.kernels import panel
+
+    g = torch.Generator().manual_seed(m + nb + ib)
+    lkk = torch.tril(torch.randn(nb, nb, generator=g)) + nb * torch.eye(nb)
+    b = torch.randn(m, nb, generator=g)
+    with precision.override(prec):
+        ref = panel.panel_apply_plain(lkk, b, ib=ib, tb=tb)
+        before = panel.panel_apply_launches
+        got = panel.panel_apply(lkk.to(cuda), b.to(cuda), ib=ib, tb=tb)
+        torch.cuda.synchronize()
+    assert panel.panel_apply_launches == before + 1
+    tol = (2**-6 if prec == "default" else 1e-4) * ref.abs().max().item()
+    assert (got.cpu() - ref).abs().max().item() <= tol
+
+
+def test_panel_kernels_raise_on_column_major(cuda):
+    from dla_tpu_torch.kernels import panel
+
+    p = torch.randn(128, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="row-major"):
+        panel.panel_factor(p.mT.contiguous().mT)
+    lkk = torch.eye(32, device=cuda)
+    with pytest.raises(ValueError, match="row-major"):
+        panel.panel_apply(lkk.mT.contiguous().mT, torch.zeros(64, 32, device=cuda), ib=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        panel.panel_apply(lkk, torch.zeros(64, 32), ib=16)
+
+
+def test_generators_default_to_the_card(cuda):
+    from dla_tpu_torch.ops import to_df64
+
+    assert T.plgsy(64).device.type == "cuda"
+    assert T.plgsy_tile(51, 0, 0, 8, 8).device.type == "cuda"
+    assert P.plgsy_packed(64, 32).device.type == "cuda"
+    assert to_df64(torch.eye(8).double().numpy())[0].device.type == "cuda"
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="blocked", panel="pallas", trailing="pallas"),
+    dict(mode="shrink", panel="pallas", trailing="pallas"),
+    dict(mode="shrink", panel="blocktrsm", trailing="pallas", tb=64, kb=64, ib=64),
+    dict(mode="masked"),
+    dict(mode="inplace", panel="pallas", panel_ib=64),
+])
+def test_potrf_modes_card_matches_cpu(cuda, kw):
+    n = 512
+    a = T.plgsy(n, seed=3, device="cpu")
+    ad = a.to(cuda)
+    lg = T.potrf(ad, nb=128, **kw).cpu()
+    assert torch.equal(ad.cpu(), a)
+    lc = T.potrf(a, nb=128, **kw)
+    assert (lg - lc).abs().max().item() <= 1e-5 * lc.abs().max().item()
+    assert float(T.residual_potrf(a, lg)) < n * 2e-7

@@ -44,24 +44,24 @@ class TestPlgsy:
     ])
     def test_tile_bit_identical(self, jdt, seed, i0, j0, bump):
         ref = np.asarray(jops.plgsy_tile(seed, i0, j0, 37, 41, bump=bump, dtype=jdt))
-        got = tops.plgsy_tile(seed, i0, j0, 37, 41, bump=bump, dtype=PAIRS[jdt]).numpy()
+        got = tops.plgsy_tile(seed, i0, j0, 37, 41, bump=bump, dtype=PAIRS[jdt], device="cpu").numpy()
         assert _bits_equal(ref, got)
 
     @pytest.mark.parametrize("jdt", [jnp.float32, jnp.float64])
     @pytest.mark.parametrize("n,bump", [(1, None), (96, None), (200, 0.0), (128, 7.25)])
     def test_full_bit_identical(self, jdt, n, bump):
         ref = np.asarray(jops.plgsy(n, bump=bump, seed=9, dtype=jdt))
-        got = tops.plgsy(n, bump=bump, seed=9, dtype=PAIRS[jdt]).numpy()
+        got = tops.plgsy(n, bump=bump, seed=9, dtype=PAIRS[jdt], device="cpu").numpy()
         assert _bits_equal(ref, got)
 
     def test_slabs_match_one_tile(self, monkeypatch):
         monkeypatch.setattr(tlapack, "_SLAB_ELEMS", 5 * 64)  # 5-row slabs
-        got = tops.plgsy(64, seed=3)
-        ref = tops.plgsy_tile(3, 0, 0, 64, 64, bump=64.0)
+        got = tops.plgsy(64, seed=3, device="cpu")
+        ref = tops.plgsy_tile(3, 0, 0, 64, 64, bump=64.0, device="cpu")
         assert torch.equal(got, ref)
 
     def test_symmetric_and_spd(self):
-        a = tops.plgsy(128, seed=1, dtype=torch.float64)
+        a = tops.plgsy(128, seed=1, dtype=torch.float64, device="cpu")
         assert torch.equal(a, a.mT)
         assert torch.linalg.eigvalsh(a).min() > 0
 
@@ -206,6 +206,29 @@ class TestUtils:
         t.fill_(0)  # the tensor owns its memory
         assert np.abs(x.astype(np.float64)).max() > 0
         assert from_numpy(x, device="cpu", dtype=torch.float64).dtype == torch.float64
+
+
+class TestGeneratorDevice:
+    @pytest.mark.parametrize("gen", ["plgsy", "plgsy_tile", "plgsy_packed", "to_df64"])
+    def test_default_is_the_card(self, gen):
+        """The generators build on the card unless the caller names another
+        device: on a machine with no card the default call raises rather
+        than quietly producing a CPU tensor."""
+        import dla_tpu_torch as T
+        from dla_tpu_torch.ops import to_df64
+
+        call = {
+            "plgsy": lambda **kw: T.plgsy(64, **kw),
+            "plgsy_tile": lambda **kw: T.plgsy_tile(51, 0, 0, 8, 8, **kw),
+            "plgsy_packed": lambda **kw: T.plgsy_packed(64, 32, **kw),
+            "to_df64": lambda **kw: to_df64(np.eye(8), **kw)[0],
+        }[gen]
+        assert call(device="cpu").device.type == "cpu"
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
 
 
 class TestNoJax:

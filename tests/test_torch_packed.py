@@ -91,14 +91,15 @@ class TestLayout:
     def test_plgsy_packed_bit_identical(self, jdt, seed):
         n, tb = 384, 128
         ref = np.asarray(J.plgsy_packed(n, tb, seed=seed, dtype=jdt))
-        got = P.plgsy_packed(n, tb, seed=seed, dtype=TDT[np.dtype(jdt).type]).numpy()
+        got = P.plgsy_packed(n, tb, seed=seed, dtype=TDT[np.dtype(jdt).type],
+                              device="cpu").numpy()
         assert _bits_equal(got, ref)
 
     def test_plgsy_packed_row_chunks(self, monkeypatch):
         monkeypatch.setattr(P, "_SLAB_ELEMS", 5 * 64)  # 5-row chunks
-        got = P.plgsy_packed(256, 64, seed=3, dtype=torch.float64)
-        assert torch.equal(P.unpack_tri(got, 256, 64), torch.tril(T.plgsy(256, seed=3,
-                                                                          dtype=torch.float64)))
+        got = P.plgsy_packed(256, 64, seed=3, dtype=torch.float64, device="cpu")
+        assert torch.equal(P.unpack_tri(got, 256, 64), torch.tril(
+            T.plgsy(256, seed=3, dtype=torch.float64, device="cpu")))
 
     @pytest.mark.parametrize("dtype", [np.float64, ml_dtypes.bfloat16])
     def test_jax_factor_unpacked_by_the_port(self, dtype):
@@ -253,7 +254,7 @@ class TestPotrfPacked:
 
     def test_bf16_storage_freivalds_class(self):
         n, w = 512, 128
-        lp = P.potrf_packed(P.plgsy_packed(n, w, dtype=torch.bfloat16), n, w,
+        lp = P.potrf_packed(P.plgsy_packed(n, w, dtype=torch.bfloat16, device="cpu"), n, w,
                             trailing="pallas", ktb=128)
         assert lp.dtype == torch.bfloat16
         assert float(P.freivalds_packed(lp, n, w)) < n**0.5 * 2e-4
@@ -296,7 +297,7 @@ class TestMatrixFree:
         """The probe is drawn from a torch.Generator seeded with ``key``, not
         from jax.random: the values are compared in magnitude, not in bits."""
         n, tb = 512, 128
-        lp = P.potrf_packed(P.plgsy_packed(n, tb, dtype=torch.float64), n, tb)
+        lp = P.potrf_packed(P.plgsy_packed(n, tb, dtype=torch.float64, device="cpu"), n, tb)
         r = float(P.freivalds_packed(lp, n, tb))
         assert r < 1e-12, r
         assert float(P.freivalds_packed(lp, n, tb)) == r  # same key, same probe

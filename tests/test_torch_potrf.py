@@ -107,10 +107,16 @@ class TestPotrfInplace:
             T.potrf_inplace(a, nb=48, tb=16)
         with pytest.raises(ValueError):
             T.potrf_inplace(a, nb=32, tb=24)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="fp32"):  # the reference's gate
             T.potrf_inplace(a, nb=32, tb=32, panel="pallas")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.potrf_inplace(a, nb=32, tb=32, diag_factor="unblocked")
+        with pytest.raises(ValueError, match="panel"):
+            T.potrf_inplace(a, nb=32, tb=32, panel="nope")
+        n = 128
+        spd = _a(n, seed=6)
+        kw = dict(nb=64, tb=32, ib=32, diag_factor="unblocked")
+        ref = np.tril(np.asarray(jax_potrf_inplace(jnp.asarray(spd), **kw)))
+        got = np.tril(T.potrf_inplace(_t(spd), **kw).numpy())
+        assert np.abs(got - ref).max() < 1e-10
 
 
 class TestPotrfPublic:
@@ -129,10 +135,10 @@ class TestPotrfPublic:
             assert np.abs(np.triu(got.numpy(), 1)).max() == 0
 
     def test_other_modes_not_ported(self):
+        """Every mode of the reference is ported now; unknown names raise."""
         a = torch.eye(64, dtype=torch.float64)
-        for mode in ("blocked", "masked", "shrink"):
-            with pytest.raises(NotImplementedError, match="inplace"):
-                T.potrf(a, nb=32, mode=mode)
+        for mode in ("blocked", "masked", "shrink", "inplace"):
+            assert torch.equal(T.potrf(a, nb=32, mode=mode), a)
         with pytest.raises(ValueError):
             T.potrf(a, nb=32, mode="inplace", uplo="X")
         with pytest.raises(ValueError):
