@@ -69,7 +69,33 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
 18. every ``potrf`` mode on the card against the plain versions on the CPU
     at N=4096: the default ``mode="blocked"``, blocked with both kernels
     (nb=512), masked (nb=512) and shrink with ``panel="invgemm"``;
-19. the driver with ``--mode shrink`` at phase 15's configuration.
+19. the driver with ``--mode shrink`` at phase 15's configuration;
+20. the packed df64 trailing-update kernel against its plain version on the
+    card at the packed df64 path's shapes (n=40960, nb=1024, tb=512, s=7, w=8,
+    steps k=0 and k=nt/2), plus an nk=2 case (w=9, s=6) and a tb=96 case at
+    small n: both planes **bit-identical** to the plain version, elements
+    outside the visited tiles bit-unchanged, one launch per call; kernel and
+    plain times, the rate counted as 28 one-pass products;
+21. the packed df64 path at the JAX package's packed-df64 record size:
+    ``plgsy_packed(40960, 1024, seed=51)`` in fp32 with lo = 0 →
+    ``potrf_packed_df64(ktb=512, s=7)``, one timed factorization (no warm-up:
+    the kernels are built and loaded by then), the kernel launched
+    N/nb − 1 = 39 times, peak memory, ``freivalds_packed_df64`` under 1e-10
+    and the native fp64 residual of the unpacked factor beside it;
+22. the packed df64 kernel path against the plain path at N=4096: card
+    against CPU, max|ΔL| ≤ 1e-12·max|L|; ``potrf_packed_df64`` against
+    ``potrf_df64`` on the same matrix and ``potrf_packed_df64_split(split=2)``
+    bit for bit; ``potrs_packed_df64`` (both engines) and ``potrs_df64`` under
+    the reference's 1e-10 posv gate; the three df64 Freivalds gates on one
+    factor, and the packed one on the card against the CPU;
+23. the driver with ``--mode df64-packed`` at phase 21's size (its gate there
+    is the blocked df64 residual of the unpacked factor), and with
+    ``--df64-split 2`` at N=8192 under a validation budget of one byte, which
+    sends it to the packed-native Freivalds gate.
+
+The whole run takes about 520 s on an H100 at 700 W, of which phases 20 to 23
+take about 265 s (two thirds of that in the driver's two factorizations and
+its blocked df64 residual at N=40960); no earlier phase was cut for them.
 
 Then the ``kernels`` JSON line (each kernel's launches on its path, its
 error and times against the plain version, the bound, and the library call
@@ -84,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -113,6 +140,10 @@ HIGHEST_KW = dict(nb=8192, panel="blocktrsm", trailing="pallas", tb=1024, kb=256
 NB_PANEL_FACTOR = 512  # the panel_factor path: the kernel's largest nb
 PANEL_APPLY_KW = dict(MAIN_KW, panel="pallas", panel_ib=256)
 N_MODES = 4096  # every potrf mode, card against CPU
+# the packed df64 path: the driver's configuration (potrf_driver.py: ktb = min(512, NB))
+N_PDF64, NB_PDF64, KTB_PDF64 = 40960, 1024, 512
+PDF64_KW = dict(ktb=KTB_PDF64, s=S_DF64)
+N_PDF64_CHECK, N_PDF64_SPLIT = 4096, 8192
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): bf16
 # tensor cores, fp32 outside them, fp64 tensor cores; HBM3 bytes per second.
@@ -320,21 +351,47 @@ def phase_inplace_check(dev):
 
 
 # ---- 5. and 9. the driver -------------------------------------------------------
-def phase_driver(tag, argv):
+def phase_driver(tag, argv, env=None):
+    """Run the driver in this process with ``env`` added to the environment."""
     from dla_tpu_torch.cli import potrf_driver
 
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = potrf_driver.main(argv)
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = potrf_driver.main(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
     for line in buf.getvalue().splitlines():
         print(f"driver| {line}")
     print(f"driver numbers above: {tag}", flush=True)
     require(rc == 0 and "PASS" in buf.getvalue(), f"driver returned {rc} without PASS")
+    return buf.getvalue()
 
 
 # ---- 6. the packed kernel against its plain version -----------------------------
+def slab_visit(dev, n, w, tb, base, j):
+    """Slab j's rows of a packed buffer (slab width w) and the mask of its
+    elements that the update of the trailing window from ``base`` visits: the
+    lower tb-tile pairs in window coordinates."""
+    from dla_tpu_torch.algos.packed import _row_offset
+
+    nt = n // w
+    rows = slice(_row_offset(j, nt, w), _row_offset(j, nt, w) + (nt - j) * w)
+    r = torch.arange(j * w, n, device=dev) - base  # window coordinates
+    cc = torch.arange(j * w, (j + 1) * w, device=dev) - base
+    visit = ((r[:, None] >= 0) & (cc[None, :] >= 0)
+             & (r.clamp(min=0)[:, None] // tb >= cc.clamp(min=0)[None, :] // tb))
+    return rows, visit
+
+
 def packed_case(dev, tag, n, w, ktb, k, dtype, prec, iters):
-    from dla_tpu_torch.algos.packed import _row_offset, packed_rows
+    from dla_tpu_torch.algos.packed import packed_rows
     from dla_tpu_torch.kernels import tiles
     from dla_tpu_torch.kernels.tiles import trailing_update_packed_plain
     from dla_tpu_torch.utils import precision
@@ -354,11 +411,7 @@ def packed_case(dev, tag, n, w, ktb, k, dtype, prec, iters):
                 "packed kernel did not update the buffer in place with one launch")
         err, changed = 0.0, False
         for j in range(nt):  # slab by slab: the visited mask of one slab at a time
-            rows = slice(_row_offset(j, nt, w), _row_offset(j, nt, w) + (nt - j) * w)
-            r = torch.arange(j * w, n, device=dev) - base  # window coordinates
-            cc = torch.arange(j * w, (j + 1) * w, device=dev) - base
-            visit = ((r[:, None] >= 0) & (cc[None, :] >= 0)
-                     & (r.clamp(min=0)[:, None] // ktb >= cc.clamp(min=0)[None, :] // ktb))
+            rows, visit = slab_visit(dev, n, w, ktb, base, j)
             o, c0 = out[rows], c[rows]
             require(torch.equal(bits(torch.where(visit, 0, o)), bits(torch.where(visit, 0, c0))),
                     f"elements outside the visited tiles of slab {j} changed")
@@ -741,7 +794,8 @@ def timed_path(dev, tag, name, n, factor, per_fact, reps):
     from dla_tpu_torch.kernels import df64_tiles, panel, tiles
 
     for mod, attr in ((tiles, "launches"), (tiles, "packed_launches"), (df64_tiles, "launches"),
-                      (panel, "panel_factor_launches"), (panel, "panel_apply_launches")):
+                      (df64_tiles, "packed_launches"), (panel, "panel_factor_launches"),
+                      (panel, "panel_apply_launches")):
         setattr(mod, attr, 0)
     times = []
     for rep in range(reps + 1):
@@ -863,6 +917,207 @@ def phase_modes_check(dev):
         require(r_gpu < n * 2e-7 and r_cpu < n * 2e-7, f"potrf {kw}: residual above the gate")
 
 
+# ---- 20. the packed df64 kernel against its plain version ----------------------------
+def packed_df64_case(dev, tag, n, nb, tb, s, w, k, iters):
+    from dla_tpu_torch.algos.packed import packed_rows
+    from dla_tpu_torch.kernels import df64_tiles
+    from dla_tpu_torch.kernels.df64_tiles import trailing_update_packed_df64_plain
+    from dla_tpu_torch.ops.df64 import slice_rows, to_df64
+
+    nt, base = n // nb, (k + 1) * nb
+    g = torch.Generator(device=dev).manual_seed(n + 7 * k + nb)
+    ch, cl = to_df64(torch.randn(packed_rows(n, nb), nb, generator=g, device=dev,
+                                 dtype=torch.float64))
+    p = torch.randn(n - base, nb, generator=g, device=dev, dtype=torch.float64)
+    sx = slice_rows(*to_df64(p), s=s, w=w)[0]
+    del p
+    kw = dict(n=n, nb=nb, k=k, tb=tb, w=w)
+    ref = trailing_update_packed_df64_plain(ch.clone(), cl.clone(), sx, **kw)
+    out = (ch.clone(), cl.clone())
+    before = df64_tiles.packed_launches
+    res = df64_tiles.trailing_update_packed_df64(*out, sx, **kw)
+    sync()
+    require(res[0] is out[0] and res[1] is out[1]
+            and df64_tiles.packed_launches == before + 1,
+            "packed df64 kernel did not update the pair in place with one launch")
+    changed = False
+    for j in range(nt):  # slab by slab: the visited mask of one slab at a time
+        rows, visit = slab_visit(dev, n, nb, tb, base, j)
+        for o, c in zip(out, (ch, cl)):
+            require(torch.equal(bits(torch.where(visit, 0, o[rows])),
+                                bits(torch.where(visit, 0, c[rows]))),
+                    f"elements outside the visited tiles of slab {j} changed")
+        changed = changed or not torch.equal(out[0][rows], ch[rows])
+        del visit
+    require(changed, "the packed df64 kernel changed nothing")
+    del ch, cl
+    same = all(torch.equal(bits(o), bits(r)) for o, r in zip(out, ref))
+    err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+    k_ms = cuda_ms(lambda: df64_tiles.trailing_update_packed_df64(*out, sx, **kw), iters)
+    p_ms = cuda_ms(lambda: trailing_update_packed_df64_plain(*ref, sx, **kw), iters)
+    mt = (n - base) // tb
+    pairs = mt * (mt + 1) // 2
+    flops = 2 * pairs * tb * tb * nb * (s * (s + 1) // 2)
+    # s(s+1)/2 one-pass bf16 products; both fp32 planes of each visited tile
+    # read and written once, the slices read once
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+               **bound(flops / PEAK["bf16"], 2 * 2 * pairs * tb * tb * 4
+                       + sum(x.numel() * x.element_size() for x in sx)))
+    name = f"n={n} nb={nb} tb={tb} s={s} w={w} k={k}"
+    print(f"trailing_update_packed_df64 {name}: bits equal {same} (max_abs_err={err:.3e}) "
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, kernel {flops / k_ms / 1e9:.2f} TF/s "
+          f"one-pass, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}", flush=True)
+    require(same, f"packed df64 kernel and plain version differ in their bits at {name}")
+    del out, ref, sx
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_packed_df64_kernel(dev, tag):
+    n, nb, tb, s = N_PDF64, NB_PDF64, KTB_PDF64, S_DF64
+    path_case = packed_df64_case(dev, tag, n, nb, tb, s, 8, 0, iters=1)
+    packed_df64_case(dev, tag, n, nb, tb, s, 8, n // nb // 2, iters=2)
+    packed_df64_case(dev, tag, 1024, 512, 128, 6, 9, 0, iters=5)  # nk = 2 chunks of kb = 256
+    for k in (0, 1):  # tb not a multiple of the 64-wide block: blocks straddle tiles
+        packed_df64_case(dev, tag, 576, 192, 96, s, 8, k, iters=5)
+    return path_case
+
+
+# ---- 21. the packed df64 path -------------------------------------------------------
+def phase_packed_df64_path(dev, tag):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.algos import potrf_packed_df64
+    from dla_tpu_torch.algos.potrf_df64 import freivalds_packed_df64
+    from dla_tpu_torch.kernels import df64_tiles
+
+    n, nb = N_PDF64, NB_PDF64
+    per_fact = n // nb - 1
+    aph = T.plgsy_packed(n, nb, bump=float(n), seed=51, device=dev)
+    apl = torch.zeros_like(aph)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    df64_tiles.packed_launches = 0
+    t0 = time.perf_counter()
+    lph, lpl = potrf_packed_df64(aph, apl, n, nb, **PDF64_KW)
+    sync()
+    dt = time.perf_counter() - t0
+    launches = df64_tiles.packed_launches
+    peak = torch.cuda.max_memory_allocated()
+    require(lph is aph and lpl is apl, "potrf_packed_df64 did not factor its pair in place")
+    require(launches == per_fact, f"{launches} packed df64 kernel launches in one "
+            f"factorization, expected {per_fact}")
+    pair_gb = 2 * lph.numel() * lph.element_size() / 1e9
+    print(f"packed df64 path N={n} nb={nb} s={S_DF64}: {dt * 1e3:.1f} ms "
+          f"{n**3 / 3 / dt / 1e9:.2f} GFLOP/s, {launches} packed df64 kernel launches, pair "
+          f"{pair_gb:.2f} GB, peak {peak / 1e9:.3f} GB {tag}", flush=True)
+    require(lph.shape == (n * (n + nb) // (2 * nb), nb)
+            and bool(torch.isfinite(lph).all() and torch.isfinite(lpl).all()),
+            "the packed df64 factor has non-finite entries")
+    t0 = time.perf_counter()
+    res = freivalds_packed_df64(lph, lpl, n, nb, gen_seed=51, bump=float(n), s=S_DF64,
+                                row_chunk=min(1024, n))
+    sync()
+    t_gate = time.perf_counter() - t0
+    l64 = T.unpack_tri(lph, n, nb).double()
+    l64 += T.unpack_tri(lpl, n, nb)
+    del lph, lpl, aph, apl
+    res64 = float(T.residual_potrf(T.plgsy(n, bump=float(n), seed=51, device=dev), l64,
+                                   assume_symmetric=True, assume_tril=True,
+                                   row_chunk=min(n, 4096)))
+    print(f"packed df64 path freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.3e} (df64, "
+          f"packed-native, {t_gate:.1f} s; gate 1e-10), native fp64 ||A - LL^T||_inf / "
+          f"||A||_inf = {res64:.3e}", flush=True)
+    require(res < 1e-10, "packed df64 path Freivalds value above the reference's 1e-10 gate")
+    require(res64 < 1e-10, "packed df64 path native fp64 residual above 1e-10")
+    del l64
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---- 22. packed df64 kernel path against plain path ----------------------------------
+def phase_packed_df64_check(dev):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.algos import (
+        freivalds_potrf_df64,
+        potrf_df64,
+        potrf_packed_df64,
+        potrf_packed_df64_split,
+        potrs_df64,
+        potrs_packed_df64,
+    )
+    from dla_tpu_torch.algos.potrf_df64 import freivalds_packed_df64, freivalds_potrf_df64_gen
+    from dla_tpu_torch.kernels import df64_tiles
+    from dla_tpu_torch.ops import from_df64, to_df64
+
+    n, nb = N_PDF64_CHECK, NB_PDF64
+    steps = n // nb - 1
+
+    def on_card(fac, *a, **kw):  # through the kernel, `steps` launches
+        before = df64_tiles.packed_launches
+        out = fac(*a, **kw)
+        sync()
+        require(df64_tiles.packed_launches - before == steps,
+                "packed df64 kernel launch count on the check path")
+        return out
+
+    a_cpu = T.plgsy_packed(n, nb, seed=7, device="cpu")
+    lg = on_card(potrf_packed_df64, a_cpu.to(dev), torch.zeros(a_cpu.shape, device=dev), n, nb,
+                 **PDF64_KW)
+    lc = potrf_packed_df64(a_cpu.clone(), torch.zeros_like(a_cpu), n, nb, **PDF64_KW)
+    dense = [from_df64(*(T.unpack_tri(x, n, nb) for x in pair)) for pair in (lg, lc)]
+    dl = (dense[0].cpu() - dense[1]).abs().max().item()
+    lmax = dense[1].abs().max().item()
+    print(f"packed df64 N={n}, kernel on the card vs plain on the CPU: max|dL|={dl:.3e} "
+          f"(max|L|={lmax:.3e})", flush=True)
+    require(dl <= 1e-12 * lmax, "packed df64 kernel-path L disagrees with the plain path")
+
+    a32 = T.plgsy(n, seed=7, device=dev)
+    ld = potrf_df64(a32.clone(), torch.zeros_like(a32), **DF64_KW)
+    dd = (from_df64(*ld) - dense[0]).abs().max().item()
+    ls = on_card(potrf_packed_df64_split, a_cpu.to(dev), torch.zeros(a_cpu.shape, device=dev),
+                 n, nb, split=2, **PDF64_KW)
+    split_same = all(torch.equal(bits(x), bits(y)) for x, y in zip(ls, lg))
+    print(f"packed df64 N={n}: max|L_packed - L_dense(potrf_df64)| = {dd:.3e}; split=2 bits "
+          f"equal to the monolith: {split_same}", flush=True)
+    require(dd <= 1e-12 * lmax, "potrf_packed_df64 disagrees with potrf_df64")
+    require(split_same, "potrf_packed_df64_split(split=2) differs from the monolith")
+
+    # the solves under the reference's posv gate, against fp64 on the card
+    a64 = a32.double()
+    g = torch.Generator(device=dev).manual_seed(3)
+    b64 = torch.randn(n, 4, generator=g, device=dev, dtype=torch.float64)
+    bh, bl = to_df64(b64)
+    for name, xs in (
+        ("potrs_packed_df64 trmm", potrs_packed_df64(*lg, bh, bl, n, nb)),
+        ("potrs_packed_df64 matvec", potrs_packed_df64(*lg, bh, bl, n, nb, engine="matvec")),
+        ("potrs_df64", potrs_df64(*ld, bh, bl)),
+    ):
+        x = from_df64(*xs)
+        r = ((b64 - a64 @ x).abs().max() / (a64.abs().max() * x.abs().max())).item()
+        print(f"packed df64 N={n} {name}: ||b - Ax||_max / (||A||_max ||x||_max) = {r:.3e} "
+              "(gate 1e-10)", flush=True)
+        require(r < 1e-10, f"{name} above the posv gate")
+    del a64
+
+    # one factor, three gates; and the packed gate on the card against the CPU
+    fp = freivalds_packed_df64(*lg, n, nb, gen_seed=7, s=S_DF64)
+    lh, ll = (T.unpack_tri(x, n, nb) for x in lg)
+    fd = float(freivalds_potrf_df64(lh, ll, a32, None, s=S_DF64))
+    fg = freivalds_potrf_df64_gen(lh, ll, gen_seed=7, s=S_DF64)
+    fc = freivalds_packed_df64(lg[0].cpu(), lg[1].cpu(), n, nb, gen_seed=7, s=S_DF64)
+    print(f"packed df64 N={n} df64 Freivalds gates of one factor: packed {fp:.6e}, dense "
+          f"{fd:.6e}, generator-streamed {fg:.6e}; packed on the CPU {fc:.6e}", flush=True)
+    require(max(fp, fd, fg, fc) < 1e-10, "a df64 Freivalds gate above 1e-10")
+    # the dense gates run the same strip products on the same probes: they differ
+    # only in the order of the fp32 |A| row sums. The packed gate sums L·(Lᵀx) tile
+    # by tile, another order of compensated adds: the same magnitude.
+    require(abs(fg - fd) <= 1e-4 * fd, "the two dense Freivalds gates disagree")
+    require(0.2 <= fp / fd <= 5, "packed and dense Freivalds gates disagree in magnitude")
+    # every product is an exact per-chunk sum, so the card and the CPU differ
+    # only in the order of the fp32 |A| row sums
+    require(abs(fp - fc) <= 1e-4 * fc, "the packed Freivalds gate differs between card and CPU")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -911,6 +1166,17 @@ def main() -> int:
                        "--mode", "shrink", "--panel", "blocktrsm", "--trailing", "pallas",
                        "--precision", "highest", "--kb", str(HIGHEST_KW["kb"]),
                        "--repeats", "1"])                                  # 19
+    torch.cuda.empty_cache()
+    pdf64 = phase_packed_df64_kernel(dev, tag)                            # 20
+    pdf64_launches = phase_packed_df64_path(dev, tag)                     # 21
+    phase_packed_df64_check(dev)                                          # 22
+    phase_driver(tag, ["--n", str(N_PDF64), "--nb", str(NB_PDF64), "--mode", "df64-packed",
+                       "--repeats", "1"])                                  # 23
+    # a budget too small for the unpack: the gate straight off the packed pair
+    out = phase_driver(tag, ["--n", str(N_PDF64_SPLIT), "--nb", str(NB_PDF64), "--mode",
+                             "df64-packed", "--df64-split", "2", "--repeats", "1"],
+                       env={"DLA_TPU_VALIDATE_HBM_BUDGET": "1"})
+    require("freivalds" in out, "the driver did not take the packed-native gate")
 
     rows = []
     for name, src, replaces, count, row in (
@@ -921,6 +1187,8 @@ def main() -> int:
         ("trailing_update_df64", "trailing_df64.cu", "df64_tiles.py:110", df64_launches, df64),
         ("panel_apply", "panel_apply.cu", "pallas_tiles.py:429", papply_launches, papply),
         ("panel_factor", "panel_factor.cu", "pallas_tiles.py:270", pfactor_launches, pfactor),
+        ("trailing_update_packed_df64", "trailing_packed_df64.cu", "df64_tiles.py:185",
+         pdf64_launches, pdf64),
     ):
         rows.append({
             "name": name,

@@ -13,8 +13,12 @@ and the packed-storage path, ``plgsy_packed`` →
 ``potrf_packed`` (the packed trailing update in a kernel) →
 ``freivalds_packed``, and the emulated-fp64 path, ``to_df64`` →
 ``potrf_df64`` (the df64 trailing update in a kernel) →
-``residual_potrf_df64_blocked`` (``dla_tpu_torch.ops`` and
-``dla_tpu_torch.algos`` export them, as the JAX package's subpackages do).
+``residual_potrf_df64_blocked``, and its packed form, ``plgsy_packed`` →
+``potrf_packed_df64`` (the packed df64 trailing update in a kernel) →
+``freivalds_packed_df64``, with the df64 solves ``potrs_df64`` and
+``potrs_packed_df64`` and the streaming df64 Freivalds gates
+(``dla_tpu_torch.ops`` and ``dla_tpu_torch.algos`` export them, as the JAX
+package's subpackages do).
 Importing the package switches TF32 off
 (:func:`dla_tpu_torch.utils.precision.pin_ieee_fp32`).
 """

@@ -6,6 +6,7 @@ from dla_tpu_torch.algos.packed import (
     packed_len,
     plgsy_packed,
     potrf_packed,
+    potrs_packed,
     unpack_tri,
 )
 from dla_tpu_torch.algos.potrf import (
@@ -16,13 +17,20 @@ from dla_tpu_torch.algos.potrf import (
     potrf_shrink,
 )
 from dla_tpu_torch.algos.potrf_df64 import (
+    freivalds_potrf_df64,
     potrf_df64,
+    potrf_packed_df64,
+    potrf_packed_df64_split,
+    potrs_df64,
+    potrs_packed_df64,
     residual_potrf_df64,
     residual_potrf_df64_blocked,
+    trmm_packed_df64,
 )
 
 __all__ = [
     "freivalds_packed",
+    "freivalds_potrf_df64",
     "pack_tri",
     "packed_len",
     "plgsy_packed",
@@ -32,8 +40,14 @@ __all__ = [
     "potrf_inplace",
     "potrf_masked",
     "potrf_packed",
+    "potrf_packed_df64",
+    "potrf_packed_df64_split",
     "potrf_shrink",
+    "potrs_df64",
+    "potrs_packed",
+    "potrs_packed_df64",
     "residual_potrf_df64",
     "residual_potrf_df64_blocked",
+    "trmm_packed_df64",
     "unpack_tri",
 ]

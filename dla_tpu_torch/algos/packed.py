@@ -12,12 +12,14 @@ Every algorithm below touches contiguous row ranges of that buffer.
 :func:`col_slab` returns a view, and :func:`potrf_packed` factors the buffer
 **in place** and returns it (the reference donates it to the same effect).
 
-This slice ports the factorization path and its matrix-free gate:
+Ported: the factorization path and its matrix-free gate,
 :func:`plgsy_packed` → :func:`potrf_packed` → :func:`freivalds_packed`
-(through :func:`trmm_packed` and :func:`spd_matvec_streamed`). The packed
-serving functions (``trtri_packed``, ``lauum_packed``, ``potri_packed``,
-``solve_inverse_packed``, ``potrs_packed``, ``residual_posv_streamed``) are a
-later slice (``ROADMAP.md``).
+(through :func:`trmm_packed` and :func:`spd_matvec_streamed`), and the packed
+substitution :func:`potrs_packed` with its :func:`_diag_invs`, which the
+packed df64 solve builds on. The other packed serving functions
+(``trtri_packed``, ``lauum_packed``, ``potri_packed``,
+``solve_inverse_packed``, ``residual_posv_streamed``) are a later slice
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from typing import Literal
 import torch
 
 from dla_tpu_torch.algos.potrf import DiagFactor, _blocktrsm_panel, _chol_tile
+from dla_tpu_torch.algos.solve import _solve_lower_blocked
 from dla_tpu_torch.kernels.tiles import trailing_update_packed
-from dla_tpu_torch.ops import gemm, plgsy_tile
+from dla_tpu_torch.ops import gemm, plgsy_tile, trsm
 from dla_tpu_torch.ops.lapack_like import _SLAB_ELEMS
 from dla_tpu_torch.utils import precision as _precision
 
@@ -91,6 +94,53 @@ def unpack_tri(packed: torch.Tensor, n: int, tb: int) -> torch.Tensor:
 def _ctype(dtype: torch.dtype) -> torch.dtype:
     """Compute dtype: bf16 storage computes in fp32."""
     return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _diag_invs(packed: torch.Tensor, n: int, tb: int) -> list[torch.Tensor]:
+    """inv(L[k,k]) for every diagonal block (lower-triangular inverses, read
+    from the blocks' lower triangles). Blocks wider than 1024 go through the
+    block-inverse solve, as in the reference; the others through one
+    triangular solve, which is IEEE fp32 whatever the precision tier (the
+    reference pins it: a one-bf16-pass inverse caps every refinement built on
+    it)."""
+    ct = _ctype(packed.dtype)
+    eye = torch.eye(tb, dtype=ct, device=packed.device)
+    out = []
+    for k in range(n // tb):
+        dk = col_slab(packed, k, n, tb)[:tb].to(ct)
+        if tb > 1024:
+            out.append(_solve_lower_blocked(dk, eye, trans=False, ib=512))
+        else:
+            out.append(trsm(1.0, dk, eye, side="L", uplo="L", transa=False))
+    return out
+
+
+def potrs_packed(lp: torch.Tensor, b: torch.Tensor, n: int, tb: int) -> torch.Tensor:
+    """Solve A·X = B from the packed factor (packed ``dpotrs``): forward then
+    back substitution over column slabs, diagonal blocks applied via their
+    precomputed triangular inverses. Returns a new tensor in the factor's
+    compute dtype; ``b`` is left alone."""
+    _check(n, tb)
+    nt = n // tb
+    vec = b.ndim == 1
+    cj = lp.is_complex()
+    ct = _ctype(lp.dtype)
+    x = (b[:, None] if vec else b).to(ct, copy=True)
+    dinv = _diag_invs(lp, n, tb)
+    for k in range(nt):  # forward: L·Y = B
+        blk = slice(k * tb, (k + 1) * tb)
+        x[blk] = gemm(1.0, dinv[k], x[blk], 0.0, x[blk])
+        if k + 1 < nt:
+            strict = col_slab(lp, k, n, tb)[tb:].to(ct)
+            x[(k + 1) * tb :] = gemm(-1.0, strict, x[blk], 1.0, x[(k + 1) * tb :])
+    for k in reversed(range(nt)):  # back: Lᵀ·X = Y
+        blk = slice(k * tb, (k + 1) * tb)
+        rhs = x[blk]
+        if k + 1 < nt:
+            strict = col_slab(lp, k, n, tb)[tb:].to(ct)
+            rhs = gemm(-1.0, strict, x[(k + 1) * tb :], 1.0, rhs, transa=True, conja=cj)
+        x[blk] = gemm(1.0, dinv[k], rhs, 0.0, rhs, transa=True, conja=cj)
+    return x[:, 0] if vec else x
 
 
 def plgsy_packed(

@@ -1,5 +1,5 @@
-"""Blocked Cholesky in emulated fp64 (df64) and its df64 residual gates —
-counterpart of the dense part of ``dla_tpu/algos/potrf_df64.py``.
+"""Blocked Cholesky in emulated fp64 (df64), dense and packed, with its df64
+solves and gates — counterpart of ``dla_tpu/algos/potrf_df64.py``.
 
 A matrix is a pair ``(hi, lo)`` of fp32 planes (``ops/df64``: ~49 significant
 bits), and each nb-wide panel step keeps the reference's formulation:
@@ -17,22 +17,36 @@ bits), and each nb-wide panel step keeps the reference's formulation:
    :func:`dla_tpu_torch.kernels.df64_tiles.trailing_update_df64`
    (``trailing="pallas"``), which does ~all the flops.
 
-The gates measure ``||A − L·Lᵀ||_inf / ||A||_inf`` in df64 on the tensors'
-device: :func:`residual_potrf_df64` holds the whole slice set of L,
-:func:`residual_potrf_df64_blocked` only two row strips of it, and can stream A
-from its seed. The reference splits these into jitted strip programs for its
-remote compiler; here they are plain loops, and the same quantity comes out.
+:func:`potrf_packed_df64` runs the same three steps on a pair of column-slab
+packed triangles (``algos/packed.py`` layout, slab width nb): about 4·n² bytes
+resident instead of the dense pair's 8·n², with the trailing update in
+:func:`dla_tpu_torch.kernels.df64_tiles.trailing_update_packed_df64`.
+:func:`potrs_df64` and :func:`potrs_packed_df64` solve L·Lᵀ·X = B in df64 by
+fp32 substitution plus df64-residual refinement.
 
-Not ported yet (``ROADMAP.md``): the packed df64 factor and kernel, the df64
-solves and the df64 Freivalds gates.
+The residual gates measure ``||A − L·Lᵀ||_inf / ||A||_inf`` in df64 on the
+tensors' device: :func:`residual_potrf_df64` holds the whole slice set of L,
+:func:`residual_potrf_df64_blocked` only two row strips of it, and can stream A
+from its seed. The streaming Freivalds gates measure ``max_p ||(A − L·Lᵀ)·x_p||
+/ (||A||·||x_p||)`` with every matvec in df64, O(n²) work and strip-sized
+transients: :func:`freivalds_potrf_df64` (dense pair, resident A),
+:func:`freivalds_potrf_df64_gen` (A streamed from its seed) and
+:func:`freivalds_packed_df64` (straight off the packed pair, no unpack, no
+dense A). Their probes are numpy's (``default_rng(seed).standard_normal``), so
+both packages draw the same ones. The reference splits all of these into
+jitted strip programs for its remote compiler; here they are plain loops, and
+the same quantities come out.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from dla_tpu_torch.algos.packed import _check as _check_packed
+from dla_tpu_torch.algos.packed import col_slab, potrs_packed
 from dla_tpu_torch.algos.potrf import _cholesky
-from dla_tpu_torch.kernels.df64_tiles import trailing_update_df64
+from dla_tpu_torch.kernels.df64_tiles import trailing_update_df64, trailing_update_packed_df64
 from dla_tpu_torch.ops.df64 import df64_matmul_nt, df_add, df_sub, slice_rows, two_sum
 from dla_tpu_torch.ops.lapack_like import plgsy_tile
 
@@ -168,6 +182,224 @@ def potrf_df64(
     return ah.tril_(), al.tril_()
 
 
+def potrf_packed_df64(
+    aph: torch.Tensor,
+    apl: torch.Tensor,
+    n: int,
+    nb: int,
+    *,
+    ktb: int = 512,
+    refine: int = 2,
+    s: int = 7,
+    w: int = 8,
+    precise_deg: int = 3,
+    k0: int = 0,
+    k1: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Right-looking df64 POTRF **in packed space**: the (hi, lo) pair is two
+    column-slab packed lower triangles (``algos/packed.py`` layout, slab width
+    ``nb``), so the resident factor state is n·(n+nb) bytes ≈ 4·n² instead of
+    the dense pair's 8·n². Per step: the df64 diagonal factor and panel solve
+    of :func:`potrf_df64` (the slab's diagonal block is re-symmetrized there,
+    since the packed trailing kernel updates lower-triangle tiles only), then
+    one packed df64 trailing update over the pair
+    (:func:`~dla_tpu_torch.kernels.df64_tiles.trailing_update_packed_df64`,
+    tile ``ktb``: one kernel launch per step on the card). Returns the packed
+    (Lh, Ll) pair; with ktb < nb the diagonal blocks of the slabs not yet
+    factored carry stale tiles above the diagonal, as in the fp32
+    ``potrf_packed``, and each step's diagonal factor overwrites its block
+    with tril(L_kk).
+
+    **Factors in place** when the planes are fp32 and contiguous: the returned
+    pair *is* ``(aph, apl)`` (the reference donates its pair to the same
+    effect). Other inputs are copied to fp32 first.
+
+    ``k0``/``k1`` restrict execution to slab steps ``[k0, k1)``; steps
+    ``[0, k0)`` must have run on the pair already
+    (:func:`potrf_packed_df64_split`)."""
+    _check_packed(n, nb)
+    if nb % ktb:
+        raise ValueError(f"need ktb | nb (nb={nb}, ktb={ktb})")
+    gemm_kw = dict(s=s, w=w, precise_deg=precise_deg)
+    nt = n // nb
+    if k1 is None:
+        k1 = nt
+    if not 0 <= k0 <= k1 <= nt:
+        raise ValueError(f"need 0 <= k0 <= k1 <= nt, got [{k0}, {k1})")
+    aph = aph.to(_F32).contiguous()
+    apl = apl.to(_F32).contiguous()
+    for k in range(k0, k1):
+        ch = col_slab(aph, k, n, nb)
+        cl = col_slab(apl, k, n, nb)
+        lkk_h, lkk_l = _factor_diag_df64(ch[:nb], cl[:nb], refine=refine, gemm_kw=gemm_kw)
+        ch[:nb] = lkk_h
+        cl[:nb] = lkk_l
+        if k + 1 == nt:
+            break
+        xh, xl = _panel_solve_df64(lkk_h, lkk_l, ch[nb:], cl[nb:], refine=refine,
+                                   gemm_kw=gemm_kw)
+        ch[nb:] = xh
+        cl[nb:] = xl
+        # row-major for the kernel: a CUDA triangular solve returns X column-major
+        sx = [x.contiguous() for x in slice_rows(xh, xl, s=s, w=w)[0]]
+        trailing_update_packed_df64(aph, apl, sx, n=n, nb=nb, k=k, tb=ktb, w=w,
+                                    precise_deg=precise_deg)
+    return aph, apl
+
+
+def potrf_packed_df64_split(
+    aph: torch.Tensor,
+    apl: torch.Tensor,
+    n: int,
+    nb: int,
+    *,
+    split: int = 2,
+    ktb: int = 512,
+    refine: int = 2,
+    s: int = 7,
+    w: int = 8,
+    precise_deg: int = 3,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`potrf_packed_df64` executed as ``split`` segments of about
+    nt/split slab steps each: the same step sequence, so the same bits as the
+    monolith. The reference needs the segments to keep each jitted program
+    under its compile service's size limit; eager torch has no such limit, and
+    this is a plain loop over ``k0``/``k1`` ranges, kept so that both packages
+    take the same calls.
+
+    The pair is factored in place exactly as :func:`potrf_packed_df64` factors
+    it: after the call the caller's fp32 contiguous planes hold the factor and
+    are the returned pair. ``split=0`` auto-sizes as in the reference: the
+    fewest segments of at most 40 steps each."""
+    if split < 0:
+        raise ValueError(f"split must be >= 0, got {split}")
+    _check_packed(n, nb)
+    nt = n // nb
+    if split == 0:
+        split = -(-nt // 40)
+    split = min(split, nt)
+    bounds = [round(i * nt / split) for i in range(split + 1)]
+    for i in range(split):
+        aph, apl = potrf_packed_df64(aph, apl, n, nb, ktb=ktb, refine=refine, s=s, w=w,
+                                     precise_deg=precise_deg, k0=bounds[i], k1=bounds[i + 1])
+    return aph, apl
+
+
+def trmm_packed_df64(
+    lph: torch.Tensor,
+    lpl: torch.Tensor,
+    xh: torch.Tensor,
+    xl: torch.Tensor,
+    n: int,
+    nb: int,
+    *,
+    trans: bool = False,
+    s: int = 7,
+    w: int = 8,
+    precise_deg: int = 3,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Y = L·X (or Lᵀ·X) in df64 from the **packed** factor pair: one df64
+    GEMM per column slab, accumulated with compensated adds (the packed df64
+    ``dtrmm``; the residual engine of the packed df64 solve). X is an
+    (n, nrhs) df64 pair. Like the reference it reads each slab whole: the
+    diagonal blocks must be lower-triangular, as those of a finished
+    :func:`potrf_packed_df64` factor are (each step writes tril(L_kk))."""
+    _check_packed(n, nb)
+    gemm_kw = dict(s=s, w=w, precise_deg=precise_deg)
+    yh = torch.zeros_like(xh)
+    yl = torch.zeros_like(xl)
+    for j in range(n // nb):
+        ch = col_slab(lph, j, n, nb)
+        cl = col_slab(lpl, j, n, nb)
+        blk, tail = slice(j * nb, (j + 1) * nb), slice(j * nb, None)
+        if not trans:  # y[j·nb:] += colj · x_j
+            ph, pl = df64_matmul_nt(ch, cl, xh[blk].mT, xl[blk].mT, **gemm_kw)
+            yh[tail], yl[tail] = df_add(yh[tail], yl[tail], ph, pl)
+        else:  # y_j += coljᵀ · x[j·nb:]
+            ph, pl = df64_matmul_nt(ch.mT, cl.mT, xh[tail].mT, xl[tail].mT, **gemm_kw)
+            yh[blk], yl[blk] = df_add(yh[blk], yl[blk], ph, pl)
+    return yh, yl
+
+
+def potrs_packed_df64(
+    lph: torch.Tensor,
+    lpl: torch.Tensor,
+    bh: torch.Tensor,
+    bl: torch.Tensor,
+    n: int,
+    nb: int,
+    *,
+    refine: int = 2,
+    s: int = 7,
+    w: int = 8,
+    precise_deg: int = 3,
+    engine: str = "trmm",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve L·Lᵀ·X = B in df64 **from the packed factor pair**: the fp32
+    packed substitution (:func:`dla_tpu_torch.algos.packed.potrs_packed` on
+    the hi plane) plus ``refine`` steps of df64-residual correction, each one
+    packed df64 L·(Lᵀ·x) reconstruction and one fp32 substitution — the scheme
+    of the dense :func:`potrs_df64`. B is an (n, nrhs) df64 pair.
+
+    ``engine`` selects the reconstruction: ``"trmm"`` = per-slab df64 GEMMs
+    (:func:`trmm_packed_df64`), ``"matvec"`` = the tile loop of
+    :func:`_packed_matvec_df64`."""
+    gemm_kw = dict(s=s, w=w, precise_deg=precise_deg)
+    if engine == "matvec":
+        desc = _packed_tile_desc(n, nb)
+
+        def recon(xh_, xl_):
+            th, tl = _packed_matvec_df64(lph, lpl, desc, xh_, xl_, nb=nb, trans=True, **gemm_kw)
+            return _packed_matvec_df64(lph, lpl, desc, th, tl, nb=nb, trans=False, **gemm_kw)
+    else:
+        def recon(xh_, xl_):
+            th, tl = trmm_packed_df64(lph, lpl, xh_, xl_, n, nb, trans=True, **gemm_kw)
+            return trmm_packed_df64(lph, lpl, th, tl, n, nb, trans=False, **gemm_kw)
+
+    xh = potrs_packed(lph, bh, n, nb)
+    xl = torch.zeros_like(xh)
+    for _ in range(refine):
+        ph, pl = recon(xh, xl)
+        rh, _ = df_sub(bh, bl, ph, pl)
+        dx = potrs_packed(lph, rh, n, nb)
+        xh, xl = df_add(xh, xl, dx, torch.zeros_like(dx))
+    return xh, xl
+
+
+def potrs_df64(
+    lh: torch.Tensor,
+    ll: torch.Tensor,
+    bh: torch.Tensor,
+    bl: torch.Tensor,
+    *,
+    s: int = 7,
+    w: int = 8,
+    precise_deg: int = 3,
+    refine: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve L·Lᵀ·X = B in df64 from a :func:`potrf_df64` factor (the
+    reference's posv gate, ``v6_test.c:87``). Each substitution is an fp32
+    triangular solve plus ``refine`` steps of df64-residual correction (one
+    df64 GEMM and one fp32 TRSM per step, the scheme of the factor's panel
+    solve). B is an (n, nrhs) df64 pair; returns the (Xh, Xl) pair."""
+    gemm_kw = dict(s=s, w=w, precise_deg=precise_deg)
+
+    def refine_solve(rh_in, rl_in, op_h, op_l, upper):
+        """x ≈ OP⁻¹·r with df64-residual refinement; OP = L or Lᵀ as its
+        df64 pair: the GEMM computes OP·x as A·Bᵀ with A = OP, B = xᵀ."""
+        xh = torch.linalg.solve_triangular(op_h, rh_in, upper=upper)
+        xl = torch.zeros_like(xh)
+        for _ in range(refine):
+            ph, pl = df64_matmul_nt(op_h, op_l, xh.mT, xl.mT, **gemm_kw)
+            rh, _ = df_sub(rh_in, rl_in, ph, pl)
+            dx = torch.linalg.solve_triangular(op_h, rh, upper=upper)
+            xh, xl = df_add(xh, xl, dx, torch.zeros_like(dx))
+        return xh, xl
+
+    yh, yl = refine_solve(bh, bl, lh, ll, False)
+    return refine_solve(yh, yl, lh.mT, ll.mT, True)
+
+
 # ---------------------------------------------------------------------------
 # df64 residual gates
 # ---------------------------------------------------------------------------
@@ -294,3 +526,186 @@ def residual_potrf_df64_blocked(
             if j < i:
                 rowsum[c0:c1] += cs.double()
     return float(rowsum.max() / anorm.max())
+
+
+# ---------------------------------------------------------------------------
+# streaming df64 Freivalds gates
+# ---------------------------------------------------------------------------
+
+
+def _probes(seed: int, shape, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gates' probe block, numpy's standard normals rounded to fp32 (the
+    reference's draw, so both packages probe with the same vectors), as a
+    df64 pair with a zero lo plane on ``device``."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    xh = torch.from_numpy(x).to(device)
+    return xh, torch.zeros_like(xh)
+
+
+def _matvec_df64(mh, ml, xth, xtl, *, s, w, precise_deg, row_chunk):
+    """Full df64 matvec M·X (X given transposed: an (nrhs, k) pair) by row
+    strips, which keeps the slice memory O(row_chunk·k). ``ml=None`` means
+    the lo plane is exactly zero."""
+    outs_h, outs_l = [], []
+    for r0 in range(0, mh.shape[0], row_chunk):
+        mh_s = mh[r0 : r0 + row_chunk]
+        ml_s = torch.zeros_like(mh_s) if ml is None else ml[r0 : r0 + row_chunk]
+        h, l = df64_matmul_nt(mh_s, ml_s, xth, xtl, s=s, w=w, precise_deg=precise_deg)
+        outs_h.append(h)
+        outs_l.append(l)
+    return torch.cat(outs_h), torch.cat(outs_l)
+
+
+def _matvec_t_df64(mh, ml, xth, xtl, *, s, w, precise_deg, row_chunk):
+    """Full df64 matvec Mᵀ·X by row strips of M, each transposed as a view and
+    accumulated with compensated adds: no (n, n) transposed copy of a plane is
+    ever made. X given transposed (an (nrhs, m) pair); returns the (k, nrhs)
+    result pair."""
+    m, k = mh.shape
+    acc_h = torch.zeros((k, xth.shape[0]), dtype=_F32, device=mh.device)
+    acc_l = torch.zeros_like(acc_h)
+    for r0 in range(0, m, row_chunk):
+        rows = slice(r0, r0 + row_chunk)
+        h, l = df64_matmul_nt(mh[rows].mT, ml[rows].mT, xth[:, rows], xtl[:, rows],
+                              s=s, w=w, precise_deg=precise_deg)
+        acc_h, acc_l = df_add(acc_h, acc_l, h, l)
+    return acc_h, acc_l
+
+
+def _abs_rowsum_max(h, row_chunk: int):
+    """max_i Σ_j |h[i, j]| in fp32, one row strip's |h| at a time."""
+    return torch.stack([h[r0 : r0 + row_chunk].abs().sum(dim=1).max()
+                        for r0 in range(0, h.shape[0], row_chunk)]).max()
+
+
+def freivalds_potrf_df64(
+    lh, ll, ah, al=None, *, probes: int = 2, seed: int = 71,
+    s: int = 7, w: int = 8, precise_deg: int = 3, row_chunk: int = 1024,
+) -> torch.Tensor:
+    """Streaming Freivalds gate for a dense df64 factor:
+    ``max_p ||(A − L·Lᵀ)·x_p||_inf / (||A||_inf·||x_p||_inf)`` with every
+    matvec in df64 — O(n²) work and O(row_chunk·n) slice memory, where the
+    full reconstruction residual is O(n³). ``al=None``: A is exactly fp32.
+    Returns an fp32 scalar on the factor's device."""
+    xth, xtl = _probes(seed, (probes, lh.shape[0]), lh.device)
+    kw = dict(s=s, w=w, precise_deg=precise_deg, row_chunk=row_chunk)
+    zh, zl = _matvec_t_df64(lh, ll, xth, xtl, **kw)  # z = Lᵀ·x
+    wh, wl = _matvec_df64(lh, ll, zh.mT, zl.mT, **kw)  # L·z
+    yh, yl = _matvec_df64(ah, al, xth, xtl, **kw)  # A·x
+    rh, rl = df_sub(yh, yl, wh, wl)
+    num = (rh + rl).abs().max()
+    anorm = _abs_rowsum_max(ah, row_chunk) if al is None else _df64_rowsum_max(ah, al)
+    return num / (anorm * xth.abs().max())
+
+
+def _gen_strip_matvec_df64(seed, i0, xth, xtl, *, rows, cols, bump, s, w, precise_deg):
+    """One generated row strip of the seeded SPD matrix times the probe block,
+    in df64: A[i0:i0+rows, :] is made on the fly (``plgsy_tile``), so no (n, n)
+    A plane is ever resident. Returns the (hi, lo) product strip and the
+    strip's |A| row sums (its share of ||A||_inf)."""
+    strip = plgsy_tile(seed, i0, 0, rows, cols, bump=bump, device=xth.device)
+    h, l = df64_matmul_nt(strip, torch.zeros_like(strip), xth, xtl, s=s, w=w,
+                          precise_deg=precise_deg)
+    return h, l, strip.abs().sum(dim=1)
+
+
+def _packed_tile_desc(n: int, nb: int) -> np.ndarray:
+    """Descriptor table for :func:`_packed_matvec_df64`: one row per (nb, nb)
+    tile of the packed triangle — (plane row offset, global row, column
+    base)."""
+    nt = n // nb
+    rows = []
+    r0 = 0
+    for j in range(nt):
+        for i in range(j, nt):
+            rows.append((r0 + (i - j) * nb, i * nb, j * nb))
+        r0 += (nt - j) * nb
+    return np.asarray(rows, np.int64)
+
+
+def _packed_matvec_df64(ph, pl, desc, xh, xl, *, nb, s, w, precise_deg, trans):
+    """Full df64 matvec L·X (or Lᵀ·X) **directly off the packed column-slab
+    pair**: a loop over the triangle's nt(nt+1)/2 (nb, nb) tiles, addressed by
+    ``desc`` (:func:`_packed_tile_desc`). Per tile: the (hi, lo) tile as a view
+    (diagonal tiles tril-masked, since packed factors carry stale upper-tile
+    garbage), one tile-sized df64 GEMM against the probe slice, a compensated
+    accumulation into the (n, probes) output pair. Peak transient memory is
+    tile-sized: the pair is never unpacked and no dense A is needed."""
+    oh = torch.zeros_like(xh)
+    ol = torch.zeros_like(xl)
+    kw = dict(s=s, w=w, precise_deg=precise_deg)
+    for r0, g0, jb in desc.tolist():
+        th, tl = ph[r0 : r0 + nb], pl[r0 : r0 + nb]
+        if g0 == jb:
+            th, tl = torch.tril(th), torch.tril(tl)
+        if trans:  # z[jb:jb+nb] += tileᵀ · x[g0:g0+nb]
+            hh, ll_ = df64_matmul_nt(th.mT, tl.mT, xh[g0 : g0 + nb].mT, xl[g0 : g0 + nb].mT, **kw)
+            o = slice(jb, jb + nb)
+        else:  # y[g0:g0+nb] += tile · x[jb:jb+nb]
+            hh, ll_ = df64_matmul_nt(th, tl, xh[jb : jb + nb].mT, xl[jb : jb + nb].mT, **kw)
+            o = slice(g0, g0 + nb)
+        oh[o], ol[o] = df_add(oh[o], ol[o], hh, ll_)
+    return oh, ol
+
+
+def _streamed_ax_gate(yh, yl, xth, xtl, n, *, gen_seed, bump, s, w, precise_deg, row_chunk):
+    """max_strip ||A·x − y||_inf and ||A||_inf with A streamed from the seeded
+    generator (the shared tail of both streaming gates below), as floats."""
+    num = 0.0
+    anorm = 0.0
+    for r0 in range(0, n, row_chunk):
+        h, l, rs = _gen_strip_matvec_df64(gen_seed, r0, xth, xtl, rows=row_chunk, cols=n,
+                                          bump=bump, s=s, w=w, precise_deg=precise_deg)
+        rh, rl = df_sub(h, l, yh[r0 : r0 + row_chunk], yl[r0 : r0 + row_chunk])
+        num = max(num, float((rh + rl).abs().max()))
+        anorm = max(anorm, float(rs.max()))
+    return num, anorm
+
+
+def freivalds_packed_df64(
+    lph, lpl, n: int, nb: int, *, probes: int = 2, seed: int = 71,
+    gen_seed: int = 51, bump: float | None = None,
+    s: int = 7, w: int = 8, precise_deg: int = 3, row_chunk: int = 1024,
+) -> float:
+    """Streaming df64 Freivalds gate **for a packed factor pair, with no
+    unpack and no dense A**: ``max_p ||(A − L·Lᵀ)·x_p||_inf /
+    (||A||_inf·||x_p||_inf)`` where L·(Lᵀ·x) runs directly off the packed
+    column slabs (:func:`_packed_matvec_df64`) and A — the seeded exactly-fp32
+    generator matrix that ``plgsy_packed`` packs — is streamed strip-wise from
+    its seed. Peak extra device memory is strip-sized."""
+    if n % nb:
+        raise ValueError(f"n={n} must be a multiple of nb={nb}")
+    if n % row_chunk:
+        raise ValueError(f"row_chunk={row_chunk} must divide n={n}")
+    if bump is None:
+        bump = float(n)
+    xh, xl = _probes(seed, (n, probes), lph.device)
+    desc = _packed_tile_desc(n, nb)
+    kw = dict(s=s, w=w, precise_deg=precise_deg)
+    zh, zl = _packed_matvec_df64(lph, lpl, desc, xh, xl, nb=nb, trans=True, **kw)
+    yh, yl = _packed_matvec_df64(lph, lpl, desc, zh, zl, nb=nb, trans=False, **kw)
+    num, anorm = _streamed_ax_gate(yh, yl, xh.mT, xl.mT, n, gen_seed=gen_seed, bump=bump,
+                                   row_chunk=row_chunk, **kw)
+    return num / (anorm * float(xh.abs().max()))
+
+
+def freivalds_potrf_df64_gen(
+    lh, ll, *, probes: int = 2, seed: int = 71, gen_seed: int = 51,
+    bump: float | None = None, s: int = 7, w: int = 8,
+    precise_deg: int = 3, row_chunk: int = 1024,
+) -> float:
+    """:func:`freivalds_potrf_df64` for a dense factor pair of the seeded
+    generator matrix, with A streamed from its seed instead of resident: the
+    same probes and the same quantity without the (n, n) A plane."""
+    n = lh.shape[0]
+    if n % row_chunk:
+        raise ValueError(f"row_chunk={row_chunk} must divide n={n}")
+    if bump is None:
+        bump = float(n)
+    xth, xtl = _probes(seed, (probes, n), lh.device)
+    kw = dict(s=s, w=w, precise_deg=precise_deg)
+    zh, zl = _matvec_t_df64(lh, ll, xth, xtl, row_chunk=row_chunk, **kw)  # z = Lᵀ·x
+    yh, yl = _matvec_df64(lh, ll, zh.mT, zl.mT, row_chunk=row_chunk, **kw)
+    num, anorm = _streamed_ax_gate(yh, yl, xth, xtl, n, gen_seed=gen_seed, bump=bump,
+                                   row_chunk=row_chunk, **kw)
+    return num / (anorm * float(xth.abs().max()))

@@ -1,5 +1,5 @@
 """Single-run POTRF driver — the single-device ``--mode blocked|masked|
-shrink|inplace``, ``--mode packed`` and ``--mode df64`` subset of
+shrink|inplace``, ``--mode packed`` and ``--mode df64|df64-packed`` subset of
 ``dla_tpu/cli/potrf_driver.py`` on PyTorch.
 
 It keeps the reference's text contract (``v6_test.c:54-87``), which a sweep
@@ -24,11 +24,26 @@ shrink take ``--panel``, ``--trailing`` and ``--diag``, shrink also
 the dtype is forced to float64 and the gate to 1e-10. A is generated in fp64
 on the chosen device and split into its (hi, lo) fp32 pair; ``--slices`` sets
 s (default 7), ``--trailing pallas`` runs the df64 trailing kernel with
-tb = min(512, NB). The residual is evaluated in df64 on the device, by the
-strip gate up to N = 8192 (``DLA_TPU_DF64_STRIP_RESIDUAL_MAX``) and by the
-blocked gate above, when its working set fits the device's memory; where it
-does not, the reference's streaming df64 Freivalds gate would run, which is
-not ported yet, and the driver exits 2.
+tb = min(512, NB). ``--input PATH`` (``.npy``, ``.npz`` or raw fp64) factors
+a user's matrix, read through its lower triangle, instead. The residual is
+evaluated in df64 on the device, by the strip gate up to N = 8192
+(``DLA_TPU_DF64_STRIP_RESIDUAL_MAX``) and by the blocked gate above, when its
+working set fits the budget: the device's memory, or
+``DLA_TPU_VALIDATE_HBM_BUDGET`` bytes. Where it does not fit, or runs out of
+memory, the streaming df64 Freivalds gate runs and prints the ``freivalds``
+line.
+
+``--mode df64-packed`` is the same contract on triangle-only storage
+(``potrf_packed_df64``: 4·N² resident bytes instead of the dense pair's 8·N²;
+NB is the slab width, the kernel tile min(512, NB)). Without ``--input`` the
+packed fp32 triangle is generated on the device with a zero lo plane and no
+square is ever built; with ``--input`` the pair is packed from the dense one.
+The factor is unpacked for the dense df64 gates above when the packed pair,
+the unpacked pair and A fit the budget together; where they do not, the
+generated path certifies straight off the packed pair with
+``freivalds_packed_df64`` (A streamed from its seed). ``--df64-split K`` runs the factorization as K
+segments of slab steps (0: segments of at most 40 steps), the same bits as
+one run.
 
 Only the factorization is timed, between two ``torch.cuda.synchronize()``
 calls; the input is regenerated from its seed before each repeat, untimed
@@ -44,6 +59,7 @@ Usage:
     python -m dla_tpu_torch.cli.potrf_driver --n 81920 --nb 4096 --dtype s --mode packed \
         --trailing pallas --precision default --diag twolevel --kb 4096
     python -m dla_tpu_torch.cli.potrf_driver --n 24576 --nb 1024 --mode df64 --trailing pallas
+    python -m dla_tpu_torch.cli.potrf_driver --n 40960 --nb 1024 --mode df64-packed
     python -m dla_tpu_torch.cli.potrf_driver --n 512 --nb 128 --dtype d --device cpu
 """
 
@@ -66,11 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default=None,
                     help="d|float64, s|float32, h|bfloat16 (storage)")
     ap.add_argument("--mode", choices=["blocked", "masked", "shrink", "inplace", "packed",
-                                       "df64"], default="inplace",
+                                       "df64", "df64-packed"], default="inplace",
                     help="factorization formulation: blocked, masked or shrinking "
                          "dense (potrf's modes), the dense in-place buffer, "
                          "triangle-only packed storage (NB = slab width), or emulated "
-                         "fp64 on a (hi, lo) fp32 pair")
+                         "fp64 on a (hi, lo) fp32 pair, dense (df64) or packed "
+                         "(df64-packed)")
     ap.add_argument("--panel", choices=["xla", "pallas", "invgemm", "blocktrsm"],
                     default="xla", help="blocked and shrink modes' panel: a triangular "
                     "solve (xla), the panel_factor CUDA kernel (pallas), or, shrink "
@@ -79,7 +96,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="blocked, shrink, packed and df64 modes' trailing update: the "
                          "torch GEMMs (xla) or the mode's CUDA kernel (pallas)")
     ap.add_argument("--slices", type=int, default=None,
-                    help="df64 mode: bf16 slices per row (default 7)")
+                    help="df64 modes: bf16 slices per row (default 7)")
+    ap.add_argument("--df64-split", type=int, default=1,
+                    help="df64-packed mode: run the factorization as this many segments "
+                         "of slab steps (0: segments of at most 40 steps); same bits as 1")
+    ap.add_argument("--input", default=None, metavar="PATH",
+                    help="df64 modes: factor a user-provided N×N matrix (.npy, .npz [array "
+                         "'a' or the first array] or raw fp64 row-major), read through its "
+                         "lower triangle, instead of generating one")
     ap.add_argument("--bump", type=float, default=None, help="diagonal bump (default: N)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--precision", choices=["default", "high", "highest"], default=None,
@@ -119,8 +143,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    import dla_tpu_torch.algos as algos
     from dla_tpu_torch.algos import (
         freivalds_packed,
+        pack_tri,
         plgsy_packed,
         potrf,
         potrf_df64,
@@ -136,10 +162,18 @@ def main(argv=None) -> int:
         n=args.n, nb=args.nb, dtype=args.dtype, bump=args.bump, seed=args.seed,
         mode=args.mode, check=False if args.no_check else None,
     )
-    df64 = cfg.mode == "df64"
+    df64_packed = cfg.mode == "df64-packed"
+    df64 = cfg.mode == "df64" or df64_packed
     if df64:  # the mode IS the fp64 contract: validate at the 1e-10 gate
         cfg = dataclasses.replace(cfg, dtype="float64")
     slices = args.slices or 7
+    if args.input and not df64:
+        print("[dla-potrf] --input is ported for --mode df64|df64-packed only (ROADMAP.md)",
+              file=sys.stderr)
+        return 2
+    # the pure packed-df64 path: exactly-fp32 generation on the device
+    # (lo = 0), no fp64 square anywhere
+    df64_pure = df64_packed and not args.input
     if cfg.dtype not in ("float64", "float32", "bfloat16"):
         print(f"[dla-potrf] dtype {cfg.dtype} is not ported yet (ROADMAP.md)",
               file=sys.stderr)
@@ -163,12 +197,31 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    user_pair = None
+    if args.input:
+        a64 = _load_input(args.input, cfg.n)
+        if a64 is None:
+            return 2
+        user_pair = to_df64(a64, device=device)
+
+    def dense_pair():
+        """The dense (hi, lo) input of the df64 modes, a fresh copy."""
+        if user_pair is not None:
+            return user_pair[0].clone(), user_pair[1].clone()
+        # generated in fp64 where it is factored, then split
+        return to_df64(plgsy(cfg.n, bump=bump, seed=cfg.seed, dtype=dtype, device=device))
+
     def fresh_a():
         gkw = dict(bump=bump, seed=cfg.seed, dtype=dtype, device=device)
         if packed:
             a = plgsy_packed(cfg.n, cfg.nb, **gkw)
-        elif df64:  # generated in fp64 where it is factored, then split
-            a = to_df64(plgsy(cfg.n, **gkw))
+        elif df64_pure:
+            a = plgsy_packed(cfg.n, cfg.nb, **dict(gkw, dtype=torch.float32))
+            a = (a, torch.zeros_like(a))
+        elif df64_packed:
+            a = tuple(pack_tri(x, cfg.nb) for x in dense_pair())
+        elif df64:
+            a = dense_pair()
         else:
             a = plgsy(cfg.n, **gkw)
         sync()
@@ -177,6 +230,12 @@ def main(argv=None) -> int:
     def factor(a):
         if packed:
             return potrf_packed(a, cfg.n, cfg.nb, trailing=args.trailing, **kw)
+        if df64_packed:
+            pkw = dict(ktb=min(512, cfg.nb), s=slices)
+            if args.df64_split != 1:  # 0 auto-sizes, as the function documents
+                return algos.potrf_packed_df64_split(*a, cfg.n, cfg.nb, split=args.df64_split,
+                                                     **pkw)
+            return algos.potrf_packed_df64(*a, cfg.n, cfg.nb, **pkw)
         if df64:
             return potrf_df64(*a, nb=cfg.nb, s=slices, trailing=args.trailing,
                               tb=min(512, cfg.nb))
@@ -215,10 +274,9 @@ def main(argv=None) -> int:
         print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
         return _verdict(res, args.gate, cfg)
     if df64:
-        res = _df64_residual(fresh_a(), l, cfg.n, slices, device)
-        if res is None:
-            return 2
-        print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
+        a = None if df64_pure else dense_pair()
+        sync()
+        res = _df64_gate(a, l, cfg, bump, slices, device, df64_packed)
         return _verdict(res, args.gate, cfg)
     l = torch.tril(l)
     chunk = 4096 if cfg.n >= 16384 and cfg.n % 4096 == 0 else None
@@ -238,26 +296,91 @@ def _memory_bytes(device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def _df64_residual(a, l, n: int, slices: int, device) -> float | None:
-    """The df64 gate as the reference driver picks it
-    (``dla_tpu/cli/potrf_driver.py:697-740``): the strip residual up to
-    ``DLA_TPU_DF64_STRIP_RESIDUAL_MAX`` (8192), the blocked residual above it
-    when its working set (both pairs and two strips of slices) fits; None,
-    with a message, where the reference would stream a Freivalds gate."""
-    from dla_tpu_torch.algos import residual_potrf_df64, residual_potrf_df64_blocked
+def _load_input(path: str, n: int):
+    """The user's matrix as the reference's df64 modes read it
+    (``dla_tpu/cli/potrf_driver.py:436-449``): fp64, N×N, reflected from its
+    lower triangle so that A is bit-level symmetric (the blocked df64 residual
+    assumes it). None, with a message, when the file does not hold N·N finite
+    elements."""
+    import numpy as np
 
-    (ah, al), (lh, ll) = a, l
-    rc = min(2048, n)
-    need = 4 * 4 * n * n + 4 * slices * rc * n
-    strip_max = int(os.environ.get("DLA_TPU_DF64_STRIP_RESIDUAL_MAX", 8192))
-    if n <= strip_max:
-        return float(residual_potrf_df64(ah, al, lh, ll, s=slices))
-    if need > _memory_bytes(device):
-        print(f"[dla-potrf] the blocked df64 residual needs {need} bytes, more than the "
-              "device holds; the streaming df64 Freivalds gate is not ported yet "
-              "(ROADMAP.md)", file=sys.stderr)
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            a64 = z["a" if "a" in z.files else z.files[0]]
+    elif path.endswith(".npy"):
+        a64 = np.load(path)
+    else:
+        a64 = np.fromfile(path, np.float64)
+    a64 = np.asarray(a64, np.float64)
+    if a64.size != n * n:
+        print(f"[dla-potrf] input has {a64.size} elements, expected {n}*{n}", file=sys.stderr)
         return None
-    return residual_potrf_df64_blocked(ah, al, lh, ll, s=slices, rc=rc)
+    if not np.all(np.isfinite(a64)):
+        print("[dla-potrf] input contains non-finite entries", file=sys.stderr)
+        return None
+    a64 = a64.reshape(n, n)
+    return np.tril(a64) + np.tril(a64, -1).T
+
+
+def _df64_gate(a, l, cfg, bump: float, slices: int, device, packed: bool) -> float:
+    """Evaluate and print the df64 gate as the reference driver picks it
+    (``dla_tpu/cli/potrf_driver.py:644-740``). ``a`` is the dense (hi, lo)
+    input, or None on the pure packed path, whose A is regenerated from its
+    seed; ``l`` the factor pair, packed when ``packed``.
+
+    The budget is what the device holds (:func:`_memory_bytes`) unless
+    ``DLA_TPU_VALIDATE_HBM_BUDGET`` sets it. A packed factor is unpacked (and,
+    on the pure path, A regenerated in fp32) for the dense gates when the
+    packed pair, the unpacked pair and A fit the budget together; where they
+    do not, the pure path certifies straight off the packed pair
+    (``freivalds_packed_df64``, A streamed from its seed). The dense gates:
+    the strip residual up to ``DLA_TPU_DF64_STRIP_RESIDUAL_MAX`` (8192), above
+    it the blocked residual when its working set (both pairs and two strips of
+    slices) fits, else, or when it runs out of memory, the streaming Freivalds
+    gate."""
+    import torch
+
+    import dla_tpu_torch.algos as algos
+    from dla_tpu_torch.algos.potrf_df64 import freivalds_packed_df64
+    from dla_tpu_torch.ops import plgsy
+
+    n = cfg.n
+    budget = int(os.environ.get("DLA_TPU_VALIDATE_HBM_BUDGET", _memory_bytes(device)))
+    lh, ll = l
+    ah, al = a if a is not None else (None, None)
+    if packed:
+        if ah is None and 4 * 4 * n * n > budget:  # packed pair + unpacked pair + A
+            res = float(freivalds_packed_df64(lh, ll, n, cfg.nb, gen_seed=cfg.seed, bump=bump,
+                                              s=slices, row_chunk=min(1024, n)))
+            print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
+            return res
+        lh = algos.unpack_tri(lh, n, cfg.nb)
+        ll = algos.unpack_tri(ll, n, cfg.nb)
+        if ah is None:  # exactly fp32: no lo plane
+            ah = plgsy(n, bump=bump, seed=cfg.seed, dtype=torch.float32, device=device)
+    rc = 2048
+    need = (3 if al is None else 4) * 4 * n * n + 4 * slices * rc * n
+    strip_max = int(os.environ.get("DLA_TPU_DF64_STRIP_RESIDUAL_MAX", 8192))
+
+    def freivalds():
+        r = float(algos.freivalds_potrf_df64(lh, ll, ah, al, s=slices, seed=cfg.seed))
+        print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {r:.2e}")
+        return r
+
+    if n <= strip_max:
+        res = float(algos.residual_potrf_df64(ah, torch.zeros_like(ah) if al is None else al,
+                                              lh, ll, s=slices))
+    elif need > budget:
+        return freivalds()
+    else:
+        try:  # `need` leaves out the rc×rc transients
+            res = algos.residual_potrf_df64_blocked(ah, al, lh, ll, s=slices, rc=min(rc, n))
+        except torch.cuda.OutOfMemoryError:
+            print("[dla-potrf] blocked residual out of memory; falling back to streaming "
+                  "Freivalds")
+            return freivalds()
+    print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
+    return res
 
 
 def _verdict(res: float, gate: float | None, cfg) -> int:

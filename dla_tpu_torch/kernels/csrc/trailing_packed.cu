@@ -4,11 +4,7 @@
 // host tables, _packed_pairs), the Pallas kernel of potrf_packed's
 // trailing="pallas" path.
 //
-// The packed layout (dla_tpu/algos/packed.py): an n x n lower triangle cut
-// into nt = n / w column slabs; slab j holds global rows j*w .. n-1 of
-// columns j*w .. (j+1)*w-1 as a dense ((nt-j)*w, w) row-major block, and the
-// slabs are stacked into one (n(n+w)/(2w), w) buffer. Slab j starts at buffer
-// row w * (j*nt - j*(j-1)/2).
+// The packed layout and the window's offset map are in packed_window.cuh.
 //
 // What it computes. At packed step k the trailing window is the m x m square
 // of global indices base = (k+1)*w .. n-1. For window element (r, c) with
@@ -24,16 +20,16 @@
 // kernel's (trailing_block.cuh: 64 x 64 output blocks that find their own
 // window coordinates from blockIdx and return when they lie above the
 // tb-diagonal, the k-loop, the precision tiers), and only the address map
-// differs. The map is per element, since a 64-wide block may straddle two
-// slabs when w is not a multiple of 64. The buffer holds rows * w = 3.5e9
-// elements at n = 81920, w = 4096 (5.9e9 at n = 106496), past 2^31, so every
-// offset is 64-bit.
+// differs (PackedWindow, shared with the df64 packed kernel). The buffer
+// holds rows * w = 3.5e9 elements at n = 81920, w = 4096 (5.9e9 at
+// n = 106496), past 2^31, so every offset is 64-bit.
 //
 // Bound. As the dense kernel: scalar FMA issue and shared-memory reads (the
 // k-loop does w FMAs per element, three for high, against one read and one
 // write). Tensor-core products (wgmma with TMA-fed stages) are next, for
 // both kernels at once through the shared body.
 
+#include "packed_window.cuh"
 #include "trailing_block.cuh"
 
 namespace {
@@ -42,12 +38,9 @@ namespace {
 template <typename T>
 struct PackedTrailing {
   T* packed;
-  long long w, nt, base;
+  dla::PackedWindow at;
   __device__ __forceinline__ T* operator()(long long r, long long c) const {
-    const long long row = base + r, col = base + c;
-    const long long j = col / w;
-    const long long slab_row0 = w * (j * nt - j * (j - 1) / 2);
-    return packed + (slab_row0 + row - j * w) * w + (col - j * w);
+    return packed + at(r, c);
   }
 };
 
@@ -55,7 +48,7 @@ template <typename T>
 int run(void* packed, const void* p, long long m, long long w, long long ldp,
         long long base, long long nt, long long tb, int tier, void* stream) {
   return dla::launch_trailing<T>(tier, p, m, w, ldp, tb,
-                                 PackedTrailing<T>{(T*)packed, w, nt, base}, stream);
+                                 PackedTrailing<T>{(T*)packed, {w, nt, base}}, stream);
 }
 
 }  // namespace

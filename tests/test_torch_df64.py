@@ -36,6 +36,7 @@ from dla_tpu_torch.kernels import df64_tiles
 from dla_tpu_torch.kernels.df64_tiles import trailing_update_df64, trailing_update_df64_plain
 from dla_tpu_torch.ops import df64 as TD
 from dla_tpu_torch.utils.interop import from_numpy, to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 JP = importlib.import_module("dla_tpu.algos.potrf_df64")
 TP = importlib.import_module("dla_tpu_torch.algos.potrf_df64")

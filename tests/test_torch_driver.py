@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from dla_tpu_torch.cli import potrf_driver
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
+FREIVALDS = r"^freivalds \|\|\(A - LL\^T\)x\|\| / \(\|\|A\|\| \|\|x\|\|\) = (\S+)$"
+RESIDUAL = r"^\|\|A - LL\^T\|\|_inf / \|\|A\|\|_inf = (\S+)$"
 
 
 def _run(capsys, *argv):
@@ -101,9 +104,16 @@ def test_df64_mode_picks_the_blocked_gate_past_the_strip_ceiling(capsys, monkeyp
     rc, out, _ = _run(capsys, "--mode", "df64", "--n", "512", "--nb", "128", "--device", "cpu",
                       "--trailing", "pallas")
     assert rc == 0 and calls == [512] and "PASS (residual < 1e-10)" in out
+    # where the blocked residual does not fit, the streaming df64 Freivalds gate runs
     monkeypatch.setattr(potrf_driver, "_memory_bytes", lambda device: 1)  # too small for it
     rc, out, err = _run(capsys, "--mode", "df64", "--n", "512", "--nb", "128", "--device", "cpu")
-    assert rc == 2 and "not ported yet" in err and "PASS" not in out and calls == [512]
+    assert rc == 0 and calls == [512] and "LL^T||_inf" not in out
+    res = re.search(FREIVALDS, out, re.M)
+    assert res and float(res.group(1)) < 1e-11 and "PASS (residual < 1e-10)" in out
+    # DLA_TPU_VALIDATE_HBM_BUDGET overrides what the device holds
+    monkeypatch.setenv("DLA_TPU_VALIDATE_HBM_BUDGET", str(10**12))
+    rc, out, _ = _run(capsys, "--mode", "df64", "--n", "512", "--nb", "128", "--device", "cpu")
+    assert rc == 0 and calls == [512, 512] and "freivalds" not in out
 
 
 @pytest.mark.parametrize("mode,extra", [
@@ -136,3 +146,106 @@ def test_shrink_mode_wires_panel_trailing_and_kb(capsys, monkeypatch):
     assert calls[0] == dict(nb=32, mode="shrink", diag_factor="lax", precision=None,
                             panel="blocktrsm", trailing="pallas", kb=16)
     assert calls[-1] == dict(nb=32, mode="masked")  # masked takes none of them
+
+
+
+@pytest.mark.parametrize("extra", [[], ["--df64-split", "0"], ["--df64-split", "2"],
+                                   ["--slices", "6", "--repeats", "2"]])
+@pytest.mark.parametrize("budget,line", [(None, RESIDUAL), ("1", FREIVALDS)])
+def test_df64_packed_mode_on_cpu(capsys, monkeypatch, extra, budget, line):
+    """The generated packed path: unpacked for the dense df64 residual when that
+    fits, certified straight off the packed pair (A streamed) when it does not."""
+    if budget:
+        monkeypatch.setenv("DLA_TPU_VALIDATE_HBM_BUDGET", budget)
+    rc, out, _ = _run(capsys, "--mode", "df64-packed", "--n", "512", "--nb", "128", "--device",
+                      "cpu", *extra)
+    assert rc == 0, out
+    assert "N=512 NB=128 dtype=float64 mode=df64-packed" in out  # the mode forces fp64
+    assert re.search(r"^Repeat 0: [\d.]+ ms [\d.]+ Gflop/s \(warm-up\)$", out, re.M)
+    assert re.search(r"^Performance: \d+\.\d\d Gflop/s$", out, re.M)
+    res = re.search(line, out, re.M)
+    assert res and float(res.group(1)) < 1e-10
+    assert len(re.findall(FREIVALDS, out, re.M)) + len(re.findall(RESIDUAL, out, re.M)) == 1
+    assert "PASS (residual < 1e-10)" in out
+
+
+def test_df64_packed_pure_path_past_the_strip_ceiling(capsys, monkeypatch):
+    """Unpacked, with A regenerated in fp32 and no lo plane: the blocked residual."""
+    import dla_tpu_torch.algos as A
+
+    calls = []
+    blocked = A.residual_potrf_df64_blocked
+
+    def spy(ah, al, *args, **kw):
+        calls.append((al, kw["rc"]))
+        return blocked(ah, al, *args, **kw)
+
+    monkeypatch.setattr(A, "residual_potrf_df64_blocked", spy)
+    monkeypatch.setenv("DLA_TPU_DF64_STRIP_RESIDUAL_MAX", "256")
+    rc, out, _ = _run(capsys, "--mode", "df64-packed", "--n", "512", "--nb", "128", "--device",
+                      "cpu")
+    assert rc == 0 and calls == [(None, 512)] and re.search(RESIDUAL, out, re.M)
+
+
+def test_df64_split_flag_reaches_the_split_function(capsys, monkeypatch):
+    import dla_tpu_torch.algos as A
+
+    calls = []
+    split = A.potrf_packed_df64_split
+
+    def spy(*args, **kw):
+        calls.append((kw["split"], kw["ktb"], kw["s"]))
+        return split(*args, **kw)
+
+    monkeypatch.setattr(A, "potrf_packed_df64_split", spy)
+    argv = ["--mode", "df64-packed", "--n", "256", "--nb", "64", "--device", "cpu", "--no-check"]
+    _run(capsys, *argv)  # the default, 1, is the monolith
+    assert calls == []
+    _run(capsys, *argv, "--df64-split", "0")  # 0 auto-sizes: it must not fall to the monolith
+    _run(capsys, *argv, "--df64-split", "3", "--slices", "6")
+    assert calls == [(0, 64, 7)] * 2 + [(3, 64, 6)] * 2  # warm-up and one repeat each
+
+
+@pytest.fixture
+def user_matrix(tmp_path):
+    import numpy as np
+
+    g = np.random.default_rng(3).standard_normal((256, 256))
+    a = g @ g.T / 256 + 4 * np.eye(256)
+    a[0, 5] = 99.0  # above the diagonal: the driver reads the lower triangle only
+    np.save(tmp_path / "a.npy", a)
+    np.savez(tmp_path / "a.npz", other=np.zeros(3), a=a)
+    a.tofile(tmp_path / "a.bin")
+    return tmp_path
+
+
+@pytest.mark.parametrize("mode", ["df64", "df64-packed"])
+@pytest.mark.parametrize("name", ["a.npy", "a.npz", "a.bin"])
+def test_df64_input_on_cpu(capsys, user_matrix, mode, name):
+    rc, out, _ = _run(capsys, "--mode", mode, "--n", "256", "--nb", "64", "--device", "cpu",
+                      "--trailing", "pallas", "--input", str(user_matrix / name))
+    assert rc == 0, out
+    res = re.search(RESIDUAL, out, re.M)  # a packed factor of a user's matrix is unpacked
+    assert res and float(res.group(1)) < 1e-11 and "PASS (residual < 1e-10)" in out
+
+
+def test_df64_packed_input_takes_the_dense_gates_by_budget(capsys, monkeypatch, user_matrix):
+    argv = ["--mode", "df64-packed", "--n", "256", "--nb", "64", "--device", "cpu", "--input",
+            str(user_matrix / "a.npy")]
+    monkeypatch.setenv("DLA_TPU_DF64_STRIP_RESIDUAL_MAX", "128")
+    rc, out, _ = _run(capsys, *argv)  # past the strip ceiling: the blocked residual
+    assert rc == 0 and re.search(RESIDUAL, out, re.M) and "freivalds" not in out
+    monkeypatch.setenv("DLA_TPU_VALIDATE_HBM_BUDGET", "1")  # nothing fits: streaming Freivalds
+    rc, out, _ = _run(capsys, *argv)
+    res = re.search(FREIVALDS, out, re.M)
+    assert rc == 0 and res and float(res.group(1)) < 1e-11 and "LL^T||_inf" not in out
+
+
+def test_input_errors(capsys, user_matrix):
+    path = str(user_matrix / "a.npy")
+    rc, _, err = _run(capsys, "--mode", "df64", "--n", "128", "--nb", "64", "--device", "cpu",
+                      "--input", path)
+    assert rc == 2 and "65536 elements, expected 128*128" in err
+    rc, _, err = _run(capsys, "--mode", "inplace", "--n", "256", "--nb", "64", "--device", "cpu",
+                      "--input", path)
+    assert rc == 2 and "--input" in err

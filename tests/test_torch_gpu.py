@@ -1,4 +1,4 @@
-"""dla_tpu_torch's CUDA kernels, main path and packed path on the card, held
+"""dla_tpu_torch's CUDA kernels and the paths that run them on the card, held
 against the plain torch versions. Every test needs a CUDA device and skips
 without one.
 
@@ -370,6 +370,119 @@ def test_potrf_df64_card_matches_cpu(cuda, trailing):
     ad = a.to(cuda)
     assert float(residual_potrf_df64(ad, torch.zeros_like(ad), *lg)) < 1e-11
 
+
+
+# ---- the packed df64 trailing kernel (csrc/trailing_packed_df64.cu) -------------------
+# The dense df64 kernel's block body at the packed offsets: held to the plain
+# version's bits on both planes.
+
+PACKED_DF64_CASES = [  # (n, nb, tb, s, w, k)
+    (2048, 1024, 512, 7, 8, 0),  # the packed df64 path's nb and tb
+    (1536, 512, 512, 7, 8, 1),
+    (1024, 512, 128, 6, 9, 0),  # nk = 2 chunks of kb = 256
+    (576, 192, 96, 7, 8, 0),  # tb not a multiple of the 64-wide blocks
+    (384, 96, 32, 7, 8, 1),  # nb not a multiple of 64: blocks straddle slabs
+    (200, 40, 8, 5, 8, 2),
+]
+
+
+def _packed_df64_inputs(n, nb, s, w, k, seed):
+    from dla_tpu_torch.ops.df64 import slice_rows, to_df64
+
+    g = torch.Generator().manual_seed(seed)
+    ch, cl = to_df64(torch.randn(P.packed_rows(n, nb), nb, generator=g, dtype=torch.float64))
+    p = torch.randn(n - (k + 1) * nb, nb, generator=g, dtype=torch.float64)
+    return ch, cl, slice_rows(*to_df64(p), s=s, w=w)[0]
+
+
+@pytest.mark.parametrize("n,nb,tb,s,w,k", PACKED_DF64_CASES)
+def test_packed_df64_kernel_same_bits_as_plain(cuda, n, nb, tb, s, w, k):
+    from dla_tpu_torch.kernels import df64_tiles
+
+    ch, cl, sx = _packed_df64_inputs(n, nb, s, w, k, seed=n + nb + k)
+    kw = dict(n=n, nb=nb, k=k, tb=tb, w=w)
+    ref = df64_tiles.trailing_update_packed_df64_plain(ch.clone(), cl.clone(), sx, **kw)
+    dh, dl = ch.to(cuda), cl.to(cuda)
+    before = (df64_tiles.packed_launches, df64_tiles.launches)
+    out = df64_tiles.trailing_update_packed_df64(dh, dl, [x.to(cuda) for x in sx], **kw)
+    torch.cuda.synchronize()
+    assert out[0] is dh and out[1] is dl
+    assert (df64_tiles.packed_launches, df64_tiles.launches) == (before[0] + 1, before[1])
+    mask = _packed_visited(n, nb, tb, k)
+    for got, want, orig in zip(out, ref, (ch, cl)):
+        got = got.cpu()
+        assert torch.equal(_bits32(got), _bits32(want))
+        assert torch.equal(_bits32(got[~mask]), _bits32(orig[~mask]))
+    assert not torch.equal(out[0].cpu()[mask], ch[mask])
+
+
+def test_packed_df64_kernel_offsets_past_2_pow_31(cuda):
+    # two planes of 2.18e9 elements each: the last slab's diagonal block sits past 2³¹
+    from dla_tpu_torch.kernels import df64_tiles
+
+    n, nb, tb = 65536, 1024, 512
+    nt = n // nb
+    k = nt - 2  # the window is the last slab's diagonal block
+    ph = torch.zeros(P.packed_rows(n, nb), nb, device=cuda)
+    pl = torch.zeros_like(ph)
+    assert ph.numel() > 2**31
+    _, _, sx = _df64_inputs(nb, nb, tb, 7, 8, 0, seed=3)
+    df64_tiles.trailing_update_packed_df64(ph, pl, [x.to(cuda) for x in sx], n=n, nb=nb, k=k,
+                                           tb=tb)
+    torch.cuda.synchronize()
+    ref = df64_tiles.trailing_update_df64_plain(torch.zeros(nb, nb), torch.zeros(nb, nb), sx,
+                                                tb=tb)
+    r0 = P._row_offset(nt - 1, nt, nb)
+    for got, want in zip((ph, pl), ref):
+        assert torch.equal(_bits32(got[r0:].cpu()), _bits32(want))
+        assert got[:r0].abs().max().item() == 0
+    assert ph[r0:].abs().max().item() > 0
+
+
+def test_packed_df64_kernel_checks_raise(cuda):
+    from dla_tpu_torch.kernels import df64_tiles
+
+    n, nb = 384, 128
+    rows = P.packed_rows(n, nb)
+    ph = torch.zeros(rows, nb, device=cuda)
+    sx = [torch.zeros(n - nb, nb, dtype=torch.bfloat16, device=cuda)] * 3
+    kw = dict(n=n, nb=nb, k=0, tb=64)
+    fn = df64_tiles.trailing_update_packed_df64
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(torch.zeros(nb, rows, device=cuda).mT, ph, sx, **kw)
+    with pytest.raises(ValueError, match="row-major"):  # a CUDA triangular solve's layout
+        fn(ph, ph.clone(), [x.mT.contiguous().mT for x in sx], **kw)
+    with pytest.raises(ValueError, match="at most"):
+        fn(ph, ph.clone(), sx * 3, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(ph, ph.clone(), [x.cpu() for x in sx], **kw)
+    with pytest.raises(ValueError, match="slice shape"):
+        fn(ph, ph.clone(), [x[1:] for x in sx], **kw)
+
+
+@pytest.mark.parametrize("ktb", [128, 64])
+def test_potrf_packed_df64_card_matches_cpu(cuda, ktb):
+    from dla_tpu_torch.algos import potrf_packed_df64, potrf_packed_df64_split
+    from dla_tpu_torch.algos.potrf_df64 import freivalds_packed_df64
+    from dla_tpu_torch.kernels import df64_tiles
+    from dla_tpu_torch.ops import from_df64
+
+    n, nb = 512, 128
+    a = P.plgsy_packed(n, nb, seed=3, device="cpu")
+    before = df64_tiles.packed_launches
+    ad = a.to(cuda)
+    lg = potrf_packed_df64(ad, torch.zeros_like(ad), n, nb, ktb=ktb)
+    assert lg[0] is ad and df64_tiles.packed_launches == before + n // nb - 1
+    lc = potrf_packed_df64(a.clone(), torch.zeros_like(a), n, nb, ktb=ktb)
+    dg = from_df64(*(P.unpack_tri(x.cpu(), n, nb) for x in lg))
+    dc = from_df64(*(P.unpack_tri(x, n, nb) for x in lc))
+    assert (dg - dc).abs().max().item() <= 1e-12 * dc.abs().max().item()
+    ls = potrf_packed_df64_split(a.to(cuda), torch.zeros_like(ad), n, nb, split=2, ktb=ktb)
+    assert all(torch.equal(_bits32(x), _bits32(y)) for x, y in zip(ls, lg))
+    fg = freivalds_packed_df64(*lg, n, nb, gen_seed=3, row_chunk=128)
+    fc = freivalds_packed_df64(lg[0].cpu(), lg[1].cpu(), n, nb, gen_seed=3, row_chunk=128)
+    # exact per-chunk products: the card and the CPU differ in the |A| row sums' order only
+    assert fg < 1e-11 and abs(fg - fc) <= 1e-5 * fc
 
 # ---- the panel kernels (csrc/panel_factor.cu, csrc/panel_apply.cu) -------------------
 # Tolerances of max|out|: fp64 1e-12; fp32 1e-5 (panel_factor's diagonal

@@ -26,6 +26,7 @@ from dla_tpu_torch.kernels import _build, tiles
 from dla_tpu_torch.kernels.tiles import trailing_update_lower, trailing_update_lower_plain
 from dla_tpu_torch.utils import precision as tprec
 from dla_tpu_torch.utils.interop import from_numpy, to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SHAPES = [(64, 32, 32), (128, 32, 16), (96, 32, 32)]
 

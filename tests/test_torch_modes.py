@@ -35,6 +35,7 @@ from dla_tpu.ops import potrf_unblocked as jax_unblocked
 from dla_tpu.utils import precision as jprec
 from dla_tpu_torch.utils import precision as tprec
 from dla_tpu_torch.utils.interop import from_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F64 = (np.float64, "high")
 F32_HIGHEST = (np.float32, "highest")

@@ -24,6 +24,7 @@ from dla_tpu_torch.utils import flops as tflops
 from dla_tpu_torch.utils.config import RunConfig
 from dla_tpu_torch.utils import precision as tprec
 from dla_tpu_torch.utils.interop import from_numpy, to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 PAIRS = {jnp.float32: torch.float32, jnp.float64: torch.float64}

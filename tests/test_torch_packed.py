@@ -37,6 +37,7 @@ from dla_tpu_torch.kernels import tiles
 from dla_tpu_torch.kernels.tiles import trailing_update_packed, trailing_update_packed_plain
 from dla_tpu_torch.utils import precision as tprec
 from dla_tpu_torch.utils.interop import from_numpy, to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 JDT = {np.float64: jnp.float64, np.float32: jnp.float32, ml_dtypes.bfloat16: jnp.bfloat16}
 TDT = {np.float64: torch.float64, np.float32: torch.float32, ml_dtypes.bfloat16: torch.bfloat16}

@@ -40,6 +40,7 @@ from dla_tpu_torch.kernels.panel import (
 )
 from dla_tpu_torch.utils import precision as tprec
 from dla_tpu_torch.utils.interop import from_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _t(x):

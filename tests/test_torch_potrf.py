@@ -27,6 +27,7 @@ from dla_tpu.ops import plgsy as jax_plgsy
 from dla_tpu.validate import cholesky_invariants as jax_invariants
 from dla_tpu.validate import residual_potrf as jax_residual
 from dla_tpu_torch.utils.interop import from_numpy, to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _a(n, seed, jdt=jnp.float64):
