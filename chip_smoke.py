@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dla_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py --phases 24-26,3   # these phases only (and phase 1)
 
 Phases, each of which raises on failure (exit code non-zero, no final line):
 
@@ -91,11 +92,35 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
 23. the driver with ``--mode df64-packed`` at phase 21's size (its gate there
     is the blocked df64 residual of the unpacked factor), and with
     ``--df64-split 2`` at N=8192 under a validation budget of one byte, which
-    sends it to the packed-native Freivalds gate.
+    sends it to the packed-native Freivalds gate;
+24. the four task kernels against their plain versions on the card:
+    ``potrf_tile`` (#5), ``trsm_tile`` (#6), ``syrk_tile`` (#7) and
+    ``gemm_tile`` (#8) at the tile-task path's tile (n=512) for the fp32 tiers,
+    fp64 and (#6 to #8) bf16 storage, a ragged case (n=96; m=200, k=72), and #6
+    to #8 at m=4096, n=k=2048, a size clear of the launch floor; inputs
+    bit-unchanged, #7's upper triangle bit-identical to C's, one launch per
+    call; beside ``torch.matmul`` (#6), ``torch.addmm`` (#8) and
+    ``cholesky_ex`` + ``solve_triangular`` (#5, two calls, their sum);
+25. the tile-task path, the reference's task DAG with one launch per task:
+    ``plgsy(16384, seed=51)`` fp32 at ``high``, NB=512, a warm-up and two timed
+    factorizations, each launching exactly ``dag_counts(32)`` = 32 POTRF + 496
+    TRSM + 496 SYRK + 4960 GEMM = 5984 task kernels, the residual under the
+    fp32 gate, its time beside phase 3's; and fp64 at N=4096, NB=256 under the
+    reference's 1e-10 gate;
+26. ``freivalds_device`` on the main path's factor beside ``residual_potrf``
+    of the same factor (both under the gate), and on that factor with one
+    corrupted tile (far above it);
+27. the tiered bench, ``python -m dla_tpu_torch.bench.bench``, as a process of
+    its own, with the two tiers nothing else here drives:
+    ``high:inplace:1024:1024:61440`` (gated by ``freivalds_device``) and
+    ``bf16:packed:4096:4096:106496``, two timed factorizations each; one JSON
+    line per tier, both gates passed, exit code 0;
+28. the driver with ``--mode inplace`` at N=61440, where the exact residual
+    does not fit the card: PASS through the Freivalds gate.
 
-The whole run takes about 520 s on an H100 at 700 W, of which phases 20 to 23
-take about 265 s (two thirds of that in the driver's two factorizations and
-its blocked df64 residual at N=40960); no earlier phase was cut for them.
+``--phases`` only selects: the ``kernels`` line then lists the kernels whose
+comparison phase and path phase both ran, and the last line is printed when
+every selected phase passed.
 
 Then the ``kernels`` JSON line (each kernel's launches on its path, its
 error and times against the plain version, the bound, and the library call
@@ -144,6 +169,14 @@ N_MODES = 4096  # every potrf mode, card against CPU
 N_PDF64, NB_PDF64, KTB_PDF64 = 40960, 1024, 512
 PDF64_KW = dict(ktb=KTB_PDF64, s=S_DF64)
 N_PDF64_CHECK, N_PDF64_SPLIT = 4096, 8192
+# the tile-task path: the reference's task DAG at the main path's matrix, one launch per task
+N_TASK, NB_TASK, TASK_PREC = 16384, 512, "high"
+N_TASK64, NB_TASK64 = 4096, 256  # the same path in fp64, under the reference's 1e-10 gate
+N_TASK_BIG, M_TASK_BIG = 2048, 4096  # #6-#8 at a size clear of the launch floor
+# the two bench tiers nothing else here drives (bench.py:136-140), and the driver at the first
+BENCH_TIERS = "high:inplace:1024:1024:61440,bf16:packed:4096:4096:106496"
+BENCH_ENV = {"BENCH_ITERS": "2"}
+N_HEADLINE, NB_HEADLINE = 61440, 1024
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): bf16
 # tensor cores, fp32 outside them, fp64 tensor cores; HBM3 bytes per second.
@@ -284,6 +317,7 @@ def phase_lower_kernel(dev, tag):
 # ---- 3. the main path ---------------------------------------------------------
 def phase_main_path(dev, tag):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.kernels import tiles
 
     per_fact = N_MAIN // NB_MAIN - 1
@@ -294,7 +328,7 @@ def phase_main_path(dev, tag):
         sync()
         before = tiles.launches
         t0 = time.perf_counter()
-        l = T.potrf_inplace(a, **MAIN_KW)
+        l = TA.potrf_inplace(a, **MAIN_KW)
         sync()
         dt = time.perf_counter() - t0
         require(tiles.launches - before == per_fact,
@@ -327,13 +361,14 @@ def phase_main_path(dev, tag):
 # ---- 4. kernel path against plain path -----------------------------------------
 def phase_inplace_check(dev):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
 
     n4 = N_CHECK
     kw4 = dict(nb=n4 // 4, tb=n4 // 16, kb=n4 // 4, ib=n4 // 8, diag_factor="twolevel",
                precision="high")
     a_cpu = T.plgsy(n4, seed=7, device="cpu")
-    l_gpu = T.potrf_inplace(a_cpu.to(dev, copy=True), **kw4)
-    l_cpu = T.potrf_inplace(a_cpu.clone(), **kw4)
+    l_gpu = TA.potrf_inplace(a_cpu.to(dev, copy=True), **kw4)
+    l_cpu = TA.potrf_inplace(a_cpu.clone(), **kw4)
     lg, lc = torch.tril(l_gpu).cpu(), torch.tril(l_cpu)
     dl = (lg - lc).abs().max().item()
     r_gpu = float(T.residual_potrf(a_cpu, lg))
@@ -344,7 +379,7 @@ def phase_inplace_check(dev):
     require(dl <= 1e-5 * lc.abs().max().item(), "kernel-path L disagrees with the plain path")
     require(0.5 <= r_gpu / r_cpu <= 2.0, "kernel-path residual not within 2x of the plain path")
     a64 = T.plgsy(n4, seed=7, dtype=torch.float64, device=dev)
-    l64 = T.potrf_inplace(a64.clone(), **kw4)
+    l64 = TA.potrf_inplace(a64.clone(), **kw4)
     r64 = float(T.residual_potrf(a64, l64))
     print(f"N={n4} fp64 kernel path residual {r64:.3e} (gate 1e-10)", flush=True)
     require(r64 < 1e-10, "fp64 residual above the reference's 1e-10 gate")
@@ -457,6 +492,7 @@ def phase_packed_kernel(dev, tag):
 # ---- 7. the packed path -------------------------------------------------------
 def phase_packed_path(dev, tag):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.kernels import tiles
 
     n, w = N_PACKED, W_PACKED
@@ -464,7 +500,7 @@ def phase_packed_path(dev, tag):
     times = []
     tiles.packed_launches = 0
     for rep in range(3):  # repeat 0 is the warm-up
-        a = T.plgsy_packed(n, w, seed=51, device=dev)
+        a = TA.plgsy_packed(n, w, seed=51, device=dev)
         sync()
         before = tiles.packed_launches
         t0 = time.perf_counter()
@@ -490,7 +526,7 @@ def phase_packed_path(dev, tag):
           f"packed buffer {tag}", flush=True)
     require(l.shape == (n * (n + w) // (2 * w), w) and bool(torch.isfinite(l).all()),
             "the packed factor has non-finite entries")
-    res = float(T.freivalds_packed(l, n, w, seed=51))
+    res = float(TA.freivalds_packed(l, n, w, seed=51))
     gate = n * 2e-7  # the driver's fp32 gate
     print(f"packed path freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.3e} (gate {gate:g})",
           flush=True)
@@ -503,6 +539,7 @@ def phase_packed_path(dev, tag):
 # ---- 8. packed kernel path against plain path -------------------------------------
 def phase_packed_check(dev):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.kernels import tiles
 
     def factor(a, n, w, **kw):  # on the card, through the kernel
@@ -516,20 +553,20 @@ def phase_packed_check(dev):
     n4, w4 = N_CHECK, N_CHECK // 4
     kw4 = dict(diag_factor="twolevel", ib=512, precision="high", trailing="pallas",
                ktb=w4 // 4, kb=w4)
-    a_cpu = T.plgsy_packed(n4, w4, seed=7, device="cpu")
+    a_cpu = TA.plgsy_packed(n4, w4, seed=7, device="cpu")
     lg = T.unpack_tri(factor(a_cpu.to(dev, copy=True), n4, w4, **kw4).cpu(), n4, w4)
     lc = T.unpack_tri(T.potrf_packed(a_cpu.clone(), n4, w4, **kw4), n4, w4)
     dl = (lg - lc).abs().max().item()
     print(f"packed N={n4} w={w4} fp32 high, kernel on the card vs plain on the CPU: "
           f"max|dL|={dl:.3e} (max|L|={lc.abs().max().item():.3e})", flush=True)
     require(dl <= 1e-5 * lc.abs().max().item(), "packed kernel-path L disagrees with plain")
-    a64 = T.plgsy_packed(n4, w4, seed=7, dtype=torch.float64, device=dev)
-    r64 = float(T.freivalds_packed(factor(a64, n4, w4, **kw4), n4, w4, seed=7))
+    a64 = TA.plgsy_packed(n4, w4, seed=7, dtype=torch.float64, device=dev)
+    r64 = float(TA.freivalds_packed(factor(a64, n4, w4, **kw4), n4, w4, seed=7))
     print(f"packed N={n4} fp64 kernel path freivalds {r64:.3e} (gate 1e-10)", flush=True)
     require(r64 < 1e-10, "packed fp64 Freivalds value above the reference's 1e-10 gate")
     nb16 = N_PACKED_BF16
-    ab = T.plgsy_packed(nb16, W_PACKED, seed=51, dtype=torch.bfloat16, device=dev)
-    rb = float(T.freivalds_packed(factor(ab, nb16, W_PACKED, **PACKED_KW), nb16, W_PACKED,
+    ab = TA.plgsy_packed(nb16, W_PACKED, seed=51, dtype=torch.bfloat16, device=dev)
+    rb = float(TA.freivalds_packed(factor(ab, nb16, W_PACKED, **PACKED_KW), nb16, W_PACKED,
                                   seed=51))
     gate = nb16**0.5 * 2e-4
     print(f"packed N={nb16} bf16 storage kernel path freivalds {rb:.3e} (gate {gate:g})",
@@ -597,6 +634,7 @@ def phase_df64_kernel(dev, tag):
 # ---- 11. the f64x path ------------------------------------------------------------
 def phase_df64_path(dev, tag):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.algos import potrf_df64, residual_potrf_df64_blocked
     from dla_tpu_torch.kernels import df64_tiles
 
@@ -649,7 +687,7 @@ def phase_df64_path(dev, tag):
     a64 = T.plgsy(n, bump=float(n), seed=51, dtype=torch.float64, device=dev)
     sync()
     t0 = time.perf_counter()
-    l64 = T.potrf_inplace(a64, nb=NB_DF64, tb=NB_DF64, kb=NB_DF64, ib=512,
+    l64 = TA.potrf_inplace(a64, nb=NB_DF64, tb=NB_DF64, kb=NB_DF64, ib=512,
                           diag_factor="twolevel")
     sync()
     dt64 = time.perf_counter() - t0
@@ -839,11 +877,12 @@ def dense_residual(name, a, l, n):
 
 def phase_highest_tier(dev, tag):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.kernels import tiles
 
     n, nb = N_HIGHEST, HIGHEST_KW["nb"]
     name = f"highest tier potrf_shrink N={n} nb={nb} blocktrsm/pallas fp32 highest"
-    _, tmed, l, a = timed_path(dev, tag, name, n, lambda a: T.potrf_shrink(a, **HIGHEST_KW),
+    _, tmed, l, a = timed_path(dev, tag, name, n, lambda a: TA.potrf_shrink(a, **HIGHEST_KW),
                                {(tiles, "launches"): n // nb - 1}, reps=3)
     dense_residual(name, a, l, n)
     del a, l
@@ -853,13 +892,14 @@ def phase_highest_tier(dev, tag):
 
 def phase_panel_factor_path(dev, tag):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.kernels import panel, tiles
 
     n, nb = N_HIGHEST, NB_PANEL_FACTOR
     name = f"panel_factor path potrf_shrink N={n} nb={nb} pallas/pallas fp32 highest"
     counts, _, l, a = timed_path(
         dev, tag, name, n,
-        lambda a: T.potrf_shrink(a, nb=nb, panel="pallas", trailing="pallas",
+        lambda a: TA.potrf_shrink(a, nb=nb, panel="pallas", trailing="pallas",
                                  precision="highest"),
         {(panel, "panel_factor_launches"): n // nb, (tiles, "launches"): n // nb - 1}, reps=2)
     dense_residual(name, a, l, n)
@@ -870,16 +910,18 @@ def phase_panel_factor_path(dev, tag):
 
 def phase_panel_apply_path(dev, tag, main_median):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.kernels import panel, tiles
 
     n, nb = N_MAIN, PANEL_APPLY_KW["nb"]
     name = f"panel_apply path potrf_inplace(panel='pallas') N={n} nb={nb} fp32 high"
     per_fact = n // nb - 1
     counts, tmed, l, _ = timed_path(
-        dev, tag, name, n, lambda a: T.potrf_inplace(a, **PANEL_APPLY_KW),
+        dev, tag, name, n, lambda a: TA.potrf_inplace(a, **PANEL_APPLY_KW),
         {(panel, "panel_apply_launches"): per_fact, (tiles, "launches"): per_fact}, reps=3)
+    beside = "not run" if main_median is None else f"{main_median * 1e3:.1f} ms"
     print(f"N={n} fp32 high potrf_inplace median: panel='pallas' {tmed * 1e3:.1f} ms, "
-          f"panel='blocktrsm' (phase 3) {main_median * 1e3:.1f} ms {tag}", flush=True)
+          f"panel='blocktrsm' (phase 3) {beside} {tag}", flush=True)
     dense_residual(name, T.plgsy(n, seed=51, device=dev), l, n)
     del l
     torch.cuda.empty_cache()
@@ -986,13 +1028,14 @@ def phase_packed_df64_kernel(dev, tag):
 # ---- 21. the packed df64 path -------------------------------------------------------
 def phase_packed_df64_path(dev, tag):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.algos import potrf_packed_df64
     from dla_tpu_torch.algos.potrf_df64 import freivalds_packed_df64
     from dla_tpu_torch.kernels import df64_tiles
 
     n, nb = N_PDF64, NB_PDF64
     per_fact = n // nb - 1
-    aph = T.plgsy_packed(n, nb, bump=float(n), seed=51, device=dev)
+    aph = TA.plgsy_packed(n, nb, bump=float(n), seed=51, device=dev)
     apl = torch.zeros_like(aph)
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -1037,6 +1080,7 @@ def phase_packed_df64_path(dev, tag):
 # ---- 22. packed df64 kernel path against plain path ----------------------------------
 def phase_packed_df64_check(dev):
     import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
     from dla_tpu_torch.algos import (
         freivalds_potrf_df64,
         potrf_df64,
@@ -1060,7 +1104,7 @@ def phase_packed_df64_check(dev):
                 "packed df64 kernel launch count on the check path")
         return out
 
-    a_cpu = T.plgsy_packed(n, nb, seed=7, device="cpu")
+    a_cpu = TA.plgsy_packed(n, nb, seed=7, device="cpu")
     lg = on_card(potrf_packed_df64, a_cpu.to(dev), torch.zeros(a_cpu.shape, device=dev), n, nb,
                  **PDF64_KW)
     lc = potrf_packed_df64(a_cpu.clone(), torch.zeros_like(a_cpu), n, nb, **PDF64_KW)
@@ -1118,7 +1162,329 @@ def phase_packed_df64_check(dev):
     require(abs(fp - fc) <= 1e-4 * fc, "the packed Freivalds gate differs between card and CPU")
 
 
-def main() -> int:
+# ---- 24. the task kernels against their plain versions --------------------------------
+def product_tol(dtype, c, a, b) -> float:
+    """fp64 1e-12·scale; fp32 1e-5·scale (the same partial products summed in
+    another order); bf16 2^-6·(max|c| + scale); scale = max|a_i|·max|b_j|."""
+    scale = (a.double().norm(dim=1).max() * b.double().norm(dim=1).max()).item()
+    if dtype == torch.float64:
+        return 1e-12 * scale
+    if dtype == torch.float32:
+        return 1e-5 * scale
+    return 2**-6 * ((0.0 if c is None else c.double().abs().max().item()) + scale)
+
+
+def task_product_case(dev, tag, op, m, n, k, dtype, prec, iters):
+    """Kernels #6 to #8 (``op`` trsm, syrk or gemm) against their plain
+    versions: out (m, n) = epilogue(c, a·bᵀ) with a (m, k), b (n, k). The
+    library call is IEEE fp32 at every fp32 tier (TF32 is off)."""
+    from dla_tpu_torch.kernels import tiles
+    from dla_tpu_torch.utils import precision
+
+    g = torch.Generator(device=dev).manual_seed(m + 3 * n + 7 * k)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    if op == "trsm":  # trsm_tile(linv (n, n), b (m, n))
+        c, a, b = None, rnd(m, n), torch.tril(rnd(n, n))
+        args = (b, a)
+        lib = lambda: torch.matmul(a, b.mT)  # noqa: E731
+        flops, nbytes = 2 * m * n * n, 2 * m * n + n * n
+    elif op == "syrk":  # syrk_tile(c (n, n), a (n, k)): the lower triangle's products
+        m = n
+        c, a = rnd(n, n), rnd(n, k)
+        b, args, lib = a, (c, a), None  # no one call masks
+        flops, nbytes = n * (n + 1) * k, 2 * n * n + n * k
+    else:  # gemm_tile(c (m, n), ai (m, k), aj (n, k))
+        c, a, b = rnd(m, n), rnd(m, k), rnd(n, k)
+        args = (c, a, b)
+        lib = lambda: torch.addmm(c, a, b.mT, beta=1, alpha=-1)  # noqa: E731
+        flops, nbytes = 2 * m * n * k, 2 * m * n + (m + n) * k
+    kernel, plain = getattr(tiles, f"{op}_tile"), getattr(tiles, f"{op}_tile_plain")
+    counter = f"{op}_tile_launches"
+    kept = [t.clone() for t in args]
+    with precision.override(prec):
+        ref = plain(*args)
+        before = getattr(tiles, counter)
+        out = kernel(*args)
+        sync()
+        require(getattr(tiles, counter) == before + 1, f"{op}_tile: not one launch")
+        require(all(out.data_ptr() != t.data_ptr() for t in args)
+                and all(torch.equal(bits(t), bits(t0)) for t, t0 in zip(args, kept)),
+                f"{op}_tile changed an input")
+        if op == "syrk":
+            require(torch.equal(bits(torch.triu(out, 1)), bits(torch.triu(c, 1))),
+                    "syrk_tile: the upper triangle is not c's, bit for bit")
+        err = (out.double() - ref.double()).abs().max().item()
+        tol = product_tol(dtype, c, a, b)
+        k_ms = cuda_ms(lambda: kernel(*args), iters)
+        p_ms = cuda_ms(lambda: plain(*args), iters)
+    lib_ms = cuda_ms(lib, iters) if lib else None
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               **bound(product_s(flops, dtype, prec), nbytes * a.element_size()))
+    name = f"m={m} n={n} k={k} {str(dtype)[6:]}/{prec}"
+    print(f"{op}_tile {name}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.4f} ms "
+          f"({flops / k_ms / 1e9:.3f} TF/s), plain {p_ms:.4f} ms, library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}) {tag}", flush=True)
+    require(err <= tol, f"{op}_tile disagrees with the plain version at {name}")
+    return row
+
+
+def potrf_tile_case(dev, tag, n, dtype, prec, iters):
+    """Kernel #5 against its plain version, on an SPD tile with NaN above the
+    diagonal. Tolerance 1e-5·max|ref| for fp32 (fp64: 1e-12): the kernel rounds
+    every product and difference where the plain version does. The library
+    figure is the sum of two calls, ``cholesky_ex`` and ``solve_triangular``
+    against the identity (no one call gives both L and its inverse)."""
+    from dla_tpu_torch.kernels import tiles
+    from dla_tpu_torch.utils import precision
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, n, generator=g, device=dev, dtype=torch.float64)
+    spd = (x @ x.mT + n * torch.eye(n, device=dev, dtype=torch.float64)).to(dtype)
+    a = spd + torch.triu(torch.full((n, n), float("nan"), device=dev, dtype=dtype), 1)
+    kept = a.clone()
+    eye = torch.eye(n, device=dev, dtype=dtype)
+    with precision.override(prec):
+        lref, xref = tiles.potrf_tile_plain(a)
+        before = tiles.potrf_tile_launches
+        l, linv = tiles.potrf_tile(a)
+        sync()
+        require(tiles.potrf_tile_launches == before + 1, "potrf_tile: not one launch")
+        require(torch.equal(bits(a), bits(kept)), "potrf_tile changed its input")
+        require(bool(torch.isfinite(l).all() and torch.isfinite(linv).all()),
+                "potrf_tile read above the diagonal")
+        require(torch.equal(l, torch.tril(l)) and torch.equal(linv, torch.tril(linv)),
+                "potrf_tile: outputs not lower triangular")
+        rel = 1e-12 if dtype == torch.float64 else 1e-5
+        err = max((l.double() - lref.double()).abs().max().item(),
+                  (linv.double() - xref.double()).abs().max().item())
+        tol = rel * max(lref.abs().max().item(), xref.abs().max().item())
+        ok = ((l - lref).abs().max().item() <= rel * lref.abs().max().item()
+              and (linv - xref).abs().max().item() <= rel * xref.abs().max().item())
+        k_ms = cuda_ms(lambda: tiles.potrf_tile(a), iters)
+        p_ms = cuda_ms(lambda: tiles.potrf_tile_plain(a), 1)
+    lib_ms = (cuda_ms(lambda: torch.linalg.cholesky_ex(spd), iters)
+              + cuda_ms(lambda: torch.linalg.solve_triangular(lref, eye, upper=False), iters))
+    # n³/3 operations for the factor and n³/3 for the inverse, on the non-tensor
+    # peak; the lower triangle read (counted as the tile), two tiles written
+    item = a.element_size()
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               **bound(2 * n**3 / 3 / PEAK["fp64" if dtype == torch.float64 else "fp32"],
+                       3 * n * n * item))
+    name = f"n={n} {str(dtype)[6:]}/{prec}"
+    print(f"potrf_tile {name}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.3f} ms, cholesky_ex + solve_triangular {lib_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}) {tag}", flush=True)
+    require(ok, f"potrf_tile disagrees with the plain version at {name}")
+    return row
+
+
+def phase_task_kernels(dev, tag):
+    """Every task kernel at the path's tile (n = NB_TASK), a ragged n=96, and
+    #6 to #8 at a size clear of the launch floor; the rows of the path's tier."""
+    nb = NB_TASK
+    tiers = [(torch.float32, "high"), (torch.float32, "highest"), (torch.float32, "default"),
+             (torch.float64, "high")]
+    rows = {}
+    for dtype, prec in tiers:
+        r = potrf_tile_case(dev, tag, nb, dtype, prec, 3)
+        if (dtype, prec) == (torch.float32, TASK_PREC):
+            rows["potrf"] = r
+    potrf_tile_case(dev, tag, 96, torch.float32, "high", 5)
+    for op in ("trsm", "syrk", "gemm"):
+        for dtype, prec in tiers + [(torch.bfloat16, "high")]:
+            r = task_product_case(dev, tag, op, nb, nb, nb, dtype, prec, 50)
+            if (dtype, prec) == (torch.float32, TASK_PREC):
+                rows[op] = r
+        task_product_case(dev, tag, op, 200, 96, 72, torch.float32, "high", 20)  # ragged
+        for prec in ("high", "highest", "default"):
+            task_product_case(dev, tag, op, M_TASK_BIG, N_TASK_BIG, N_TASK_BIG, torch.float32,
+                              prec, 5)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---- 25. the tile-task path -----------------------------------------------------------
+TASK_COUNTERS = {"POTRF": "potrf_tile_launches", "TRSM": "trsm_tile_launches",
+                 "SYRK": "syrk_tile_launches", "GEMM": "gemm_tile_launches"}
+
+
+def tile_task_potrf(a, nb):
+    """The reference's task DAG, one kernel launch per task, in the order of
+    ``client_distrib.cpp:506-565``: for each k, POTRF(k,k), then TRSM(i,k),
+    SYRK(i,i) and GEMM(i,j,k) for i > j > k. The tiles of ``a`` (views, found
+    through ``TileLayout``) are read; the factor is assembled in a new
+    matrix, zero above the diagonal tiles."""
+    from dla_tpu_torch import TileLayout
+    from dla_tpu_torch.kernels.tiles import gemm_tile, potrf_tile, syrk_tile, trsm_tile
+
+    lay = TileLayout(mb=nb, nb=nb, lm=a.shape[0], ln=a.shape[1])
+    nt = lay.nt
+
+    def view(m, i, j):
+        (r0, c0), (h, w) = lay.tile_origin(i, j), lay.tile_shape(i, j)
+        return m[r0 : r0 + h, c0 : c0 + w]
+
+    t = {(i, j): view(a, i, j) for i in range(nt) for j in range(i + 1)}
+    out = torch.zeros_like(a)
+    for k in range(nt):
+        lkk, linv = potrf_tile(t.pop((k, k)))
+        view(out, k, k).copy_(lkk)
+        for i in range(k + 1, nt):
+            t[i, k] = trsm_tile(linv, t[i, k])
+        for i in range(k + 1, nt):
+            t[i, i] = syrk_tile(t[i, i], t[i, k])
+        for i in range(k + 1, nt):
+            for j in range(k + 1, i):
+                t[i, j] = gemm_tile(t[i, j], t[i, k], t[j, k])
+        for i in range(k + 1, nt):
+            view(out, i, k).copy_(t.pop((i, k)))
+    return out
+
+
+def phase_task_path(dev, tag, main_median):
+    import dla_tpu_torch as T
+    from dla_tpu_torch.cli.session import dag_counts
+    from dla_tpu_torch.kernels import tiles
+    from dla_tpu_torch.utils import precision
+
+    n, nb = N_TASK, NB_TASK
+    want = dag_counts(n // nb)
+    for attr in TASK_COUNTERS.values():
+        setattr(tiles, attr, 0)
+    times = []
+    reps = 3  # repeat 0 is the warm-up
+    for rep in range(reps):
+        l = None
+        a = T.plgsy(n, seed=51, device=dev)
+        sync()
+        before = {k: getattr(tiles, v) for k, v in TASK_COUNTERS.items()}
+        t0 = time.perf_counter()
+        with precision.override(TASK_PREC):
+            l = tile_task_potrf(a, nb)
+        sync()
+        dt = time.perf_counter() - t0
+        got = {k: getattr(tiles, v) - before[k] for k, v in TASK_COUNTERS.items()}
+        require(got == {k: want[k] for k in TASK_COUNTERS},
+                f"tile-task path launched {got}, the DAG has {want}")
+        print(f"tile-task path N={n} NB={nb} fp32 {TASK_PREC}: repeat {rep} {dt * 1e3:.1f} ms "
+              f"{n**3 / 3 / dt / 1e9:.2f} GFLOP/s{' (warm-up)' if rep == 0 else ''} {tag}",
+              flush=True)
+        if rep:
+            times.append(dt)
+    counts = {k: getattr(tiles, v) for k, v in TASK_COUNTERS.items()}
+    require(sum(counts.values()) == reps * want["total"], f"tile-task launch counts {counts}")
+    tmed = statistics.median(times)
+    beside = ("not run" if main_median is None else
+              f"{main_median * 1e3:.1f} ms, {n**3 / 3 / main_median / 1e9:.2f} GFLOP/s")
+    print(f"tile-task path N={n} NB={nb}: median {tmed * 1e3:.1f} ms, "
+          f"{n**3 / 3 / tmed / 1e9:.2f} GFLOP/s, {want['total']} launches per factorization "
+          f"({want['POTRF']} POTRF + {want['TRSM']} TRSM + {want['SYRK']} SYRK + "
+          f"{want['GEMM']} GEMM), {tmed / want['total'] * 1e6:.1f} us per launch; potrf_inplace "
+          f"on the same matrix (phase 3): {beside} {tag}", flush=True)
+    dense_residual(f"tile-task path N={n}", a, l, n)
+    del a, l
+    torch.cuda.empty_cache()
+    n64, nb64 = N_TASK64, NB_TASK64
+    a64 = T.plgsy(n64, seed=7, dtype=torch.float64, device=dev)
+    before = sum(getattr(tiles, v) for v in TASK_COUNTERS.values())
+    l64 = tile_task_potrf(a64, nb64)
+    sync()
+    require(sum(getattr(tiles, v) for v in TASK_COUNTERS.values()) - before
+            == dag_counts(n64 // nb64)["total"], "fp64 tile-task launch count")
+    r64 = float(T.residual_potrf(a64, l64))
+    print(f"tile-task path N={n64} NB={nb64} fp64 residual {r64:.3e} (gate 1e-10)", flush=True)
+    require(r64 < 1e-10, "tile-task fp64 residual above the reference's 1e-10 gate")
+    return counts
+
+
+# ---- 26. freivalds_device -----------------------------------------------------------------
+def phase_freivalds_device(dev, tag):
+    """The matrix-free gate beside the exact residual on the main path's
+    factor, and on the same factor with one corrupted tile."""
+    import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
+    from dla_tpu_torch.validate import freivalds_device
+
+    n = N_MAIN
+    chunk = next(c for c in (4096, 2048, 1024, 512, 256, 128) if n % c == 0)
+    l = TA.potrf_inplace(T.plgsy(n, seed=51, device=dev), **MAIN_KW)
+    sync()
+    t0 = time.perf_counter()
+    fre = float(freivalds_device(l, seed=51, row_chunk=chunk))
+    sync()
+    t_fre = time.perf_counter() - t0
+    res = float(T.residual_potrf(T.plgsy(n, seed=51, device=dev), torch.tril(l),
+                                 assume_symmetric=True, assume_tril=True, row_chunk=chunk))
+    gate = n * 2e-7
+    bad = l.clone()
+    h, t = n // 2, min(512, n // 4)
+    bad[h : h + t, h : h + t] *= 1.5  # one corrupted diagonal tile
+    fre_bad = float(freivalds_device(bad, seed=51, row_chunk=chunk))
+    print(f"freivalds_device N={n}: ||(A - LL^T)x|| / (||A|| ||x||) = {fre:.3e} in "
+          f"{t_fre * 1e3:.1f} ms, ||A - LL^T||_inf / ||A||_inf = {res:.3e} (gate {gate:g}); "
+          f"one corrupted tile reads {fre_bad:.3e} {tag}", flush=True)
+    require(fre < gate and res < gate, "a good factor fails a gate")
+    require(fre_bad > 10 * gate, "freivalds_device passes a corrupted factor")
+    del l, bad
+    torch.cuda.empty_cache()
+
+
+# ---- 27. the bench ------------------------------------------------------------------------
+def phase_bench(tag, tiers, env):
+    """``python -m dla_tpu_torch.bench.bench`` as a process of its own: one
+    JSON line per tier as it finishes, every gate passed, exit code 0."""
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dla_tpu_torch.bench.bench"], cwd=root, text=True,
+        capture_output=True, timeout=900,
+        env={**os.environ, **env, "BENCH_PRECISIONS": tiers,
+             "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")})
+    for line in proc.stderr.splitlines()[-40:]:
+        print(f"bench (stderr)| {line}")
+    for line in proc.stdout.splitlines():
+        print(f"bench| {line}")
+    print(f"bench numbers above: {tag}", flush=True)
+    require(proc.returncode == 0, f"the bench exited with {proc.returncode}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()]
+    want = len(tiers.split(","))
+    require(len(lines) == want + 1 and all("tier" in x for x in lines[:-1]),
+            "the bench did not print one line per tier and the closing line")
+    require(all(x.get("passed") is True for x in lines[:-1]), "a bench tier failed its gate")
+    require({"metric", "value", "unit", "vs_baseline", "residual", "gflops_raw", "tiers",
+             "config"} == set(lines[-1]), "the bench's closing line has other keys")
+    return lines
+
+
+LAST_PHASE = 28
+
+
+def parse_phases(spec: str | None) -> set[int]:
+    """``--phases a,b-c``: the phases to run, all of them by default. Phase 1
+    (the card and the build) always runs."""
+    if not spec:
+        return set(range(1, LAST_PHASE + 1))
+    sel = {1}
+    for part in spec.split(","):
+        lo, _, hi = part.partition("-")
+        sel.update(range(int(lo), int(hi or lo) + 1))
+    if not sel <= set(range(1, LAST_PHASE + 1)):
+        raise SystemExit(f"chip_smoke: --phases takes phases 1 to {LAST_PHASE}, got {spec!r}")
+    return sel
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of dla_tpu_torch on one NVIDIA GPU")
+    ap.add_argument("--phases", default=None, metavar="a,b-c",
+                    help="run these phases only (default: all); the last line is printed "
+                         "when every selected phase passed")
+    sel = parse_phases(ap.parse_args(argv).phases)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1138,69 +1504,122 @@ def main() -> int:
     print(f"kernel build + load: {time.perf_counter() - t0:.3f} s ({_build.library_path().name}) "
           f"{tag}", flush=True)
 
-    lower = phase_lower_kernel(dev, tag)                                  # 2
-    lower_launches, main_median = phase_main_path(dev, tag)               # 3
-    phase_inplace_check(dev)                                              # 4
-    phase_driver(tag, ["--n", str(N_MAIN), "--nb", str(NB_MAIN), "--dtype", "s",
-                       "--mode", "inplace", "--repeats", "2"])            # 5
+    got = {}  # what the phases that ran returned: the kernels' rows and launch counts
+    main_median = None
+    if 2 in sel:
+        got["lower"] = phase_lower_kernel(dev, tag)
+    if 3 in sel:
+        got["lower_launches"], main_median = phase_main_path(dev, tag)
+    if 4 in sel:
+        phase_inplace_check(dev)
+    if 5 in sel:
+        phase_driver(tag, ["--n", str(N_MAIN), "--nb", str(NB_MAIN), "--dtype", "s",
+                           "--mode", "inplace", "--repeats", "2"])
     torch.cuda.empty_cache()
-    packed = phase_packed_kernel(dev, tag)                                # 6
-    packed_launches = phase_packed_path(dev, tag)                         # 7
-    phase_packed_check(dev)                                               # 8
-    phase_driver(tag, ["--n", str(N_PACKED), "--nb", str(W_PACKED), "--dtype", "s",
-                       "--mode", "packed", "--trailing", "pallas", "--precision", "default",
-                       "--diag", "twolevel", "--kb", str(W_PACKED), "--repeats", "1"])  # 9
+    if 6 in sel:
+        got["packed"] = phase_packed_kernel(dev, tag)
+    if 7 in sel:
+        got["packed_launches"] = phase_packed_path(dev, tag)
+    if 8 in sel:
+        phase_packed_check(dev)
+    if 9 in sel:
+        phase_driver(tag, ["--n", str(N_PACKED), "--nb", str(W_PACKED), "--dtype", "s",
+                           "--mode", "packed", "--trailing", "pallas", "--precision", "default",
+                           "--diag", "twolevel", "--kb", str(W_PACKED), "--repeats", "1"])
     torch.cuda.empty_cache()
-    df64 = phase_df64_kernel(dev, tag)                                    # 10
-    df64_launches = phase_df64_path(dev, tag)                             # 11
-    phase_df64_check(dev)                                                 # 12
-    phase_driver(tag, ["--n", str(N_DF64), "--nb", str(NB_DF64), "--mode", "df64",
-                       "--trailing", "pallas", "--repeats", "1"])         # 13
+    if 10 in sel:
+        got["df64"] = phase_df64_kernel(dev, tag)
+    if 11 in sel:
+        got["df64_launches"] = phase_df64_path(dev, tag)
+    if 12 in sel:
+        phase_df64_check(dev)
+    if 13 in sel:
+        phase_driver(tag, ["--n", str(N_DF64), "--nb", str(NB_DF64), "--mode", "df64",
+                           "--trailing", "pallas", "--repeats", "1"])
     torch.cuda.empty_cache()
-    pfactor, papply = phase_panel_kernels(dev, tag)                       # 14
-    phase_highest_tier(dev, tag)                                          # 15
-    pfactor_launches = phase_panel_factor_path(dev, tag)                  # 16
-    papply_launches = phase_panel_apply_path(dev, tag, main_median)       # 17
-    phase_modes_check(dev)                                                # 18
-    phase_driver(tag, ["--n", str(N_HIGHEST), "--nb", str(HIGHEST_KW["nb"]), "--dtype", "s",
-                       "--mode", "shrink", "--panel", "blocktrsm", "--trailing", "pallas",
-                       "--precision", "highest", "--kb", str(HIGHEST_KW["kb"]),
-                       "--repeats", "1"])                                  # 19
+    if 14 in sel:
+        got["pfactor"], got["papply"] = phase_panel_kernels(dev, tag)
+    if 15 in sel:
+        phase_highest_tier(dev, tag)
+    if 16 in sel:
+        got["pfactor_launches"] = phase_panel_factor_path(dev, tag)
+    if 17 in sel:
+        got["papply_launches"] = phase_panel_apply_path(dev, tag, main_median)
+    if 18 in sel:
+        phase_modes_check(dev)
+    if 19 in sel:
+        phase_driver(tag, ["--n", str(N_HIGHEST), "--nb", str(HIGHEST_KW["nb"]), "--dtype", "s",
+                           "--mode", "shrink", "--panel", "blocktrsm", "--trailing", "pallas",
+                           "--precision", "highest", "--kb", str(HIGHEST_KW["kb"]),
+                           "--repeats", "1"])
     torch.cuda.empty_cache()
-    pdf64 = phase_packed_df64_kernel(dev, tag)                            # 20
-    pdf64_launches = phase_packed_df64_path(dev, tag)                     # 21
-    phase_packed_df64_check(dev)                                          # 22
-    phase_driver(tag, ["--n", str(N_PDF64), "--nb", str(NB_PDF64), "--mode", "df64-packed",
-                       "--repeats", "1"])                                  # 23
-    # a budget too small for the unpack: the gate straight off the packed pair
-    out = phase_driver(tag, ["--n", str(N_PDF64_SPLIT), "--nb", str(NB_PDF64), "--mode",
-                             "df64-packed", "--df64-split", "2", "--repeats", "1"],
-                       env={"DLA_TPU_VALIDATE_HBM_BUDGET": "1"})
-    require("freivalds" in out, "the driver did not take the packed-native gate")
+    if 20 in sel:
+        got["pdf64"] = phase_packed_df64_kernel(dev, tag)
+    if 21 in sel:
+        got["pdf64_launches"] = phase_packed_df64_path(dev, tag)
+    if 22 in sel:
+        phase_packed_df64_check(dev)
+    if 23 in sel:
+        phase_driver(tag, ["--n", str(N_PDF64), "--nb", str(NB_PDF64), "--mode", "df64-packed",
+                           "--repeats", "1"])
+        # a budget too small for the unpack: the gate straight off the packed pair
+        out = phase_driver(tag, ["--n", str(N_PDF64_SPLIT), "--nb", str(NB_PDF64), "--mode",
+                                 "df64-packed", "--df64-split", "2", "--repeats", "1"],
+                           env={"DLA_TPU_VALIDATE_HBM_BUDGET": "1"})
+        require("freivalds" in out, "the driver did not take the packed-native gate")
+    torch.cuda.empty_cache()
+    if 24 in sel:
+        for op, row in phase_task_kernels(dev, tag).items():
+            got[f"{op}_tile"] = row
+    if 25 in sel:
+        for task, count in phase_task_path(dev, tag, main_median).items():
+            got[f"{task.lower()}_tile_launches"] = count
+    if 26 in sel:
+        phase_freivalds_device(dev, tag)
+    if 27 in sel:
+        phase_bench(tag, BENCH_TIERS, BENCH_ENV)
+    if 28 in sel:
+        out = phase_driver(tag, ["--n", str(N_HEADLINE), "--nb", str(NB_HEADLINE), "--dtype", "s",
+                                 "--mode", "inplace", "--repeats", "1"])
+        require("freivalds" in out, "the driver did not take the Freivalds gate at the "
+                "headline size")
+    torch.cuda.empty_cache()
 
+    # a kernel is listed when both its comparison phase and its path phase ran
     rows = []
-    for name, src, replaces, count, row in (
-        ("trailing_update_lower", "trailing_lower.cu", "pallas_tiles.py:328", lower_launches,
-         lower),
-        ("trailing_update_packed", "trailing_packed.cu", "pallas_tiles.py:557",
-         packed_launches, packed),
-        ("trailing_update_df64", "trailing_df64.cu", "df64_tiles.py:110", df64_launches, df64),
-        ("panel_apply", "panel_apply.cu", "pallas_tiles.py:429", papply_launches, papply),
-        ("panel_factor", "panel_factor.cu", "pallas_tiles.py:270", pfactor_launches, pfactor),
-        ("trailing_update_packed_df64", "trailing_packed_df64.cu", "df64_tiles.py:185",
-         pdf64_launches, pdf64),
+    for name, src, replaces, row, count in (
+        ("trailing_update_lower", "trailing_lower.cu", "pallas_tiles.py:328", "lower",
+         "lower_launches"),
+        ("trailing_update_packed", "trailing_packed.cu", "pallas_tiles.py:557", "packed",
+         "packed_launches"),
+        ("trailing_update_df64", "trailing_df64.cu", "df64_tiles.py:110", "df64",
+         "df64_launches"),
+        ("panel_apply", "panel_apply.cu", "pallas_tiles.py:429", "papply", "papply_launches"),
+        ("panel_factor", "panel_factor.cu", "pallas_tiles.py:270", "pfactor",
+         "pfactor_launches"),
+        ("trailing_update_packed_df64", "trailing_packed_df64.cu", "df64_tiles.py:185", "pdf64",
+         "pdf64_launches"),
+        ("potrf_tile", "potrf_tile.cu", "pallas_tiles.py:171", "potrf_tile",
+         "potrf_tile_launches"),
+        ("trsm_tile", "tile_ops.cu", "pallas_tiles.py:194", "trsm_tile", "trsm_tile_launches"),
+        ("syrk_tile", "tile_ops.cu", "pallas_tiles.py:218", "syrk_tile", "syrk_tile_launches"),
+        ("gemm_tile", "tile_ops.cu", "pallas_tiles.py:238", "gemm_tile", "gemm_tile_launches"),
     ):
+        if row not in got or count not in got:
+            continue
+        require(got[count] > 0, f"{name} was not launched on its path")
         rows.append({
             "name": name,
             "route": "cuda",
             "source": f"dla_tpu_torch/kernels/csrc/{src}",
             "replaces": f"dla_tpu/kernels/{replaces}",
-            "launches": count,
-            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")},
+            "launches": got[count],
+            **{k: got[row][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
         })
     print(json.dumps({"kernels": rows}))
-    print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s {tag}", flush=True)
+    print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s, phases "
+          f"{sorted(sel)} {tag}", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,17 +8,25 @@ against the JAX package on the same numpy inputs.
 
 Ported so far: the single-device POTRF formulations, ``plgsy`` →
 ``potrf`` (``mode="blocked"|"masked"|"shrink"|"inplace"``, with the panel
-and trailing kernels on their ``"pallas"`` routes) → ``residual_potrf``,
-and the packed-storage path, ``plgsy_packed`` →
+and trailing kernels on their ``"pallas"`` routes) → ``residual_potrf``, or,
+where A and L do not fit the device together, the matrix-free
+``freivalds_device``; the packed-storage path, ``plgsy_packed`` →
 ``potrf_packed`` (the packed trailing update in a kernel) →
-``freivalds_packed``, and the emulated-fp64 path, ``to_df64`` →
-``potrf_df64`` (the df64 trailing update in a kernel) →
+``freivalds_packed``, with ``potrs_packed``; the emulated-fp64 path,
+``to_df64`` → ``potrf_df64`` (the df64 trailing update in a kernel) →
 ``residual_potrf_df64_blocked``, and its packed form, ``plgsy_packed`` →
 ``potrf_packed_df64`` (the packed df64 trailing update in a kernel) →
 ``freivalds_packed_df64``, with the df64 solves ``potrs_df64`` and
-``potrs_packed_df64`` and the streaming df64 Freivalds gates
-(``dla_tpu_torch.ops`` and ``dla_tpu_torch.algos`` export them, as the JAX
-package's subpackages do).
+``potrs_packed_df64`` and the streaming df64 Freivalds gates; the four task
+kernels of the reference's tile DAG, ``potrf_tile``, ``trsm_tile``,
+``syrk_tile`` and ``gemm_tile`` (``dla_tpu_torch.kernels.tiles``), with the
+tile descriptor ``TileLayout`` and the DAG's task counts
+(``dla_tpu_torch.cli.session.dag_counts``); and the two entry points, the
+driver (``python -m dla_tpu_torch.cli.potrf_driver``) and the tiered bench
+(``python -m dla_tpu_torch.bench.bench``). The top level exports the names
+the JAX package's top level does; the rest is exported by
+``dla_tpu_torch.ops``, ``dla_tpu_torch.algos`` and ``dla_tpu_torch.validate``,
+as by the JAX package's subpackages.
 Importing the package switches TF32 off
 (:func:`dla_tpu_torch.utils.precision.pin_ieee_fp32`).
 """
@@ -28,15 +36,12 @@ from dla_tpu_torch.utils.precision import pin_ieee_fp32
 pin_ieee_fp32()
 
 from dla_tpu_torch.algos import (  # noqa: E402
-    freivalds_packed,
     pack_tri,
-    plgsy_packed,
     potrf,
     potrf_blocked,
-    potrf_inplace,
     potrf_masked,
     potrf_packed,
-    potrf_shrink,
+    potrs_packed,
     unpack_tri,
 )
 from dla_tpu_torch.ops import (  # noqa: E402
@@ -48,24 +53,23 @@ from dla_tpu_torch.ops import (  # noqa: E402
     syrk,
     trsm,
 )
+from dla_tpu_torch.tiles import TileLayout  # noqa: E402
 from dla_tpu_torch.validate import cholesky_invariants, residual_potrf  # noqa: E402
 
 __all__ = [
+    "TileLayout",
     "cholesky_invariants",
-    "freivalds_packed",
     "gemm",
     "lange",
     "pack_tri",
     "plgsy",
-    "plgsy_packed",
     "plgsy_tile",
     "potrf",
     "potrf_blocked",
-    "potrf_inplace",
     "potrf_masked",
     "potrf_packed",
-    "potrf_shrink",
     "potrf_unblocked",
+    "potrs_packed",
     "residual_potrf",
     "syrk",
     "trsm",

@@ -9,11 +9,14 @@ harness greps:
   finishes (repeat 0 is the warm-up, which also builds the CUDA kernel);
 - ``Elapsed: <ms> ms`` and ``Performance: %.2f Gflop/s`` for the median of
   the timed repeats, with the rate (1/3)·N³/t;
-- ``||A - LL^T||_inf / ||A||_inf = %.2e`` (the dense modes) or, for the
-  packed triangle, the matrix-free ``freivalds ||(A - LL^T)x|| / (||A||
-  ||x||) = %.2e`` (``--mode packed``: a dense A and L need not fit beside
-  it), then ``PASS``/``FAIL`` against the dtype-aware gate; the exit code is
-  non-zero on FAIL.
+- ``||A - LL^T||_inf / ||A||_inf = %.2e`` (the dense modes) or the
+  matrix-free ``freivalds ||(A - LL^T)x|| / (||A|| ||x||) = %.2e``: for the
+  packed triangle (``--mode packed``: a dense A and L need not fit beside
+  it), and for a dense mode whose exact residual does not fit the device
+  (``freivalds_device``, A regenerated from its seed; the budget is the
+  device's memory, or ``DLA_TPU_VALIDATE_HBM_BUDGET`` bytes); then
+  ``PASS``/``FAIL`` against the dtype-aware gate; the exit code is non-zero
+  on FAIL.
 
 ``--mode blocked|masked|shrink`` call ``potrf`` with that mode, wired as
 the reference driver wires them (``potrf_driver.py:533-539``): blocked and
@@ -278,12 +281,36 @@ def main(argv=None) -> int:
         sync()
         res = _df64_gate(a, l, cfg, bump, slices, device, df64_packed)
         return _verdict(res, args.gate, cfg)
-    l = torch.tril(l)
     chunk = 4096 if cfg.n >= 16384 and cfg.n % 4096 == 0 else None
+    # The reference's choice (``dla_tpu/cli/potrf_driver.py:741-766``): where
+    # the exact residual's operands do not fit the budget, validate
+    # matrix-free. The budget is what the device holds unless
+    # ``DLA_TPU_VALIDATE_HBM_BUDGET`` sets it.
+    need = _residual_bytes(cfg.n, dtype, chunk)
+    budget = int(os.environ.get("DLA_TPU_VALIDATE_HBM_BUDGET", _memory_bytes(device)))
+    chunk_f = next((c for c in (4096, 2048, 1024, 512, 256, 128) if cfg.n % c == 0), None)
+    if need > budget and chunk_f:
+        from dla_tpu_torch.validate import freivalds_device
+
+        res = float(freivalds_device(l, seed=cfg.seed, bump=bump, probes=2, row_chunk=chunk_f))
+        print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
+        return _verdict(res, args.gate, cfg)
+    l = torch.tril(l)
     res = float(residual_potrf(fresh_a(), l, assume_symmetric=True,
                                assume_tril=True, row_chunk=chunk))
     print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
     return _verdict(res, args.gate, cfg)
+
+
+def _residual_bytes(n: int, dtype, row_chunk: int | None) -> int:
+    """What ``residual_potrf`` of a generated A and tril(L) holds on the
+    device. Not the reference's 3·N² elements: A and tril(L) in the storage
+    dtype and, unless that is fp64 or bf16 storage takes the row-chunked form,
+    whole fp64 copies of both beside them."""
+    import torch
+
+    widened = dtype.itemsize < 8 and not (row_chunk and dtype == torch.bfloat16)
+    return (2 * dtype.itemsize + (16 if widened else 0)) * n * n
 
 
 def _memory_bytes(device) -> int:

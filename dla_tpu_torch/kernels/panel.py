@@ -36,8 +36,14 @@ import functools
 import torch
 
 from dla_tpu_torch.kernels import _build
-from dla_tpu_torch.kernels.tiles import _TIER_CODE, _dot_nt_plain
-from dla_tpu_torch.ops.lapack_like import _sqrt_rn
+from dla_tpu_torch.kernels.tiles import (
+    _TIER_CODE,
+    _dot_nt_plain,
+    _factor_lower_plain,
+    _invert_lower_plain,
+    _row_major,
+    _same_device,
+)
 from dla_tpu_torch.utils.precision import tier
 
 #: number of times each CUDA kernel was launched in this process
@@ -45,31 +51,6 @@ panel_factor_launches = 0  # panel_factor.cu
 panel_apply_launches = 0  # panel_apply.cu
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def _same_device(name: str, *ts: torch.Tensor) -> bool:
-    """True for CPU operands; raises unless they all lie on one CUDA device."""
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    if ts[0].device.type != "cuda" or any(t.device != ts[0].device for t in ts):
-        raise ValueError(f"{name} needs its operands all on the CPU or all on one CUDA "
-                         f"device; got {[str(t.device) for t in ts]}")
-    return False
-
-
-def _row_major(name: str, *ts: torch.Tensor) -> None:
-    for t in ts:
-        if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
-            raise ValueError(f"{name} needs row-major operands (unit column stride); "
-                             f"got strides {t.stride()} for shape {tuple(t.shape)}")
-
-
-def _round_operand(x: torch.Tensor) -> torch.Tensor:
-    """An operand of a rank-1 step at ``_kernel_precision``: bf16-rounded at
-    ``default`` for fp32, else as it is."""
-    if x.dtype == torch.float32 and tier() == "default":
-        return x.to(torch.bfloat16).to(x.dtype)
-    return x
 
 
 # ---- #4 panel_factor ---------------------------------------------------------------
@@ -90,33 +71,6 @@ def _check_panel_factor(panel: torch.Tensor) -> None:
             f"panel_factor nb={nb} exceeds the VMEM budget (three nb×nb "
             f"buffers, pipelined); use nb ≤ 512 for float32"
         )
-
-
-def _factor_lower_plain(a: torch.Tensor) -> torch.Tensor:
-    """tril(L) of one SPD block by n rank-1 steps, reading the lower
-    triangle only (``_factor_lower``, ``pallas_tiles.py:97``)."""
-    n = a.shape[0]
-    l = torch.tril(a)
-    for j in range(n):
-        piv = _sqrt_rn(l[j, j])
-        l[j, j] = piv
-        col = l[j + 1 :, j] / piv
-        l[j + 1 :, j] = col
-        c = _round_operand(col)
-        l[j + 1 :, j + 1 :] -= torch.outer(c, c)
-    return torch.tril(l)
-
-
-def _invert_lower_plain(l: torch.Tensor) -> torch.Tensor:
-    """inv(L) by column-oriented forward substitution, n rank-1 steps
-    (``_invert_lower``, ``pallas_tiles.py:129``)."""
-    n = l.shape[0]
-    x = torch.eye(n, dtype=l.dtype, device=l.device)
-    for j in range(n):
-        xrow = x[j, : j + 1] / l[j, j]
-        x[j, : j + 1] = xrow
-        x[j + 1 :, : j + 1] -= torch.outer(_round_operand(l[j + 1 :, j]), _round_operand(xrow))
-    return x
 
 
 def panel_factor_plain(panel: torch.Tensor) -> torch.Tensor:

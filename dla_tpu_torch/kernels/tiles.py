@@ -1,11 +1,23 @@
-"""Trailing updates C ← C − P·Pᵀ over lower tile pairs — counterparts of
-``dla_tpu/kernels/pallas_tiles.py``:
+"""Tile kernels — counterparts of ``dla_tpu/kernels/pallas_tiles.py``.
+
+The trailing updates C ← C − P·Pᵀ over lower tile pairs:
 
 - :func:`trailing_update_lower` (``:328``) on a dense matrix, CUDA kernel
   ``csrc/trailing_lower.cu``;
 - :func:`trailing_update_packed` (``:557``) on the column-slab packed
   triangle of ``dla_tpu_torch.algos.packed``, CUDA kernel
   ``csrc/trailing_packed.cu``.
+
+The four task kernels of the reference's tile DAG, one launch per task:
+
+- :func:`potrf_tile` (``:171``): (tril(L), inv(L)) of one SPD tile, CUDA
+  kernel ``csrc/potrf_tile.cu`` (the one-block phase of ``panel_factor``,
+  ``csrc/diag_block.cuh``);
+- :func:`trsm_tile` (``:194``), :func:`syrk_tile` (``:218``) and
+  :func:`gemm_tile` (``:238``): B·inv(L)ᵀ, C − A·Aᵀ on the lower triangle and
+  C − Aᵢ·Aⱼᵀ, one CUDA kernel with three epilogues, ``csrc/tile_ops.cu``.
+  They are not in place: each returns a new tensor and leaves its inputs
+  alone, as the Pallas calls do.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel; on a
 CPU tensor it runs its ``*_plain`` version, the same function in torch ops.
@@ -19,9 +31,10 @@ computes its own tile indices and returns when it lies above the diagonal,
 and the plain versions walk the window's tile columns, one product per
 column.
 
-``launches`` and ``packed_launches`` count each kernel's launches (and
-nothing else), so a run can show that its main path went through the
-kernel.
+``launches``, ``packed_launches`` and ``potrf_tile_launches``,
+``trsm_tile_launches``, ``syrk_tile_launches``, ``gemm_tile_launches`` count
+each kernel's launches (and nothing else), so a run can show that its main
+path went through the kernel.
 """
 
 from __future__ import annotations
@@ -32,11 +45,16 @@ import functools
 import torch
 
 from dla_tpu_torch.kernels import _build
+from dla_tpu_torch.ops.lapack_like import _sqrt_rn
 from dla_tpu_torch.utils.precision import tier
 
 #: number of times each CUDA kernel was launched in this process
 launches = 0  # trailing_lower.cu
 packed_launches = 0  # trailing_packed.cu
+potrf_tile_launches = 0  # potrf_tile.cu
+trsm_tile_launches = 0  # tile_ops.cu, the trsm epilogue
+syrk_tile_launches = 0  # tile_ops.cu, the syrk epilogue
+gemm_tile_launches = 0  # tile_ops.cu, the gemm epilogue
 
 _DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 _TIER_CODE = {"highest": 0, "high": 1, "default": 2}
@@ -118,11 +136,17 @@ def trailing_update_lower_plain(
     return out
 
 
+def _minus(c: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """``c − upd``; bf16 storage as the reference's epilogue, bf16(c − bf16(acc))."""
+    if c.dtype == torch.bfloat16:
+        return (c.float() - upd.to(torch.bfloat16).float()).to(torch.bfloat16)
+    return c - upd
+
+
 def _subtract(blk: torch.Tensor, upd: torch.Tensor) -> None:
-    """``blk −= upd`` in place; bf16 storage as the reference's epilogue,
-    bf16(c − bf16(acc))."""
+    """``blk −= upd`` in place, with :func:`_minus`'s rounding."""
     if blk.dtype == torch.bfloat16:
-        blk.copy_((blk.float() - upd.to(torch.bfloat16).float()).to(torch.bfloat16))
+        blk.copy_(_minus(blk, upd))
     else:
         blk.sub_(upd)
 
@@ -293,3 +317,232 @@ def trailing_update_packed(
         raise RuntimeError(f"trailing_update_packed kernel launch failed: CUDA error {err}")
     packed_launches += 1
     return packed
+
+
+# ---- the four task kernels -----------------------------------------------------------
+
+#: the largest tile :func:`potrf_tile` takes (``kMaxNb`` of ``csrc/diag_block.cuh``)
+POTRF_TILE_MAX = 512
+
+
+def _same_device(name: str, *ts: torch.Tensor) -> bool:
+    """True for CPU operands; raises unless they all lie on one CUDA device."""
+    if all(t.device.type == "cpu" for t in ts):
+        return True
+    if ts[0].device.type != "cuda" or any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{name} needs its operands all on the CPU or all on one CUDA "
+                         f"device; got {[str(t.device) for t in ts]}")
+    return False
+
+
+def _row_major(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+            raise ValueError(f"{name} needs row-major operands (unit column stride); "
+                             f"got strides {t.stride()} for shape {tuple(t.shape)}")
+
+
+def _round_operand(x: torch.Tensor) -> torch.Tensor:
+    """An operand of a rank-1 step at ``_kernel_precision``
+    (``pallas_tiles.py:60-65``): bf16-rounded at ``default`` for fp32, else as
+    it is (``high`` is promoted to ``highest``)."""
+    if x.dtype == torch.float32 and tier() == "default":
+        return x.to(torch.bfloat16).to(x.dtype)
+    return x
+
+
+def _factor_lower_plain(a: torch.Tensor) -> torch.Tensor:
+    """tril(L) of one SPD block by n rank-1 steps, reading the lower
+    triangle only (``_factor_lower``, ``pallas_tiles.py:97``)."""
+    n = a.shape[0]
+    l = torch.tril(a)
+    for j in range(n):
+        piv = _sqrt_rn(l[j, j])
+        l[j, j] = piv
+        col = l[j + 1 :, j] / piv
+        l[j + 1 :, j] = col
+        c = _round_operand(col)
+        l[j + 1 :, j + 1 :] -= torch.outer(c, c)
+    return torch.tril(l)
+
+
+def _invert_lower_plain(l: torch.Tensor) -> torch.Tensor:
+    """inv(L) by column-oriented forward substitution, n rank-1 steps
+    (``_invert_lower``, ``pallas_tiles.py:129``)."""
+    n = l.shape[0]
+    x = torch.eye(n, dtype=l.dtype, device=l.device)
+    for j in range(n):
+        xrow = x[j, : j + 1] / l[j, j]
+        x[j, : j + 1] = xrow
+        x[j + 1 :, : j + 1] -= torch.outer(_round_operand(l[j + 1 :, j]), _round_operand(xrow))
+    return x
+
+
+def _check_tiles(name: str, dtypes, shapes: dict[str, tuple[torch.Tensor, tuple]]) -> None:
+    """Each operand 2-D of the stated shape, all of one dtype among ``dtypes``."""
+    first = next(iter(shapes.values()))[0]
+    for arg, (t, want) in shapes.items():
+        if t.ndim != 2 or (want is not None and tuple(t.shape) != want):
+            raise ValueError(f"{name}: {arg} must be 2-D"
+                             + (f" of shape {want}" if want is not None else "")
+                             + f", got {tuple(t.shape)}")
+        if t.dtype not in dtypes or t.dtype != first.dtype:
+            raise TypeError(f"{name} takes real {'/'.join(str(d)[6:] for d in dtypes)} operands "
+                            f"of one dtype (the reference kernel is real-only); {arg} is "
+                            f"{t.dtype}")
+
+
+def _check_potrf_tile(a: torch.Tensor) -> None:
+    _check_tiles("potrf_tile", _DTYPES[:2], {"a": (a, None)})
+    if a.shape[0] != a.shape[1]:
+        raise ValueError(f"potrf_tile: a must be square, got {tuple(a.shape)}")
+
+
+def potrf_tile_plain(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain torch version of :func:`potrf_tile`."""
+    _check_potrf_tile(a)
+    l = _factor_lower_plain(a)
+    return l, _invert_lower_plain(l)
+
+
+def _check_trsm_tile(linv: torch.Tensor, b: torch.Tensor) -> None:
+    _check_tiles("trsm_tile", _DTYPES, {"b": (b, None), "linv": (linv, (b.shape[-1],) * 2)})
+
+
+def trsm_tile_plain(linv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of :func:`trsm_tile`."""
+    _check_trsm_tile(linv, b)
+    return _dot_nt_plain(b, linv).to(b.dtype)
+
+
+def _check_syrk_tile(c: torch.Tensor, a: torch.Tensor) -> None:
+    _check_tiles("syrk_tile", _DTYPES, {"c": (c, None), "a": (a, None)})
+    if c.shape[0] != c.shape[1] or a.shape[0] != c.shape[0]:
+        raise ValueError(f"syrk_tile: c must be (n, n) and a (n, k), got {tuple(c.shape)} and "
+                         f"{tuple(a.shape)}")
+
+
+def syrk_tile_plain(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of :func:`syrk_tile`."""
+    _check_syrk_tile(c, a)
+    n = c.shape[0]
+    lower = torch.ones(n, n, dtype=torch.bool, device=c.device).tril()
+    return torch.where(lower, _minus(c, _dot_nt_plain(a, a)), c)
+
+
+def _check_gemm_tile(c: torch.Tensor, ai: torch.Tensor, aj: torch.Tensor) -> None:
+    _check_tiles("gemm_tile", _DTYPES, {"c": (c, None), "ai": (ai, None), "aj": (aj, None)})
+    if ai.shape[0] != c.shape[0] or aj.shape[0] != c.shape[1] or ai.shape[1] != aj.shape[1]:
+        raise ValueError(f"gemm_tile: c (m, n) needs ai (m, k) and aj (n, k), got "
+                         f"{tuple(c.shape)}, {tuple(ai.shape)} and {tuple(aj.shape)}")
+
+
+def gemm_tile_plain(c: torch.Tensor, ai: torch.Tensor, aj: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of :func:`gemm_tile`."""
+    _check_gemm_tile(c, ai, aj)
+    return _minus(c, _dot_nt_plain(ai, aj))
+
+
+@functools.cache
+def _task_entry(name: str, dtype: torch.dtype, npointers: int, nints: int):
+    """The C entry ``dla_<name>_tile_<dtype>`` of ``csrc/potrf_tile.cu`` or
+    ``csrc/tile_ops.cu``: pointers, 64-bit integers, the tier and the stream;
+    it returns the CUDA error of its launch."""
+    fn = getattr(_build.load(), f"dla_{name}_tile_{_SUFFIX[dtype]}")
+    fn.argtypes = ([ctypes.c_void_p] * npointers + [ctypes.c_longlong] * nints
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_tile_op(op: str, c: torch.Tensor | None, a: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """out (m, n) = epilogue(c, a·bᵀ) through ``csrc/tile_ops.cu``."""
+    _row_major(f"{op}_tile", *(t for t in (c, a, b) if t is not None))
+    m, n, k = a.shape[0], b.shape[0], a.shape[1]
+    if m == 0 or n == 0:
+        raise ValueError(f"{op}_tile on a CUDA tensor takes no empty tile; got ({m}, {n})")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    fn = _task_entry(op, a.dtype, 4, 6)  # c, a, b, out; m, n, k and three leading dimensions
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(None if c is None else c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 m, n, k, 0 if c is None else c.stride(0), a.stride(0), b.stride(0),
+                 _TIER_CODE[tier()], stream)
+    if err != 0:
+        raise RuntimeError(f"{op}_tile kernel launch failed: CUDA error {err}")
+    return out
+
+
+def potrf_tile(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Factor one SPD tile: returns (tril(L), inv(L)), two new (n, n)
+    row-major tensors. Only the lower triangle of ``a`` is read. Real
+    float32/float64. The rank-1 steps of the factor and of the inverse follow
+    ``_kernel_precision``: ``high`` is ``highest``, and ``default`` rounds the
+    steps' operands (not the stored L) to bf16.
+
+    On a CUDA tensor n ≤ 512: the kernel is one thread block that stages a
+    column in a fixed shared-memory array of 512 elements (the cap of
+    ``panel_factor``, whose diagonal phase this is). The reference states no
+    cap, its tile only has to fit VMEM; a larger tile raises here rather
+    than run another algorithm.
+    """
+    global potrf_tile_launches
+    if _same_device("potrf_tile", a):
+        return potrf_tile_plain(a)
+    _check_potrf_tile(a)
+    _row_major("potrf_tile", a)
+    n = a.shape[0]
+    if not 0 < n <= POTRF_TILE_MAX:
+        raise ValueError(f"potrf_tile on a CUDA tensor takes 1 ≤ n ≤ {POTRF_TILE_MAX} (the "
+                         f"kernel's shared-memory stage); got n={n}")
+    l = torch.empty((n, n), dtype=a.dtype, device=a.device)
+    linv = torch.empty((n, n), dtype=a.dtype, device=a.device)
+    fn = _task_entry("potrf", a.dtype, 3, 2)  # a, l, linv; n and a's leading dimension
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), l.data_ptr(), linv.data_ptr(), n, a.stride(0),
+                 _TIER_CODE[tier()], stream)
+    if err != 0:
+        raise RuntimeError(f"potrf_tile kernel launch failed: CUDA error {err}")
+    potrf_tile_launches += 1
+    return l, linv
+
+
+def trsm_tile(linv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B·inv(L)ᵀ given the pre-inverted factor ``linv`` (n, n) and ``b``
+    (m, n): the TRSM task as a product, at the precision tier. Returns a new
+    (m, n) row-major tensor. Real float32/float64/bfloat16."""
+    global trsm_tile_launches
+    if _same_device("trsm_tile", linv, b):
+        return trsm_tile_plain(linv, b)
+    _check_trsm_tile(linv, b)
+    out = _launch_tile_op("trsm", None, b, linv)
+    trsm_tile_launches += 1
+    return out
+
+
+def syrk_tile(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """C − A·Aᵀ on the lower triangle (row ≥ col) of ``c`` (n, n), with ``a``
+    (n, k); above the diagonal ``c`` passes through bit for bit. Returns a new
+    (n, n) row-major tensor; ``c`` is left alone. Real float32/float64/bfloat16
+    (bf16: the product rounded to bf16, then subtracted in bf16)."""
+    global syrk_tile_launches
+    if _same_device("syrk_tile", c, a):
+        return syrk_tile_plain(c, a)
+    _check_syrk_tile(c, a)
+    out = _launch_tile_op("syrk", c, a, a)
+    syrk_tile_launches += 1
+    return out
+
+
+def gemm_tile(c: torch.Tensor, ai: torch.Tensor, aj: torch.Tensor) -> torch.Tensor:
+    """C − Aᵢ·Aⱼᵀ with ``c`` (m, n), ``ai`` (m, k), ``aj`` (n, k). Returns a new
+    (m, n) row-major tensor; ``c`` is left alone. Real float32/float64/bfloat16."""
+    global gemm_tile_launches
+    if _same_device("gemm_tile", c, ai, aj):
+        return gemm_tile_plain(c, ai, aj)
+    _check_gemm_tile(c, ai, aj)
+    out = _launch_tile_op("gemm", c, ai, aj)
+    gemm_tile_launches += 1
+    return out

@@ -1,5 +1,10 @@
 """Residual gates and invariants."""
 
-from dla_tpu_torch.validate.residual import PASS_THRESHOLD, cholesky_invariants, residual_potrf
+from dla_tpu_torch.validate.residual import (
+    PASS_THRESHOLD,
+    cholesky_invariants,
+    freivalds_device,
+    residual_potrf,
+)
 
-__all__ = ["PASS_THRESHOLD", "cholesky_invariants", "residual_potrf"]
+__all__ = ["PASS_THRESHOLD", "cholesky_invariants", "freivalds_device", "residual_potrf"]

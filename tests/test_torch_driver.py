@@ -249,3 +249,43 @@ def test_input_errors(capsys, user_matrix):
     rc, _, err = _run(capsys, "--mode", "inplace", "--n", "256", "--nb", "64", "--device", "cpu",
                       "--input", path)
     assert rc == 2 and "--input" in err
+
+
+@pytest.mark.parametrize("mode,extra,dtype", [
+    ("inplace", [], "s"), ("inplace", [], "h"),  # bf16 storage is driven through inplace
+    ("blocked", ["--panel", "pallas", "--trailing", "pallas"], "s"),
+    ("masked", [], "s"), ("shrink", ["--panel", "blocktrsm", "--trailing", "pallas"], "s"),
+])
+def test_dense_modes_take_the_freivalds_gate_when_the_residual_does_not_fit(
+        capsys, monkeypatch, mode, extra, dtype):
+    """The reference's second gate (``dla_tpu/cli/potrf_driver.py:741-766``):
+    under a budget the exact residual's operands exceed, the dense modes
+    validate matrix-free and print the reference's line."""
+    monkeypatch.setenv("DLA_TPU_VALIDATE_HBM_BUDGET", "1")
+    rc, out, _ = _run(capsys, "--n", "512", "--nb", "128", "--dtype", dtype, "--device", "cpu",
+                      "--mode", mode, *extra)
+    assert rc == 0, out
+    res = re.search(FREIVALDS, out, re.M)
+    assert res and not re.search(RESIDUAL, out, re.M)
+    gate = 512 * 2e-7 if dtype == "s" else 512**0.5 * 2e-4
+    assert float(res.group(1)) < gate and f"PASS (residual < {gate:g})" in out
+
+
+def test_dense_mode_keeps_the_exact_residual_when_it_fits(capsys, monkeypatch):
+    monkeypatch.setenv("DLA_TPU_VALIDATE_HBM_BUDGET", str(10**12))
+    rc, out, _ = _run(capsys, "--n", "512", "--nb", "128", "--dtype", "s", "--device", "cpu")
+    assert rc == 0 and re.search(RESIDUAL, out, re.M) and not re.search(FREIVALDS, out, re.M)
+    # n with no chunk in 4096..128 dividing it: the exact residual, whatever the budget
+    monkeypatch.setenv("DLA_TPU_VALIDATE_HBM_BUDGET", "1")
+    rc, out, _ = _run(capsys, "--n", "96", "--nb", "32", "--dtype", "s", "--device", "cpu")
+    assert rc == 0 and re.search(RESIDUAL, out, re.M)
+
+
+def test_residual_bytes():
+    """What must fit for the exact residual: A and tril(L), plus their whole
+    fp64 copies unless the storage is fp64 or row-chunked bf16."""
+    n = 1024
+    assert potrf_driver._residual_bytes(n, torch.float32, 4096) == 24 * n * n
+    assert potrf_driver._residual_bytes(n, torch.float64, None) == 16 * n * n
+    assert potrf_driver._residual_bytes(n, torch.bfloat16, 4096) == 4 * n * n
+    assert potrf_driver._residual_bytes(n, torch.bfloat16, None) == 20 * n * n

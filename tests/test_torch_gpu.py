@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import dla_tpu_torch as T
+import dla_tpu_torch.algos as TA
 from dla_tpu_torch.kernels import tiles
 from dla_tpu_torch.algos import packed as P
 from dla_tpu_torch.kernels.tiles import (
@@ -110,9 +111,9 @@ def test_potrf_inplace_card_matches_cpu(cuda, dtype):
     kw = dict(nb=128, tb=64, kb=128, ib=64, precision="high")
     a = T.plgsy(n, seed=3, dtype=dtype, device="cpu")
     before = tiles.launches
-    lg = torch.tril(T.potrf_inplace(a.to(cuda), **kw)).cpu()
+    lg = torch.tril(TA.potrf_inplace(a.to(cuda), **kw)).cpu()
     assert tiles.launches == before + n // 128 - 1
-    lc = torch.tril(T.potrf_inplace(a.clone(), **kw))
+    lc = torch.tril(TA.potrf_inplace(a.clone(), **kw))
     tol = 1e-10 if dtype == torch.float64 else 1e-5 * lc.abs().max().item()
     assert (lg - lc).abs().max().item() <= tol
     gate = 1e-10 if dtype == torch.float64 else n * 2e-7
@@ -145,12 +146,12 @@ def test_plgsy_same_bits_on_card(cuda, dtype):
 def test_card_factor_reads_lower_only_and_nans_non_spd(cuda):
     n, kw = 256, dict(nb=64, tb=32, ib=32)
     a = T.plgsy(n, seed=5, dtype=torch.float64, device=cuda)
-    clean = torch.tril(T.potrf_inplace(a.clone(), **kw))
+    clean = torch.tril(TA.potrf_inplace(a.clone(), **kw))
     dirty = torch.tril(a) + torch.triu(torch.full_like(a, 123.0), 1)
-    assert torch.equal(torch.tril(T.potrf_inplace(dirty, **kw)), clean)
+    assert torch.equal(torch.tril(TA.potrf_inplace(dirty, **kw)), clean)
     bad = a.clone()
     bad[70, 70] = -5.0
-    lb = torch.tril(T.potrf_inplace(bad, **kw)).cpu()
+    lb = torch.tril(TA.potrf_inplace(bad, **kw)).cpu()
     assert torch.isnan(lb[64:]).any() and not torch.isnan(lb[:64, :64]).any()
 
 
@@ -588,3 +589,145 @@ def test_potrf_modes_card_matches_cpu(cuda, kw):
     lc = T.potrf(a, nb=128, **kw)
     assert (lg - lc).abs().max().item() <= 1e-5 * lc.abs().max().item()
     assert float(T.residual_potrf(a, lg)) < n * 2e-7
+
+
+# ---- the four task kernels (csrc/potrf_tile.cu, csrc/tile_ops.cu) ----------------------
+
+TIERS = [(torch.float32, "highest"), (torch.float32, "high"), (torch.float32, "default"),
+         (torch.float64, "high"), (torch.bfloat16, "high")]
+
+
+def _tile_inputs(cuda, op, n, m, k, dtype, seed):
+    """(c, a, b) for out = epilogue(c, a·bᵀ), made in fp32 from a seed."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    if op == "trsm":  # linv (n, n) lower triangular, b (m, n)
+        return None, rnd(m, n), torch.tril(rnd(n, n))
+    if op == "syrk":  # c (n, n), a (n, k)
+        a = rnd(n, k)
+        return rnd(n, n), a, a
+    return rnd(m, n), rnd(m, k), rnd(n, k)  # gemm: c (m, n), ai (m, k), aj (n, k)
+
+
+def _call_tile(op, fn_of, c, a, b):
+    if op == "trsm":
+        return fn_of("trsm")(b, a)
+    if op == "syrk":
+        return fn_of("syrk")(c, a)
+    return fn_of("gemm")(c, a, b)
+
+
+@pytest.mark.parametrize("dtype,prec", TIERS)
+@pytest.mark.parametrize("n,m,k", [(96, 96, 96), (512, 512, 512), (96, 200, 72)])
+@pytest.mark.parametrize("op", ["trsm", "syrk", "gemm"])
+def test_tile_op_matches_plain(cuda, op, n, m, k, dtype, prec):
+    """Tolerance as for the trailing kernels: fp64 1e-12, fp32 1e-5 of
+    scale = max|a_i|·max|b_j| (the same partial products, another order),
+    bf16 2^-6 of (max|c| + scale)."""
+    if op == "trsm":
+        k = n
+    c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=n + m + k)
+    kept = [None if t is None else t.clone() for t in (c, a, b)]
+    counter = f"{op}_tile_launches"
+    with precision.override(prec):
+        ref = _call_tile(op, lambda o: getattr(tiles, f"{o}_tile_plain"), c, a, b)
+        before = getattr(tiles, counter)
+        out = _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)
+        torch.cuda.synchronize()
+    assert getattr(tiles, counter) == before + 1
+    assert out.shape == ref.shape and out.dtype == dtype and out.is_contiguous()
+    for t, t0 in zip((c, a, b), kept):  # not in place
+        assert t is None or torch.equal(t, t0)
+    scale = (a.double().norm(dim=1).max() * b.double().norm(dim=1).max()).item()
+    cmax = 0.0 if c is None else c.double().abs().max().item()
+    tol = {torch.float64: 1e-12 * scale, torch.float32: 1e-5 * scale,
+           torch.bfloat16: 2**-6 * (cmax + scale)}[dtype]
+    assert (out.double() - ref.double()).abs().max().item() <= tol
+    if op == "syrk":  # above the diagonal c passes through bit for bit
+        assert torch.equal(torch.triu(out, 1), torch.triu(c, 1))
+
+
+@pytest.mark.parametrize("dtype,prec", TIERS[:4])
+@pytest.mark.parametrize("n", [96, 512])
+def test_potrf_tile_matches_plain(cuda, n, dtype, prec):
+    """1e-5·max|out| for fp32 (fp64: 1e-12): the kernel rounds every product
+    and difference where the plain version does."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, n, generator=g, device=cuda, dtype=torch.float64)
+    a = (x @ x.mT + n * torch.eye(n, device=cuda, dtype=torch.float64)).to(dtype)
+    a += torch.triu(torch.full((n, n), float("nan"), device=cuda, dtype=dtype), 1)
+    a0 = a.clone()
+    with precision.override(prec):
+        lref, xref = tiles.potrf_tile_plain(a)
+        before = tiles.potrf_tile_launches
+        l, linv = tiles.potrf_tile(a)
+        torch.cuda.synchronize()
+    assert tiles.potrf_tile_launches == before + 1
+    assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(a0))
+    assert bool(torch.isfinite(l).all() and torch.isfinite(linv).all())  # lower triangle only
+    rel = 1e-12 if dtype == torch.float64 else 1e-5
+    for got, ref in ((l, lref), (linv, xref)):
+        assert torch.equal(got, torch.tril(got))
+        assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
+
+
+def test_potrf_tile_same_bits_as_panel_factor(cuda):
+    """Both run ``diag_kernel`` of csrc/diag_block.cuh: the tile kernel's L is
+    ``panel_factor``'s diagonal block, bit for bit."""
+    from dla_tpu_torch.kernels import panel
+
+    n = 256
+    spd = T.plgsy(n, seed=3, device=cuda)
+    for prec in ("highest", "high", "default"):
+        with precision.override(prec):
+            l, _ = tiles.potrf_tile(spd)
+            assert torch.equal(l, panel.panel_factor(spd))
+
+
+def test_task_kernels_raise_on_what_they_do_not_take(cuda):
+    z = lambda *s, **kw: torch.zeros(*s, device=cuda, **kw)  # noqa: E731
+    with pytest.raises(ValueError, match="512"):
+        tiles.potrf_tile(z(576, 576))
+    with pytest.raises(ValueError, match="row-major"):
+        tiles.potrf_tile(z(64, 64).mT)
+    with pytest.raises(ValueError, match="row-major"):
+        tiles.gemm_tile(z(64, 64), z(64, 64).mT, z(64, 64))
+    eye = torch.eye(64, device=cuda)
+    linv = torch.linalg.solve_triangular(2 * eye, eye, upper=False)  # column-major on CUDA
+    if linv.stride(1) != 1:
+        with pytest.raises(ValueError, match="row-major"):
+            tiles.trsm_tile(linv, z(64, 64))
+    with pytest.raises(ValueError, match="device"):
+        tiles.syrk_tile(z(64, 64), torch.zeros(64, 64))
+    with pytest.raises(TypeError, match="real"):
+        tiles.potrf_tile(z(64, 64, dtype=torch.bfloat16))
+    out = tiles.gemm_tile(z(64, 128)[:, :64], z(64, 32), z(64, 32))  # a row-major view is taken
+    assert out.shape == (64, 64)
+
+
+# ---- freivalds_device on the card ------------------------------------------------------
+
+
+def test_freivalds_device_card_matches_cpu(cuda):
+    """The same probe bits and the same fp32 slabs on both devices; the
+    products are summed in another order, so the values agree to 1e-5
+    relative above the fp32 rounding floor of one evaluation (3e-7 at
+    N=1024, bump N)."""
+    from dla_tpu_torch.validate import freivalds_device
+    from dla_tpu_torch.validate.residual import _probe_vec
+
+    assert torch.equal(_probe_vec(4096, 0xC0FFEE, cuda).cpu(), _probe_vec(4096, 0xC0FFEE, "cpu"))
+    n = 1024
+    l = torch.linalg.cholesky(T.plgsy(n, seed=51, dtype=torch.float64, device="cpu")).float()
+    for factor in (l, l.to(torch.bfloat16)):
+        got = float(freivalds_device(factor.to(cuda), row_chunk=256))
+        ref = float(freivalds_device(factor, row_chunk=256))
+        assert abs(got - ref) <= 1e-5 * ref + 3e-7
+    assert float(freivalds_device(l.to(cuda), row_chunk=256)) < n * 2e-7
+    bad = l.clone()
+    bad[512:640, 512:640] *= 1.5
+    got = float(freivalds_device(bad.to(cuda), row_chunk=256))
+    assert got > 10 * n * 2e-7 and abs(got - float(freivalds_device(bad, row_chunk=256))) <= 1e-5 * got

@@ -25,6 +25,7 @@ import scipy.linalg
 import torch
 
 import dla_tpu_torch as T
+import dla_tpu_torch.algos as TA
 from dla_tpu.algos import potrf as jax_potrf
 from dla_tpu.algos import potrf_blocked as jax_blocked
 from dla_tpu.algos import potrf_masked as jax_masked
@@ -127,14 +128,14 @@ class TestShrink:
         dtype, prec = dt
         a = _a(192, seed=5, dtype=dtype)
         kw = dict(nb=64, panel=panel, trailing=trailing, **extra)
-        ref, got = _both(jax_shrink, T.potrf_shrink, a, prec, **kw)
+        ref, got = _both(jax_shrink, TA.potrf_shrink, a, prec, **kw)
         assert np.abs(got - ref).max() <= _tol(dtype, prec, ref)
         assert np.array_equal(got, np.tril(got))
 
     def test_ragged_xla_routes(self):
         a = _a(200, seed=6)
         for panel in ("xla", "invgemm", "blocktrsm"):
-            ref, got = _both(jax_shrink, T.potrf_shrink, a, "high", nb=64, panel=panel)
+            ref, got = _both(jax_shrink, TA.potrf_shrink, a, "high", nb=64, panel=panel)
             assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()
 
 
@@ -196,7 +197,7 @@ class TestComplex:
     def test_kernel_routes_are_real_only(self, kw):
         a = torch.eye(64, dtype=torch.complex128)
         with pytest.raises(TypeError, match="real"):
-            T.potrf_shrink(a, nb=32, **kw)
+            TA.potrf_shrink(a, nb=32, **kw)
 
 
 ROUTES = [(p, t) for p in ("xla", "pallas") for t in ("xla", "pallas")] + [
@@ -209,7 +210,7 @@ class TestContracts:
         n = 128
         a = _a(n, seed=13)
         dirty = np.tril(a) + np.triu(np.full((n, n), np.nan), 1)
-        fns = [T.potrf_shrink]
+        fns = [TA.potrf_shrink]
         if panel in ("xla", "pallas"):
             fns.append(T.potrf_blocked)
         for fn in fns:
@@ -222,7 +223,7 @@ class TestContracts:
     def test_input_unchanged(self, panel, trailing, alias):
         a = _t(_a(128, seed=14, dtype=np.float32))
         keep = a.clone()
-        T.potrf_shrink(a, nb=32, panel=panel, trailing=trailing, trailing_alias=alias)
+        TA.potrf_shrink(a, nb=32, panel=panel, trailing=trailing, trailing_alias=alias)
         assert torch.equal(a, keep)
         if panel in ("xla", "pallas") and not alias:
             T.potrf_blocked(a, nb=32, panel=panel, trailing=trailing)
@@ -234,12 +235,12 @@ class TestContracts:
 
     @pytest.mark.parametrize("fn,kw", [
         (T.potrf_blocked, dict(panel="pallas")), (T.potrf_blocked, dict(trailing="pallas")),
-        (T.potrf_shrink, dict(panel="pallas")), (T.potrf_shrink, dict(trailing="pallas")),
+        (TA.potrf_shrink, dict(panel="pallas")), (TA.potrf_shrink, dict(trailing="pallas")),
         (T.potrf_masked, {}),
     ])
     def test_ragged_kernel_routes_raise_like_jax(self, fn, kw):
         a = _a(100, seed=15)
-        jfn = {T.potrf_blocked: jax_blocked, T.potrf_shrink: jax_shrink,
+        jfn = {T.potrf_blocked: jax_blocked, TA.potrf_shrink: jax_shrink,
                T.potrf_masked: jax_masked}[fn]
         with pytest.raises(ValueError, match="n % nb") as want:
             jfn(jnp.asarray(a), nb=32, **kw)

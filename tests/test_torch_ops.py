@@ -216,12 +216,13 @@ class TestGeneratorDevice:
         device: on a machine with no card the default call raises rather
         than quietly producing a CPU tensor."""
         import dla_tpu_torch as T
+        import dla_tpu_torch.algos as TA
         from dla_tpu_torch.ops import to_df64
 
         call = {
             "plgsy": lambda **kw: T.plgsy(64, **kw),
             "plgsy_tile": lambda **kw: T.plgsy_tile(51, 0, 0, 8, 8, **kw),
-            "plgsy_packed": lambda **kw: T.plgsy_packed(64, 32, **kw),
+            "plgsy_packed": lambda **kw: TA.plgsy_packed(64, 32, **kw),
             "to_df64": lambda **kw: to_df64(np.eye(8), **kw)[0],
         }[gen]
         assert call(device="cpu").device.type == "cpu"
@@ -236,13 +237,14 @@ class TestNoJax:
     def test_imports_with_jax_blocked(self):
         code = ("import sys; sys.modules['jax'] = None; sys.modules['dla_tpu'] = None\n"
                 "import dla_tpu_torch, dla_tpu_torch.cli.potrf_driver\n"
-                "import dla_tpu_torch.kernels._build\n"
+                "import dla_tpu_torch.cli.session, dla_tpu_torch.bench.bench\n"
+                "import dla_tpu_torch.kernels._build, dla_tpu_torch.tiles\n"
                 "print(sorted(dla_tpu_torch.__all__))")
         env = dict(os.environ, PYTHONPATH=str(REPO))
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
-        assert "potrf_inplace" in proc.stdout
+        assert "potrf_packed" in proc.stdout and "TileLayout" in proc.stdout
 
     @pytest.mark.parametrize("path", sorted(
         str(p.relative_to(REPO)) for p in (REPO / "dla_tpu_torch").rglob("*.py")
@@ -258,3 +260,46 @@ class TestNoJax:
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "dla_tpu", "flax", "optax"), (path, name)
+
+
+def _top_level_names(init: Path) -> set[str]:
+    """The public names an ``__init__.py`` imports at its top level, read
+    through ``ast`` (the port may not import ``dla_tpu``)."""
+    names = set()
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+class TestTopLevelExports:
+    # names of dla_tpu's top level that the port does not have yet; later
+    # slices shrink this set
+    MISSING = {"geadd", "lacpy", "lauum", "plghe", "plghe_tile", "spd_gershgorin", "posv",
+               "potri", "potri_packed", "potrs", "solve_inverse", "solve_inverse_packed"}
+
+    def test_port_exports_only_reference_names(self):
+        ref = _top_level_names(REPO / "dla_tpu" / "__init__.py")
+        port = _top_level_names(REPO / "dla_tpu_torch" / "__init__.py") - {"pin_ieee_fp32"}
+        assert port <= ref, f"not top-level names of dla_tpu: {sorted(port - ref)}"
+        assert ref - port == self.MISSING
+
+    def test_all_matches_the_imports(self):
+        import dla_tpu_torch as T
+
+        port = _top_level_names(REPO / "dla_tpu_torch" / "__init__.py") - {"pin_ieee_fp32"}
+        assert set(T.__all__) == port
+        assert all(hasattr(T, n) for n in T.__all__)
+
+    @pytest.mark.parametrize("name", ["potrf_inplace", "potrf_shrink", "plgsy_packed",
+                                      "freivalds_packed"])
+    def test_algos_only_names(self, name):
+        """The reference keeps these under ``algos`` only; so does the port."""
+        import dla_tpu_torch as T
+        import dla_tpu_torch.algos as TA
+
+        assert name in TA.__all__ and name not in T.__all__
+        defined = {node.name for f in (REPO / "dla_tpu" / "algos").glob("*.py")
+                   for node in ast.parse(f.read_text()).body
+                   if isinstance(node, ast.FunctionDef)}
+        assert name in defined

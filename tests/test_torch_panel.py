@@ -26,6 +26,7 @@ import scipy.linalg
 import torch
 
 import dla_tpu_torch as T
+import dla_tpu_torch.algos as TA
 from dla_tpu.algos import potrf_inplace as jax_potrf_inplace
 from dla_tpu.kernels.pallas_tiles import panel_apply as jax_panel_apply
 from dla_tpu.kernels.pallas_tiles import panel_factor as jax_panel_factor
@@ -172,9 +173,9 @@ class TestInplacePallasPanel:
         a = np.asarray(jax_plgsy(n, seed=3, dtype=jnp.float32))
         kw = dict(nb=128, tb=64, kb=64, ib=64, panel="pallas", panel_ib=64, precision=prec)
         ref = np.tril(np.asarray(jax_potrf_inplace(jnp.asarray(a), **kw)))
-        got = np.tril(T.potrf_inplace(_t(a.copy()), **kw).numpy())
+        got = np.tril(TA.potrf_inplace(_t(a.copy()), **kw).numpy())
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
-        blk = np.tril(T.potrf_inplace(_t(a.copy()), **dict(kw, panel="blocktrsm")).numpy())
+        blk = np.tril(TA.potrf_inplace(_t(a.copy()), **dict(kw, panel="blocktrsm")).numpy())
         assert np.abs(got - blk).max() <= 1e-5 * np.abs(blk).max()
 
     @pytest.mark.parametrize("dtype,nb,panel_ib", [
@@ -182,4 +183,4 @@ class TestInplacePallasPanel:
     def test_gate_like_jax(self, dtype, nb, panel_ib):
         a = torch.eye(nb, dtype=dtype)
         with pytest.raises(ValueError, match="panel='pallas' needs real fp32"):
-            T.potrf_inplace(a, nb=nb, tb=nb, panel="pallas", panel_ib=panel_ib)
+            TA.potrf_inplace(a, nb=nb, tb=nb, panel="pallas", panel_ib=panel_ib)

@@ -21,6 +21,7 @@ import scipy.linalg
 import torch
 
 import dla_tpu_torch as T
+import dla_tpu_torch.algos as TA
 from dla_tpu.algos import potrf as jax_potrf
 from dla_tpu.algos import potrf_inplace as jax_potrf_inplace
 from dla_tpu.ops import plgsy as jax_plgsy
@@ -46,7 +47,7 @@ class TestPotrfInplace:
         kw = dict(nb=nb, tb=tb, ib=ib, kb=32, diag_factor=diag)
         ref = np.tril(np.asarray(jax_potrf_inplace(jnp.asarray(a), **kw)))
         ta = _t(a)
-        out = T.potrf_inplace(ta, **kw)
+        out = TA.potrf_inplace(ta, **kw)
         assert out is ta  # mutates its argument
         got = np.tril(out.numpy())
         assert np.abs(got - ref).max() < 1e-10
@@ -62,7 +63,7 @@ class TestPotrfInplace:
         a = _a(n, seed=7, jdt=jnp.float32)
         kw = dict(nb=128, tb=64, ib=64, kb=128, diag_factor=diag, precision="high")
         ref = np.tril(np.asarray(jax_potrf_inplace(jnp.asarray(a), **kw)))
-        got = np.tril(T.potrf_inplace(_t(a), **kw).numpy())
+        got = np.tril(TA.potrf_inplace(_t(a), **kw).numpy())
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
         assert float(T.residual_potrf(_t(a), _t(got))) < n * 2e-7
 
@@ -71,7 +72,7 @@ class TestPotrfInplace:
         a32 = _a(n, seed=11, jdt=jnp.float32)
         ab = a32.astype(ml_dtypes.bfloat16)
         ref = np.asarray(jax_potrf_inplace(jnp.asarray(ab), nb=64, tb=32))
-        out = T.potrf_inplace(_t(ab), nb=64, tb=32)
+        out = TA.potrf_inplace(_t(ab), nb=64, tb=32)
         assert out.dtype == torch.bfloat16
         aref = a32.astype(np.float64)
         res = []
@@ -86,8 +87,8 @@ class TestPotrfInplace:
         a = _a(n, seed=3)
         dirty = np.tril(a) + np.triu(np.full((n, n), 123.0), 1)
         kw = dict(nb=64, tb=32, ib=32)
-        clean = np.tril(T.potrf_inplace(_t(a), **kw).numpy())
-        got = np.tril(T.potrf_inplace(_t(dirty), **kw).numpy())
+        clean = np.tril(TA.potrf_inplace(_t(a), **kw).numpy())
+        got = np.tril(TA.potrf_inplace(_t(dirty), **kw).numpy())
         np.testing.assert_array_equal(got, clean)
 
     def test_non_spd_gives_nans_like_jax(self):
@@ -96,7 +97,7 @@ class TestPotrfInplace:
         a[70, 70] = -5.0  # the second panel's diagonal block is not SPD
         kw = dict(nb=64, tb=32, ib=32)
         ref = np.tril(np.asarray(jax_potrf_inplace(jnp.asarray(a), **kw)))
-        got = np.tril(T.potrf_inplace(_t(a), **kw).numpy())
+        got = np.tril(TA.potrf_inplace(_t(a), **kw).numpy())
         assert np.isnan(ref).any() and np.isnan(got).any()
         np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
         inv = T.cholesky_invariants(_t(got))
@@ -105,18 +106,18 @@ class TestPotrfInplace:
     def test_checks_and_later_options(self):
         a = torch.eye(64, dtype=torch.float64)
         with pytest.raises(ValueError):
-            T.potrf_inplace(a, nb=48, tb=16)
+            TA.potrf_inplace(a, nb=48, tb=16)
         with pytest.raises(ValueError):
-            T.potrf_inplace(a, nb=32, tb=24)
+            TA.potrf_inplace(a, nb=32, tb=24)
         with pytest.raises(ValueError, match="fp32"):  # the reference's gate
-            T.potrf_inplace(a, nb=32, tb=32, panel="pallas")
+            TA.potrf_inplace(a, nb=32, tb=32, panel="pallas")
         with pytest.raises(ValueError, match="panel"):
-            T.potrf_inplace(a, nb=32, tb=32, panel="nope")
+            TA.potrf_inplace(a, nb=32, tb=32, panel="nope")
         n = 128
         spd = _a(n, seed=6)
         kw = dict(nb=64, tb=32, ib=32, diag_factor="unblocked")
         ref = np.tril(np.asarray(jax_potrf_inplace(jnp.asarray(spd), **kw)))
-        got = np.tril(T.potrf_inplace(_t(spd), **kw).numpy())
+        got = np.tril(TA.potrf_inplace(_t(spd), **kw).numpy())
         assert np.abs(got - ref).max() < 1e-10
 
 
