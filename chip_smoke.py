@@ -116,7 +116,23 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     ``bf16:packed:4096:4096:106496``, two timed factorizations each; one JSON
     line per tier, both gates passed, exit code 0;
 28. the driver with ``--mode inplace`` at N=61440, where the exact residual
-    does not fit the card: PASS through the Freivalds gate.
+    does not fit the card: PASS through the Freivalds gate;
+29. the ring collectives against their plain versions on a flat mesh of D=4
+    members on the card: ``ring_broadcast`` (#11) at the ring planes' largest
+    panel (15360 × 1024 fp64, 48 chunks, root 1) and factor tile (1024 × 1024,
+    32 chunks), and in two sub-rings (``group=2``, roots 0 and 1);
+    ``ring_all_gather`` (#12) at 1024 × 1024 fp64 with ``group`` 4 and 2, and
+    the flat-mesh P×Q row-broadcast check (``group=2``) that gives #12 its
+    launch count: every output the plain version's **bits**; kernel, plain
+    and library times (``expand(D, m, n).clone()``; ``torch.cat`` per member),
+    and the bound;
+30. to 32. the three flat-mesh ring planes at N=16384, nb=1024, D=4 members on
+    the card (``__graft_entry__.dryrun_multichip`` planes 2, 3 and 6): dense
+    column-cyclic fp64 (``plgsy(…, seed=7)``), packed column-cyclic fp64
+    (seed 3), packed column-cyclic df64 (seed 17, s=7, w=8); one warm-up and
+    two timed factorizations each, exactly 2·nt − 1 = 31 ``ring_broadcast``
+    launches per factorization, the time inside them (CUDA events around each
+    call), and the residual under the reference's 1e-10 gate.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -177,6 +193,9 @@ N_TASK_BIG, M_TASK_BIG = 2048, 4096  # #6-#8 at a size clear of the launch floor
 BENCH_TIERS = "high:inplace:1024:1024:61440,bf16:packed:4096:4096:106496"
 BENCH_ENV = {"BENCH_ITERS": "2"}
 N_HEADLINE, NB_HEADLINE = 61440, 1024
+# the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
+N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
+M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): bf16
 # tensor cores, fp32 outside them, fp64 tensor cores; HBM3 bytes per second.
@@ -1460,7 +1479,162 @@ def phase_bench(tag, tiers, env):
     return lines
 
 
-LAST_PHASE = 28
+# ---- 29. the ring collectives against their plain versions -------------------------------
+def ring_case(dev, tag, kind, m, n, ndev, iters, **kw):
+    """One ring collective on ``ndev`` members at (m, n) fp64 against its plain
+    version on the same inputs (bits), with kernel, plain and library times
+    and the bound: bytes, (1 + D)·V for the broadcast (the root's block read,
+    D outputs written), D·V + D·group·V for the all-gather."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    g = torch.Generator(device=dev).manual_seed(m + n + ndev)
+    xs = [torch.randn(m, n, generator=g, device=dev, dtype=torch.float64) for _ in range(ndev)]
+    group = kw.get("group") or ndev
+    if kind == "broadcast":
+        kernel, plain = C.ring_broadcast, C.ring_broadcast_plain
+        kw = dict(kw)
+        root = kw.pop("root")
+        args, counter = (xs, root), "ring_broadcast_launches"
+        library = lambda: xs[root % group].expand(ndev, m, n).clone()  # noqa: E731
+        nbytes = (1 + ndev) * m * n * 8
+    else:
+        kernel, plain = C.ring_all_gather, C.ring_all_gather_plain
+        args, counter = (xs,), "ring_all_gather_launches"
+        library = lambda: [torch.cat(xs[d - d % group : d - d % group + group])  # noqa: E731
+                           for d in range(ndev)]
+        nbytes = (1 + group) * ndev * m * n * 8
+    ref = plain(*args, **kw)
+    before = getattr(C, counter)
+    out = kernel(*args, **kw)
+    sync()
+    require(getattr(C, counter) == before + 1, f"ring {kind}: not one launch")
+    require(all(torch.equal(bits(o), bits(r)) for o, r in zip(out, ref)),
+            f"ring {kind} at {m}x{n}: the kernel's bits are not the plain version's")
+    err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+    k_ms = cuda_ms(lambda: kernel(*args, **kw), iters)
+    p_ms = cuda_ms(lambda: plain(*args, **kw), iters)
+    lib_ms = cuda_ms(library, iters)
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               **bound(0.0, nbytes))
+    label = f"group={group}" + (f" root={root}" if kind == "broadcast" else "")
+    print(f"ring_{kind} D={ndev} {m}x{n} fp64 {label} chunks={kw.get('chunks')}: bits of the "
+          f"plain version, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) {tag}", flush=True)
+    return row
+
+
+def phase_ring_kernels(dev, tag):
+    """#11 at the planes' shapes and in sub-rings, #12 at the factor tile;
+    then the P×Q row-broadcast check (tests/test_parallel.py:219-249) with
+    the all-gather count set to 0 before it and read after it."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    d, t, big = D_RING, M_RING_TILE, N_RING - NB_RING
+    rows = {"ring_bcast": ring_case(dev, tag, "broadcast", big, NB_RING, d, 10, root=1)}
+    ring_case(dev, tag, "broadcast", t, NB_RING, d, 20, root=1)
+    for root in (0, 1):
+        ring_case(dev, tag, "broadcast", t, NB_RING, d, 20, root=root, group=2)
+    rows["ring_gather"] = ring_case(dev, tag, "gather", t, NB_RING, d, 20)
+    ring_case(dev, tag, "gather", t, NB_RING, d, 20, group=2)
+    pg, qg = D_RING // 2, 2
+    g = torch.Generator(device=dev).manual_seed(7)
+    xs = [torch.randn(4, 6, generator=g, device=dev, dtype=torch.float64) for _ in range(pg * qg)]
+    C.ring_all_gather_launches = 0
+    out = C.ring_all_gather(xs, group=qg)
+    sync()
+    rows["ring_gather_launches"] = C.ring_all_gather_launches
+    for r in range(pg):
+        want = torch.cat(xs[r * qg : (r + 1) * qg])
+        require(all(torch.equal(bits(out[r * qg + c]), bits(want)) for c in range(qg)),
+                "ring_all_gather: a row of the P×Q grid did not gather its own blocks")
+    print(f"ring_all_gather P×Q {pg}x{qg} row broadcast on the flat mesh: every row gathers "
+          f"its own blocks, {rows['ring_gather_launches']} launch {tag}", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---- 30. to 32. the flat-mesh ring planes ---------------------------------------------------
+RING_PLANES = {  # phase: (name, kind in dla_tpu_torch.parallel.dryrun)
+    30: ("column-cyclic fp64", "column"),
+    31: ("packed-cyclic fp64", "packed"),
+    32: ("packed-cyclic df64", "df64"),
+}
+
+
+@contextlib.contextmanager
+def timed_ring():
+    """Record CUDA events around each ``ring_broadcast`` call of the planes
+    (all go through ``parallel/column_cyclic.py``)."""
+    from dla_tpu_torch.parallel import column_cyclic as mod
+
+    real, events = mod.ring_broadcast, []
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    mod.ring_broadcast = timed
+    try:
+        yield events
+    finally:
+        mod.ring_broadcast = real
+
+
+def phase_ring_plane(dev, tag, phase):
+    """One ring plane at N_RING: a warm-up and RING_REPS timed factorizations,
+    2·nt − 1 ring launches each (the count set to 0 before the plane and read
+    after it), the time inside the ring, the residual under 1e-10."""
+    import dla_tpu_torch as T
+    from dla_tpu_torch.kernels import collectives as C
+    from dla_tpu_torch.parallel import dryrun, make_flat_mesh
+
+    name, kind = RING_PLANES[phase]
+    n, nb = N_RING, NB_RING
+    per_fact = 2 * (n // nb) - 1
+    p = dryrun.plane(kind, n, nb, make_flat_mesh(D_RING, device=dev))
+    times, ring_ms = [], []
+    C.ring_broadcast_launches = 0
+    with timed_ring() as events:
+        for rep in range(1 + RING_REPS):  # repeat 0 is the warm-up
+            x = p.shard(p.matrix())
+            sync()
+            before, events[:] = C.ring_broadcast_launches, []
+            t0 = time.perf_counter()
+            lx = p.factor(x)
+            sync()
+            dt = time.perf_counter() - t0
+            got = C.ring_broadcast_launches - before
+            require(got == per_fact, f"{name}: {got} ring launches in one factorization, "
+                    f"expected {per_fact}")
+            r_ms = sum(s.elapsed_time(e) for s, e in events)
+            print(f"ring plane {name} N={n} NB={nb} D={D_RING}: repeat {rep} {dt * 1e3:.1f} ms "
+                  f"{n**3 / 3 / dt / 1e9:.2f} GFLOP/s, {r_ms:.3f} ms in {got} ring_broadcast "
+                  f"launches{' (warm-up)' if rep == 0 else ''} {tag}", flush=True)
+            if rep:
+                times.append(dt)
+                ring_ms.append(r_ms)
+    launches = C.ring_broadcast_launches
+    require(launches == (1 + RING_REPS) * per_fact, f"{name}: ring launch count {launches}")
+    l = p.dense(lx)
+    del x, lx
+    require(bool(torch.isfinite(l).all()), f"{name}: the factor has non-finite entries")
+    res = float(T.residual_potrf(p.matrix(), l, assume_symmetric=True))
+    tmed, rmed = statistics.median(times), statistics.median(ring_ms)
+    print(f"ring plane {name} N={n} NB={nb} D={D_RING}: median {tmed * 1e3:.1f} ms, "
+          f"{n**3 / 3 / tmed / 1e9:.2f} GFLOP/s, ring {rmed:.3f} ms "
+          f"({100 * rmed / (tmed * 1e3):.2f}%), {per_fact} ring launches per factorization, "
+          f"residual {res:.3e} (gate 1e-10) {tag}", flush=True)
+    require(res < 1e-10, f"{name}: residual above the reference's 1e-10 gate")
+    del l
+    torch.cuda.empty_cache()
+    return launches
+
+
+LAST_PHASE = 32
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -1584,6 +1758,12 @@ def main(argv=None) -> int:
         require("freivalds" in out, "the driver did not take the Freivalds gate at the "
                 "headline size")
     torch.cuda.empty_cache()
+    if 29 in sel:
+        got.update(phase_ring_kernels(dev, tag))
+    for phase in (30, 31, 32):
+        if phase in sel:
+            got["ring_bcast_launches"] = (got.get("ring_bcast_launches", 0)
+                                          + phase_ring_plane(dev, tag, phase))
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []
@@ -1604,6 +1784,9 @@ def main(argv=None) -> int:
         ("trsm_tile", "tile_ops.cu", "pallas_tiles.py:194", "trsm_tile", "trsm_tile_launches"),
         ("syrk_tile", "tile_ops.cu", "pallas_tiles.py:218", "syrk_tile", "syrk_tile_launches"),
         ("gemm_tile", "tile_ops.cu", "pallas_tiles.py:238", "gemm_tile", "gemm_tile_launches"),
+        ("ring_broadcast", "ring.cu", "collectives.py:166", "ring_bcast", "ring_bcast_launches"),
+        ("ring_all_gather", "ring.cu", "collectives.py:223", "ring_gather",
+         "ring_gather_launches"),
     ):
         if row not in got or count not in got:
             continue

@@ -1,0 +1,183 @@
+"""Column-cyclic distributed POTRF on a flat mesh, with the ring broadcast as
+the panel data plane — counterpart of ``dla_tpu/parallel/column_cyclic.py``.
+
+The mesh is a :class:`FlatMesh` of D members. In the JAX package each member
+is a device of a ``shard_map``; here all members share one device, and each
+holds allocations of its own. A sharded matrix is a list of D tensors, member
+d's on ``mesh.devices[d]``: exactly the block JAX's ``NamedSharding(mesh,
+P(None, "d"))`` puts on device d, so ``torch.cat(shards, dim=1)`` is JAX's
+global array. Data crosses between members only through
+:func:`~dla_tpu_torch.kernels.collectives.ring_broadcast`.
+
+Algorithm (right-looking, lower triangle only), tile column j owned by member
+j mod D. The controller runs each member's program in turn on one stream:
+
+1. the owner solves panel k (the Cholesky factor of the diagonal tile, then
+   one triangular solve of the rows below);
+2. the solved panel rides the ring to the other D−1 members (two broadcasts:
+   the nb×nb factor tile, then the (N−(k+1)·nb)×nb panel; 2·nt − 1 in all);
+3. every member updates its tile columns right of k from the static staircase
+   row start ``max(k+1, lj·D)·nb``, as JAX does. A member's tile column left
+   of k + 1 is masked to a zero update in JAX (``gcol > k``); here it is
+   skipped, which leaves the same bits.
+
+The trailing products are ``torch.matmul``, as they are plain XLA products in
+JAX. Numerics meet the 1e-10 fp64 gate of every other factorization path.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dla_tpu_torch.algos.potrf import _cholesky
+from dla_tpu_torch.kernels.collectives import ring_broadcast
+
+_MULTI_CARD = ("a mesh whose members span several devices is not supported yet "
+               "(ROADMAP A9: members on several cards, peer pointers)")
+
+
+@dataclass(frozen=True)
+class FlatMesh:
+    """A 1-D ('d',) mesh of ``len(devices)`` members. All members lie on one
+    device; a mesh whose members span several raises ``NotImplementedError``."""
+
+    devices: tuple[torch.device, ...]
+    axis_names: tuple[str, ...] = ("d",)
+
+    def __post_init__(self):
+        if not self.devices:
+            raise ValueError("a mesh needs at least one member")
+        if len(set(self.devices)) > 1:
+            raise NotImplementedError(_MULTI_CARD)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_flat_mesh(ndev: int, *, device="cuda") -> FlatMesh:
+    """A flat mesh of ``ndev`` members, all on the card unless the caller
+    names another device (``device="cpu"``)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())  # raises without a card
+    return FlatMesh((d,) * ndev)
+
+
+def _tensor(a) -> torch.Tensor:
+    """``a`` as a tensor: a numpy array (or anything ``np.array`` takes) is
+    copied, a tensor kept."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+
+
+def _col_perm(n: int, nb: int, ndev: int) -> np.ndarray:
+    """Column permutation grouping each device's cyclic tile columns
+    contiguously (cyclic → blocked, columns only)."""
+    nt = n // nb
+    order = []
+    for d in range(ndev):
+        for j in range(d, nt, ndev):
+            order.extend(range(j * nb, (j + 1) * nb))
+    return np.asarray(order)
+
+
+def from_dense_cols(a, nb: int, mesh: FlatMesh) -> list[torch.Tensor]:
+    """Permute and shard a dense (n, n) matrix (tensor or numpy)
+    column-cyclically over the flat mesh: one (n, n/D) tensor per member, rows
+    whole on every member."""
+    a = _tensor(a)
+    perm = torch.as_tensor(_col_perm(a.shape[1], nb, mesh.size), device=a.device)
+    w = a.shape[1] // mesh.size
+    full = a[:, perm]
+    return [full[:, d * w : (d + 1) * w].to(mesh.devices[d], copy=True).contiguous()
+            for d in range(mesh.size)]
+
+
+def to_dense_cols(shards, nb: int, mesh: FlatMesh) -> torch.Tensor:
+    """Inverse of :func:`from_dense_cols`: the dense matrix, on the members'
+    device (the JAX function gathers it to the host)."""
+    x = torch.cat(list(shards), dim=1)
+    perm = _col_perm(x.shape[1], nb, mesh.size)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    return x[:, torch.as_tensor(inv, device=x.device)]
+
+
+def _solve_panel(d: torch.Tensor, col: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The owner's panel: tril(chol(d)) from d's lower triangle, and
+    col·L⁻ᵀ, both row-major."""
+    lkk = torch.tril(_cholesky(d))
+    if col.shape[0]:
+        col = torch.linalg.solve_triangular(lkk.mT, col, upper=True, left=False)
+    return lkk, col.contiguous()
+
+
+def _dot_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·bᵀ in the storage dtype, accumulated in fp32 for bf16/fp16 (JAX's
+    ``preferred_element_type``)."""
+    if a.dtype in (torch.bfloat16, torch.float16):
+        return (a.float() @ b.float().mT).to(a.dtype)
+    return a @ b.mT
+
+
+def _broadcast_from(owner: int, block: torch.Tensor, ndev: int) -> list[torch.Tensor]:
+    """Ring-broadcast the owner's block: every other member hands the ring a
+    block of its own, whose contents the ring ignores. Every plane broadcasts
+    through here (through this module's ``ring_broadcast``, which a test or a
+    timing run may replace)."""
+    return ring_broadcast([block if d == owner else torch.empty_like(block)
+                           for d in range(ndev)], owner)
+
+
+def _check(n: int, nb: int, mesh, name: str) -> int:
+    if n % nb:
+        raise ValueError(f"n={n} must be a multiple of nb={nb}")
+    nt = n // nb
+    if nt % mesh.size:
+        raise ValueError(f"nt={nt} tile columns must be a multiple of mesh size {mesh.size}")
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"{name} needs a flat 1-D mesh (Pallas remote DMA cannot address multi-axis "
+            "meshes); use make_flat_mesh")
+    return nt
+
+
+def potrf_column_cyclic_ring(shards, nb: int, mesh: FlatMesh) -> list[torch.Tensor]:
+    """Distributed POTRF of a column-cyclic sharded matrix (see
+    :func:`from_dense_cols`) with ring panel broadcasts. Requires nt = n/nb to
+    be a multiple of the mesh size. **Factors in place**: the returned list
+    holds the input shards, updated (JAX returns new arrays in the same
+    layout). Only the lower triangle is meaningful."""
+    x = list(shards)
+    n = x[0].shape[0]
+    nt = _check(n, nb, mesh, "potrf_column_cyclic_ring")
+    ndev = mesh.size
+    if len(x) != ndev or any(s.shape != (n, n // ndev) for s in x):
+        raise ValueError(f"need {ndev} shards of shape {(n, n // ndev)}; got "
+                         f"{[tuple(s.shape) for s in x]}")
+    ltc = nt // ndev
+    for k in range(nt):
+        kc, ljk = k % ndev, k // ndev
+        row0, row1 = k * nb, (k + 1) * nb
+        cols = slice(ljk * nb, (ljk + 1) * nb)
+        own = x[kc]
+        lkk, solved = _solve_panel(own[row0:row1, cols], own[row1:, cols])
+        own[row0:row1, cols] = lkk
+        _broadcast_from(kc, lkk, ndev)  # every member receives L_kk
+        if k == nt - 1:
+            break
+        panel = _broadcast_from(kc, solved, ndev)
+        own[row1:, cols] = solved
+        for c in range(ndev):  # each member's trailing update over its own shard
+            for lj in range((k + 1) // ndev, ltc):
+                gcol = lj * ndev + c
+                rs = max(k + 1, lj * ndev) * nb
+                if gcol <= k or rs >= n:
+                    continue
+                off = gcol * nb - row1
+                b = panel[c][off : off + nb]
+                x[c][rs:, lj * nb : (lj + 1) * nb] -= _dot_nt(panel[c][rs - row1 :], b)
+    return x

@@ -731,3 +731,155 @@ def test_freivalds_device_card_matches_cpu(cuda):
     bad[512:640, 512:640] *= 1.5
     got = float(freivalds_device(bad.to(cuda), row_chunk=256))
     assert got > 10 * n * 2e-7 and abs(got - float(freivalds_device(bad, row_chunk=256))) <= 1e-5 * got
+
+
+# ---- the ring collectives and the flat-mesh planes on the card --------------------------
+
+RING_BCAST = [  # (ndev, m, n, dtype, root, chunks, group)
+    (4, 1024, 1024, torch.float64, 1, None, None),  # the factor tile: C = 32
+    (4, 1536, 256, torch.float64, 2, None, None),  # C = 48, every stripe busy
+    (8, 256, 8, torch.float32, 5, None, None),
+    (8, 256, 8, torch.float32, 5, 16, 4),  # two sub-rings of one launch
+    (8, 64, 40, torch.bfloat16, 1, 4, 2),  # four sub-rings
+    (4, 96, 3, torch.float32, 3, 3, None),  # ragged: 12-byte rows, 384-byte chunks
+    (4, 48, 5, torch.bfloat16, 0, 16, None),  # ragged: 10-byte rows, 30-byte chunks
+    (3, 32, 7, torch.float64, 2, 1, None),  # store and forward, odd ring
+    (1, 64, 16, torch.float32, 0, 4, None),  # a ring of one member: no capture
+]
+
+
+def _ring_members(cuda, ndev, m, n, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(m, n, generator=g, dtype=torch.float64).to(dtype).to(cuda)
+            for _ in range(ndev)]
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("ndev,m,n,dtype,root,chunks,group", RING_BCAST)
+def test_ring_broadcast_kernel_same_bits_as_plain(cuda, ndev, m, n, dtype, root, chunks, group):
+    from dla_tpu_torch.kernels import collectives as C
+
+    xs = _ring_members(cuda, ndev, m, n, dtype, seed=m + n + ndev)
+    kept = [x.clone() for x in xs]
+    before = C.ring_broadcast_launches
+    out = C.ring_broadcast(xs, root, group=group, chunks=chunks)
+    torch.cuda.synchronize()
+    assert C.ring_broadcast_launches == before + 1
+    ref = C.ring_broadcast_plain([x.cpu() for x in xs], root, group=group, chunks=chunks)
+    g = group or ndev
+    for d in range(ndev):
+        assert _same_bits(out[d].cpu(), ref[d])
+        assert _same_bits(out[d], kept[(d // g) * g + root % g])
+    assert all(_same_bits(x, k) for x, k in zip(xs, kept))
+
+
+RING_GATHER = [  # (ndev, m, n, dtype, group)
+    (4, 1024, 1024, torch.float64, None),
+    (4, 1024, 1024, torch.float64, 2),
+    (8, 16, 6, torch.float32, 4),
+    (8, 40, 8, torch.bfloat16, 2),
+    (4, 7, 3, torch.float32, None),  # ragged
+    (2, 5, 5, torch.bfloat16, 1),  # a sub-ring of one member: no step
+]
+
+
+@pytest.mark.parametrize("ndev,m,n,dtype,group", RING_GATHER)
+def test_ring_all_gather_kernel_same_bits_as_plain(cuda, ndev, m, n, dtype, group):
+    from dla_tpu_torch.kernels import collectives as C
+
+    xs = _ring_members(cuda, ndev, m, n, dtype, seed=3 * m + n)
+    before = C.ring_all_gather_launches
+    out = C.ring_all_gather(xs, group=group)
+    torch.cuda.synchronize()
+    assert C.ring_all_gather_launches == before + 1
+    ref = C.ring_all_gather_plain([x.cpu() for x in xs], group=group)
+    g = group or ndev
+    for d in range(ndev):
+        assert out[d].shape == (g * m, n)
+        assert _same_bits(out[d].cpu(), ref[d])
+        r = d // g
+        assert _same_bits(out[d], torch.cat(xs[r * g : (r + 1) * g]))
+
+
+def test_ring_launches_back_to_back_read_no_stale_flag(cuda):
+    """20 launches queued without a synchronize, the two broadcasts of a
+    plane's step among them, with other roots, chunk counts and sizes each
+    time: the flags are never cleared, so a stale one would hand a member an
+    old slot."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    outs, refs = [], []
+    for i in range(20):
+        ndev, m = (4, 64 * (1 + i % 3)) if i % 4 else (8, 32)
+        xs = _ring_members(cuda, ndev, m, 16, torch.float32, seed=100 + i)
+        cpu = [x.cpu() for x in xs]
+        if i % 5 == 4:
+            outs.append(C.ring_all_gather(xs, group=2))
+            refs.append(C.ring_all_gather_plain(cpu, group=2))
+        else:
+            chunks = (None, 1, 2, 4)[i % 4]
+            outs.append(C.ring_broadcast(xs, i % ndev, chunks=chunks))
+            refs.append(C.ring_broadcast_plain(cpu, i % ndev, chunks=chunks))
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert all(_same_bits(o.cpu(), r) for o, r in zip(out, ref))
+
+
+def test_ring_raises_when_blocks_cannot_be_resident(cuda):
+    from dla_tpu_torch.kernels import collectives as C
+
+    xs = _ring_members(cuda, 4, 64, 16, torch.float32, seed=5)
+    outs = [torch.empty_like(x) for x in xs]
+    with pytest.raises(RuntimeError, match="cannot all be resident"):
+        C._launch("ring_broadcast", xs, outs, gather=False, group=4, root=0, chunks=4, steps=6,
+                  blocks=1 << 16)
+    out = C.ring_broadcast(xs, 2)  # the context still works
+    assert all(_same_bits(o, xs[2]) for o in out)
+
+
+def test_ring_raises_on_what_it_does_not_take(cuda):
+    from dla_tpu_torch.kernels import collectives as C
+
+    with pytest.raises(ValueError, match="at most 128 members"):
+        C.ring_broadcast(_ring_members(cuda, 129, 16, 4, torch.float32, seed=1), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        C.ring_all_gather([torch.zeros(16, 8, device=cuda)[:, :4]] * 4)
+    with pytest.raises(ValueError, match="all on the CPU or all on one CUDA device"):
+        C.ring_broadcast([torch.zeros(16, 4, device=cuda), torch.zeros(16, 4)], 0)
+
+
+@pytest.mark.parametrize("plane", ["column", "packed", "df64"])
+def test_ring_planes_card_match_cpu(cuda, plane):
+    """Each plane on a mesh of 4 members on the card against the same plane on
+    the CPU, the plain ring there: fp64 within 1e-12·max|L| (cuSOLVER and
+    cuBLAS against LAPACK), df64 within 1e-11; 2·nt − 1 ring launches."""
+    from dla_tpu_torch.kernels import collectives as C
+    from dla_tpu_torch.parallel import dryrun, make_flat_mesh
+
+    n, nb = 256, 16
+    before = C.ring_broadcast_launches
+    res_gpu = dryrun.run_plane(plane, n, nb, make_flat_mesh(4))
+    assert C.ring_broadcast_launches - before == 2 * (n // nb) - 1
+    res_cpu = dryrun.run_plane(plane, n, nb, make_flat_mesh(4, device="cpu"))
+    assert res_gpu < 1e-10 and res_cpu < 1e-10
+    assert make_flat_mesh(4).devices[0].type == "cuda"
+
+
+def test_ring_plane_factors_card_match_cpu(cuda):
+    from dla_tpu_torch.parallel import (
+        from_dense_cols,
+        make_flat_mesh,
+        potrf_column_cyclic_ring,
+        to_dense_cols,
+    )
+
+    n, nb = 512, 32
+    a = T.plgsy(n, seed=7, dtype=torch.float64, device="cpu")
+    ls = []
+    for mesh in (make_flat_mesh(4), make_flat_mesh(4, device="cpu")):
+        lx = potrf_column_cyclic_ring(from_dense_cols(a, nb, mesh), nb, mesh)
+        ls.append(torch.tril(to_dense_cols(lx, nb, mesh)).cpu())
+    assert (ls[0] - ls[1]).abs().max().item() <= 1e-12 * ls[1].abs().max().item()

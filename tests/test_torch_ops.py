@@ -239,6 +239,8 @@ class TestNoJax:
                 "import dla_tpu_torch, dla_tpu_torch.cli.potrf_driver\n"
                 "import dla_tpu_torch.cli.session, dla_tpu_torch.bench.bench\n"
                 "import dla_tpu_torch.kernels._build, dla_tpu_torch.tiles\n"
+                "import dla_tpu_torch.kernels.collectives, dla_tpu_torch.parallel\n"
+                "import dla_tpu_torch.parallel.dryrun\n"
                 "print(sorted(dla_tpu_torch.__all__))")
         env = dict(os.environ, PYTHONPATH=str(REPO))
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
