@@ -12,7 +12,10 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
    card, at the main path's shapes (m=16384, nb=tb=1024, origin 0 and 8) for
    the fp32 tiers, fp64 and bf16 storage, plus a ragged m=96, tb=32 case;
    upper tiles must come back bit-identical; kernel and plain times by CUDA
-   events;
+   events, the rate and the share of the bound; which block body one call
+   launched (the kernel library's count of launches through each body:
+   ``wgmma`` for fp32 ``high``/``default`` and bf16, ``scalar`` for
+   ``highest`` and fp64, as ``tiles.trailing_body`` says);
 3. the main path: ``plgsy(16384)`` → ``potrf_inplace`` in fp32 at ``high``
    (nb=tb=kb=1024, ib=512, two-level diagonal factor), the kernel launched
    n/nb − 1 times per factorization, the residual under the driver's gate;
@@ -24,7 +27,8 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
    N=81920, w=4096, ktb=1024 at steps k=0 and k=nt/2 for the fp32 tiers,
    bf16 storage at the same shape, fp64 at N=32768, and a ragged n=384,
    w=96, ktb=32 case; elements outside the visited tiles must come back
-   bit-identical and each call must launch the kernel once;
+   bit-identical and each call must launch the kernel once; the body, rate
+   and share of the bound as in phase 2;
 7. the packed path at the reference's ``default:packed`` tier:
    ``plgsy_packed(81920, 4096)`` → ``potrf_packed(trailing="pallas")`` in
    fp32 at ``default`` (ktb=1024, kb=4096, ib=512, two-level diagonal
@@ -140,7 +144,8 @@ every selected phase passed.
 
 Then the ``kernels`` JSON line (each kernel's launches on its path, its
 error and times against the plain version, the bound, and the library call
-where one PyTorch call computes the same function), the total wall time, the card as
+where one PyTorch call computes the same function; for the two trailing
+kernels also the block ``body`` their path's case ran), the total wall time, the card as
 ``nvidia-smi`` reports it, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, the script fails before
 printing any of those.
@@ -267,6 +272,30 @@ def pair_bound(pairs: int, tb: int, nb: int, item: int, p_bytes: float, dtype, p
                  + p_bytes)
 
 
+def kernel_body(fn) -> str:
+    """Which block body of the trailing kernels ``fn`` launched: ``"wgmma"``
+    or ``"scalar"``, from the library's count of launches through each body
+    (``tiles.body_launches``) before and after one call."""
+    from dla_tpu_torch.kernels import tiles
+
+    before = tiles.body_launches()
+    fn()
+    sync()
+    rose = [b for b, n in tiles.body_launches().items() if n != before[b]]
+    require(len(rose) == 1, f"expected one launch through one trailing body, got {rose}")
+    return rose[0]
+
+
+def trailing_report(kind, name, row, tol, pairs, tb, nb, tag):
+    """Print a trailing kernel case: error, times, rate (2·pairs·tb²·nb
+    operations), the share of the bound, the body."""
+    tfs = 2 * pairs * tb * tb * nb / (row["ms"] * 1e-3) / 1e12
+    print(f"{kind} {name}: body {row['body']}, max_abs_err={row['max_abs_err']:.3e} (tol "
+          f"{tol:.3e}) kernel {row['ms']:.3f} ms = {tfs:.2f} TF/s, plain {row['plain_ms']:.3f} "
+          f"ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%}"
+          f" of the bound {tag}", flush=True)
+
+
 def tolerance(dtype, c: torch.Tensor, p: torch.Tensor) -> float:
     """fp64 1e-12·scale; fp32 1e-5·scale (the same partial products summed in
     another order); bf16 2^-6·(max|c| + scale) (two bf16 roundings, each
@@ -306,15 +335,17 @@ def lower_case(dev, tag, m, tb, nb, origin, dtype, prec, iters):
         tol = tolerance(dtype, c, p)
         k_ms = cuda_ms(lambda: tiles.trailing_update_lower(out, p, **kw), iters)
         p_ms = cuda_ms(lambda: trailing_update_lower_plain(ref, p, **kw), iters)
+        body = kernel_body(lambda: tiles.trailing_update_lower(out, p, **kw))
+        want = tiles.trailing_body(dtype, prec)
     nt = m // tb - origin
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
-               **pair_bound(nt * (nt + 1) // 2, tb, nb, c.element_size(),
-                            p.numel() * p.element_size(), dtype, prec))
+    pairs = nt * (nt + 1) // 2
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None, body=body,
+               **pair_bound(pairs, tb, nb, c.element_size(), p.numel() * p.element_size(),
+                            dtype, prec))
     name = f"m={m} tb={tb} nb={nb} origin={origin} {str(dtype)[6:]}/{prec}"
-    print(f"trailing_update_lower {name}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
-          f"({row['bound_by']}) {tag}", flush=True)
+    trailing_report("trailing_update_lower", name, row, tol, pairs, tb, nb, tag)
     require(err <= tol, f"kernel disagrees with the plain version at {name}")
+    require(body == want, f"the {body} body ran at {name}, not the {want} one")
     return row
 
 
@@ -478,15 +509,17 @@ def packed_case(dev, tag, n, w, ktb, k, dtype, prec, iters):
         del c
         k_ms = cuda_ms(lambda: tiles.trailing_update_packed(out, p, **kw), iters)
         p_ms = cuda_ms(lambda: trailing_update_packed_plain(ref, p, **kw), iters)
+        body = kernel_body(lambda: tiles.trailing_update_packed(out, p, **kw))
+        want = tiles.trailing_body(dtype, prec)
     mt = (n - base) // ktb
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
-               **pair_bound(mt * (mt + 1) // 2, ktb, w, out.element_size(),
-                            p.numel() * p.element_size(), dtype, prec))
+    pairs = mt * (mt + 1) // 2
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None, body=body,
+               **pair_bound(pairs, ktb, w, out.element_size(), p.numel() * p.element_size(),
+                            dtype, prec))
     name = f"n={n} w={w} ktb={ktb} k={k} {str(dtype)[6:]}/{prec}"
-    print(f"trailing_update_packed {name}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
-          f"({row['bound_by']}) {tag}", flush=True)
+    trailing_report("trailing_update_packed", name, row, tol, pairs, ktb, w, tag)
     require(err <= tol, f"packed kernel disagrees with the plain version at {name}")
+    require(body == want, f"the {body} body ran at {name}, not the {want} one")
     del out, ref, p
     torch.cuda.empty_cache()
     return row
@@ -1799,6 +1832,7 @@ def main(argv=None) -> int:
             "launches": got[count],
             **{k: got[row][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
+            **({"body": got[row]["body"]} if "body" in got[row] else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s, phases "

@@ -1,0 +1,190 @@
+"""Two builds of one trailing kernel side by side on one GPU.
+
+    python -m dla_tpu_torch.bench.kernel_ab --other DIR --entry lower|packed|df64
+        [--tier high|default|highest] [--dtype f32|f64|bf16] [--iters 3]
+
+``DIR`` holds another version of the kernel sources (the entry's ``.cu`` and
+the headers it includes), for example an earlier commit's
+``dla_tpu_torch/kernels/csrc`` unpacked with ``git archive`` into a directory
+that git ignores. Both versions of the entry's source are compiled with the
+package's flags (plus ``-Xptxas -v``, whose register, spill and
+shared-memory counts are printed), and the C entry of each is launched on
+the same inputs at its path's shape, in turns: other, this, this, other.
+
+- ``lower``: ``dla_trailing_lower_<dtype>`` (kernel #1) at the main path's
+  first update, m=16384, nb=tb=1024, origin 0;
+- ``packed``: ``dla_trailing_packed_<dtype>`` (kernel #2) at the packed
+  path's first update, n=81920, w=4096, ktb=1024, k=0;
+- ``df64``: ``dla_trailing_df64`` (kernel #9) at the f64x path's, m=24576,
+  tb=512, nb=1024, s=7, w=8, origin 0 (``--tier`` and ``--dtype`` unused).
+
+A version whose C entry takes a split scratch (the tensor-core body's) gets
+one, sized by ``tiles.split_planes``; an older one is called without. Prints
+each launch's time by CUDA events, the largest difference between the two
+outputs (df64: whether they give the same bits, which they must), and the
+card's name and power limit. Two versions are only comparable inside one
+such call.
+
+It needs a CUDA device and ``nvcc`` and fails without them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+SOURCE = {"lower": "trailing_lower.cu", "packed": "trailing_packed.cu",
+          "df64": "trailing_df64.cu"}
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+
+
+def _compile(csrc: Path, out: Path, entry: str, symbol: str):
+    """Build ``csrc``'s source of ``entry`` into ``out``; the C function and
+    whether it takes a split scratch."""
+    from dla_tpu_torch.kernels import _build
+
+    src = csrc / SOURCE[entry]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(out),
+           str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stderr}")
+    for line in proc.stderr.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {csrc}: {line.strip()}")
+    fn = getattr(ctypes.CDLL(str(out)), symbol)
+    scratch = entry != "df64" and "void* scratch" in src.read_text()
+    if entry == "df64":
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+                       + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    elif scratch:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 7 + [ctypes.c_int,
+                                                                          ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 6 + [ctypes.c_int,
+                                                                          ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, scratch
+
+
+def _df64_case(m, stream):
+    """The f64x path's update: (inputs to clone, launch(fn, scratch, outs))."""
+    from dla_tpu_torch.ops.df64 import slice_rows, to_df64
+
+    tb, nb, s = 512, 1024, 7
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(m)
+    ch, cl = to_df64(torch.randn(m, m, generator=g, device=dev, dtype=torch.float64))
+    sx = slice_rows(*to_df64(torch.randn(m, nb, generator=g, device=dev, dtype=torch.float64)),
+                    s=s, w=8)[0]
+    ptrs = (ctypes.c_void_p * s)(*[x.data_ptr() for x in sx])
+
+    def launch(fn, _scratch, outs):
+        h, l = outs
+        return fn(h.data_ptr(), l.data_ptr(), ptrs, m, nb, m, nb, 0, tb, nb, s, 3, stream)
+
+    return (ch, cl), launch, f"m={m} tb={tb} nb={nb} s={s}"
+
+
+def _trailing_case(entry, dtype, tier_name, stream):
+    """The lower or packed path's first update at ``tier_name``."""
+    from dla_tpu_torch.algos.packed import packed_rows
+    from dla_tpu_torch.kernels import tiles
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(51)
+    if entry == "lower":
+        m, tb, nb = 16384, 1024, 1024
+        c = torch.randn(m, m, generator=g, device=dev).to(dtype)
+        p = torch.randn(m, nb, generator=g, device=dev).to(dtype)
+        ints = (m, nb, m, nb, 0, tb)
+        name = f"m={m} nb=tb={tb} origin 0"
+    else:
+        n, w, tb = 81920, 4096, 1024
+        c = torch.randn(packed_rows(n, w), w, generator=g, device=dev).to(dtype)
+        p = torch.randn(n - w, w, generator=g, device=dev).to(dtype)
+        ints = (n - w, w, w, w, n // w, tb)
+        name = f"n={n} w={w} ktb={tb} k=0"
+    planes = tiles.split_planes(dtype, tier_name)
+    code = tiles._TIER_CODE[tier_name]
+
+    def launch(fn, scratch, outs):
+        (out,) = outs
+        if not scratch:
+            return fn(out.data_ptr(), p.data_ptr(), *ints, code, stream)
+        buf = tiles._split_scratch(p, planes)
+        nbytes = 0 if buf is None else buf.numel() * buf.element_size()
+        return fn(out.data_ptr(), p.data_ptr(), None if buf is None else buf.data_ptr(), *ints,
+                  nbytes, code, stream)
+
+    scale = (p.double() ** 2).sum(1).max().item()
+    return (c,), launch, f"{name} {str(dtype)[6:]}/{tier_name}", scale
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, help="directory of the other version's sources")
+    ap.add_argument("--entry", choices=sorted(SOURCE), default="df64")
+    ap.add_argument("--tier", choices=["high", "default", "highest"], default="high")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--m", type=int, default=24576, help="df64: the window's size")
+    ap.add_argument("--iters", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from dla_tpu_torch.kernels import _build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    stream = torch.cuda.current_stream().cuda_stream
+    dtype = DTYPES[args.dtype]
+    if args.entry == "df64":
+        inputs, launch, name = _df64_case(args.m, stream)
+        symbol, scale = "dla_trailing_df64", None
+    else:
+        inputs, launch, name, scale = _trailing_case(args.entry, dtype, args.tier, stream)
+        symbol = f"dla_trailing_{args.entry}_{args.dtype}"
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = {"other": _compile(Path(args.other), Path(tmp) / "other.so", args.entry, symbol),
+               "this": _compile(_build.CSRC, Path(tmp) / "this.so", args.entry, symbol)}
+        outs, times = {}, {"other": [], "this": []}
+        for version in ["other", "this", "this", "other"] * args.iters:
+            out = tuple(x.clone() for x in inputs)
+            fn, scratch = fns[version]
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            err = launch(fn, scratch, out)
+            t1.record()
+            t1.synchronize()
+            if err:
+                raise RuntimeError(f"{version}: CUDA error {err}")
+            times[version].append(t0.elapsed_time(t1))
+            outs[version] = out
+            del out
+    for version, ts in times.items():
+        print(f"{version}: first launch {ts[0]:.3f} ms, then median "
+              f"{sorted(ts[1:])[len(ts[1:]) // 2]:.3f} ms of {[round(t, 3) for t in ts[1:]]} "
+              f"[{card}]")
+    if scale is None:
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(outs["other"], outs["this"]))
+        print(f"{args.entry} {name}: same bits {same} [{card}]")
+        return 0 if same else 1
+    a, b = (outs[v][0].view(-1) for v in ("other", "this"))
+    chunk = 1 << 26  # a packed buffer in fp64 at once would not fit beside the others
+    diff = max((a[i:i + chunk].double() - b[i:i + chunk].double()).abs().max().item()
+               for i in range(0, a.numel(), chunk))
+    print(f"{args.entry} {name}: max |this - other| = {diff:.3e} = {diff / scale:.3e} of "
+          f"max_i ||p_i||^2 [{card}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

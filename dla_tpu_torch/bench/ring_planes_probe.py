@@ -24,15 +24,16 @@ import torch
 from dla_tpu_torch.bench.df64_packed_probe import _card
 
 
-def profile(name: str, p, tag: str) -> None:
+def device_split(name: str, run, tag: str) -> None:
+    """One ``torch.profiler`` pass over ``run()``: its wall time, the device's
+    busy and idle share of it, and the device time by kernel name (the
+    largest ten)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    p.factor(p.shard(p.matrix()))  # warm-up: library handles, the kernel library, the allocator
-    x = p.shard(p.matrix())
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        p.factor(x)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict[str, list[int]] = {}
@@ -51,6 +52,12 @@ def profile(name: str, p, tag: str) -> None:
     for us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {100 * us / 1e6 / busy:6.2f}% of device time  {us / 1e3:10.1f} ms  "
               f"{count:6d} calls  {key[:90]}", flush=True)
+
+
+def profile(name: str, p, tag: str) -> None:
+    p.factor(p.shard(p.matrix()))  # warm-up: library handles, the kernel library, the allocator
+    x = p.shard(p.matrix())
+    device_split(name, lambda: p.factor(x), tag)
 
 
 def main(argv=None) -> int:

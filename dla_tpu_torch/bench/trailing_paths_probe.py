@@ -1,0 +1,85 @@
+"""Where the time of the two trailing kernels' paths goes, on one GPU.
+
+    python -m dla_tpu_torch.bench.trailing_paths_probe [--paths main,packed]
+
+- ``main``: the dense main path, ``potrf_inplace`` of ``plgsy(16384,
+  seed=51)`` in fp32 at ``high`` (nb=tb=kb=1024, ib=512, two-level diagonal
+  factor: ``chip_smoke.py`` phase 3), kernel #1 15 times;
+- ``packed``: the packed path, ``potrf_packed`` of ``plgsy_packed(81920,
+  4096, seed=51)`` in fp32 at ``default`` (ktb=1024, kb=4096, ib=512,
+  two-level diagonal factor: phase 7), kernel #2 19 times.
+
+Each path is factored once as a warm-up, then once under ``torch.profiler``
+(the factorization alone, its input made before): the wall time, the device's
+busy and idle share of it and the device time by kernel name (the largest
+ten; the trailing kernels are ``trailing_tc_kernel`` and ``split_kernel`` of
+``csrc/trailing_wgmma.cuh``), then the peak device memory of a third
+factorization timed alone, with the card's name and power limit.
+
+It needs a CUDA device and fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from dla_tpu_torch.bench.df64_packed_probe import _card
+from dla_tpu_torch.bench.ring_planes_probe import device_split
+
+MAIN_KW = dict(nb=1024, tb=1024, kb=1024, ib=512, diag_factor="twolevel", precision="high")
+PACKED_KW = dict(diag_factor="twolevel", ib=512, precision="default", trailing="pallas",
+                 ktb=1024, kb=4096)
+
+
+def _paths(dev):
+    import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
+
+    return {
+        "main": ("main path potrf_inplace N=16384 fp32 high",
+                 lambda: T.plgsy(16384, seed=51, device=dev),
+                 lambda a: TA.potrf_inplace(a, **MAIN_KW)),
+        "packed": ("packed path potrf_packed N=81920 w=4096 fp32 default",
+                   lambda: TA.plgsy_packed(81920, 4096, seed=51, device=dev),
+                   lambda a: T.potrf_packed(a, 81920, 4096, **PACKED_KW)),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paths", default="main,packed")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("trailing_paths_probe: no CUDA device", file=sys.stderr)
+        return 1
+    tag = f"[{_card()}]"
+    dev = torch.device("cuda")
+    paths = _paths(dev)
+    for key in args.paths.split(","):
+        name, make, factor = paths[key]
+        factor(make())  # warm-up: the kernel library, library handles, the allocator
+        torch.cuda.synchronize()
+        a = make()
+        device_split(name, lambda: factor(a), tag)
+        del a
+        torch.cuda.empty_cache()
+        a = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        factor(a)
+        torch.cuda.synchronize()
+        print(f"{name}: {(time.perf_counter() - t0) * 1e3:.1f} ms alone, peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB (the input included) {tag}",
+              flush=True)
+        del a
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,6 +26,14 @@ struct PackedWindow {
     const long long slab_row0 = w * (j * nt - j * (j - 1) / 2);
     return (slab_row0 + row - j * w) * w + (col - j * w);
   }
+  // the same offset split as row(r) + col(c), for an epilogue that computes
+  // each once: (base + r) * w, and the rest of the slab's offset
+  __device__ __forceinline__ long long row(long long r) const { return (base + r) * w; }
+  __device__ __forceinline__ long long col(long long c) const {
+    const long long cc = base + c;
+    const long long j = cc / w;
+    return (w * (j * nt - j * (j - 1) / 2) - j * w) * w + (cc - j * w);
+  }
 };
 
 }  // namespace dla

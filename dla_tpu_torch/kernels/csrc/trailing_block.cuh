@@ -1,14 +1,17 @@
-// The block body shared by the two trailing-update kernels: C <- C - P * P^T
+// The scalar block body of the two trailing-update kernels: C <- C - P * P^T
 // over the lower tb-tile pairs of a square window, in place.
 //
 // trailing_lower.cu writes the window into a dense matrix, trailing_packed.cu
 // into the column-slab packed triangle. They differ only in where element
 // (r, c) of the window lives, so the staging, the k-loop, the precision tiers
 // and the epilogue are here once, templated on an address functor
-// Addr(r, c) -> T*, and the two kernels cannot drift apart. The k-loop is
-// nt_block, a 64 x 64 block of A * B^T; the panel kernels (panel_factor.cu,
-// panel_apply.cu) form their products with it too, so every product of the
-// port's kernels follows one definition of the tiers.
+// Addr(r, c) -> T*, and the two kernels cannot drift apart. This body serves
+// the tiers the tensor cores cannot (fp32 highest, fp64); the others run the
+// tensor-core body of trailing_wgmma.cuh, which also holds the launch that
+// picks a body. The k-loop is nt_block, a 64 x 64 block of A * B^T; the panel
+// kernels (panel_factor.cu, panel_apply.cu) and the task kernels
+// (tile_ops.cu) form their products with it at every tier, so those
+// products follow one definition of the tiers.
 //
 // What a block computes. The window's w rows and columns are cut into
 // tb x tb tiles (the ragged last tile included). A 2-D grid of 64 x 64
@@ -38,9 +41,7 @@
 //
 // Bound. Scalar FMAs: the kernel is bound by FMA issue and shared-memory
 // reads, not by bytes, since each C element is read and written once while
-// the k-loop does nb FMAs for it (three for high). Moving the products onto
-// the tensor cores (wgmma, bf16 operands carrying the bf16x3 split, with
-// TMA-fed shared-memory stages) is the next step for both kernels.
+// the k-loop does nb FMAs for it (three for high).
 
 #pragma once
 
@@ -73,11 +74,16 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ void subtract(float* c, float upd) { *c = *c - upd; }
-__device__ __forceinline__ void subtract(double* c, double upd) { *c = *c - upd; }
-__device__ __forceinline__ void subtract(__nv_bfloat16* c, float upd) {
-  *c = __float2bfloat16_rn(__bfloat162float(*c) - round_bf16(upd));
+// c - upd in the storage type; bf16 storage as the reference's epilogue,
+// bf16(c - bf16(upd))
+__device__ __forceinline__ float minus(float c, float upd) { return c - upd; }
+__device__ __forceinline__ double minus(double c, double upd) { return c - upd; }
+__device__ __forceinline__ __nv_bfloat16 minus(__nv_bfloat16 c, float upd) {
+  return __float2bfloat16_rn(__bfloat162float(c) - round_bf16(upd));
 }
+
+template <typename T, typename U>
+__device__ __forceinline__ void subtract(T* c, U upd) { *c = minus(*c, upd); }
 
 // The 64 x 64 block a * b^T, accumulated in acc (and, at high, the bf16x3
 // cross terms hi*lo + lo*hi in accx; the product is acc + accx). a holds
@@ -167,12 +173,13 @@ __device__ __forceinline__ void nt_block(const T* a, long long lda, long long ra
   }
 }
 
-template <typename T, int TIER, typename Addr>
+// The trailing update at fp32 highest and fp64 (trailing_wgmma.cuh takes
+// the other tiers).
+template <typename T, typename Addr>
 __global__ void __launch_bounds__(TPB)
 trailing_kernel(const T* __restrict__ p, long long w, long long nb, long long ldp,
                 long long tb, Addr addr) {
   using A = typename AccOf<T>::type;
-  constexpr bool kSplit = TIER == kHigh;
 
   const long long row0 = (long long)blockIdx.y * BM;
   const long long col0 = (long long)blockIdx.x * BM;
@@ -180,9 +187,9 @@ trailing_kernel(const T* __restrict__ p, long long w, long long nb, long long ld
   if (last_row / tb < col0 / tb) return;  // every element in an upper tile
 
   A acc[TM][TM];
-  A accx[TM][TM];  // high only: the two cross terms hi*lo + lo*hi
-  nt_block<T, TIER>(p + row0 * ldp, ldp, w - row0, p + col0 * ldp, ldp, w - col0, nb, acc,
-                    accx);
+  A accx[TM][TM];  // nt_block's cross terms, unused at highest
+  nt_block<T, kHighest>(p + row0 * ldp, ldp, w - row0, p + col0 * ldp, ldp, w - col0, nb, acc,
+                        accx);
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -195,42 +202,9 @@ trailing_kernel(const T* __restrict__ p, long long w, long long nb, long long ld
     for (int j = 0; j < TM; ++j) {
       const long long cc = col0 + tx + 16 * j;
       if (cc >= w || cc / tb > rtile) continue;
-      subtract(addr(r, cc), kSplit ? acc[i][j] + accx[i][j] : acc[i][j]);
+      subtract(addr(r, cc), acc[i][j]);
     }
   }
-}
-
-// Launch the kernel over a w x w window on `stream`; fp64 and bf16 storage
-// have one tier each (bf16 operands make every tier's products exact).
-// Returns cudaGetLastError() after the launch: 0 means launched.
-template <typename T, typename Addr>
-int launch_trailing(int tier, const void* p, long long w, long long nb, long long ldp,
-                    long long tb, Addr addr, void* stream) {
-  if (w <= 0) return 0;
-  const long long g = (w + BM - 1) / BM;
-  if (g > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)g, (unsigned)g);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const T* pp = (const T*)p;
-  if constexpr (std::is_same_v<T, float>) {
-    switch (tier) {
-      case kHighest:
-        trailing_kernel<T, kHighest, Addr><<<grid, TPB, 0, s>>>(pp, w, nb, ldp, tb, addr);
-        break;
-      case kHigh:
-        trailing_kernel<T, kHigh, Addr><<<grid, TPB, 0, s>>>(pp, w, nb, ldp, tb, addr);
-        break;
-      case kDefault:
-        trailing_kernel<T, kDefault, Addr><<<grid, TPB, 0, s>>>(pp, w, nb, ldp, tb, addr);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    (void)tier;
-    trailing_kernel<T, kHighest, Addr><<<grid, TPB, 0, s>>>(pp, w, nb, ldp, tb, addr);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace dla

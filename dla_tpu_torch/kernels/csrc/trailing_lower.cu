@@ -10,54 +10,72 @@
 // update is in place and the strictly-upper tiles pass through bit for bit.
 // P holds the w = m - off panel rows, row-major with leading dimension ldp.
 //
-// The block body, the precision tiers, the design and what bounds it are in
-// trailing_block.cuh, shared with the packed kernel (trailing_packed.cu);
-// this file supplies the dense window's address map. m*m passes 2^31 at
+// The two block bodies (trailing_wgmma.cuh: tensor cores, for fp32 high and
+// default and bf16 storage; trailing_block.cuh: scalar FMAs, for fp32 highest
+// and fp64), the precision tiers, the design and what bounds each are in
+// those headers, shared with the packed kernel (trailing_packed.cu); this
+// file supplies the dense window's address map. m*m passes 2^31 at
 // m = 46341, so the offsets are 64-bit.
 
-#include "trailing_block.cuh"
+#include "trailing_wgmma.cuh"
 
 namespace {
 
-// element (r, c) of the window: C[off + r, off + c], leading dimension ldc
+// element (r, c) of the window: C[off + r, off + c], leading dimension ldc;
+// the offset is row(r) + col(c), which the tensor-core body's epilogue
+// computes once per row and once per column
 template <typename T>
 struct DenseWindow {
   T* c;
   long long ldc, off;
-  __device__ __forceinline__ T* operator()(long long r, long long col) const {
-    return c + (off + r) * ldc + off + col;
+  __device__ __forceinline__ long long row(long long r) const { return (off + r) * ldc; }
+  __device__ __forceinline__ long long col(long long cc) const { return off + cc; }
+  __device__ __forceinline__ T* at(long long row_off, long long col_off) const {
+    return c + row_off + col_off;
+  }
+  __device__ __forceinline__ T* operator()(long long r, long long cc) const {
+    return at(row(r), col(cc));
   }
 };
 
 template <typename T>
-int run(void* c, const void* p, long long w, long long nb, long long ldc, long long ldp,
-        long long off, long long tb, int tier, void* stream) {
+int run(void* c, const void* p, void* scratch, long long w, long long nb, long long ldc,
+        long long ldp, long long off, long long tb, long long scratch_bytes, int tier,
+        void* stream) {
   return dla::launch_trailing<T>(tier, p, w, nb, ldp, tb, DenseWindow<T>{(T*)c, ldc, off},
-                                 stream);
+                                 scratch, scratch_bytes, stream);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. c is the full matrix (leading dimension
-// ldc), p the panel (w x nb, leading dimension ldp), off = origin * tb. Each
-// returns cudaGetLastError() after the launch; 0 means launched.
-extern "C" int dla_trailing_lower_f32(void* c, const void* p, long long w,
-                                      long long nb, long long ldc, long long ldp,
-                                      long long off, long long tb, int tier,
+// ldc), p the panel (w x nb, leading dimension ldp), off = origin * tb,
+// scratch the wrapper's scratch_bytes for the split planes of P (unused by
+// the scalar body). Each returns the CUDA error of the first step that
+// failed; 0 means launched.
+extern "C" int dla_trailing_lower_f32(void* c, const void* p, void* scratch, long long w,
+                                      long long nb, long long ldc, long long ldp, long long off,
+                                      long long tb, long long scratch_bytes, int tier,
                                       void* stream) {
-  return run<float>(c, p, w, nb, ldc, ldp, off, tb, tier, stream);
+  return run<float>(c, p, scratch, w, nb, ldc, ldp, off, tb, scratch_bytes, tier, stream);
 }
 
-extern "C" int dla_trailing_lower_f64(void* c, const void* p, long long w,
-                                      long long nb, long long ldc, long long ldp,
-                                      long long off, long long tb, int tier,
+extern "C" int dla_trailing_lower_f64(void* c, const void* p, void* scratch, long long w,
+                                      long long nb, long long ldc, long long ldp, long long off,
+                                      long long tb, long long scratch_bytes, int tier,
                                       void* stream) {
-  return run<double>(c, p, w, nb, ldc, ldp, off, tb, tier, stream);
+  return run<double>(c, p, scratch, w, nb, ldc, ldp, off, tb, scratch_bytes, tier, stream);
 }
 
-extern "C" int dla_trailing_lower_bf16(void* c, const void* p, long long w,
-                                       long long nb, long long ldc, long long ldp,
-                                       long long off, long long tb, int tier,
+extern "C" int dla_trailing_lower_bf16(void* c, const void* p, void* scratch, long long w,
+                                       long long nb, long long ldc, long long ldp, long long off,
+                                       long long tb, long long scratch_bytes, int tier,
                                        void* stream) {
-  return run<__nv_bfloat16>(c, p, w, nb, ldc, ldp, off, tb, tier, stream);
+  return run<__nv_bfloat16>(c, p, scratch, w, nb, ldc, ldp, off, tb, scratch_bytes, tier, stream);
+}
+
+// Launches of both trailing kernels (this one and trailing_packed.cu) in this
+// process through the scalar body (body = 0) or the tensor-core body (1).
+extern "C" long long dla_trailing_body_launches(int body) {
+  return dla::body_launches[body != 0];
 }

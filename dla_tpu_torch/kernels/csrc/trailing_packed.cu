@@ -16,21 +16,21 @@
 // (m x w, leading dimension ldp).
 //
 // Design. The reference drives a sequential TPU grid from four prefetched
-// index tables. Here no table is needed: the block body is the dense
-// kernel's (trailing_block.cuh: 64 x 64 output blocks that find their own
-// window coordinates from blockIdx and return when they lie above the
-// tb-diagonal, the k-loop, the precision tiers), and only the address map
-// differs (PackedWindow, shared with the df64 packed kernel). The buffer
+// index tables. Here no table is needed: the block bodies are the dense
+// kernel's (trailing_wgmma.cuh for fp32 high and default and bf16 storage,
+// trailing_block.cuh for fp32 highest and fp64: output blocks that find
+// their own window coordinates from blockIdx and return when they lie above
+// the tb-diagonal, the k-loop, the precision tiers), and only the address
+// map differs (PackedWindow, shared with the df64 packed kernel). The buffer
 // holds rows * w = 3.5e9 elements at n = 81920, w = 4096 (5.9e9 at
 // n = 106496), past 2^31, so every offset is 64-bit.
 //
-// Bound. As the dense kernel: scalar FMA issue and shared-memory reads (the
-// k-loop does w FMAs per element, three for high, against one read and one
-// write). Tensor-core products (wgmma with TMA-fed stages) are next, for
-// both kernels at once through the shared body.
+// Bound. As the dense kernel: the tensor-core body is bound by its bf16
+// products (w operations per element and pass against one read and one
+// write), the scalar body by FMA issue and shared-memory reads.
 
 #include "packed_window.cuh"
-#include "trailing_block.cuh"
+#include "trailing_wgmma.cuh"
 
 namespace {
 
@@ -38,42 +38,51 @@ namespace {
 template <typename T>
 struct PackedTrailing {
   T* packed;
-  dla::PackedWindow at;
+  dla::PackedWindow win;
+  __device__ __forceinline__ long long row(long long r) const { return win.row(r); }
+  __device__ __forceinline__ long long col(long long c) const { return win.col(c); }
+  __device__ __forceinline__ T* at(long long row_off, long long col_off) const {
+    return packed + row_off + col_off;
+  }
   __device__ __forceinline__ T* operator()(long long r, long long c) const {
-    return packed + at(r, c);
+    return packed + win(r, c);
   }
 };
 
 template <typename T>
-int run(void* packed, const void* p, long long m, long long w, long long ldp,
-        long long base, long long nt, long long tb, int tier, void* stream) {
+int run(void* packed, const void* p, void* scratch, long long m, long long w, long long ldp,
+        long long base, long long nt, long long tb, long long scratch_bytes, int tier,
+        void* stream) {
   return dla::launch_trailing<T>(tier, p, m, w, ldp, tb,
-                                 PackedTrailing<T>{(T*)packed, {w, nt, base}}, stream);
+                                 PackedTrailing<T>{(T*)packed, {w, nt, base}}, scratch,
+                                 scratch_bytes, stream);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. packed is the (n(n+w)/(2w), w) buffer,
 // p the panel (m x w, leading dimension ldp) with m = n - base, base =
-// (k+1)*w, nt = n / w, tb the tile of the lower-pairs mask. Each returns
-// cudaGetLastError() after the launch; 0 means launched.
-extern "C" int dla_trailing_packed_f32(void* packed, const void* p, long long m,
-                                       long long w, long long ldp, long long base,
-                                       long long nt, long long tb, int tier,
-                                       void* stream) {
-  return run<float>(packed, p, m, w, ldp, base, nt, tb, tier, stream);
+// (k+1)*w, nt = n / w, tb the tile of the lower-pairs mask, scratch the
+// wrapper's scratch_bytes for the split planes of P (unused by the scalar
+// body). Each returns the CUDA error of the first step that failed; 0 means
+// launched.
+extern "C" int dla_trailing_packed_f32(void* packed, const void* p, void* scratch,
+                                       long long m, long long w, long long ldp, long long base,
+                                       long long nt, long long tb, long long scratch_bytes,
+                                       int tier, void* stream) {
+  return run<float>(packed, p, scratch, m, w, ldp, base, nt, tb, scratch_bytes, tier, stream);
 }
 
-extern "C" int dla_trailing_packed_f64(void* packed, const void* p, long long m,
-                                       long long w, long long ldp, long long base,
-                                       long long nt, long long tb, int tier,
-                                       void* stream) {
-  return run<double>(packed, p, m, w, ldp, base, nt, tb, tier, stream);
+extern "C" int dla_trailing_packed_f64(void* packed, const void* p, void* scratch,
+                                       long long m, long long w, long long ldp, long long base,
+                                       long long nt, long long tb, long long scratch_bytes,
+                                       int tier, void* stream) {
+  return run<double>(packed, p, scratch, m, w, ldp, base, nt, tb, scratch_bytes, tier, stream);
 }
 
-extern "C" int dla_trailing_packed_bf16(void* packed, const void* p, long long m,
-                                        long long w, long long ldp, long long base,
-                                        long long nt, long long tb, int tier,
-                                        void* stream) {
-  return run<__nv_bfloat16>(packed, p, m, w, ldp, base, nt, tb, tier, stream);
+extern "C" int dla_trailing_packed_bf16(void* packed, const void* p, void* scratch,
+                                        long long m, long long w, long long ldp, long long base,
+                                        long long nt, long long tb, long long scratch_bytes,
+                                        int tier, void* stream) {
+  return run<__nv_bfloat16>(packed, p, scratch, m, w, ldp, base, nt, tb, scratch_bytes, tier, stream);
 }

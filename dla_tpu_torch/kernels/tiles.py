@@ -22,8 +22,12 @@ The four task kernels of the reference's tile DAG, one launch per task:
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel; on a
 CPU tensor it runs its ``*_plain`` version, the same function in torch ops.
 Any other device, or a CUDA tensor the kernel does not take, raises. The two
-kernels share one block body (``csrc/trailing_block.cuh``) and differ only
-in their address maps.
+trailing kernels share two block bodies and differ only in their address
+maps: fp32 ``high`` and ``default`` and bf16 storage run on the tensor cores
+(``csrc/trailing_wgmma.cuh``: ``wgmma`` on bf16 planes of P, which a split
+kernel writes into scratch the wrapper allocates, :func:`split_planes`
+planes of it), fp32 ``highest`` and fp64 on scalar FMAs
+(``csrc/trailing_block.cuh``). :func:`split_plain` is the split in torch ops.
 
 The reference walks host tables of tile pairs (``_lower_pairs``, ``:322``;
 ``_packed_pairs``, ``:531``). Here no table is needed: each kernel block
@@ -90,6 +94,83 @@ def _check_dtypes(name: str, c: torch.Tensor, p: torch.Tensor) -> None:
         )
 
 
+#: the tensor-core body's output tile and k-step (``kBM``, ``kBK`` of
+#: ``csrc/trailing_wgmma.cuh``): the split planes are padded to them
+SPLIT_ROWS, SPLIT_K = 128, 64
+
+
+def split_planes(dtype: torch.dtype, tier_name: str) -> int:
+    """How many bf16 planes of P the trailing kernels' tensor-core body takes
+    for this storage dtype and tier: fp32 ``high`` 2 (hi, lo), fp32
+    ``default`` 1, bf16 storage 1 at any tier; 0 means the scalar body (fp32
+    ``highest``, fp64). ``launch_trailing`` of ``csrc/trailing_wgmma.cuh``
+    dispatches on the same table."""
+    if dtype == torch.bfloat16:
+        return 1
+    if dtype == torch.float32:
+        return {"high": 2, "default": 1}.get(tier_name, 0)
+    return 0
+
+
+def trailing_body(dtype: torch.dtype, tier_name: str) -> str:
+    """Which block body the trailing kernels run: ``"wgmma"`` (tensor cores)
+    or ``"scalar"``."""
+    return "wgmma" if split_planes(dtype, tier_name) else "scalar"
+
+
+def body_launches() -> dict[str, int]:
+    """Launches of both trailing kernels in this process through each block
+    body, as the C launch counts them where it launches: ``{"scalar": n,
+    "wgmma": n}``. Needs the kernel library (a CUDA device and ``nvcc``)."""
+    fn = _build.load().dla_trailing_body_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return {"scalar": fn(0), "wgmma": fn(1)}
+
+
+def _split_shape(p: torch.Tensor, planes: int) -> tuple[int, int, int]:
+    w, nb = p.shape
+    return planes, -(-w // SPLIT_ROWS) * SPLIT_ROWS, -(-nb // SPLIT_K) * SPLIT_K
+
+
+def split_plain(p: torch.Tensor, planes: int) -> torch.Tensor:
+    """The split planes of P that the tensor-core body reads, in torch ops
+    (the split kernel of ``csrc/trailing_wgmma.cuh`` writes the same bits):
+    shape (planes, w rounded up to 128, nb rounded up to 64), bf16, zero past
+    P. Plane 0 is bf16(P); at two planes plane 1 is bf16(P − plane 0), the
+    ``ahi`` and ``alo`` of the reference's ``_dot_nt``."""
+    out = torch.zeros(_split_shape(p, planes), dtype=torch.bfloat16, device=p.device)
+    w, nb = p.shape
+    hi = p.to(torch.bfloat16)
+    out[0, :w, :nb] = hi
+    if planes == 2:
+        out[1, :w, :nb] = (p.float() - hi.float()).to(torch.bfloat16)
+    return out
+
+
+def _split_scratch(p: torch.Tensor, planes: int) -> torch.Tensor | None:
+    """Uninitialised scratch for the split planes (the split kernel writes all
+    of it, padding included); None for the scalar body."""
+    if not planes:
+        return None
+    return torch.empty(_split_shape(p, planes), dtype=torch.bfloat16, device=p.device)
+
+
+def _launch_trailing(name: str, fn, dest: torch.Tensor, p: torch.Tensor, ints: tuple) -> None:
+    """One call of a trailing kernel's C entry on the current stream: the
+    destination, P, the split scratch, the entry's six integers, the scratch's
+    bytes, the tier. Raises on a non-zero CUDA error: a refused launch never
+    falls back to the other body."""
+    t = tier()
+    scratch = _split_scratch(p, split_planes(p.dtype, t))
+    nbytes = 0 if scratch is None else scratch.numel() * scratch.element_size()
+    with torch.cuda.device(dest.device):
+        stream = torch.cuda.current_stream(dest.device).cuda_stream
+        err = fn(dest.data_ptr(), p.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 *ints, nbytes, _TIER_CODE[t], stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def _dot_nt_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b.T`` as the reference's ``_dot_nt``: fp32 accumulation for
     bf16/fp32 operands, bf16x3 at ``high``, one bf16 pass at ``default``."""
@@ -153,10 +234,11 @@ def _subtract(blk: torch.Tensor, upd: torch.Tensor) -> None:
 
 @functools.cache
 def _kernel(kind: str, dtype: torch.dtype):
-    """The C entry ``dla_trailing_<kind>_<dtype>``; both kinds take two
-    pointers, six 64-bit integers, the tier and the stream."""
+    """The C entry ``dla_trailing_<kind>_<dtype>``; both kinds take three
+    pointers (destination, P, split scratch), six 64-bit integers, the
+    scratch's bytes, the tier and the stream."""
     fn = getattr(_build.load(), f"dla_trailing_{kind}_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_longlong] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 7 + [
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -200,13 +282,8 @@ def trailing_update_lower(
     out = c if alias else c.clone(memory_format=torch.contiguous_format)
     if w == 0 or nb == 0:
         return out
-    fn = _kernel("lower", c.dtype)
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream(c.device).cuda_stream
-        err = fn(out.data_ptr(), p.data_ptr(), w, nb, out.stride(0), p.stride(0),
-                 origin * tb, tb, _TIER_CODE[tier()], stream)
-    if err != 0:
-        raise RuntimeError(f"trailing_update_lower kernel launch failed: CUDA error {err}")
+    _launch_trailing("trailing_update_lower", _kernel("lower", c.dtype), out, p,
+                     (w, nb, out.stride(0), p.stride(0), origin * tb, tb))
     launches += 1
     return out
 
@@ -308,13 +385,8 @@ def trailing_update_packed(
     m = p.shape[0]
     if m == 0:
         return packed
-    fn = _kernel("packed", packed.dtype)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = fn(packed.data_ptr(), p.data_ptr(), m, w, p.stride(0), (k + 1) * w, n // w,
-                 tb, _TIER_CODE[tier()], stream)
-    if err != 0:
-        raise RuntimeError(f"trailing_update_packed kernel launch failed: CUDA error {err}")
+    _launch_trailing("trailing_update_packed", _kernel("packed", packed.dtype), packed, p,
+                     (m, w, p.stride(0), (k + 1) * w, n // w, tb))
     packed_launches += 1
     return packed
 

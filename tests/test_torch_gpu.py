@@ -11,6 +11,13 @@ Tolerances, relative to ``scale = max_i ||p_i||²`` (= max |P·Pᵀ|): fp64
 1e-12; fp32 at every tier 1e-5 (the same partial products, summed in another
 order); bf16 storage 2^-6 of (max|c| + scale) (two bf16 roundings, each
 possibly one ulp apart).
+
+The trailing kernels run fp32 ``high``/``default`` and bf16 storage through
+the tensor-core body (``csrc/trailing_wgmma.cuh``) and fp32 ``highest`` and
+fp64 through the scalar one; the cases below meet the tensor-core body's
+edges (w not a multiple of its 128-row tile, tb below or not dividing 128,
+nb not a multiple of its 64-column k-step, a strided panel, many k-steps),
+and the kernels a profiler sees show which body ran.
 """
 
 import pytest
@@ -60,6 +67,17 @@ CASES = [  # (m, tb, nb, origin, dtype, precision)
     (256, 128, 64, 1, torch.bfloat16, "high"),
     (1024, 256, 256, 1, torch.float32, "high"),
     (160, 32, 7, 1, torch.float32, "high"),  # k not a multiple of the kernel's k-step
+    # the tensor-core body's edges: w off its 128-row tile, tb 32/40/96, nb off 64
+    (200, 40, 100, 1, torch.float32, "high"),
+    (288, 96, 7, 1, torch.float32, "default"),
+    (320, 32, 130, 2, torch.float32, "high"),
+    (480, 96, 72, 2, torch.bfloat16, "high"),
+    (1120, 40, 200, 3, torch.float32, "default"),
+    # many k-steps (16 stages, 4 promotions), and k = 4096 (16 promotions)
+    (2048, 1024, 1024, 0, torch.float32, "high"),
+    (2048, 1024, 1024, 0, torch.float32, "default"),
+    (2048, 1024, 1024, 1, torch.float32, "high"),
+    (2112, 1056, 4096, 0, torch.float32, "default"),
 ]
 
 
@@ -97,6 +115,129 @@ def test_strided_panel_view(cuda):
     ref = trailing_update_lower_plain(c.cpu(), p.cpu(), tb=32)
     out = trailing_update_lower(c, p, tb=32)
     assert torch.allclose(out.cpu(), ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype,prec", [(torch.float32, "high"), (torch.float32, "default"),
+                                        (torch.bfloat16, "high")])
+def test_strided_panel_view_tensor_cores(cuda, dtype, prec):
+    g = torch.Generator().manual_seed(17)
+    c = torch.randn(200, 200, generator=g).to(dtype)
+    big = torch.randn(160, 130, generator=g).to(dtype)
+    p, pd = big[:, 9:109], big.to(cuda)[:, 9:109]  # ldp 130, nb 100
+    assert pd.stride(0) == 130
+    with precision.override(prec):
+        ref = trailing_update_lower_plain(c.clone(), p, tb=40, origin=1)
+        out = trailing_update_lower(c.to(cuda), pd, tb=40, origin=1).cpu()
+    mask = _lower_mask(200, 40, 1)
+    assert (out.double() - ref.double()).abs()[mask].max().item() <= _tol(dtype, c, p)
+    assert torch.equal(out[~mask], c[~mask])
+
+
+def _kernel_names(fn):
+    """The CUDA kernels that ``fn`` launches, as the profiler names them; a
+    trace with no trailing kernel at all (the profiler now and then drops a
+    session's device records) is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        if any("trailing_tc_kernel" in k or "trailing_kernel<" in k for k in names):
+            break
+    return names
+
+
+@pytest.mark.parametrize("dtype,prec", [(torch.float32, "high"), (torch.float32, "default"),
+                                        (torch.bfloat16, "high"), (torch.bfloat16, "highest"),
+                                        (torch.float32, "highest"), (torch.float64, "high")])
+@pytest.mark.parametrize("kind", ["lower", "packed"])
+def test_body_that_ran(cuda, kind, dtype, prec):
+    # fp32 high/default and bf16 run the tensor-core kernel and never the scalar one
+    n, w = 384, 128
+    p = torch.randn(n - w, w, device=cuda).to(dtype)
+    if kind == "lower":
+        c = torch.randn(n - w, n - w, device=cuda).to(dtype)
+        call = lambda: trailing_update_lower(c, p, tb=64)  # noqa: E731
+    else:
+        c = torch.randn(P.packed_rows(n, w), w, device=cuda).to(dtype)
+        call = lambda: trailing_update_packed(c, p, n=n, w=w, k=0, tb=64)  # noqa: E731
+    with precision.override(prec):
+        want = tiles.trailing_body(dtype, prec)
+        before = tiles.body_launches()
+        names = _kernel_names(call)
+        after = tiles.body_launches()
+    assert [b for b in after if after[b] != before[b]] == [want]
+    tc = any("trailing_tc_kernel" in k for k in names)
+    scalar = any("trailing_kernel<" in k for k in names)
+    assert (tc, scalar) == (want == "wgmma", want == "scalar"), names
+    assert any("split_kernel" in k for k in names) == (want == "wgmma")
+
+
+@pytest.mark.parametrize("dtype,prec,planes", [(torch.float32, "high", 2),
+                                               (torch.float32, "default", 1),
+                                               (torch.bfloat16, "high", 1)])
+@pytest.mark.parametrize("w,nb,ld", [(200, 100, 100), (200, 100, 130), (96, 7, 7)])
+def test_split_kernel_bits_of_split_plain(cuda, dtype, prec, planes, w, nb, ld):
+    # the planes the split kernel writes (padding included) are split_plain's
+    # bits, over magnitudes from subnormal to 1e3 and a leading dimension ld
+    g = torch.Generator().manual_seed(w + nb + ld)
+    big = (torch.randn(w, ld, generator=g) * torch.logspace(-40, 3, ld)).to(dtype)
+    p = big[:, :nb]
+    pd = big.to(cuda)[:, :nb]
+    scratch = torch.full(tiles._split_shape(pd, planes), float("nan"), device=cuda,
+                         dtype=torch.bfloat16)
+    c = torch.zeros(w, w, device=cuda, dtype=dtype)
+    with precision.override(prec):
+        err = tiles._kernel("lower", dtype)(
+            c.data_ptr(), pd.data_ptr(), scratch.data_ptr(), w, nb, w, ld, 0, w,
+            scratch.numel() * 2, tiles._TIER_CODE[prec], torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(scratch.cpu().view(torch.int16),
+                       tiles.split_plain(p, planes).view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype,prec", [(torch.float32, "high"), (torch.float32, "default"),
+                                        (torch.bfloat16, "high"), (torch.float32, "highest")])
+def test_two_launches_same_bits(cuda, dtype, prec):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    c = torch.randn(1000, 1000, generator=g, device=cuda).to(dtype)
+    p = torch.randn(1000, 300, generator=g, device=cuda).to(dtype)
+    n, w = 1024, 256
+    pk = torch.randn(P.packed_rows(n, w), w, generator=g, device=cuda).to(dtype)
+    pp = torch.randn(n - w, w, generator=g, device=cuda).to(dtype)
+    with precision.override(prec):
+        a = trailing_update_lower(c.clone(), p, tb=200)
+        b = trailing_update_lower(c.clone(), p, tb=200)
+        pa = trailing_update_packed(pk.clone(), pp, n=n, w=w, k=0, tb=128)
+        pb = trailing_update_packed(pk.clone(), pp, n=n, w=w, k=0, tb=128)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(-1).view(torch.int16), b.view(-1).view(torch.int16))
+    assert torch.equal(pa.view(-1).view(torch.int16), pb.view(-1).view(torch.int16))
+
+
+@pytest.mark.parametrize("kind", ["lower", "packed"])
+def test_refused_launch_raises(cuda, monkeypatch, kind):
+    # scratch too small for the split planes: the C entry refuses the launch
+    # (cudaErrorInvalidValue) and the wrapper raises; nothing falls back to the scalar body
+    real = tiles._split_scratch
+    monkeypatch.setattr(tiles, "_split_scratch", lambda p, planes: real(p, planes)[:, :-1])
+    n, w = 384, 128
+    p = torch.randn(n - w, w, device=cuda)
+    c = torch.randn(n - w, n - w, device=cuda) if kind == "lower" else torch.randn(
+        P.packed_rows(n, w), w, device=cuda)
+    keep = c.clone()
+    before = (tiles.launches, tiles.packed_launches)
+    with precision.override("high"), pytest.raises(RuntimeError, match="CUDA error 1"):
+        if kind == "lower":
+            trailing_update_lower(c, p, tb=64)
+        else:
+            trailing_update_packed(c, p, n=n, w=w, k=0, tb=64)
+    torch.cuda.synchronize()
+    assert (tiles.launches, tiles.packed_launches) == before
+    assert torch.equal(c, keep)
 
 
 def test_column_major_input_raises(cuda):
@@ -175,6 +316,13 @@ PACKED_CASES = [  # (n, w, ktb, k, dtype, precision)
     (512, 128, 64, 1, torch.bfloat16, "high"),
     (2048, 512, 256, 1, torch.float32, "high"),
     (200, 40, 8, 2, torch.float64, "high"),
+    # the tensor-core body's edges: w off 128 and 64, tb 32/40/96, k > 0
+    (600, 200, 40, 1, torch.float32, "high"),
+    (640, 160, 32, 2, torch.float32, "default"),
+    (576, 192, 96, 1, torch.bfloat16, "high"),
+    # many k-steps (16 stages, 4 promotions)
+    (4096, 1024, 512, 0, torch.float32, "high"),
+    (4096, 1024, 512, 1, torch.float32, "default"),
 ]
 
 
