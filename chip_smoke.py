@@ -56,9 +56,12 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
 13. the driver with ``--mode df64 --trailing pallas`` at phase 11's size;
 14. the panel kernels against their plain versions on the card:
     ``panel_factor`` (kernel #4) at m=32768, nb=512 for the fp32 tiers and
-    fp64 at m=8192, with NaN above the diagonal, its diagonal phase timed
-    alone (m = nb); ``panel_apply`` (kernel #3) at m=15360, nb=1024, ib=256,
-    tb=1024 (the first panel of phase 17) for the fp32 tiers, beside
+    fp64 at m=8192, with NaN above the diagonal, its diagonal block held to
+    the plain version's bits, its diagonal phase timed alone (m = nb) beside
+    ``cholesky_ex`` + ``solve_triangular`` and its bound, with the launches
+    and the largest grid of its schedule; ``panel_apply`` (kernel #3) at
+    m=15360, nb=1024, ib=256, tb=1024 (the first panel of phase 17) for the
+    fp32 tiers, beside
     ``torch.linalg.solve_triangular`` at ``highest``;
 15. the reference's ``highest`` tier at its full size: ``plgsy(32768)`` →
     ``potrf_shrink(nb=8192, panel="blocktrsm", trailing="pallas", tb=1024,
@@ -102,9 +105,10 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     ``gemm_tile`` (#8) at the tile-task path's tile (n=512) for the fp32 tiers,
     fp64 and (#6 to #8) bf16 storage, a ragged case (n=96; m=200, k=72), and #6
     to #8 at m=4096, n=k=2048, a size clear of the launch floor; inputs
-    bit-unchanged, #7's upper triangle bit-identical to C's, one launch per
-    call; beside ``torch.matmul`` (#6), ``torch.addmm`` (#8) and
-    ``cholesky_ex`` + ``solve_triangular`` (#5, two calls, their sum);
+    bit-unchanged, #5's L and inv(L) the plain version's bits (with its
+    schedule's launches and largest grid), #7's upper triangle bit-identical
+    to C's, one launch per call; beside ``torch.matmul`` (#6), ``torch.addmm``
+    (#8) and ``cholesky_ex`` + ``solve_triangular`` (#5, two calls, their sum);
 25. the tile-task path, the reference's task DAG with one launch per task:
     ``plgsy(16384, seed=51)`` fp32 at ``high``, NB=512, a warm-up and two timed
     factorizations, each launching exactly ``dag_counts(32)`` = 32 POTRF + 496
@@ -785,11 +789,15 @@ def phase_df64_check(dev):
 # ---- 14. the panel kernels against their plain versions ---------------------------
 def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
     """Kernel #4 against its plain version. The diagonal block is SPD with
-    NaN above its diagonal, which neither version may read. Tolerance
-    1e-5·max|L| for fp32 (fp64: 1e-12): the diagonal phase rounds where the
-    plain version does, and the products sum the same partial products in
-    another order."""
-    from dla_tpu_torch.kernels import panel
+    NaN above its diagonal, which neither version may read. The diagonal
+    block must be the plain version's bits (the tiled schedule of
+    ``diag_block.cuh`` rounds every element where the plain version does, in
+    the same order); the whole output is held to 1e-5·max|L| for fp32
+    (fp64: 1e-12), since the products sum the same partial products in
+    another order. The diagonal phase alone (m = nb) is timed beside
+    ``cholesky_ex`` + ``solve_triangular``, the two calls that give L_kk and
+    its inverse, and its bound."""
+    from dla_tpu_torch.kernels import panel, tiles
     from dla_tpu_torch.utils import precision
 
     g = torch.Generator(device=dev).manual_seed(m + nb)
@@ -804,11 +812,19 @@ def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
         sync()
         require(panel.panel_factor_launches == before + 1, "panel_factor: not one launch")
         require(bool(torch.isfinite(out).all()), "panel_factor read above the diagonal")
+        same = torch.equal(bits(out[:nb]), bits(ref[:nb]))
         err = (out.double() - ref.double()).abs().max().item()
         tol = (1e-12 if dtype == torch.float64 else 1e-5) * ref.abs().max().item()
         k_ms = cuda_ms(lambda: panel.panel_factor(p), iters)
         a_ms = cuda_ms(lambda: panel.panel_factor(p[:nb]), iters)  # m = nb: the diagonal phase
         p_ms = cuda_ms(lambda: panel.panel_factor_plain(p), 1)
+    spd = torch.tril(p[:nb]) + torch.tril(p[:nb], -1).mT
+    eye = torch.eye(nb, device=dev, dtype=dtype)
+    a_lib = (cuda_ms(lambda: torch.linalg.cholesky_ex(spd), iters)
+             + cuda_ms(lambda: torch.linalg.solve_triangular(ref[:nb], eye, upper=False), iters))
+    a_bound = bound(2 * nb**3 / 3 / PEAK["fp64" if dtype == torch.float64 else "fp32"],
+                    3 * nb * nb * p.element_size())
+    launches, blocks = tiles.potrf_tile_schedule(nb)
     # the diagonal phase's 2·nb³/3 rank-1 operations on the non-tensor peak,
     # the 2·(m − nb)·nb² product at the tier; the panel read, the output written
     item = p.element_size()
@@ -816,9 +832,13 @@ def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
                **bound(2 * nb**3 / 3 / PEAK["fp64" if dtype == torch.float64 else "fp32"]
                        + product_s(2 * (m - nb) * nb * nb, dtype, prec), 2 * m * nb * item))
     name = f"m={m} nb={nb} {str(dtype)[6:]}/{prec}"
-    print(f"panel_factor {name}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.3f} ms "
-          f"(diagonal phase alone {a_ms:.3f} ms), plain {p_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}", flush=True)
+    print(f"panel_factor {name}: diagonal block same bits as plain {same}, max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}); diagonal phase alone {a_ms:.4f} ms "
+          f"({launches} launches, up to {blocks} blocks), cholesky_ex + solve_triangular "
+          f"{a_lib:.4f} ms, bound {a_bound['bound_ms']:.5f} ms ({a_bound['bound_by']}) {tag}",
+          flush=True)
+    require(same, f"panel_factor's diagonal block is not the plain version's bits at {name}")
     require(err <= tol, f"panel_factor disagrees with the plain version at {name}")
     return row
 
@@ -1286,8 +1306,9 @@ def task_product_case(dev, tag, op, m, n, k, dtype, prec, iters):
 
 def potrf_tile_case(dev, tag, n, dtype, prec, iters):
     """Kernel #5 against its plain version, on an SPD tile with NaN above the
-    diagonal. Tolerance 1e-5·max|ref| for fp32 (fp64: 1e-12): the kernel rounds
-    every product and difference where the plain version does. The library
+    diagonal: the plain version's bits (the kernel rounds every product,
+    difference, quotient and root where the plain version does, in the same
+    order), and within 1e-5·max|ref| for fp32 (fp64: 1e-12). The library
     figure is the sum of two calls, ``cholesky_ex`` and ``solve_triangular``
     against the identity (no one call gives both L and its inverse)."""
     from dla_tpu_torch.kernels import tiles
@@ -1310,6 +1331,7 @@ def potrf_tile_case(dev, tag, n, dtype, prec, iters):
                 "potrf_tile read above the diagonal")
         require(torch.equal(l, torch.tril(l)) and torch.equal(linv, torch.tril(linv)),
                 "potrf_tile: outputs not lower triangular")
+        same = torch.equal(bits(l), bits(lref)) and torch.equal(bits(linv), bits(xref))
         rel = 1e-12 if dtype == torch.float64 else 1e-5
         err = max((l.double() - lref.double()).abs().max().item(),
                   (linv.double() - xref.double()).abs().max().item())
@@ -1327,9 +1349,12 @@ def potrf_tile_case(dev, tag, n, dtype, prec, iters):
                **bound(2 * n**3 / 3 / PEAK["fp64" if dtype == torch.float64 else "fp32"],
                        3 * n * n * item))
     name = f"n={n} {str(dtype)[6:]}/{prec}"
-    print(f"potrf_tile {name}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.3f} ms, cholesky_ex + solve_triangular {lib_ms:.4f} ms, bound "
+    launches, blocks = tiles.potrf_tile_schedule(n)
+    print(f"potrf_tile {name}: same bits as plain {same}, max_abs_err={err:.3e} (tol {tol:.3e}) "
+          f"kernel {k_ms:.4f} ms ({launches} launches, up to {blocks} blocks), plain "
+          f"{p_ms:.3f} ms, cholesky_ex + solve_triangular {lib_ms:.4f} ms, bound "
           f"{row['bound_ms']:.5f} ms ({row['bound_by']}) {tag}", flush=True)
+    require(same, f"potrf_tile is not the plain version's bits at {name}")
     require(ok, f"potrf_tile disagrees with the plain version at {name}")
     return row
 

@@ -1,6 +1,7 @@
 """Two builds of one trailing kernel side by side on one GPU.
 
-    python -m dla_tpu_torch.bench.kernel_ab --other DIR --entry lower|packed|df64
+    python -m dla_tpu_torch.bench.kernel_ab --other DIR
+        --entry lower|packed|df64|potrf_tile|panel_factor
         [--tier high|default|highest] [--dtype f32|f64|bf16] [--iters 3]
 
 ``DIR`` holds another version of the kernel sources (the entry's ``.cu`` and
@@ -16,14 +17,22 @@ the same inputs at its path's shape, in turns: other, this, this, other.
 - ``packed``: ``dla_trailing_packed_<dtype>`` (kernel #2) at the packed
   path's first update, n=81920, w=4096, ktb=1024, k=0;
 - ``df64``: ``dla_trailing_df64`` (kernel #9) at the f64x path's, m=24576,
-  tb=512, nb=1024, s=7, w=8, origin 0 (``--tier`` and ``--dtype`` unused).
+  tb=512, nb=1024, s=7, w=8, origin 0 (``--tier`` and ``--dtype`` unused);
+- ``potrf_tile``: ``dla_potrf_tile_<dtype>`` (kernel #5, ``(a, l, linv, n,
+  lda, tier, stream)``) at the tile-task path's n=512, on an SPD tile with
+  NaN above its diagonal, and
+- ``panel_factor``: ``dla_panel_factor_<dtype>`` (kernel #4) at the
+  ``panel_factor`` path's first panel, m=32768, nb=512; for both, every
+  tier in one call (fp32 ``highest``, ``high``, ``default``, fp64;
+  ``--tier`` and ``--dtype`` unused), and this build's schedule (launches
+  and the largest grid of ``diag_block.cuh``).
 
 A version whose C entry takes a split scratch (the tensor-core body's) gets
 one, sized by ``tiles.split_planes``; an older one is called without. Prints
 each launch's time by CUDA events, the largest difference between the two
-outputs (df64: whether they give the same bits, which they must), and the
-card's name and power limit. Two versions are only comparable inside one
-such call.
+outputs (df64, potrf_tile, panel_factor: whether they give the same bits,
+which they must; the exit code is 1 when they do not), and the card's name
+and power limit. Two versions are only comparable inside one such call.
 
 It needs a CUDA device and ``nvcc`` and fails without them.
 """
@@ -40,25 +49,33 @@ from pathlib import Path
 import torch
 
 SOURCE = {"lower": "trailing_lower.cu", "packed": "trailing_packed.cu",
-          "df64": "trailing_df64.cu"}
+          "df64": "trailing_df64.cu", "potrf_tile": "potrf_tile.cu",
+          "panel_factor": "panel_factor.cu"}
+DIAG_TIERS = [("f32", "highest"), ("f32", "high"), ("f32", "default"), ("f64", "high")]
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+
+
+def _build_lib(csrc: Path, out: Path, entry: str) -> ctypes.CDLL:
+    """Build ``csrc``'s source of ``entry`` into ``out``, printing ptxas's
+    register, spill and shared-memory counts."""
+    from dla_tpu_torch.kernels import _build
+
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(out),
+           str(csrc / SOURCE[entry])]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stderr}")
+    for line in proc.stderr.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"  {csrc}: {line.strip()}")
+    return ctypes.CDLL(str(out))
 
 
 def _compile(csrc: Path, out: Path, entry: str, symbol: str):
     """Build ``csrc``'s source of ``entry`` into ``out``; the C function and
     whether it takes a split scratch."""
-    from dla_tpu_torch.kernels import _build
-
     src = csrc / SOURCE[entry]
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(out),
-           str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stderr}")
-    for line in proc.stderr.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {csrc}: {line.strip()}")
-    fn = getattr(ctypes.CDLL(str(out)), symbol)
+    fn = getattr(_build_lib(csrc, out, entry), symbol)
     scratch = entry != "df64" and "void* scratch" in src.read_text()
     if entry == "df64":
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
@@ -127,6 +144,70 @@ def _trailing_case(entry, dtype, tier_name, stream):
     return (c,), launch, f"{name} {str(dtype)[6:]}/{tier_name}", scale
 
 
+def _diag_ab(args, card: str) -> int:
+    """#5 or #4 of two builds at every tier: times and whether the bits agree."""
+    from dla_tpu_torch.kernels import _build, tiles
+
+    dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream
+    n = 512
+    m = 32768 if args.entry == "panel_factor" else n
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {"other": _build_lib(Path(args.other), Path(tmp) / "other.so", args.entry),
+                "this": _build_lib(_build.CSRC, Path(tmp) / "this.so", args.entry)}
+        if args.entry == "potrf_tile":
+            launches, blocks = ctypes.c_int(), ctypes.c_int()
+            libs["this"].dla_diag_schedule(ctypes.c_longlong(n), ctypes.byref(launches),
+                                           ctypes.byref(blocks))
+            print(f"this build's schedule at n={n}: {launches.value} launches, up to "
+                  f"{blocks.value} blocks a launch")
+        for sfx, tier_name in DIAG_TIERS:
+            dtype = DTYPES[sfx]
+            g = torch.Generator(device=dev).manual_seed(m + n)
+            a = torch.randn(m, n, generator=g, device=dev, dtype=torch.float64)
+            a[:n] = a[:n] @ a[:n].mT + n * torch.eye(n, device=dev, dtype=torch.float64)
+            a = a.to(dtype)
+            a[:n] += torch.triu(torch.full((n, n), float("nan"), device=dev, dtype=dtype), 1)
+            code = tiles._TIER_CODE[tier_name]
+            outs, times = {}, {"other": [], "this": []}
+            for version in ["other", "this", "this", "other"] * args.iters:
+                if args.entry == "potrf_tile":
+                    out = (torch.empty(n, n, device=dev, dtype=dtype),
+                           torch.empty(n, n, device=dev, dtype=dtype))
+                    fn = getattr(libs[version], f"dla_potrf_tile_{sfx}")
+                    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
+                        ctypes.c_int, ctypes.c_void_p]
+                    ints = (n, n)
+                else:
+                    out = (torch.empty(m, n, device=dev, dtype=dtype),
+                           torch.empty(n, n, device=dev, dtype=dtype))
+                    fn = getattr(libs[version], f"dla_panel_factor_{sfx}")
+                    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
+                        ctypes.c_int, ctypes.c_void_p]
+                    ints = (m, n, n)
+                fn.restype = ctypes.c_int
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0.record()
+                err = fn(a.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), *ints, code, stream)
+                t1.record()
+                t1.synchronize()
+                if err:
+                    raise RuntimeError(f"{version}: CUDA error {err}")
+                times[version].append(t0.elapsed_time(t1))
+                outs[version] = out
+            view = torch.int32 if dtype == torch.float32 else torch.int64
+            same = all(torch.equal(x.view(view), y.view(view))
+                       for x, y in zip(outs["other"], outs["this"]))
+            ok = ok and same
+            med = {v: sorted(ts[1:])[len(ts[1:]) // 2] for v, ts in times.items()}
+            print(f"{args.entry} m={m} n={n} {sfx}/{tier_name}: same bits {same}; other median "
+                  f"{med['other']:.4f} ms of {[round(t, 4) for t in times['other']]}, this median "
+                  f"{med['this']:.4f} ms of {[round(t, 4) for t in times['this']]} [{card}]",
+                  flush=True)
+    print(f"{args.entry}: every tier bit-identical: {ok} [{card}]")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="directory of the other version's sources")
@@ -143,6 +224,8 @@ def main(argv=None) -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    if args.entry in ("potrf_tile", "panel_factor"):
+        return _diag_ab(args, card)
     stream = torch.cuda.current_stream().cuda_stream
     dtype = DTYPES[args.dtype]
     if args.entry == "df64":

@@ -12,22 +12,20 @@
 // Design. The Pallas kernel walks the TPU's sequential grid: step 0 factors
 // the diagonal block and keeps inv(L_kk) in VMEM scratch, and the later
 // steps read it. Blocks of a CUDA grid run in no order and share nothing, so
-// the C entry launches two kernels on one stream:
-//   (a) diag_kernel of diag_block.cuh (shared with potrf_tile.cu), ONE
-//       thread block: the nb column steps of the factor, then the nb row
-//       steps of the inverse, in device memory (out's first nb rows and
-//       linv).
+// the C entry launches in two phases on one stream:
+//   (a) launch_diag of diag_block.cuh (shared with potrf_tile.cu): the
+//       tiled schedule, ceil(nb / 64) + 1 launches of up to 29 blocks of
+//       64 x 64 tiles, factors and inverts the diagonal block into out's first
+//       nb rows and linv.
 //   (b) solve_kernel, a grid of 64 x 64 output blocks: out[nb:] =
 //       panel[nb:] * linv^T through nt_block (trailing_block.cuh), at the
 //       tier, as the reference's _dot_nt.
 // Precision of (a), as _kernel_precision: see diag_block.cuh.
 //
-// Bound. (a) is latency-bound: 2*nb dependent steps of one block, each a
-// round trip to L2 and two barriers, on one SM. (b) is an NT product of
-// 2*(m - nb)*nb^2 operations, bound like the trailing kernels by scalar FMA
-// issue; it fills the card once m - nb is a few thousand rows. Keeping the
-// diagonal block in registers and shared memory across a thread block
-// cluster, and (b) on the tensor cores, are the next steps.
+// Bound. (a) is latency-bound: a chain of nb pivots, 64 of them a stage.
+// (b) is an NT product of 2*(m - nb)*nb^2 operations, bound like the
+// trailing kernels by scalar FMA issue; it fills the card once m - nb is a
+// few thousand rows. (b) on the tensor cores is the next step.
 
 #include "diag_block.cuh"
 
@@ -108,7 +106,7 @@ int run(const void* panel, void* out, void* linv, long long m, long long nb, lon
 
 // C interface, loaded with ctypes: panel (m x nb, leading dimension ldp),
 // out (m x nb, contiguous), linv (nb x nb scratch). Returns the first CUDA
-// error of the two launches; 0 means both launched.
+// error of the launches; 0 means all launched.
 extern "C" int dla_panel_factor_f32(const void* panel, void* out, void* linv, long long m,
                                     long long nb, long long ldp, int tier, void* stream) {
   return run<float>(panel, out, linv, m, nb, ldp, tier, stream);

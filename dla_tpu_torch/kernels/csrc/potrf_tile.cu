@@ -10,12 +10,12 @@
 // factor, and linv its inverse; both (n, n), contiguous, strict upper
 // triangle zero.
 //
-// Design, precision and bound: this is diag_kernel of diag_block.cuh, the
-// one-block phase that panel_factor.cu runs first, launched alone; the two
-// share the code and so the bits. The tile is capped at n <= 512 by that
-// kernel's shared-memory stage (the Pallas kernel only needs the tile to fit
-// VMEM and states no cap; the reference's best tile is NB = 448). One block
-// on one SM, 2*n dependent steps: the kernel is bound by latency, not by
+// Design, precision and bound: this is the tiled schedule of diag_block.cuh
+// (launch_diag: ceil(n / 64) + 1 launches of up to 29 blocks), the phase
+// that panel_factor.cu runs first, launched alone; the two share the code and
+// so the bits. The tile is capped at n <= 512 (the Pallas kernel only needs
+// the tile to fit VMEM and states no cap; the reference's best tile is
+// NB = 448). The chain of n pivots bounds it: it is bound by latency, not by
 // bytes or operations.
 
 #include "diag_block.cuh"
@@ -30,8 +30,9 @@ int run(const void* a, void* l, void* linv, long long n, long long lda, int tier
 
 }  // namespace
 
-// C interface, loaded with ctypes. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue when n > 512; 0 means launched.
+// C interface, loaded with ctypes. Returns the first CUDA error of the
+// launches, or cudaErrorInvalidValue, before any launch, when n > 512; 0
+// means launched.
 extern "C" int dla_potrf_tile_f32(const void* a, void* l, void* linv, long long n,
                                   long long lda, int tier, void* stream) {
   return run<float>(a, l, linv, n, lda, tier, stream);
@@ -40,4 +41,16 @@ extern "C" int dla_potrf_tile_f32(const void* a, void* l, void* linv, long long 
 extern "C" int dla_potrf_tile_f64(const void* a, void* l, void* linv, long long n,
                                   long long lda, int tier, void* stream) {
   return run<double>(a, l, linv, n, lda, tier, stream);
+}
+
+// The schedule's shape at n: its launches, and the largest grid among them
+// (so a caller can show that it runs on more than one SM).
+extern "C" int dla_diag_schedule(long long n, int* launches, int* max_blocks) {
+  if (n <= 0 || n > dla::kMaxNb) return (int)cudaErrorInvalidValue;
+  const int nt = dla::diag_tiles(n);
+  *launches = nt + 1;
+  *max_blocks = 0;
+  for (int t = 0; t <= nt; ++t)
+    if (dla::stage_blocks(nt, t) > *max_blocks) *max_blocks = dla::stage_blocks(nt, t);
+  return 0;
 }

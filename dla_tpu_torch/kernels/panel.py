@@ -103,9 +103,10 @@ def panel_factor(panel: torch.Tensor) -> torch.Tensor:
     is returned. Real float32/float64; nb ≤ 512 (the reference's VMEM
     budget, kept so both packages take the same shapes).
 
-    On the card one C call launches two kernels on the current stream: one
-    thread block factors and inverts L_kk in device memory (the inverse in a
-    scratch tensor), then a grid of 64×64 blocks forms the products.
+    On the card one C call launches on the current stream: the tiled
+    schedule of ``potrf_tile`` factors and inverts L_kk (⌈nb/64⌉ + 1 launches,
+    the inverse in a scratch tensor), then a grid of 64×64 blocks forms the
+    products.
     """
     global panel_factor_launches
     if _same_device("panel_factor", panel):

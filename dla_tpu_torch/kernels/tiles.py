@@ -11,8 +11,8 @@ The trailing updates C ← C − P·Pᵀ over lower tile pairs:
 The four task kernels of the reference's tile DAG, one launch per task:
 
 - :func:`potrf_tile` (``:171``): (tril(L), inv(L)) of one SPD tile, CUDA
-  kernel ``csrc/potrf_tile.cu`` (the one-block phase of ``panel_factor``,
-  ``csrc/diag_block.cuh``);
+  kernel ``csrc/potrf_tile.cu`` (the diagonal phase of ``panel_factor``,
+  the tiled schedule of ``csrc/diag_block.cuh``);
 - :func:`trsm_tile` (``:194``), :func:`syrk_tile` (``:218``) and
   :func:`gemm_tile` (``:238``): B·inv(L)ᵀ, C − A·Aᵀ on the lower triangle and
   C − Aᵢ·Aⱼᵀ, one CUDA kernel with three epilogues, ``csrc/tile_ops.cu``.
@@ -553,11 +553,12 @@ def potrf_tile(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``_kernel_precision``: ``high`` is ``highest``, and ``default`` rounds the
     steps' operands (not the stored L) to bf16.
 
-    On a CUDA tensor n ≤ 512: the kernel is one thread block that stages a
-    column in a fixed shared-memory array of 512 elements (the cap of
-    ``panel_factor``, whose diagonal phase this is). The reference states no
-    cap, its tile only has to fit VMEM; a larger tile raises here rather
-    than run another algorithm.
+    On a CUDA tensor n ≤ 512 (the cap of ``panel_factor``, whose diagonal
+    phase this is): one C call launches ⌈n/64⌉ + 1 kernels on the current
+    stream, the stages of a schedule over 64×64 tiles (up to 29 blocks at
+    n = 512, :func:`potrf_tile_schedule`), which gives the plain version's
+    bits. The reference states no cap, its tile only has to fit VMEM; a
+    larger tile raises here rather than run another algorithm.
     """
     global potrf_tile_launches
     if _same_device("potrf_tile", a):
@@ -567,7 +568,7 @@ def potrf_tile(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     n = a.shape[0]
     if not 0 < n <= POTRF_TILE_MAX:
         raise ValueError(f"potrf_tile on a CUDA tensor takes 1 ≤ n ≤ {POTRF_TILE_MAX} (the "
-                         f"kernel's shared-memory stage); got n={n}")
+                         f"cap of panel_factor, whose diagonal phase it is); got n={n}")
     l = torch.empty((n, n), dtype=a.dtype, device=a.device)
     linv = torch.empty((n, n), dtype=a.dtype, device=a.device)
     fn = _task_entry("potrf", a.dtype, 3, 2)  # a, l, linv; n and a's leading dimension
@@ -579,6 +580,19 @@ def potrf_tile(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise RuntimeError(f"potrf_tile kernel launch failed: CUDA error {err}")
     potrf_tile_launches += 1
     return l, linv
+
+
+def potrf_tile_schedule(n: int) -> tuple[int, int]:
+    """The launches of :func:`potrf_tile`'s kernel at tile size n (also
+    ``panel_factor``'s diagonal phase at nb = n) and the largest grid among
+    them, from the kernel library (``dla_diag_schedule``)."""
+    fn = _build.load().dla_diag_schedule
+    fn.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    launches, blocks = ctypes.c_int(), ctypes.c_int()
+    if fn(n, ctypes.byref(launches), ctypes.byref(blocks)) != 0:
+        raise ValueError(f"potrf_tile_schedule takes 1 ≤ n ≤ {POTRF_TILE_MAX}; got n={n}")
+    return launches.value, blocks.value
 
 
 def trsm_tile(linv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

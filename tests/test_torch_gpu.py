@@ -798,6 +798,18 @@ def test_tile_op_matches_plain(cuda, op, n, m, k, dtype, prec):
         assert torch.equal(torch.triu(out, 1), torch.triu(c, 1))
 
 
+def _spd_tile(cuda, n, dtype, seed, upper=float("nan")):
+    """An SPD tile made in fp64 from a seed, ``upper`` above its diagonal."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, n, generator=g, device=cuda, dtype=torch.float64)
+    a = (x @ x.mT + n * torch.eye(n, device=cuda, dtype=torch.float64)).to(dtype)
+    return a + torch.triu(torch.full((n, n), upper, device=cuda, dtype=dtype), 1)
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
 @pytest.mark.parametrize("dtype,prec", TIERS[:4])
 @pytest.mark.parametrize("n", [96, 512])
 def test_potrf_tile_matches_plain(cuda, n, dtype, prec):
@@ -822,17 +834,80 @@ def test_potrf_tile_matches_plain(cuda, n, dtype, prec):
         assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
 
 
-def test_potrf_tile_same_bits_as_panel_factor(cuda):
-    """Both run ``diag_kernel`` of csrc/diag_block.cuh: the tile kernel's L is
-    ``panel_factor``'s diagonal block, bit for bit."""
+@pytest.mark.parametrize("dtype,prec", TIERS[:4])
+@pytest.mark.parametrize("nb", [50, 64, 256, 512])
+def test_potrf_tile_same_bits_as_panel_factor(cuda, nb, dtype, prec):
+    """Both run ``launch_diag`` of csrc/diag_block.cuh: the tile kernel's L is
+    the first nb rows of ``panel_factor``'s output (m = 3·nb), bit for bit."""
     from dla_tpu_torch.kernels import panel
 
-    n = 256
-    spd = T.plgsy(n, seed=3, device=cuda)
-    for prec in ("highest", "high", "default"):
-        with precision.override(prec):
-            l, _ = tiles.potrf_tile(spd)
-            assert torch.equal(l, panel.panel_factor(spd))
+    g = torch.Generator(device=cuda).manual_seed(nb)
+    p = torch.cat([_spd_tile(cuda, nb, dtype, seed=nb + 1),
+                   torch.randn(2 * nb, nb, generator=g, device=cuda).to(dtype)])
+    with precision.override(prec):
+        l, _ = tiles.potrf_tile(p[:nb])
+        out = panel.panel_factor(p)
+        torch.cuda.synchronize()
+    assert torch.equal(_bits(out[:nb]), _bits(l))
+
+
+@pytest.mark.parametrize("dtype,prec", TIERS[:4])
+@pytest.mark.parametrize("n", [1, 50, 96, 130, 512])
+def test_potrf_tile_same_bits_as_plain(cuda, n, dtype, prec):
+    """The tiled schedule rounds every element where the plain version does,
+    in the same order: L and inv(L) are the plain version's bits."""
+    a = _spd_tile(cuda, n, dtype, seed=n)
+    with precision.override(prec):
+        lref, xref = tiles.potrf_tile_plain(a)
+        l, linv = tiles.potrf_tile(a)
+        torch.cuda.synchronize()
+    assert torch.equal(_bits(l), _bits(lref))
+    assert torch.equal(_bits(linv), _bits(xref))
+
+
+@pytest.mark.parametrize("dtype,prec", TIERS[:4])
+def test_potrf_tile_two_launches_same_bits(cuda, dtype, prec):
+    a = _spd_tile(cuda, 300, dtype, seed=3)
+    with precision.override(prec):
+        first = tiles.potrf_tile(a)
+        second = tiles.potrf_tile(a)
+        torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+def test_potrf_tile_never_reads_above_the_diagonal(cuda):
+    for dtype in (torch.float32, torch.float64):
+        clean = tiles.potrf_tile(_spd_tile(cuda, 200, dtype, seed=4, upper=0.0))
+        dirty = tiles.potrf_tile(_spd_tile(cuda, 200, dtype, seed=4, upper=float("nan")))
+        torch.cuda.synchronize()
+        for x, y in zip(clean, dirty):
+            assert bool(torch.isfinite(y).all())
+            assert torch.equal(_bits(x), _bits(y))
+
+
+def test_diag_refused_launch_raises_and_launches_nothing(cuda, monkeypatch):
+    # a tier code the C entry does not take: it returns cudaErrorInvalidValue
+    # before its first launch, and the wrapper raises; nothing falls back
+    from dla_tpu_torch.kernels import panel
+
+    monkeypatch.setitem(tiles._TIER_CODE, "high", 7)
+    a = _spd_tile(cuda, 128, torch.float32, seed=5, upper=0.0)
+    before = (tiles.potrf_tile_launches, panel.panel_factor_launches)
+    with precision.override("high"):
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            tiles.potrf_tile(a)
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            panel.panel_factor(a)
+    torch.cuda.synchronize()
+    assert (tiles.potrf_tile_launches, panel.panel_factor_launches) == before
+
+
+def test_potrf_tile_schedule_runs_many_blocks(cuda):
+    assert tiles.potrf_tile_schedule(512) == (9, 29)  # 8 tiles a side: launches 1 and 2 are widest
+    assert tiles.potrf_tile_schedule(64) == (2, 1)
+    with pytest.raises(ValueError, match="512"):
+        tiles.potrf_tile_schedule(576)
 
 
 def test_task_kernels_raise_on_what_they_do_not_take(cuda):
