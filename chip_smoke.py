@@ -128,12 +128,15 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
 29. the ring collectives against their plain versions on a flat mesh of D=4
     members on the card: ``ring_broadcast`` (#11) at the ring planes' largest
     panel (15360 × 1024 fp64, 48 chunks, root 1) and factor tile (1024 × 1024,
-    32 chunks), and in two sub-rings (``group=2``, roots 0 and 1);
+    32 chunks), and in two sub-rings (``group=2``, roots 0 and 1), the
+    non-root blocks NaN (never read);
     ``ring_all_gather`` (#12) at 1024 × 1024 fp64 with ``group`` 4 and 2, and
     the flat-mesh P×Q row-broadcast check (``group=2``) that gives #12 its
-    launch count: every output the plain version's **bits**; kernel, plain
-    and library times (``expand(D, m, n).clone()``; ``torch.cat`` per member),
-    and the bound;
+    launch count: every output the plain version's **bits**; the kernel's cut
+    (``ring_plan``); kernel, plain and library times (``expand(D, m,
+    n).clone()``; ``torch.cat`` per member) queued behind a sleeping kernel,
+    so that the host's enqueue is hidden (the kernel's back-to-back time
+    beside it), and the bound;
 30. to 32. the three flat-mesh ring planes at N=16384, nb=1024, D=4 members on
     the card (``__graft_entry__.dryrun_multichip`` planes 2, 3 and 6): dense
     column-cyclic fp64 (``plgsy(…, seed=7)``), packed column-cyclic fp64
@@ -233,6 +236,23 @@ def cuda_ms(fn, iters: int) -> float:
     """Mean time of ``fn`` on the card over ``iters`` calls, after one warm-up."""
     fn()
     sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean time of ``fn`` on the card over ``iters`` calls queued behind a
+    sleeping kernel, after one warm-up: the host's time between calls is
+    hidden wherever it enqueues faster than the sleep lasts (a ring launch
+    takes about as long on the card as its own enqueue)."""
+    fn()
+    sync()
+    torch.cuda._sleep(50_000_000)  # ≈ 25 ms at the H100's clock
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -1552,6 +1572,9 @@ def ring_case(dev, tag, kind, m, n, ndev, iters, **kw):
         kernel, plain = C.ring_broadcast, C.ring_broadcast_plain
         kw = dict(kw)
         root = kw.pop("root")
+        for d in range(ndev):  # a non-root block is never read: NaN reaches no output
+            if d % group != root % group:
+                xs[d].fill_(float("nan"))
         args, counter = (xs, root), "ring_broadcast_launches"
         library = lambda: xs[root % group].expand(ndev, m, n).clone()  # noqa: E731
         nbytes = (1 + ndev) * m * n * 8
@@ -1568,15 +1591,22 @@ def ring_case(dev, tag, kind, m, n, ndev, iters, **kw):
     require(getattr(C, counter) == before + 1, f"ring {kind}: not one launch")
     require(all(torch.equal(bits(o), bits(r)) for o, r in zip(out, ref)),
             f"ring {kind} at {m}x{n}: the kernel's bits are not the plain version's")
+    require(not any(bool(o.isnan().any()) for o in out), f"ring {kind}: NaN in an output")
     err = max((o - r).abs().max().item() for o, r in zip(out, ref))
-    k_ms = cuda_ms(lambda: kernel(*args, **kw), iters)
-    p_ms = cuda_ms(lambda: plain(*args, **kw), iters)
-    lib_ms = cuda_ms(library, iters)
+    k_ms = queued_ms(lambda: kernel(*args, **kw), iters)
+    p_ms = queued_ms(lambda: plain(*args, **kw), iters)
+    lib_ms = queued_ms(library, iters)
+    k_unqueued = cuda_ms(lambda: kernel(*args, **kw), iters)  # calls back to back, as before
     row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                **bound(0.0, nbytes))
     label = f"group={group}" + (f" root={root}" if kind == "broadcast" else "")
-    print(f"ring_{kind} D={ndev} {m}x{n} fp64 {label} chunks={kw.get('chunks')}: bits of the "
-          f"plain version, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+    chunks = C.broadcast_chunks(m, group) if kind == "broadcast" else 1
+    plan = C.ring_plan(gather=kind != "broadcast", ndev=ndev, group=group, chunks=chunks,
+                       block_bytes=m * n * 8,
+                       sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"ring_{kind} D={ndev} {m}x{n} fp64 {label} chunks={chunks} {plan}: bits of the "
+          f"plain version, kernel {k_ms:.4f} ms (back to back, not queued: {k_unqueued:.4f}), "
+          f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
           f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) {tag}", flush=True)
     return row
 

@@ -1,7 +1,7 @@
-"""Two builds of one trailing kernel side by side on one GPU.
+"""Two builds of one kernel side by side on one GPU.
 
     python -m dla_tpu_torch.bench.kernel_ab --other DIR
-        --entry lower|packed|df64|potrf_tile|panel_factor
+        --entry lower|packed|df64|potrf_tile|panel_factor|ring
         [--tier high|default|highest] [--dtype f32|f64|bf16] [--iters 3]
 
 ``DIR`` holds another version of the kernel sources (the entry's ``.cu`` and
@@ -25,7 +25,18 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   ``panel_factor`` path's first panel, m=32768, nb=512; for both, every
   tier in one call (fp32 ``highest``, ``high``, ``default``, fp64;
   ``--tier`` and ``--dtype`` unused), and this build's schedule (launches
-  and the largest grid of ``diag_block.cuh``).
+  and the largest grid of ``diag_block.cuh``);
+- ``ring``: ``dla_ring_launch`` (kernels #11 and #12, ``ring.cu``) at the
+  shapes of ``chip_smoke.py`` phase 29, fp64 on D=4 members: the broadcast
+  of the planes' largest panel (15360 × 1024, C=48) and of the factor tile
+  (1024 × 1024, C=32), the tile in two sub-rings (roots 0 and 1), and the
+  all-gather of the tile with group 4 and 2. Each build is called through
+  its own C signature (one whose protocol forwards through comm slots gets
+  its slots, allocated beforehand); each case's two outputs must have the
+  same bits, and those of the plain version. A ring time is the mean of 10
+  launches queued behind a sleeping kernel: the card's time, without the
+  host's enqueue between launches. ``--ring-cuts`` times this build at
+  other cuts (``ring_plan``'s constants) as well.
 
 A version whose C entry takes a split scratch (the tensor-core body's) gets
 one, sized by ``tiles.split_planes``; an older one is called without. Prints
@@ -50,7 +61,10 @@ import torch
 
 SOURCE = {"lower": "trailing_lower.cu", "packed": "trailing_packed.cu",
           "df64": "trailing_df64.cu", "potrf_tile": "potrf_tile.cu",
-          "panel_factor": "panel_factor.cu"}
+          "panel_factor": "panel_factor.cu", "ring": "ring.cu"}
+RING_CASES = [  # (kind, m, root, group) on D=4 fp64 members of 1024 columns
+    ("broadcast", 15360, 1, 4), ("broadcast", 1024, 1, 4), ("broadcast", 1024, 0, 2),
+    ("broadcast", 1024, 1, 2), ("gather", 1024, 0, 4), ("gather", 1024, 0, 2)]
 DIAG_TIERS = [("f32", "highest"), ("f32", "high"), ("f32", "default"), ("f64", "high")]
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
 
@@ -208,6 +222,139 @@ def _diag_ab(args, card: str) -> int:
     return 0 if ok else 1
 
 
+def _queued_ms(launch, n: int = 10) -> float:
+    """Mean card time of ``n`` launches queued behind a sleeping kernel, so
+    that the host's enqueue between them is hidden (a short ring launch takes
+    about as long on the card as its own enqueue)."""
+    torch.cuda._sleep(50_000_000)  # ≈ 25 ms at the H100's clock: the launches queue behind it
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        err = launch()
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def _ring_launcher(lib, slots: bool):
+    """launch(xs, outs, gather, group, root, chunks) -> CUDA error, through
+    the build's own C signature; each launcher keeps its flags and epoch."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    fn = lib.dla_ring_launch
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    flags = torch.zeros(C._FLAG_WORDS, dtype=torch.int64, device=dev)
+    state = {"base": 0}
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if slots:  # (gather, ndev, group, root, chunks, steps, xs, outs, comms, flags, ...)
+        fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
+    else:
+        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
+                       + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
+
+    def prepare(xs, outs, gather, group, root, chunks):
+        """The launch as a closure, its arguments (and slots) made beforehand."""
+        ndev = len(xs)
+        ptrs = ctypes.c_void_p * ndev
+        xp, op = ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs))
+        block_bytes = xs[0].numel() * xs[0].element_size()
+        if slots:
+            chunk_bytes = block_bytes // (1 if gather else chunks)
+            steps = group - 1 if gather else chunks + group - 2
+            comm = [torch.empty(2 * (-(-chunk_bytes // 16) * 16), dtype=torch.uint8, device=dev)
+                    for _ in range(ndev)]
+            cp = ptrs(*(c.data_ptr() for c in comm))
+
+            def launch():
+                err = fn(int(gather), ndev, group, root, chunks, steps, xp, op, cp,
+                         flags.data_ptr(), C._FLAG_WORDS, chunk_bytes, state["base"], 0, stream)
+                state["base"] += steps + 1
+                return err
+            launch.keep = comm
+            return launch
+        plan = C.ring_plan(gather=gather, ndev=ndev, group=group, chunks=chunks,
+                           block_bytes=block_bytes, sms=sms)
+
+        def launch():
+            err = fn(int(gather), ndev, group, root, plan.units, xp, op, flags.data_ptr(),
+                     C._FLAG_WORDS, block_bytes, plan.unit_bytes, plan.stripe, state["base"],
+                     plan.blocks, stream)
+            state["base"] += plan.units
+            return err
+        launch.plan = plan
+        return launch
+
+    return prepare
+
+
+def _ring_ab(args, card: str) -> int:
+    """#11 and #12 of two builds at phase 29's shapes: times, and whether the
+    bits agree with each other and with the plain version."""
+    from dla_tpu_torch.kernels import _build
+    from dla_tpu_torch.kernels import collectives as C
+
+    dev, ndev, n = torch.device("cuda"), 4, 1024
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        preps = {}
+        for version, csrc in (("other", Path(args.other)), ("this", _build.CSRC)):
+            lib = _build_lib(csrc, Path(tmp) / f"{version}.so", "ring")
+            slots = "void* const* comms" in (csrc / SOURCE["ring"]).read_text()
+            preps[version] = _ring_launcher(lib, slots)
+        for kind, m, root, group in RING_CASES:
+            gather = kind == "gather"
+            g = torch.Generator(device=dev).manual_seed(m + n + ndev)
+            xs = [torch.randn(m, n, generator=g, device=dev, dtype=torch.float64)
+                  for _ in range(ndev)]
+            chunks = 1 if gather else C.broadcast_chunks(m, group)
+            rows = group * m if gather else m
+            outs = {v: [torch.empty(rows, n, device=dev, dtype=torch.float64) for _ in xs]
+                    for v in preps}
+            launches = {v: preps[v](xs, outs[v], gather, group, root, chunks) for v in preps}
+            times = {"other": [], "this": []}
+            for version in ["other", "this", "this", "other"] * args.iters:
+                times[version].append(_queued_ms(launches[version]))
+            ref = (C.ring_all_gather_plain(xs, group=group) if gather
+                   else C.ring_broadcast_plain(xs, root, group=group, chunks=chunks))
+            bits = lambda t: t.view(torch.int64)  # noqa: E731
+            same = all(torch.equal(bits(a), bits(b)) for a, b in zip(outs["other"], outs["this"]))
+            plain = all(torch.equal(bits(a), bits(b)) for a, b in zip(outs["this"], ref))
+            ok = ok and same and plain
+            med = {v: sorted(ts[1:])[len(ts[1:]) // 2] for v, ts in times.items()}
+            label = f"group={group}" + ("" if gather else f" root={root} chunks={chunks}")
+            print(f"ring {kind} D={ndev} {m}x{n} fp64 {label}: same bits {same}, plain's bits "
+                  f"{plain}; other median {med['other']:.4f} ms of "
+                  f"{[round(t, 4) for t in times['other']]}, this median {med['this']:.4f} ms "
+                  f"of {[round(t, 4) for t in times['this']]}, x{med['other'] / med['this']:.2f}; "
+                  f"this build's {getattr(launches['this'], 'plan', 'slots')} [{card}]",
+                  flush=True)
+            for cut in args.ring_cuts.split(",") if args.ring_cuts else []:
+                per_sm, segment = (int(v) for v in cut.split(":"))
+                kept = C.BLOCKS_PER_SM, C.MIN_SEGMENT
+                C.BLOCKS_PER_SM, C.MIN_SEGMENT = per_sm, segment
+                try:
+                    launch = preps["this"](xs, outs["this"], gather, group, root, chunks)
+                finally:
+                    C.BLOCKS_PER_SM, C.MIN_SEGMENT = kept
+                ts = [_queued_ms(launch) for _ in range(2 * args.iters + 1)]
+                cut_ok = all(torch.equal(bits(a), bits(b)) for a, b in zip(outs["this"], ref))
+                ok = ok and cut_ok
+                print(f"  this build at BLOCKS_PER_SM={per_sm} MIN_SEGMENT={segment}: "
+                      f"{launch.plan}, plain's bits {cut_ok}, median "
+                      f"{sorted(ts[1:])[len(ts[1:]) // 2]:.4f} ms of "
+                      f"{[round(t, 4) for t in ts[1:]]} [{card}]", flush=True)
+            del xs, outs, launches, ref
+            torch.cuda.empty_cache()
+    print(f"ring: every case bit-identical to the other build and to the plain version: {ok} "
+          f"[{card}]")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="directory of the other version's sources")
@@ -216,6 +363,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--m", type=int, default=24576, help="df64: the window's size")
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--ring-cuts", default="",
+                    help="ring: also time this build at other cuts, BLOCKS_PER_SM:MIN_SEGMENT,...")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -226,6 +375,8 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     if args.entry in ("potrf_tile", "panel_factor"):
         return _diag_ab(args, card)
+    if args.entry == "ring":
+        return _ring_ab(args, card)
     stream = torch.cuda.current_stream().cuda_stream
     dtype = DTYPES[args.dtype]
     if args.entry == "df64":

@@ -9,11 +9,13 @@ members' blocks (member d's block is what JAX places on device d) and returns
 the list of their outputs. Data crosses between members only through the ring:
 
 - on CUDA tensors (all on one device) each call is one cooperative launch of
-  the hand-written Hopper kernel ``csrc/ring.cu``, which runs the Pallas
-  protocol with per-member double-slotted comm buffers and flags;
-- on CPU tensors the ``*_plain`` versions simulate the same protocol step by
-  step in torch, with per-member comm slots and the same capture arithmetic
-  (not a bare copy, so that the arithmetic itself is tested against JAX's).
+  the hand-written Hopper kernel ``csrc/ring.cu``, in which every hop writes
+  straight into the receiving member's output (:func:`ring_plan` sets its
+  pipeline);
+- on CPU tensors the ``*_plain`` versions simulate the Pallas protocol step
+  by step in torch, with per-member comm slots and the same capture
+  arithmetic (not a bare copy, so that the arithmetic itself is tested
+  against JAX's).
 
 Members on the CPU and on a card at once raise ``ValueError``; members on
 several cards raise ``NotImplementedError`` (ROADMAP A9: members on several
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -38,12 +41,59 @@ from dla_tpu_torch.kernels import _build
 ring_broadcast_launches = 0
 ring_all_gather_launches = 0
 
-#: most members one launch takes (``kMaxMembers`` of ``csrc/ring.cu``: three
-#: pointers per member in the 4 KB of kernel parameters)
+#: most members one launch takes (``kMaxMembers`` of ``csrc/ring.cu``, whose
+#: pointer table fits the 4 KB of kernel parameters)
 MAX_MEMBERS = 128
 
 _FLAG_WORDS = 1 << 13  # 64-bit flags per device; the card holds fewer resident blocks
 _flags: dict[torch.device, list] = {}  # device -> [flag tensor, next epoch]
+
+#: sender blocks per SM a launch aims at, and the fewest bytes a block copies
+#: between two flags (``csrc/ring.cu``'s header says why)
+BLOCKS_PER_SM = 2
+MIN_SEGMENT = 32 * 1024
+
+
+class RingPlan(NamedTuple):
+    """How one launch of ``csrc/ring.cu`` cuts its work. ``senders`` members
+    copy (every member for the all-gather; all but the last of each sub-ring
+    for the broadcast, and every member of a sub-ring of one), each with
+    ``blocks`` thread blocks. A sender copies ``units`` units of
+    ``unit_bytes``, block b the bytes ``[b·stripe, (b+1)·stripe)`` of each, and
+    after each unit that its right neighbour forwards it raises that
+    neighbour's flag of block b by one."""
+
+    senders: int
+    blocks: int
+    units: int
+    unit_bytes: int
+    stripe: int
+
+
+def ring_plan(*, gather: bool, ndev: int, group: int, chunks: int, block_bytes: int,
+              sms: int, blocks: int = 0) -> RingPlan:
+    """The cut of one launch over ``ndev`` members of ``block_bytes`` each, on
+    a card of ``sms`` SMs; ``blocks`` > 0 fixes the blocks per sender.
+
+    Blocks: about BLOCKS_PER_SM·sms sender blocks in all, but no block with
+    less than MIN_SEGMENT bytes of the member's block. Units: the
+    all-gather's unit is one member block, and a sender copies group − 1 of
+    them (its own, then those it forwards); the broadcast's unit is the
+    fewest of the caller's ``chunks`` that give each block MIN_SEGMENT bytes
+    (all of them if none do), so that a short pipeline carries few flags."""
+    per_ring = group if gather or group == 1 else group - 1
+    senders = ndev // group * per_ring
+    if blocks <= 0:
+        blocks = max(1, min(-(-BLOCKS_PER_SM * sms // senders), -(-block_bytes // MIN_SEGMENT)))
+    if gather:
+        units, unit_bytes = max(group - 1, 1), block_bytes
+    else:
+        chunk_bytes = block_bytes // chunks
+        k = next((k for k in range(1, chunks + 1)
+                  if chunks % k == 0 and k * chunk_bytes >= blocks * MIN_SEGMENT), chunks)
+        units, unit_bytes = chunks // k, k * chunk_bytes
+    stripe = (-(-unit_bytes // blocks) + 15) & ~15  # a multiple of 16: 16-byte copies stay aligned
+    return RingPlan(senders, blocks, units, unit_bytes, stripe)
 
 
 def broadcast_chunks(m: int, group: int) -> int:
@@ -174,16 +224,23 @@ def ring_all_gather_plain(xs, *, group: int | None = None) -> list[torch.Tensor]
 def _entry():
     """``dla_ring_launch`` of ``csrc/ring.cu``."""
     fn = _build.load().dla_ring_launch
-    fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
                    + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(name: str, xs, outs, *, gather: bool, group: int, root: int, chunks: int,
-            steps: int, blocks: int = 0) -> None:
+            blocks: int = 0) -> None:
     """One cooperative launch of ``csrc/ring.cu`` over the members ``xs`` into
-    ``outs``; ``blocks`` thread blocks per member, 0 for the kernel's choice."""
+    ``outs``, cut by :func:`ring_plan`; ``blocks`` thread blocks per sender,
+    0 for the plan's choice. It allocates nothing but, once per device, the
+    flags."""
     ndev = len(xs)
     if ndev > MAX_MEMBERS:
         raise ValueError(f"{name} on a CUDA device takes at most {MAX_MEMBERS} members (the "
@@ -191,24 +248,24 @@ def _launch(name: str, xs, outs, *, gather: bool, group: int, root: int, chunks:
     if any(not x.is_contiguous() for x in xs):
         raise ValueError(f"{name} needs contiguous member blocks on a CUDA device")
     dev = xs[0].device
-    chunk_bytes = xs[0].numel() * xs[0].element_size() // (1 if gather else chunks)
-    slot = -(-chunk_bytes // 16) * 16
-    comm = [torch.empty(2 * slot, dtype=torch.uint8, device=dev) for _ in range(ndev)]
+    block_bytes = xs[0].numel() * xs[0].element_size()
+    plan = ring_plan(gather=gather, ndev=ndev, group=group, chunks=chunks,
+                     block_bytes=block_bytes, sms=_sms(dev.index), blocks=blocks)
     state = _flags.get(dev)
     if state is None:
         state = _flags[dev] = [torch.zeros(_FLAG_WORDS, dtype=torch.int64, device=dev), 0]
     ptrs = ctypes.c_void_p * ndev
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(int(gather), ndev, group, root, chunks, steps,
+        err = _entry()(int(gather), ndev, group, root, plan.units,
                        ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs)),
-                       ptrs(*(c.data_ptr() for c in comm)), state[0].data_ptr(), _FLAG_WORDS,
-                       chunk_bytes, state[1], blocks, stream)
+                       state[0].data_ptr(), _FLAG_WORDS, block_bytes, plan.unit_bytes,
+                       plan.stripe, state[1], plan.blocks, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}"
                            + (" (the members' blocks cannot all be resident at once)"
                               if err == 720 else ""))
-    state[1] += steps + 1  # the next launch's epoch lies above every flag of this one
+    state[1] += plan.units  # the next launch's epoch lies above every flag of this one
 
 
 def ring_broadcast(xs, root: int, *, group: int | None = None,
@@ -221,8 +278,9 @@ def ring_broadcast(xs, root: int, *, group: int | None = None,
     distance does). ``group`` (default: D) runs independent sub-rings of that
     size, member id = r·group + c; ``chunks`` (default :func:`broadcast_chunks`)
     splits the block into row chunks so that the hops pipeline, C + group − 2
-    steps in all. The reference's errors for a block that is not 2-D, a group
-    that does not divide D, or chunks that do not divide m."""
+    steps of the plain version (the kernel pipelines whole numbers of them,
+    :func:`ring_plan`). The reference's errors for a block that is not 2-D, a
+    group that does not divide D, or chunks that do not divide m."""
     global ring_broadcast_launches
     ndev, m, group, root, chunks = _bcast_args(xs, root, group, chunks)
     if _on_cpu("ring_broadcast", xs):
@@ -230,8 +288,7 @@ def ring_broadcast(xs, root: int, *, group: int | None = None,
     outs = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in xs]
     if xs[0].numel() == 0:
         return outs
-    _launch("ring_broadcast", xs, outs, gather=False, group=group, root=root, chunks=chunks,
-            steps=chunks + group - 2)
+    _launch("ring_broadcast", xs, outs, gather=False, group=group, root=root, chunks=chunks)
     ring_broadcast_launches += 1
     return outs
 
@@ -249,7 +306,6 @@ def ring_all_gather(xs, *, group: int | None = None) -> list[torch.Tensor]:
     outs = [x.new_empty((group * m, n)) for x in xs]
     if xs[0].numel() == 0:
         return outs
-    _launch("ring_all_gather", xs, outs, gather=True, group=group, root=0, chunks=1,
-            steps=group - 1)
+    _launch("ring_all_gather", xs, outs, gather=True, group=group, root=0, chunks=1)
     ring_all_gather_launches += 1
     return outs

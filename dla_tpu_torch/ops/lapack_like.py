@@ -19,6 +19,7 @@ low bits exact.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M1 = 0x85EBCA6B
@@ -138,9 +139,12 @@ def potrf_unblocked(a: torch.Tensor) -> torch.Tensor:
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded sqrt. Torch's vectorized fp32 sqrt on the CPU can
-    miss by an ulp; its fp64 sqrt does not, and rounding that to fp32 rounds
-    correctly too (53 ≥ 2·24 + 2 bits)."""
-    if x.dtype == torch.float32:
-        return torch.sqrt(x.to(torch.float64)).to(x.dtype)
-    return torch.sqrt(x)
+    """Correctly rounded sqrt. Torch's CPU sqrt can miss by an ulp, in fp32
+    and in fp64 alike, so an fp32 or fp64 tensor on the CPU takes its root
+    from ``numpy.sqrt`` (the hardware's correctly rounded one). An fp32 root
+    is numpy's fp64 root rounded to fp32, which rounds correctly too (53 ≥
+    2·24 + 2 bits). On a CUDA device ``torch.sqrt`` is correctly rounded."""
+    if x.device.type != "cpu" or x.dtype not in (torch.float32, torch.float64):
+        return torch.sqrt(x)
+    root = np.asarray(np.sqrt(x.detach().numpy().astype(np.float64)))
+    return torch.from_numpy(root.astype(np.float32 if x.dtype == torch.float32 else np.float64))

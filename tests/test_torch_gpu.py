@@ -1051,13 +1051,84 @@ def test_ring_launches_back_to_back_read_no_stale_flag(cuda):
         assert all(_same_bits(o.cpu(), r) for o, r in zip(out, ref))
 
 
+@pytest.mark.parametrize("root", [0, 1])
+def test_ring_broadcast_nan_non_root_inputs_reach_no_output(cuda, root):
+    """group 2 with the root at dist 0 of each sub-ring and at its last
+    member, and group 4: a NaN-filled non-root block is never read."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    for group in (2, 4):
+        xs = _ring_members(cuda, 4, 1024, 1024, torch.float64, seed=11 + root)
+        for d in range(4):
+            if d % group != root:
+                xs[d].fill_(float("nan"))
+        out = C.ring_broadcast(xs, root, group=group)
+        ref = C.ring_broadcast_plain([x.cpu() for x in xs], root, group=group)
+        for d in range(4):
+            assert _same_bits(out[d].cpu(), ref[d])
+            assert _same_bits(out[d], xs[d // group * group + root])
+            assert not out[d].isnan().any()
+
+
+def test_ring_allocates_no_more_than_its_outputs(cuda):
+    from dla_tpu_torch.kernels import collectives as C
+
+    xs = _ring_members(cuda, 4, 1024, 1024, torch.float64, seed=12)
+    C.ring_broadcast(xs, 1)
+    C.ring_all_gather(xs)  # the flags exist before the measured calls
+    torch.cuda.synchronize()
+    for call, nbytes in ((lambda: C.ring_broadcast(xs, 1), 4 * 1024 * 1024 * 8),
+                         (lambda: C.ring_all_gather(xs), 4 * 4 * 1024 * 1024 * 8)):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = call()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before <= nbytes
+        del out
+
+
+def test_ring_broadcast_planes_panel_same_bits_as_plain(cuda):
+    """The planes' largest panel, 15360 × 1024 fp64 on D=4 (C = 48)."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    xs = _ring_members(cuda, 4, 15360, 1024, torch.float64, seed=13)
+    out = C.ring_broadcast(xs, 1)
+    ref = C.ring_broadcast_plain(xs, 1)  # the plain protocol, on the card
+    torch.cuda.synchronize()
+    assert all(_same_bits(o, r) and _same_bits(o, xs[1]) for o, r in zip(out, ref))
+
+
+@pytest.mark.parametrize("min_segment,blocks", [(16, 1), (16, 2), (48, 3), (16, 40)])
+def test_ring_small_units_and_ragged_stripes(cuda, monkeypatch, min_segment, blocks):
+    """Pipelines of units a few bytes long, ragged stripes and blocks with
+    no bytes (the cuts of tests/test_torch_ring_schedule.py) through the
+    kernel: the byte path and every flag."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    monkeypatch.setattr(C, "MIN_SEGMENT", min_segment)
+    xs = _ring_members(cuda, 4, 48, 5, torch.bfloat16, seed=14)
+    cpu = [x.cpu() for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    C._launch("ring_broadcast", xs, outs, gather=False, group=4, root=2, chunks=16,
+              blocks=blocks)
+    ys = _ring_members(cuda, 4, 7, 3, torch.float32, seed=15)
+    gathered = [y.new_empty((28, 3)) for y in ys]
+    C._launch("ring_all_gather", ys, gathered, gather=True, group=4, root=0, chunks=1,
+              blocks=blocks)
+    torch.cuda.synchronize()
+    ref = C.ring_broadcast_plain(cpu, 2, chunks=16)
+    assert all(_same_bits(o.cpu(), r) for o, r in zip(outs, ref))
+    ref = C.ring_all_gather_plain([y.cpu() for y in ys])
+    assert all(_same_bits(o.cpu(), r) for o, r in zip(gathered, ref))
+
+
 def test_ring_raises_when_blocks_cannot_be_resident(cuda):
     from dla_tpu_torch.kernels import collectives as C
 
     xs = _ring_members(cuda, 4, 64, 16, torch.float32, seed=5)
     outs = [torch.empty_like(x) for x in xs]
     with pytest.raises(RuntimeError, match="cannot all be resident"):
-        C._launch("ring_broadcast", xs, outs, gather=False, group=4, root=0, chunks=4, steps=6,
+        C._launch("ring_broadcast", xs, outs, gather=False, group=4, root=0, chunks=4,
                   blocks=1 << 16)
     out = C.ring_broadcast(xs, 2)  # the context still works
     assert all(_same_bits(o, xs[2]) for o in out)
