@@ -134,9 +134,10 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     the flat-mesh P×Q row-broadcast check (``group=2``) that gives #12 its
     launch count: every output the plain version's **bits**; the kernel's cut
     (``ring_plan``); kernel, plain and library times (``expand(D, m,
-    n).clone()``; ``torch.cat`` per member) queued behind a sleeping kernel,
-    so that the host's enqueue is hidden (the kernel's back-to-back time
-    beside it), and the bound;
+    n).clone()``; ``torch.cat`` per member) of calls back to back, as every
+    other phase times them, and beside them (``queued`` in the kernels line)
+    the same calls queued behind a sleeping kernel, which hides the host's
+    time per call; and the bound;
 30. to 32. the three flat-mesh ring planes at N=16384, nb=1024, D=4 members on
     the card (``__graft_entry__.dryrun_multichip`` planes 2, 3 and 6): dense
     column-cyclic fp64 (``plgsy(…, seed=7)``), packed column-cyclic fp64
@@ -1593,20 +1594,20 @@ def ring_case(dev, tag, kind, m, n, ndev, iters, **kw):
             f"ring {kind} at {m}x{n}: the kernel's bits are not the plain version's")
     require(not any(bool(o.isnan().any()) for o in out), f"ring {kind}: NaN in an output")
     err = max((o - r).abs().max().item() for o, r in zip(out, ref))
-    k_ms = queued_ms(lambda: kernel(*args, **kw), iters)
-    p_ms = queued_ms(lambda: plain(*args, **kw), iters)
-    lib_ms = queued_ms(library, iters)
-    k_unqueued = cuda_ms(lambda: kernel(*args, **kw), iters)  # calls back to back, as before
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-               **bound(0.0, nbytes))
+    fns = {"ms": lambda: kernel(*args, **kw), "plain_ms": lambda: plain(*args, **kw),
+           "library_ms": library}
+    row = dict(max_abs_err=err, **{k: cuda_ms(fn, iters) for k, fn in fns.items()},
+               queued={k: queued_ms(fn, iters) for k, fn in fns.items()}, **bound(0.0, nbytes))
+    q = row["queued"]
     label = f"group={group}" + (f" root={root}" if kind == "broadcast" else "")
     chunks = C.broadcast_chunks(m, group) if kind == "broadcast" else 1
     plan = C.ring_plan(gather=kind != "broadcast", ndev=ndev, group=group, chunks=chunks,
                        block_bytes=m * n * 8,
                        sms=torch.cuda.get_device_properties(dev).multi_processor_count)
     print(f"ring_{kind} D={ndev} {m}x{n} fp64 {label} chunks={chunks} {plan}: bits of the "
-          f"plain version, kernel {k_ms:.4f} ms (back to back, not queued: {k_unqueued:.4f}), "
-          f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"plain version, back to back: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+          f"ms, library {row['library_ms']:.4f} ms; queued: kernel {q['ms']:.4f} ms, plain "
+          f"{q['plain_ms']:.4f} ms, library {q['library_ms']:.4f} ms; "
           f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) {tag}", flush=True)
     return row
 
@@ -1887,7 +1888,7 @@ def main(argv=None) -> int:
             "launches": got[count],
             **{k: got[row][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
-            **({"body": got[row]["body"]} if "body" in got[row] else {}),
+            **{k: got[row][k] for k in ("body", "queued") if k in got[row]},
         })
     print(json.dumps({"kernels": rows}))
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s, phases "

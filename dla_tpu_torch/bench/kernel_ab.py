@@ -35,8 +35,7 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   its slots, allocated beforehand); each case's two outputs must have the
   same bits, and those of the plain version. A ring time is the mean of 10
   launches queued behind a sleeping kernel: the card's time, without the
-  host's enqueue between launches. ``--ring-cuts`` times this build at
-  other cuts (``ring_plan``'s constants) as well.
+  host's enqueue between launches.
 
 A version whose C entry takes a split scratch (the tensor-core body's) gets
 one, sized by ``tiles.split_planes``; an older one is called without. Prints
@@ -239,56 +238,53 @@ def _queued_ms(launch, n: int = 10) -> float:
 
 
 def _ring_launcher(lib, slots: bool):
-    """launch(xs, outs, gather, group, root, chunks) -> CUDA error, through
-    the build's own C signature; each launcher keeps its flags and epoch."""
+    """prepare(xs, outs, gather, group, root, chunks) -> launch() -> CUDA
+    error, through the build's own C signature; each build keeps its flags
+    and epoch. A build without comm slots is called as the wrapper calls it
+    (``collectives._call``); one whose hops forward through comm slots gets
+    them, allocated beforehand."""
     from dla_tpu_torch.kernels import collectives as C
 
-    fn = lib.dla_ring_launch
-    fn.restype = ctypes.c_int
     dev = torch.device("cuda")
-    flags = torch.zeros(C._FLAG_WORDS, dtype=torch.int64, device=dev)
-    state = {"base": 0}
+    flags = C._new_flags(dev)
+    if not slots:
+        fn = C._bind(lib.dla_ring_launch)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+        def prepare(xs, outs, gather, group, root, chunks):
+            plan = C.ring_plan(gather=gather, ndev=len(xs), group=group, chunks=chunks,
+                               block_bytes=xs[0].numel() * xs[0].element_size(), sms=sms)
+
+            def launch():
+                return C._call(fn, flags, xs, outs, gather=gather, group=group, root=root,
+                               plan=plan)
+            launch.plan = plan
+            return launch
+        return prepare
+
+    fn = lib.dla_ring_launch  # (gather, ndev, group, root, chunks, steps, xs, outs, comms, ...)
+    fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if slots:  # (gather, ndev, group, root, chunks, steps, xs, outs, comms, flags, ...)
-        fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
-    else:
-        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
-                       + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
 
     def prepare(xs, outs, gather, group, root, chunks):
-        """The launch as a closure, its arguments (and slots) made beforehand."""
         ndev = len(xs)
         ptrs = ctypes.c_void_p * ndev
         xp, op = ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs))
-        block_bytes = xs[0].numel() * xs[0].element_size()
-        if slots:
-            chunk_bytes = block_bytes // (1 if gather else chunks)
-            steps = group - 1 if gather else chunks + group - 2
-            comm = [torch.empty(2 * (-(-chunk_bytes // 16) * 16), dtype=torch.uint8, device=dev)
-                    for _ in range(ndev)]
-            cp = ptrs(*(c.data_ptr() for c in comm))
-
-            def launch():
-                err = fn(int(gather), ndev, group, root, chunks, steps, xp, op, cp,
-                         flags.data_ptr(), C._FLAG_WORDS, chunk_bytes, state["base"], 0, stream)
-                state["base"] += steps + 1
-                return err
-            launch.keep = comm
-            return launch
-        plan = C.ring_plan(gather=gather, ndev=ndev, group=group, chunks=chunks,
-                           block_bytes=block_bytes, sms=sms)
+        chunk_bytes = xs[0].numel() * xs[0].element_size() // (1 if gather else chunks)
+        steps = group - 1 if gather else chunks + group - 2
+        comm = [torch.empty(2 * (-(-chunk_bytes // 16) * 16), dtype=torch.uint8, device=dev)
+                for _ in range(ndev)]
+        cp = ptrs(*(c.data_ptr() for c in comm))
 
         def launch():
-            err = fn(int(gather), ndev, group, root, plan.units, xp, op, flags.data_ptr(),
-                     C._FLAG_WORDS, block_bytes, plan.unit_bytes, plan.stripe, state["base"],
-                     plan.blocks, stream)
-            state["base"] += plan.units
+            err = fn(int(gather), ndev, group, root, chunks, steps, xp, op, cp,
+                     flags[0].data_ptr(), C._FLAG_WORDS, chunk_bytes, flags[1], 0, stream)
+            flags[1] += steps + 1
             return err
-        launch.plan = plan
+        launch.keep = comm
         return launch
-
     return prepare
 
 
@@ -333,21 +329,6 @@ def _ring_ab(args, card: str) -> int:
                   f"of {[round(t, 4) for t in times['this']]}, x{med['other'] / med['this']:.2f}; "
                   f"this build's {getattr(launches['this'], 'plan', 'slots')} [{card}]",
                   flush=True)
-            for cut in args.ring_cuts.split(",") if args.ring_cuts else []:
-                per_sm, segment = (int(v) for v in cut.split(":"))
-                kept = C.BLOCKS_PER_SM, C.MIN_SEGMENT
-                C.BLOCKS_PER_SM, C.MIN_SEGMENT = per_sm, segment
-                try:
-                    launch = preps["this"](xs, outs["this"], gather, group, root, chunks)
-                finally:
-                    C.BLOCKS_PER_SM, C.MIN_SEGMENT = kept
-                ts = [_queued_ms(launch) for _ in range(2 * args.iters + 1)]
-                cut_ok = all(torch.equal(bits(a), bits(b)) for a, b in zip(outs["this"], ref))
-                ok = ok and cut_ok
-                print(f"  this build at BLOCKS_PER_SM={per_sm} MIN_SEGMENT={segment}: "
-                      f"{launch.plan}, plain's bits {cut_ok}, median "
-                      f"{sorted(ts[1:])[len(ts[1:]) // 2]:.4f} ms of "
-                      f"{[round(t, 4) for t in ts[1:]]} [{card}]", flush=True)
             del xs, outs, launches, ref
             torch.cuda.empty_cache()
     print(f"ring: every case bit-identical to the other build and to the plain version: {ok} "
@@ -363,8 +344,6 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--m", type=int, default=24576, help="df64: the window's size")
     ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--ring-cuts", default="",
-                    help="ring: also time this build at other cuts, BLOCKS_PER_SM:MIN_SEGMENT,...")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)

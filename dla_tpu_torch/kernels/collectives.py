@@ -220,19 +220,49 @@ def ring_all_gather_plain(xs, *, group: int | None = None) -> list[torch.Tensor]
     return outs
 
 
-@functools.cache
-def _entry():
-    """``dla_ring_launch`` of ``csrc/ring.cu``."""
-    fn = _build.load().dla_ring_launch
-    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
+def _bind(fn):
+    """``fn``, the ``dla_ring_launch`` of a build of ``csrc/ring.cu``, with its
+    C signature."""
+    fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
                    + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
+def _entry():
+    """``dla_ring_launch`` of ``csrc/ring.cu``."""
+    return _bind(_build.load().dla_ring_launch)
+
+
+@functools.cache
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _new_flags(dev: torch.device) -> list:
+    """[flag buffer, next epoch] for launches on ``dev`` that share one stream."""
+    return [torch.zeros(_FLAG_WORDS, dtype=torch.int64, device=dev), 0]
+
+
+def _call(fn, flags: list, xs, outs, *, gather: bool, group: int, root: int,
+         plan: RingPlan) -> int:
+    """One launch of ``fn`` (:func:`_bind`) over the members ``xs`` into
+    ``outs``, cut by ``plan``, on the flags and epoch ``flags``
+    (:func:`_new_flags`), on the current stream; the CUDA error, 0 when it
+    launched. The epoch then lies above every flag that the launch raises."""
+    ndev = len(xs)
+    dev = xs[0].device
+    ptrs = ctypes.c_void_p * ndev
+    with torch.cuda.device(dev):
+        err = fn(int(gather), ndev, group, root, plan.senders, plan.units,
+                 ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs)),
+                 flags[0].data_ptr(), _FLAG_WORDS, xs[0].numel() * xs[0].element_size(),
+                 plan.unit_bytes, plan.stripe, flags[1], plan.blocks,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err == 0:
+        flags[1] += plan.units
+    return err
 
 
 def _launch(name: str, xs, outs, *, gather: bool, group: int, root: int, chunks: int,
@@ -248,24 +278,17 @@ def _launch(name: str, xs, outs, *, gather: bool, group: int, root: int, chunks:
     if any(not x.is_contiguous() for x in xs):
         raise ValueError(f"{name} needs contiguous member blocks on a CUDA device")
     dev = xs[0].device
-    block_bytes = xs[0].numel() * xs[0].element_size()
     plan = ring_plan(gather=gather, ndev=ndev, group=group, chunks=chunks,
-                     block_bytes=block_bytes, sms=_sms(dev.index), blocks=blocks)
-    state = _flags.get(dev)
-    if state is None:
-        state = _flags[dev] = [torch.zeros(_FLAG_WORDS, dtype=torch.int64, device=dev), 0]
-    ptrs = ctypes.c_void_p * ndev
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(int(gather), ndev, group, root, plan.units,
-                       ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs)),
-                       state[0].data_ptr(), _FLAG_WORDS, block_bytes, plan.unit_bytes,
-                       plan.stripe, state[1], plan.blocks, stream)
+                     block_bytes=xs[0].numel() * xs[0].element_size(), sms=_sms(dev.index),
+                     blocks=blocks)
+    flags = _flags.get(dev)
+    if flags is None:
+        flags = _flags[dev] = _new_flags(dev)
+    err = _call(_entry(), flags, xs, outs, gather=gather, group=group, root=root, plan=plan)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}"
                            + (" (the members' blocks cannot all be resident at once)"
                               if err == 720 else ""))
-    state[1] += plan.units  # the next launch's epoch lies above every flag of this one
 
 
 def ring_broadcast(xs, root: int, *, group: int | None = None,

@@ -34,7 +34,8 @@
 // Design.
 //  - One cooperative launch (cudaLaunchCooperativeKernel) of senders x B
 //    blocks (the wrapper's ring_plan: senders = every member for the
-//    all-gather, all but the last of each sub-ring for the broadcast). Block b
+//    all-gather, all but the last of each sub-ring for the broadcast; the
+//    launcher checks the count it is given, the kernel takes it). Block b
 //    of a sender copies bytes [b * stripe, (b + 1) * stripe) of every unit.
 //    The spin-waits below need all blocks resident at once, which the launch
 //    guarantees; when they cannot be (occupancy x SMs), the launcher returns
@@ -46,9 +47,9 @@
 //    1024 fp64 tile, 3 KB a block when cut over B = 88 blocks); here every
 //    unit costs each block a __threadfence and a flag round trip, about a
 //    microsecond, so a block needs tens of KB of copying between flags.
-//    Measured on an H100 (bench/kernel_ab.py --ring-cuts): 32 KB gives 24
-//    units of 5 MB for the planes' 15360 x 1024 fp64 panel and 2 units for
-//    the 1024 x 1024 tile, as fast as any cut tried for the panel and faster
+//    Measured on an H100 (PERF.md, the cuts tried): 32 KB gives 24 units of
+//    5 MB for the planes' 15360 x 1024 fp64 panel and 2 units for the
+//    1024 x 1024 tile, as fast as any cut tried for the panel and faster
 //    than 16 KB for the tile.
 //  - Flags: one monotonic 64-bit flag per (member, block), flag[d * B + b] =
 //    the number of units landed in block b's stripe of d's output. Its only
@@ -106,7 +107,7 @@ struct RingArgs {
   long long unit_bytes;       // one pipeline unit
   long long stripe;           // bytes of a unit that one block copies, a multiple of 16
   unsigned long long base;    // this launch's epoch
-  int group, root, units, blocks, gather;
+  int group, root, per_ring, units, blocks, gather;  // per_ring: senders of one sub-ring
   const char* x[kMaxMembers];
   char* out[kMaxMembers];
 };
@@ -188,9 +189,8 @@ __device__ __forceinline__ void copy_bytes(char* d0, char* d1, const char* src, 
 
 __global__ void __launch_bounds__(kThreads) ring_kernel(const __grid_constant__ RingArgs a) {
   const int g = a.group;
-  const int per_ring = (a.gather || g == 1) ? g : g - 1;  // senders of one sub-ring
   const int w = blockIdx.x / a.blocks, b = blockIdx.x % a.blocks;
-  const int r = w / per_ring, k = w % per_ring;  // k: the distance from the root, or c
+  const int r = w / a.per_ring, k = w % a.per_ring;  // k: the distance from the root, or c
   const int c = a.gather ? k : (a.root + k) % g;
   const int d = r * g + c, right = r * g + (c + 1) % g;
   const long long s0 = (long long)b * a.stripe;
@@ -210,28 +210,30 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const __grid_constant__ 
       wait_flag(mine, a.base + u + (a.gather ? 0 : 1));
       copy_bytes(next + off, nullptr, out + off, len);
     }
-    // raise the right neighbour's flag for a unit that it forwards in turn
-    if (a.gather ? u + 1 < g - 1 : k + 1 < g - 1) publish(theirs, a.base + u + 1);
+    // raise the right neighbour's flag for a unit that it forwards in turn: the
+    // all-gather's next unit, or any unit where that neighbour is a sender too
+    if (a.gather ? u + 1 < a.units : k + 1 < a.per_ring) publish(theirs, a.base + u + 1);
   }
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes; the wrapper's ring_plan gives units,
-// unit_bytes, stripe and blocks. gather selects the all-gather (root 0);
+// C interface, loaded with ctypes; the wrapper's ring_plan gives senders,
+// units, unit_bytes, stripe and blocks. gather selects the all-gather (root 0);
 // xs and outs are host arrays of ndev device pointers (block, output); flags
 // a device array of flag_capacity 64-bit words that earlier launches left,
 // never cleared; base this launch's epoch.
 // Returns cudaErrorCooperativeLaunchTooLarge when the launch's blocks cannot
 // all be resident, cudaErrorInvalidValue for arguments out of range, else
 // cudaGetLastError() after the launch: 0 means launched.
-extern "C" int dla_ring_launch(int gather, int ndev, int group, int root, int units,
+extern "C" int dla_ring_launch(int gather, int ndev, int group, int root, int senders, int units,
                                const void* const* xs, void* const* outs, void* flags,
                                long long flag_capacity, long long block_bytes,
                                long long unit_bytes, long long stripe, unsigned long long base,
                                int blocks, void* stream) {
   if (ndev < 1 || ndev > kMaxMembers || group < 1 || ndev % group || root < 0 || root >= group ||
-      units < 1 || blocks < 1 || block_bytes < 1 || unit_bytes < 1 || stripe < 16 || stripe % 16 ||
+      senders != ndev / group * ((gather || group == 1) ? group : group - 1) || units < 1 ||
+      blocks < 1 || block_bytes < 1 || unit_bytes < 1 || stripe < 16 || stripe % 16 ||
       stripe * blocks < unit_bytes ||
       (gather ? (unit_bytes != block_bytes || units != (group > 1 ? group - 1 : 1))
               : (long long)units * unit_bytes != block_bytes))
@@ -253,8 +255,7 @@ extern "C" int dla_ring_launch(int gather, int ndev, int group, int root, int un
     resident[dev] = coop ? (long long)per_sm * sms : -1;
   }
   if (resident[dev] < 0) return (int)cudaErrorNotSupported;
-  const long long senders = (long long)(ndev / group) * ((gather || group == 1) ? group : group - 1);
-  if (senders * blocks > resident[dev]) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if ((long long)senders * blocks > resident[dev]) return (int)cudaErrorCooperativeLaunchTooLarge;
   if ((long long)ndev * blocks > flag_capacity) return (int)cudaErrorInvalidValue;
 
   RingArgs a;
@@ -265,6 +266,7 @@ extern "C" int dla_ring_launch(int gather, int ndev, int group, int root, int un
   a.base = base;
   a.group = group;
   a.root = root;
+  a.per_ring = senders / (ndev / group);
   a.units = units;
   a.blocks = blocks;
   a.gather = gather;

@@ -1134,6 +1134,31 @@ def test_ring_raises_when_blocks_cannot_be_resident(cuda):
     assert all(_same_bits(o, xs[2]) for o in out)
 
 
+@pytest.mark.parametrize("gather,group", [(False, 4), (False, 2), (False, 1), (True, 4)])
+def test_ring_launcher_takes_only_the_plans_sender_count(cuda, gather, group):
+    """``ring_plan``'s sender count is the one the launcher takes: one more or
+    one fewer is refused (cudaErrorInvalidValue) without a launch, and the
+    epoch stays; the plan's own count then gives the plain version's bits."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    xs = _ring_members(cuda, 4, 64, 16, torch.float32, seed=6)
+    outs = [x.new_empty((group * 64, 16)) if gather else torch.empty_like(x) for x in xs]
+    plan = C.ring_plan(gather=gather, ndev=4, group=group, chunks=1 if gather else 4,
+                       block_bytes=64 * 16 * 4, sms=C._sms(xs[0].device.index))
+    flags = C._new_flags(xs[0].device)
+    for senders in (plan.senders - 1, plan.senders + 1):
+        err = C._call(C._entry(), flags, xs, outs, gather=gather, group=group, root=0,
+                      plan=plan._replace(senders=senders))
+        assert err == 1 and flags[1] == 0
+    assert C._call(C._entry(), flags, xs, outs, gather=gather, group=group, root=0,
+                   plan=plan) == 0
+    torch.cuda.synchronize()
+    cpu = [x.cpu() for x in xs]
+    ref = (C.ring_all_gather_plain(cpu, group=group) if gather
+           else C.ring_broadcast_plain(cpu, 0, group=group, chunks=4))
+    assert all(_same_bits(o.cpu(), r) for o, r in zip(outs, ref))
+
+
 def test_ring_raises_on_what_it_does_not_take(cuda):
     from dla_tpu_torch.kernels import collectives as C
 

@@ -67,12 +67,12 @@ GATHER = [  # (ndev, m, n, dtype, group)
 ]
 
 
-def _program(plan, *, gather, group, root, block_bytes, base, w, b):
+def _program(plan, *, gather, ndev, group, root, block_bytes, base, w, b):
     """(member, operations) of block b of sender w, as ``ring_kernel`` runs
     them: ("copy", [(member, offset), ...], (buffer, member, offset), n),
     ("wait", flag, value), ("publish", flag, value); flag = member·B + b."""
     g = group
-    per_ring = g if gather or g == 1 else g - 1
+    per_ring = plan.senders // (ndev // g)  # the launcher's check, the kernel's division
     r, k = divmod(w, per_ring)
     c = k if gather else (root + k) % g
     d, right = r * g + c, r * g + (c + 1) % g
@@ -87,7 +87,7 @@ def _program(plan, *, gather, group, root, block_bytes, base, w, b):
         else:
             ops.append(("wait", d * plan.blocks + b, base + u + (0 if gather else 1)))
             ops.append(("copy", [(right, off)], ("out", d, off), n))
-        if (u + 1 < g - 1) if gather else (k + 1 < g - 1):
+        if (u + 1 < plan.units) if gather else (k + 1 < per_ring):
             ops.append(("publish", right * plan.blocks + b, base + u + 1))
     return d, ops
 
@@ -103,7 +103,7 @@ class Launch:
         self.members, self.programs = [], []
         for w in range(self.plan.senders):
             for b in range(self.plan.blocks):
-                d, ops = _program(self.plan, gather=gather, group=group, root=root,
+                d, ops = _program(self.plan, gather=gather, ndev=ndev, group=group, root=root,
                                   block_bytes=block_bytes, base=base, w=w, b=b)
                 self.members.append(d)
                 self.programs.append(ops)
