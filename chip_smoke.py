@@ -107,14 +107,17 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     to #8 at m=4096, n=k=2048, a size clear of the launch floor; inputs
     bit-unchanged, #5's L and inv(L) the plain version's bits (with its
     schedule's launches and largest grid), #7's upper triangle bit-identical
-    to C's, one launch per call; beside ``torch.matmul`` (#6), ``torch.addmm``
-    (#8) and ``cholesky_ex`` + ``solve_triangular`` (#5, two calls, their sum);
+    to C's, one launch per call, through the block body ``tiles.tile_op_body``
+    names (the library's count of launches through each body: ``wgmma`` for
+    #6 and #8 at fp32 ``high``/``default`` and bf16, ``scalar`` otherwise);
+    beside ``torch.matmul`` (#6), ``torch.addmm`` (#8) and ``cholesky_ex`` +
+    ``solve_triangular`` (#5, two calls, their sum);
 25. the tile-task path, the reference's task DAG with one launch per task:
     ``plgsy(16384, seed=51)`` fp32 at ``high``, NB=512, a warm-up and two timed
     factorizations, each launching exactly ``dag_counts(32)`` = 32 POTRF + 496
     TRSM + 496 SYRK + 4960 GEMM = 5984 task kernels, the residual under the
-    fp32 gate, its time beside phase 3's; and fp64 at N=4096, NB=256 under the
-    reference's 1e-10 gate;
+    fp32 gate with the path's median time beside it, and that time beside
+    phase 3's; and fp64 at N=4096, NB=256 under the reference's 1e-10 gate;
 26. ``freivalds_device`` on the main path's factor beside ``residual_potrf``
     of the same factor (both under the gate), and on that factor with one
     corrupted tile (far above it);
@@ -153,8 +156,10 @@ every selected phase passed.
 Then the ``kernels`` JSON line (each kernel's launches on its path, its
 error and times against the plain version, the bound, and the library call
 where one PyTorch call computes the same function; for the two trailing
-kernels also the block ``body`` their path's case ran), the total wall time, the card as
-``nvidia-smi`` reports it, and last ``{"ok": true, "device": {...}}``.
+kernels and #6 to #8 also the block ``body`` their path's case ran; for #6
+and #8 also ``big``, the kernel, library and bound ms at m=4096, n=k=2048),
+the total wall time, the card as ``nvidia-smi`` reports it, and last
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, the script fails before
 printing any of those.
 """
@@ -954,7 +959,9 @@ def timed_path(dev, tag, name, n, factor, per_fact, reps):
     return counts, tmed, l, a
 
 
-def dense_residual(name, a, l, n):
+def dense_residual(name, a, l, n, ms=None):
+    """The factor's residual under the driver's fp32 gate; ``ms``, where
+    given, is printed beside it."""
     import dla_tpu_torch as T
 
     ltri = torch.tril(l)
@@ -963,7 +970,8 @@ def dense_residual(name, a, l, n):
     res = float(T.residual_potrf(a, ltri, assume_symmetric=True, assume_tril=True,
                                  row_chunk=min(n, 4096)))
     gate = max(1e-10, n * 2e-7)  # the driver's fp32 gate
-    print(f"{name}: ||A - LL^T||_inf / ||A||_inf = {res:.3e} (gate {gate:g})", flush=True)
+    took = "" if ms is None else f"median {ms:.1f} ms, "
+    print(f"{name}: {took}||A - LL^T||_inf / ||A||_inf = {res:.3e} (gate {gate:g})", flush=True)
     require(res < gate, f"{name}: residual above the fp32 gate")
     return res
 
@@ -1299,10 +1307,13 @@ def task_product_case(dev, tag, op, m, n, k, dtype, prec, iters):
     kept = [t.clone() for t in args]
     with precision.override(prec):
         ref = plain(*args)
-        before = getattr(tiles, counter)
+        before, bodies = getattr(tiles, counter), tiles.tile_body_launches()
         out = kernel(*args)
         sync()
         require(getattr(tiles, counter) == before + 1, f"{op}_tile: not one launch")
+        rose = [x for x, v in tiles.tile_body_launches().items() if v != bodies[x]]
+        body = tiles.tile_op_body(op, dtype, prec)
+        require(rose == [body], f"{op}_tile: launched through {rose}, expected the {body} body")
         require(all(out.data_ptr() != t.data_ptr() for t in args)
                 and all(torch.equal(bits(t), bits(t0)) for t, t0 in zip(args, kept)),
                 f"{op}_tile changed an input")
@@ -1314,10 +1325,10 @@ def task_product_case(dev, tag, op, m, n, k, dtype, prec, iters):
         k_ms = cuda_ms(lambda: kernel(*args), iters)
         p_ms = cuda_ms(lambda: plain(*args), iters)
     lib_ms = cuda_ms(lib, iters) if lib else None
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, body=body,
                **bound(product_s(flops, dtype, prec), nbytes * a.element_size()))
     name = f"m={m} n={n} k={k} {str(dtype)[6:]}/{prec}"
-    print(f"{op}_tile {name}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.4f} ms "
+    print(f"{op}_tile {name}: body {body}, max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.4f} ms "
           f"({flops / k_ms / 1e9:.3f} TF/s), plain {p_ms:.4f} ms, library "
           f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {row['bound_ms']:.5f} ms "
           f"({row['bound_by']}) {tag}", flush=True)
@@ -1399,8 +1410,10 @@ def phase_task_kernels(dev, tag):
                 rows[op] = r
         task_product_case(dev, tag, op, 200, 96, 72, torch.float32, "high", 20)  # ragged
         for prec in ("high", "highest", "default"):
-            task_product_case(dev, tag, op, M_TASK_BIG, N_TASK_BIG, N_TASK_BIG, torch.float32,
-                              prec, 5)
+            r = task_product_case(dev, tag, op, M_TASK_BIG, N_TASK_BIG, N_TASK_BIG,
+                                  torch.float32, prec, 5)
+            if prec == TASK_PREC and op != "syrk":  # no one library call masks syrk's triangle
+                rows[op]["big"] = {k: r[k] for k in ("ms", "library_ms", "bound_ms")}
     torch.cuda.empty_cache()
     return rows
 
@@ -1483,7 +1496,7 @@ def phase_task_path(dev, tag, main_median):
           f"({want['POTRF']} POTRF + {want['TRSM']} TRSM + {want['SYRK']} SYRK + "
           f"{want['GEMM']} GEMM), {tmed / want['total'] * 1e6:.1f} us per launch; potrf_inplace "
           f"on the same matrix (phase 3): {beside} {tag}", flush=True)
-    dense_residual(f"tile-task path N={n}", a, l, n)
+    dense_residual(f"tile-task path N={n} NB={nb} fp32 {TASK_PREC}", a, l, n, ms=tmed * 1e3)
     del a, l
     torch.cuda.empty_cache()
     n64, nb64 = N_TASK64, NB_TASK64
@@ -1888,7 +1901,7 @@ def main(argv=None) -> int:
             "launches": got[count],
             **{k: got[row][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
-            **{k: got[row][k] for k in ("body", "queued") if k in got[row]},
+            **{k: got[row][k] for k in ("body", "queued", "big") if k in got[row]},
         })
     print(json.dumps({"kernels": rows}))
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s, phases "

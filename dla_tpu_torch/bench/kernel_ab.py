@@ -1,7 +1,7 @@
 """Two builds of one kernel side by side on one GPU.
 
     python -m dla_tpu_torch.bench.kernel_ab --other DIR
-        --entry lower|packed|df64|potrf_tile|panel_factor|ring
+        --entry lower|packed|df64|potrf_tile|panel_factor|ring|tile_ops
         [--tier high|default|highest] [--dtype f32|f64|bf16] [--iters 3]
 
 ``DIR`` holds another version of the kernel sources (the entry's ``.cu`` and
@@ -60,12 +60,14 @@ import torch
 
 SOURCE = {"lower": "trailing_lower.cu", "packed": "trailing_packed.cu",
           "df64": "trailing_df64.cu", "potrf_tile": "potrf_tile.cu",
-          "panel_factor": "panel_factor.cu", "ring": "ring.cu"}
+          "panel_factor": "panel_factor.cu", "ring": "ring.cu", "tile_ops": "tile_ops.cu"}
 RING_CASES = [  # (kind, m, root, group) on D=4 fp64 members of 1024 columns
     ("broadcast", 15360, 1, 4), ("broadcast", 1024, 1, 4), ("broadcast", 1024, 0, 2),
     ("broadcast", 1024, 1, 2), ("gather", 1024, 0, 4), ("gather", 1024, 0, 2)]
 DIAG_TIERS = [("f32", "highest"), ("f32", "high"), ("f32", "default"), ("f64", "high")]
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+TILE_CASES = [(512, 512, 512), (4096, 2048, 2048)]  # (m, n, k)
+TILE_TIERS = [("f32", "high"), ("f32", "default"), ("f32", "highest"), ("bf16", "high")]
 
 
 def _build_lib(csrc: Path, out: Path, entry: str) -> ctypes.CDLL:
@@ -336,6 +338,105 @@ def _ring_ab(args, card: str) -> int:
     return 0 if ok else 1
 
 
+def _tile_launcher(lib, op: str, sfx: str, scratch: bool):
+    """launch(c, a, b, out, tier) -> CUDA error through the build's own C
+    signature of ``dla_<op>_tile_<sfx>``; one that takes a split scratch gets
+    one, allocated once here per shape."""
+    from dla_tpu_torch.kernels import tiles
+
+    fn = getattr(lib, f"dla_{op}_tile_{sfx}")
+    npointers, nints = (5, 7) if scratch else (4, 6)
+    fn.argtypes = [ctypes.c_void_p] * npointers + [ctypes.c_longlong] * nints + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    bufs = {}
+
+    def launch(c, a, b, out, tier_name):
+        m, n, k = a.shape[0], b.shape[0], a.shape[1]
+        ptrs = (None if c is None else c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr())
+        ints = (m, n, k, 0 if c is None else c.stride(0), a.stride(0), b.stride(0))
+        code = tiles._TIER_CODE[tier_name]
+        if not scratch:
+            return fn(*ptrs, *ints, code, stream)
+        planes = tiles.tile_op_planes(op, a.dtype, tier_name)
+        key = (m, n, k, planes)
+        if key not in bufs:
+            bufs.clear()
+            bufs[key] = tiles._pair_scratch(m, n, k, planes, a.device)
+        buf = bufs[key]
+        nbytes = 0 if buf is None else buf.numel() * buf.element_size()
+        return fn(*ptrs[:4], None if buf is None else buf.data_ptr(), *ints, nbytes, code, stream)
+    return launch
+
+
+def _tile_ab(args, card: str) -> int:
+    """#6 and #8 of two builds: times, the body, and the largest differences."""
+    from dla_tpu_torch.kernels import _build, tiles
+    from dla_tpu_torch.utils import precision
+
+    dev = torch.device("cuda")
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {}
+        for version, csrc in (("other", Path(args.other)), ("this", _build.CSRC)):
+            scratch = "void* scratch" in (csrc / SOURCE["tile_ops"]).read_text()
+            libs[version] = (_build_lib(csrc, Path(tmp) / f"{version}.so", "tile_ops"), scratch)
+        for op in ("trsm", "gemm"):
+            for m, n, k in TILE_CASES:
+                k = n if op == "trsm" else k
+                for sfx, tier_name in TILE_TIERS:
+                    dtype = DTYPES[sfx]
+                    g = torch.Generator(device=dev).manual_seed(m + 3 * n + 7 * k)
+                    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
+                    if op == "trsm":  # trsm_tile(linv (n, n), b (m, n)): a = b, b = linv
+                        c, a, b = None, rnd(m, n), torch.tril(rnd(n, n))
+                    else:
+                        c, a, b = rnd(m, n), rnd(m, k), rnd(n, k)
+                    launch = {v: _tile_launcher(lib, op, sfx, sc) for v, (lib, sc) in libs.items()}
+                    reps = 20 if m <= 512 else 1
+                    outs, times = {}, {"other": [], "this": []}
+                    for version in ["other", "this", "this", "other"] * args.iters:
+                        out = torch.empty(m, n, device=dev, dtype=dtype)
+                        t0 = torch.cuda.Event(enable_timing=True)
+                        t1 = torch.cuda.Event(enable_timing=True)
+                        t0.record()
+                        for _ in range(reps):
+                            err = launch[version](c, a, b, out, tier_name)
+                            if err:
+                                raise RuntimeError(f"{version}: CUDA error {err}")
+                        t1.record()
+                        t1.synchronize()
+                        times[version].append(t0.elapsed_time(t1) / reps)
+                        outs[version] = out
+                    with precision.override(tier_name):
+                        ref = (tiles.trsm_tile_plain(b, a) if op == "trsm"
+                               else tiles.gemm_tile_plain(c, a, b))
+                    scale = (a.double().norm(dim=1).max() * b.double().norm(dim=1).max()).item()
+                    tol = (1e-5 * scale if dtype == torch.float32 else
+                           2**-6 * ((0.0 if c is None else c.double().abs().max().item()) + scale))
+                    diff = (outs["this"].double() - outs["other"].double()).abs().max().item()
+                    err = (outs["this"].double() - ref.double()).abs().max().item()
+                    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                    same = torch.equal(outs["this"].view(view), outs["other"].view(view))
+                    body = tiles.tile_op_body(op, dtype, tier_name)
+                    good = err <= tol and (same or body != "scalar")
+                    ok = ok and good
+                    med = {v: sorted(ts[1:])[len(ts[1:]) // 2] for v, ts in times.items()}
+                    print(f"{op}_tile m={m} n={n} k={k} {sfx}/{tier_name}: this body {body}; "
+                          f"max |this - other| {diff:.3e}, same bits {same}; max |this - plain| "
+                          f"{err:.3e} (tol {tol:.3e}){'' if good else ' FAILED'}; other median "
+                          f"{med['other']:.4f} ms of {[round(t, 4) for t in times['other']]}, "
+                          f"this median {med['this']:.4f} ms of "
+                          f"{[round(t, 4) for t in times['this']]}, "
+                          f"x{med['other'] / med['this']:.2f} [{card}]", flush=True)
+                    del c, a, b, outs, ref, launch
+                    torch.cuda.empty_cache()
+    print(f"tile_ops: every case within tolerance, same bits where both builds run the scalar "
+          f"body: {ok} [{card}]")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="directory of the other version's sources")
@@ -356,6 +457,8 @@ def main(argv=None) -> int:
         return _diag_ab(args, card)
     if args.entry == "ring":
         return _ring_ab(args, card)
+    if args.entry == "tile_ops":
+        return _tile_ab(args, card)
     stream = torch.cuda.current_stream().cuda_stream
     dtype = DTYPES[args.dtype]
     if args.entry == "df64":

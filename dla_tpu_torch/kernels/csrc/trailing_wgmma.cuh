@@ -1,6 +1,8 @@
 // The tensor-core block body of the two trailing-update kernels, and the
 // launch that picks a body: C <- C - P * P^T over the lower tb-tile pairs of
-// a square window, in place.
+// a square window, in place. Its pipeline (split, mainloop, stage_sums) is
+// also the body of the task kernels trsm_tile and gemm_tile (tile_ops.cu),
+// which multiply two operands, A * B^T, into a new tensor.
 //
 // What it computes is what the scalar body (trailing_block.cuh) computes:
 // every element with r/tb >= c/tb (whole diagonal tiles) becomes
@@ -20,7 +22,8 @@
 //
 // Design.
 // - Split once. A small kernel writes P (w x nb, leading dimension ldp) into
-//   bf16 scratch that the wrapper allocates: planes x wpad x kpad, one plane
+//   bf16 scratch that the wrapper allocates (the task kernels: A's planes,
+//   then B's, in one launch and one tensor map): planes x wpad x kpad, one plane
 //   (bf16 of x) or two (hi, lo), rows padded with zeros to a multiple of the
 //   128-row tile and k to a multiple of 64. Every TMA box is then aligned and
 //   full, a ragged w, nb or ldp needs no path of its own, and each P element
@@ -63,6 +66,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -193,42 +197,61 @@ __device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// P (w x nb, leading dimension ldp) into planes x wpad x kpad bf16, zero
-// padded: plane 0 = bf16(x), and at two planes plane 1 = bf16(x - plane 0).
-// One block per scratch row.
+// Operands A (m x k, leading dimension lda) and B (n x k, ldb) into the
+// planes scratch, bf16, zero padded: A's planes x mpad x kpad, then B's
+// planes x npad x kpad. Plane 0 is bf16(x); at two planes plane 1 is
+// bf16(x - plane 0). One block per row of either operand's plane 0; the
+// trailing kernels split P alone (b null, n = npad = 0).
 template <typename T, int PLANES>
-__global__ void split_kernel(const T* __restrict__ p, long long w, long long nb, long long ldp,
-                             __nv_bfloat16* __restrict__ out, long long wpad, long long kpad) {
-  const long long r = blockIdx.x;
-  __nv_bfloat16* row = out + r * kpad;
-  for (long long k = threadIdx.x; k < kpad; k += blockDim.x) {
-    const float x = (r < w && k < nb) ? widen(p[r * ldp + k]) : 0.0f;
+__global__ void split_kernel(const T* __restrict__ a, long long m, long long lda, long long mpad,
+                             const T* __restrict__ b, long long n, long long ldb, long long npad,
+                             long long k, __nv_bfloat16* __restrict__ out, long long kpad) {
+  const bool is_a = (long long)blockIdx.x < mpad;
+  const long long r = is_a ? (long long)blockIdx.x : (long long)blockIdx.x - mpad;
+  const T* src = is_a ? a : b;
+  const long long rows = is_a ? m : n, ld = is_a ? lda : ldb;
+  const long long plane = (is_a ? mpad : npad) * kpad;  // to the row's lo plane
+  __nv_bfloat16* row = out + (is_a ? r : PLANES * mpad + r) * kpad;
+  for (long long kk = threadIdx.x; kk < kpad; kk += blockDim.x) {
+    const float x = (r < rows && kk < k) ? widen(src[r * ld + kk]) : 0.0f;
     const __nv_bfloat16 hi = __float2bfloat16_rn(x);
-    row[k] = hi;
-    if constexpr (PLANES == 2) row[wpad * kpad + k] = __float2bfloat16_rn(x - __bfloat162float(hi));
+    row[kk] = hi;
+    if constexpr (PLANES == 2) row[plane + kk] = __float2bfloat16_rn(x - __bfloat162float(hi));
   }
 }
 
-template <int PLANES, typename T, typename Addr>
-__global__ void __launch_bounds__(kThreads, 1)
-trailing_tc_kernel(const __grid_constant__ CUtensorMap planes, long long w, long long wpad,
-                   int ksteps, long long tb, long long g, const __grid_constant__ Addr addr) {
-  constexpr int S = stages<PLANES>();
-  constexpr int kStageBytes = 2 * PLANES * kTileBytes;  // the row tiles' planes, then the column tiles'
-
-  // block -> (row tile, column tile): groups of kGroup row tiles, column by column
-  const long long per_group = kGroup * g;
+// Block -> (row tile, column tile) of a gm x gn grid of output tiles: groups
+// of kGroup row tiles, walked column by column, so that the blocks in flight
+// share their operand tiles in L2.
+__device__ __forceinline__ void block_tile(long long gm, long long gn, long long& row0,
+                                           long long& col0) {
+  const long long per_group = kGroup * gn;
   const long long first = (long long)blockIdx.x / per_group * kGroup;
   const long long in_group = (long long)blockIdx.x % per_group;
-  const long long rows_in_group = min(g - first, (long long)kGroup);
-  const long long row0 = (first + in_group % rows_in_group) * kBM;
-  const long long col0 = in_group / rows_in_group * kBM;
-  if ((min(row0 + kBM, w) - 1) / tb < col0 / tb) return;  // every element in an upper tile
+  const long long rows_in_group = min(gm - first, (long long)kGroup);
+  row0 = (first + in_group % rows_in_group) * kBM;
+  col0 = in_group / rows_in_group * kBM;
+}
 
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle wants 1024-byte tiles
-  const uint32_t full = base + kRingBytes;      // full[s] at full + 8s, empty[s] at empty + 8s
+// Where a block's two operand tiles start, in rows of the planes' tensor
+// map: plane pl of the row tile at a + pl * a_plane, plane pl of the column
+// tile at b + pl * b_plane.
+struct TileRows {
+  int a, a_plane, b, b_plane;
+};
+
+// The pipeline of one 128 x 128 output tile: the TMA ring, its mbarriers,
+// the wgmma k-loop over ksteps stages and the promotion. Leaves in sum the
+// promoted products (hi*hi at high) and, at high, in accx the cross terms
+// hi*lo + lo*hi. base is the 1024-byte aligned shared memory of the ring and
+// its barriers (smem_bytes). Every thread of the block calls it.
+template <int PLANES>
+__device__ __forceinline__ void mainloop(const CUtensorMap* planes, TileRows rows, int ksteps,
+                                         uint32_t base, float (&sum)[64],
+                                         float (&accx)[PLANES == 2 ? 64 : 1]) {
+  constexpr int S = stages<PLANES>();
+  constexpr int kStageBytes = 2 * PLANES * kTileBytes;  // the row tiles' planes, then the column tiles'
+  const uint32_t full = base + kRingBytes;  // full[s] at full + 8s, empty[s] at empty + 8s
   const uint32_t empty = full + 8 * S;
 
   // the stage for k-tile kt: its operand tiles of every plane, on full + 8s
@@ -237,8 +260,8 @@ trailing_tc_kernel(const __grid_constant__ CUtensorMap planes, long long w, long
     const uint32_t dst = base + s * kStageBytes;
 #pragma unroll
     for (int pl = 0; pl < PLANES; ++pl) {
-      tma_load(dst + pl * kTileBytes, &planes, kt * kBK, (int)(pl * wpad + row0), full + 8 * s);
-      tma_load(dst + (PLANES + pl) * kTileBytes, &planes, kt * kBK, (int)(pl * wpad + col0),
+      tma_load(dst + pl * kTileBytes, planes, kt * kBK, rows.a + pl * rows.a_plane, full + 8 * s);
+      tma_load(dst + (PLANES + pl) * kTileBytes, planes, kt * kBK, rows.b + pl * rows.b_plane,
                full + 8 * s);
     }
   };
@@ -256,9 +279,7 @@ trailing_tc_kernel(const __grid_constant__ CUtensorMap planes, long long w, long
   // two warpgroups, rows half*64 .. +63 of the tile
   const int half = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  float acc[64];                     // the products since the last promotion
-  float sum[64];                     // the promoted sums
-  float accx[PLANES == 2 ? 64 : 1];  // high only: hi*lo + lo*hi
+  float acc[64];  // the products since the last promotion
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.0f;
 #pragma unroll
@@ -299,10 +320,18 @@ trailing_tc_kernel(const __grid_constant__ CUtensorMap planes, long long w, long
       phase ^= 1;
     }
   }
+}
 
-  // the sums through shared memory (the ring, now idle) in row-major order
+// The tile's sums (plus the cross terms at high) through shared memory (the
+// ring, now idle) into tile, row-major with row stride kLd, so that each
+// thread of an epilogue may then own one column. Every thread of the block
+// calls it; it ends on a __syncthreads().
+template <int PLANES>
+__device__ __forceinline__ void stage_sums(float* tile, const float (&sum)[64],
+                                           const float (&accx)[PLANES == 2 ? 64 : 1]) {
   __syncthreads();
-  float* tile = reinterpret_cast<float*>(smem_raw + (base - raw));
+  const int half = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
   const int r_own = half * 64 + (threadIdx.x / 32 % 4) * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -317,6 +346,25 @@ trailing_tc_kernel(const __grid_constant__ CUtensorMap planes, long long w, long
     *reinterpret_cast<float2*>(&tile[(r_own + 8) * kLd + col]) = make_float2(v[2], v[3]);
   }
   __syncthreads();
+}
+
+template <int PLANES, typename T, typename Addr>
+__global__ void __launch_bounds__(kThreads, 1)
+trailing_tc_kernel(const __grid_constant__ CUtensorMap planes, long long w, long long wpad,
+                   int ksteps, long long tb, long long g, const __grid_constant__ Addr addr) {
+  long long row0, col0;
+  block_tile(g, g, row0, col0);
+  if ((min(row0 + kBM, w) - 1) / tb < col0 / tb) return;  // every element in an upper tile
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle wants 1024-byte tiles
+  float sum[64];                     // the promoted sums
+  float accx[PLANES == 2 ? 64 : 1];  // high only: hi*lo + lo*hi
+  mainloop<PLANES>(&planes, TileRows{(int)row0, (int)wpad, (int)col0, (int)wpad}, ksteps, base,
+                   sum, accx);
+  float* tile = reinterpret_cast<float*>(smem_raw + (base - raw));
+  stage_sums<PLANES>(tile, sum, accx);
 
   // each thread one column, every other row: C[r, c] -= tile[r, c] where r/tb >= c/tb
   const int t = threadIdx.x;
@@ -362,6 +410,38 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The tensor map of a planes scratch of rows x kpad bf16 (kpad a multiple
+// of kBK): boxes of kBK x kBM, 128-byte swizzled. Returns a CUDA error.
+inline int encode_planes(CUtensorMap* map, void* scratch, long long rows, long long kpad) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)kpad, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(kpad * 2)};
+  const cuuint32_t box[2] = {kBK, kBM};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, scratch, dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// Raise kernel's dynamic shared memory limit to bytes, once per device
+// (bit d of done): a call on every launch costs host time. Returns a CUDA
+// error.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit) != 0) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  done.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
+
 // the tensor-core body over a w x w window: split P into the scratch, then
 // the main kernel; both on `stream`
 template <typename T, int PLANES, typename Addr>
@@ -373,27 +453,20 @@ int launch(const T* p, long long w, long long nb, long long ldp, long long tb, A
   if (scratch_bytes < PLANES * wpad * kpad * 2 || g * g > 0x7fffffffLL ||
       PLANES * wpad > 0x7fffffffLL || kpad / kBK > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)kpad, (cuuint64_t)(PLANES * wpad)};
-  const cuuint64_t strides[1] = {(cuuint64_t)(kpad * 2)};
-  const cuuint32_t box[2] = {kBK, kBM};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, scratch, dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  int err = encode_planes(&map, scratch, PLANES * wpad, kpad);
+  if (err != 0) return err;
 
   split_kernel<T, PLANES><<<(unsigned)wpad, 256, 0, stream>>>(
-      p, w, nb, ldp, (__nv_bfloat16*)scratch, wpad, kpad);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      p, w, ldp, wpad, nullptr, 0, 0, 0, nb, (__nv_bfloat16*)scratch, kpad);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
 
   auto kernel = trailing_tc_kernel<PLANES, T, Addr>;
   constexpr int smem = smem_bytes<PLANES>();
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  static std::atomic<unsigned long long> smem_set{0};
+  err = allow_smem(kernel, smem, smem_set);
+  if (err != 0) return err;
   kernel<<<(unsigned)(g * g), kThreads, smem, stream>>>(map, w, wpad, (int)(kpad / kBK), tb, g,
                                                          addr);
   return (int)cudaGetLastError();

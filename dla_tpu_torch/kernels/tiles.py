@@ -17,7 +17,11 @@ The four task kernels of the reference's tile DAG, one launch per task:
   :func:`gemm_tile` (``:238``): B·inv(L)ᵀ, C − A·Aᵀ on the lower triangle and
   C − Aᵢ·Aⱼᵀ, one CUDA kernel with three epilogues, ``csrc/tile_ops.cu``.
   They are not in place: each returns a new tensor and leaves its inputs
-  alone, as the Pallas calls do.
+  alone, as the Pallas calls do. trsm and gemm at fp32 ``high``/``default``
+  and bf16 storage run the trailing kernels' tensor-core pipeline with two
+  operands (:func:`tile_op_planes`; the split scratch, A's planes then B's,
+  is :func:`split_pair_plain` in torch ops); syrk, fp32 ``highest`` and fp64
+  the scalar body.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel; on a
 CPU tensor it runs its ``*_plain`` version, the same function in torch ops.
@@ -127,6 +131,28 @@ def body_launches() -> dict[str, int]:
     return {"scalar": fn(0), "wgmma": fn(1)}
 
 
+def tile_op_planes(op: str, dtype: torch.dtype, tier_name: str) -> int:
+    """How many bf16 planes of each operand the task kernel ``op`` (trsm,
+    syrk, gemm) takes on the tensor-core body: :func:`split_planes`' table for
+    trsm and gemm, 0 (the scalar body) for syrk at every tier. ``run`` of
+    ``csrc/tile_ops.cu`` dispatches on the same table."""
+    return 0 if op == "syrk" else split_planes(dtype, tier_name)
+
+
+def tile_op_body(op: str, dtype: torch.dtype, tier_name: str) -> str:
+    """Which block body the task kernel ``op`` runs: ``"wgmma"`` or ``"scalar"``."""
+    return "wgmma" if tile_op_planes(op, dtype, tier_name) else "scalar"
+
+
+def tile_body_launches() -> dict[str, int]:
+    """Launches of the three task kernels of ``csrc/tile_ops.cu`` in this
+    process through each block body, as the C side counts them where it
+    launches: ``{"scalar": n, "wgmma": n}``. Needs the kernel library."""
+    fn = _build.load().dla_tile_body_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return {"scalar": fn(0), "wgmma": fn(1)}
+
+
 def _split_shape(p: torch.Tensor, planes: int) -> tuple[int, int, int]:
     w, nb = p.shape
     return planes, -(-w // SPLIT_ROWS) * SPLIT_ROWS, -(-nb // SPLIT_K) * SPLIT_K
@@ -145,6 +171,35 @@ def split_plain(p: torch.Tensor, planes: int) -> torch.Tensor:
     if planes == 2:
         out[1, :w, :nb] = (p.float() - hi.float()).to(torch.bfloat16)
     return out
+
+
+def _pair_shape(m: int, n: int, k: int, planes: int) -> tuple[int, int]:
+    """(rows, kpad) of the task kernels' split scratch: A's planes × mpad
+    rows, then B's planes × npad, rows padded to 128; k padded to 64 and at
+    least 64, so that k = 0 still gives a full TMA box (of zeros)."""
+    pad = lambda x: -(-x // SPLIT_ROWS) * SPLIT_ROWS  # noqa: E731
+    return planes * (pad(m) + pad(n)), max(SPLIT_K, -(-k // SPLIT_K) * SPLIT_K)
+
+
+def split_pair_plain(a: torch.Tensor, b: torch.Tensor, planes: int) -> torch.Tensor:
+    """The split scratch of the task kernels' tensor-core body, in torch ops
+    (the split kernel of ``csrc/trailing_wgmma.cuh`` writes the same bits):
+    shape :func:`_pair_shape`, bf16; rows 0 … planes·mpad − 1 are
+    :func:`split_plain` of ``a``, the rest that of ``b``, each zero-padded
+    along k to the common kpad."""
+    kpad = _pair_shape(a.shape[0], b.shape[0], a.shape[1], planes)[1]
+    parts = [split_plain(x, planes) for x in (a, b)]
+    return torch.cat([torch.nn.functional.pad(x, (0, kpad - x.shape[-1])).reshape(-1, kpad)
+                      for x in parts])
+
+
+def _pair_scratch(m: int, n: int, k: int, planes: int,
+                  device: torch.device) -> torch.Tensor | None:
+    """Uninitialised scratch for the task kernels' split planes (the split
+    kernel writes all of it); None for the scalar body."""
+    if not planes:
+        return None
+    return torch.empty(_pair_shape(m, n, k, planes), dtype=torch.bfloat16, device=device)
 
 
 def _split_scratch(p: torch.Tensor, planes: int) -> torch.Tensor | None:
@@ -529,18 +584,26 @@ def _task_entry(name: str, dtype: torch.dtype, npointers: int, nints: int):
 
 def _launch_tile_op(op: str, c: torch.Tensor | None, a: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
-    """out (m, n) = epilogue(c, a·bᵀ) through ``csrc/tile_ops.cu``."""
+    """out (m, n) = epilogue(c, a·bᵀ) through ``csrc/tile_ops.cu``, with the
+    split scratch of the tensor-core body where the tier takes it. Raises on
+    a non-zero CUDA error: a refused launch never falls back to the other
+    body."""
     _row_major(f"{op}_tile", *(t for t in (c, a, b) if t is not None))
     m, n, k = a.shape[0], b.shape[0], a.shape[1]
     if m == 0 or n == 0:
         raise ValueError(f"{op}_tile on a CUDA tensor takes no empty tile; got ({m}, {n})")
+    t = tier()
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    fn = _task_entry(op, a.dtype, 4, 6)  # c, a, b, out; m, n, k and three leading dimensions
+    scratch = _pair_scratch(m, n, k, tile_op_planes(op, a.dtype, t), a.device)
+    nbytes = 0 if scratch is None else scratch.numel() * scratch.element_size()
+    # c, a, b, out, scratch; m, n, k, three leading dimensions, the scratch's bytes
+    fn = _task_entry(op, a.dtype, 5, 7)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(None if c is None else c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 m, n, k, 0 if c is None else c.stride(0), a.stride(0), b.stride(0),
-                 _TIER_CODE[tier()], stream)
+                 None if scratch is None else scratch.data_ptr(), m, n, k,
+                 0 if c is None else c.stride(0), a.stride(0), b.stride(0), nbytes,
+                 _TIER_CODE[t], stream)
     if err != 0:
         raise RuntimeError(f"{op}_tile kernel launch failed: CUDA error {err}")
     return out

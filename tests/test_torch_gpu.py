@@ -17,7 +17,10 @@ the tensor-core body (``csrc/trailing_wgmma.cuh``) and fp32 ``highest`` and
 fp64 through the scalar one; the cases below meet the tensor-core body's
 edges (w not a multiple of its 128-row tile, tb below or not dividing 128,
 nb not a multiple of its 64-column k-step, a strided panel, many k-steps),
-and the kernels a profiler sees show which body ran.
+and the kernels a profiler sees show which body ran. The task kernels #6
+``trsm_tile`` and #8 ``gemm_tile`` run the same tensor-core pipeline with two
+operands at those tiers (#7 ``syrk_tile`` stays on the scalar body); their
+split scratch, body counts, views, short k and refusals are tested below.
 """
 
 import pytest
@@ -760,6 +763,16 @@ def _tile_inputs(cuda, op, n, m, k, dtype, seed):
     return rnd(m, n), rnd(m, k), rnd(n, k)  # gemm: c (m, n), ai (m, k), aj (n, k)
 
 
+def _tile_tol(dtype, c, a, b):
+    """As for the trailing kernels: fp64 1e-12, fp32 1e-5 of scale =
+    max|a_i|·max|b_j| (the same partial products, another order), bf16 2^-6
+    of (max|c| + scale)."""
+    scale = (a.double().norm(dim=1).max() * b.double().norm(dim=1).max()).item()
+    cmax = 0.0 if c is None else c.double().abs().max().item()
+    return {torch.float64: 1e-12 * scale, torch.float32: 1e-5 * scale,
+            torch.bfloat16: 2**-6 * (cmax + scale)}[dtype]
+
+
 def _call_tile(op, fn_of, c, a, b):
     if op == "trsm":
         return fn_of("trsm")(b, a)
@@ -772,9 +785,7 @@ def _call_tile(op, fn_of, c, a, b):
 @pytest.mark.parametrize("n,m,k", [(96, 96, 96), (512, 512, 512), (96, 200, 72)])
 @pytest.mark.parametrize("op", ["trsm", "syrk", "gemm"])
 def test_tile_op_matches_plain(cuda, op, n, m, k, dtype, prec):
-    """Tolerance as for the trailing kernels: fp64 1e-12, fp32 1e-5 of
-    scale = max|a_i|·max|b_j| (the same partial products, another order),
-    bf16 2^-6 of (max|c| + scale)."""
+    """Within :func:`_tile_tol`."""
     if op == "trsm":
         k = n
     c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=n + m + k)
@@ -789,11 +800,7 @@ def test_tile_op_matches_plain(cuda, op, n, m, k, dtype, prec):
     assert out.shape == ref.shape and out.dtype == dtype and out.is_contiguous()
     for t, t0 in zip((c, a, b), kept):  # not in place
         assert t is None or torch.equal(t, t0)
-    scale = (a.double().norm(dim=1).max() * b.double().norm(dim=1).max()).item()
-    cmax = 0.0 if c is None else c.double().abs().max().item()
-    tol = {torch.float64: 1e-12 * scale, torch.float32: 1e-5 * scale,
-           torch.bfloat16: 2**-6 * (cmax + scale)}[dtype]
-    assert (out.double() - ref.double()).abs().max().item() <= tol
+    assert (out.double() - ref.double()).abs().max().item() <= _tile_tol(dtype, c, a, b)
     if op == "syrk":  # above the diagonal c passes through bit for bit
         assert torch.equal(torch.triu(out, 1), torch.triu(c, 1))
 
@@ -929,6 +936,151 @@ def test_task_kernels_raise_on_what_they_do_not_take(cuda):
         tiles.potrf_tile(z(64, 64, dtype=torch.bfloat16))
     out = tiles.gemm_tile(z(64, 128)[:, :64], z(64, 32), z(64, 32))  # a row-major view is taken
     assert out.shape == (64, 64)
+
+
+# ---- #6 and #8 on the tensor-core body (csrc/tile_ops.cu + csrc/trailing_wgmma.cuh) ---------
+
+WGMMA_TIERS = [(torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high")]
+
+
+def _tile_against_plain(op, c, a, b, prec):
+    with precision.override(prec):
+        ref = _call_tile(op, lambda o: getattr(tiles, f"{o}_tile_plain"), c, a, b)
+        out = _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)
+        torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.is_contiguous()
+    return out, (out.double() - ref.double()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,prec", WGMMA_TIERS)
+@pytest.mark.parametrize("m,n,k,ld", [(200, 96, 72, 72), (200, 96, 72, 130), (130, 257, 40, 40),
+                                      (96, 100, 0, 8), (512, 512, 512, 16384)])
+def test_tile_split_scratch_bits_of_split_pair_plain(cuda, m, n, k, ld, dtype, prec):
+    # what the split kernel writes for gemm's two operands (padding included) is
+    # split_pair_plain's bits, over magnitudes from subnormal to 1e3, from views of leading
+    # dimension ld
+    g = torch.Generator().manual_seed(m + n + k + ld)
+    scale = torch.logspace(-40, 3, ld)
+    big_a = (torch.randn(m, ld, generator=g) * scale).to(dtype)
+    big_b = (torch.randn(n, ld, generator=g) * scale).to(dtype)
+    a, b = big_a.to(cuda)[:, :k], big_b.to(cuda)[:, :k]
+    c = torch.zeros(m, n, device=cuda, dtype=dtype)
+    out = torch.empty(m, n, device=cuda, dtype=dtype)
+    planes = tiles.tile_op_planes("gemm", dtype, prec)
+    scratch = torch.full(tiles._pair_shape(m, n, k, planes), float("nan"), device=cuda,
+                         dtype=torch.bfloat16)
+    err = tiles._task_entry("gemm", dtype, 5, 7)(
+        c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, n, k,
+        n, ld, ld, scratch.numel() * 2, tiles._TIER_CODE[prec],
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want = tiles.split_pair_plain(big_a[:, :k], big_b[:, :k], planes)
+    assert torch.equal(scratch.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype,prec", TIERS + [(torch.bfloat16, "highest")])
+@pytest.mark.parametrize("op", ["trsm", "syrk", "gemm"])
+def test_tile_body_that_ran(cuda, op, dtype, prec):
+    # trsm and gemm at fp32 high/default and bf16 run the tensor-core body; syrk at every
+    # tier, fp32 highest and fp64 the scalar one, once a call
+    tc = op != "syrk" and (dtype == torch.bfloat16 or (dtype == torch.float32
+                                                       and prec != "highest"))
+    c, a, b = _tile_inputs(cuda, op, 256, 256, 256, dtype, seed=11)
+    with precision.override(prec):
+        assert tiles.tile_op_body(op, dtype, prec) == ("wgmma" if tc else "scalar")
+        before = tiles.tile_body_launches()
+        _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)
+        torch.cuda.synchronize()
+        after = tiles.tile_body_launches()
+    want = "wgmma" if tc else "scalar"
+    assert after[want] == before[want] + 1
+    assert [x for x in after if after[x] != before[x]] == [want]
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+@pytest.mark.parametrize("op", ["trsm", "gemm"])
+def test_tile_op_big_shape(cuda, op, prec):
+    # m=4096, n=k=2048: 32 x 16 output tiles, 32 k-steps (8 promotions)
+    m, n, k = 4096, 2048, 2048
+    c, a, b = _tile_inputs(cuda, op, n, m, k, torch.float32, seed=4096 + n)
+    out, err = _tile_against_plain(op, c, a, b, prec)
+    assert out.shape == (m, n) and err <= _tile_tol(torch.float32, c, a, b)
+
+
+@pytest.mark.parametrize("dtype,prec", WGMMA_TIERS)
+@pytest.mark.parametrize("op", ["trsm", "gemm"])
+def test_tile_op_views_of_a_wide_matrix(cuda, op, dtype, prec):
+    # as in the tile-task path: tiles of a 16384-wide matrix, leading dimension 16384
+    g = torch.Generator(device=cuda).manual_seed(16384)
+    big = torch.randn(1024, 16384, generator=g, device=cuda).to(dtype)
+    if op == "trsm":  # trsm_tile(linv, b): a = the right-hand side, b = linv
+        c, a, b = None, big[512:, 512:1024], torch.tril(big[:512, 1024:1536])
+    else:
+        c, a, b = big[512:, 2048:2560], big[512:, :512], big[:512, 4096:4608]
+    assert a.stride(0) == 16384 and (op == "trsm" or c.stride(0) == 16384)
+    _, err = _tile_against_plain(op, c, a, b, prec)
+    assert err <= _tile_tol(dtype, c, a, b)
+
+
+@pytest.mark.parametrize("dtype,prec", WGMMA_TIERS)
+@pytest.mark.parametrize("op,m,n,k", [("gemm", 200, 300, 0), ("gemm", 200, 300, 40),
+                                      ("trsm", 200, 40, 40)])
+def test_tile_op_short_k(cuda, op, m, n, k, dtype, prec):
+    # k below one 64-column stage: the split pads k to 64 with zeros; k = 0 gives c back
+    c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=k + 1)
+    out, err = _tile_against_plain(op, c, a, b, prec)
+    assert err <= _tile_tol(dtype, c, a, b) if k else torch.equal(out, c)
+
+
+@pytest.mark.parametrize("dtype,prec", WGMMA_TIERS)
+@pytest.mark.parametrize("op", ["trsm", "gemm"])
+def test_tile_op_launches_same_bits(cuda, op, dtype, prec):
+    c, a, b = _tile_inputs(cuda, op, 512, 512, 512, dtype, seed=20)
+    with precision.override(prec):
+        outs = [_call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)
+                for _ in range(20)]
+        torch.cuda.synchronize()
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert all(torch.equal(x.view(view), outs[0].view(view)) for x in outs[1:])
+
+
+@pytest.mark.parametrize("dtype,prec", WGMMA_TIERS + [(torch.float32, "highest")])
+@pytest.mark.parametrize("op", ["trsm", "gemm"])
+def test_tile_op_allocates_out_and_scratch_only(cuda, op, dtype, prec):
+    # one allocation for out and, on the tensor-core body, one for the split scratch, of
+    # exactly their sizes (the caching allocator's own rounding aside: requested bytes)
+    m, n, k = 512, 384, 384
+    c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=7)
+    call = lambda: _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)  # noqa: E731
+    planes = tiles.tile_op_planes(op, dtype, prec)
+    rows, kpad = tiles._pair_shape(m, n, k, planes)
+    nbytes = m * n * a.element_size() + rows * kpad * 2 * (planes > 0)
+    keys = ("allocation.all.allocated", "requested_bytes.all.allocated")
+    with precision.override(prec):
+        call()
+        torch.cuda.synchronize()
+        before = [torch.cuda.memory_stats()[key] for key in keys]
+        out = call()
+        torch.cuda.synchronize()
+        after = [torch.cuda.memory_stats()[key] for key in keys]
+    assert [y - x for x, y in zip(before, after)] == [1 + (planes > 0), nbytes]
+    del out
+
+
+@pytest.mark.parametrize("op", ["trsm", "gemm"])
+def test_tile_op_refused_launch_raises(cuda, monkeypatch, op):
+    # scratch one row short: the C entry refuses the launch (cudaErrorInvalidValue) and the
+    # wrapper raises; nothing falls back to the scalar body or counts a launch
+    real = tiles._pair_scratch
+    monkeypatch.setattr(tiles, "_pair_scratch", lambda *args: real(*args)[:-1])
+    c, a, b = _tile_inputs(cuda, op, 256, 256, 256, torch.float32, seed=8)
+    counter = f"{op}_tile_launches"
+    before = (getattr(tiles, counter), tiles.tile_body_launches())
+    with precision.override("high"), pytest.raises(RuntimeError, match="CUDA error 1"):
+        _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)
+    torch.cuda.synchronize()
+    assert (getattr(tiles, counter), tiles.tile_body_launches()) == before
 
 
 # ---- freivalds_device on the card ------------------------------------------------------
