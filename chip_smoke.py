@@ -61,8 +61,12 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     ``cholesky_ex`` + ``solve_triangular`` and its bound, with the launches
     and the largest grid of its schedule; ``panel_apply`` (kernel #3) at
     m=15360, nb=1024, ib=256, tb=1024 (the first panel of phase 17) for the
-    fp32 tiers, beside
-    ``torch.linalg.solve_triangular`` at ``highest``;
+    fp32 tiers, with the block body that ran (``wgmma`` at ``high`` and
+    ``default``, ``scalar`` at ``highest``; the task kernels' count
+    unmoved) and its launches a call, beside
+    ``torch.linalg.solve_triangular`` at ``highest``; and at the path's last
+    panels (m=3072, 1024), calls back to back beside the same calls queued
+    behind a sleeping kernel, which shows the host's share;
 15. the reference's ``highest`` tier at its full size: ``plgsy(32768)`` →
     ``potrf_shrink(nb=8192, panel="blocktrsm", trailing="pallas", tb=1024,
     kb=256, trailing_alias=False, diag_factor="lax", precision="highest",
@@ -73,7 +77,9 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     63 trailing launches per factorization;
 17. the ``panel_apply`` path at the main path's configuration:
     ``potrf_inplace(panel="pallas", panel_ib=256)``, 15 panel_apply and 15
-    trailing launches per factorization, its median beside phase 3's;
+    trailing launches per factorization, every panel_apply call through the
+    ``wgmma`` body, its median beside phase 3's and beside the path's median
+    before #3's redesign (``PANEL_APPLY_PATH_BEFORE``);
 18. every ``potrf`` mode on the card against the plain versions on the CPU
     at N=4096: the default ``mode="blocked"``, blocked with both kernels
     (nb=512), masked (nb=512) and shrink with ``panel="invgemm"``;
@@ -198,6 +204,9 @@ HIGHEST_KW = dict(nb=8192, panel="blocktrsm", trailing="pallas", tb=1024, kb=256
                   trailing_alias=False, diag_factor="lax", precision="highest", ib=512)
 NB_PANEL_FACTOR = 512  # the panel_factor path: the kernel's largest nb
 PANEL_APPLY_KW = dict(MAIN_KW, panel="pallas", panel_ib=256)
+# phase 17's path median with #3 as it was before its redesign (64-row strips of
+# scalar FMAs, commit 9e5533b), printed beside this run's for comparison
+PANEL_APPLY_PATH_BEFORE = "59.6 and 59.9 ms in two runs (NVIDIA H100 80GB HBM3, 700.00 W)"
 N_MODES = 4096  # every potrf mode, card against CPU
 # the packed df64 path: the driver's configuration (potrf_driver.py: ktb = min(512, NB))
 N_PDF64, NB_PDF64, KTB_PDF64 = 40960, 1024, 512
@@ -870,12 +879,14 @@ def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
 
 
 def panel_apply_case(dev, tag, m, nb, ib, tb, prec, iters):
-    """Kernel #3 against its plain version. Tolerance, of max|X|: 1e-4 at
-    high and highest (the right-hand sides are summed in another order, so
-    their bf16x3 splits differ in the last fp32 bits); 2^-6 at default (one
-    bf16 pass: a right-hand side the two sum differently may round to
-    neighbouring bf16 values)."""
-    from dla_tpu_torch.kernels import panel
+    """Kernel #3 against its plain version, through the block body
+    ``panel.panel_apply_body`` names (the library's count of calls through
+    each body; the task kernels' count must not move). Tolerance, of max|X|:
+    1e-4 at high and highest (the right-hand sides are summed in another
+    order, so their bf16x3 splits differ in the last fp32 bits); 2^-6 at
+    default (one bf16 pass: a right-hand side the two sum differently may
+    round to neighbouring bf16 values)."""
+    from dla_tpu_torch.kernels import panel, tiles
     from dla_tpu_torch.utils import precision
 
     g = torch.Generator(device=dev).manual_seed(m + nb + ib)
@@ -884,25 +895,57 @@ def panel_apply_case(dev, tag, m, nb, ib, tb, prec, iters):
     with precision.override(prec):
         ref = panel.panel_apply_plain(lkk, b, ib=ib, tb=tb)
         before = panel.panel_apply_launches
+        bodies, tile_bodies = panel.panel_apply_body_launches(), tiles.tile_body_launches()
         out = panel.panel_apply(lkk, b, ib=ib, tb=tb)
         sync()
         require(panel.panel_apply_launches == before + 1, "panel_apply: not one launch")
+        rose = [k for k, v in panel.panel_apply_body_launches().items() if v != bodies[k]]
+        body = panel.panel_apply_body(prec)
+        require(rose == [body], f"panel_apply at {prec}: ran through {rose}, expected {body}")
+        require(tiles.tile_body_launches() == tile_bodies,
+                "panel_apply moved the task kernels' launch count")
+        per_call = panel.panel_apply_schedule(m, nb, ib).launches
         err = (out - ref).abs().max().item()
         tol = (2**-6 if prec == "default" else 1e-4) * ref.abs().max().item()
         k_ms = cuda_ms(lambda: panel.panel_apply(lkk, b, ib=ib, tb=tb), iters)
         p_ms = cuda_ms(lambda: panel.panel_apply_plain(lkk, b, ib=ib, tb=tb), iters)
+    inv_ms = cuda_ms(lambda: panel._diag_inverses(lkk, ib), iters)  # the wrapper's part
     # the one PyTorch call for X·Lᵀ = B, IEEE fp32 (TF32 is off)
     lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(lkk.mT, b, upper=True, left=False),
                      iters)
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, body=body,
                **bound(product_s(m * nb * (nb + ib), torch.float32, prec),
                        4 * (2 * m * nb + nb * nb)))
     name = f"m={m} nb={nb} ib={ib} tb={tb} float32/{prec}"
-    print(f"panel_apply {name}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.3f} ms, "
-          f"plain {p_ms:.3f} ms, solve_triangular {lib_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}", flush=True)
+    print(f"panel_apply {name}: body {body}, {per_call} launches a call, max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}) kernel {k_ms:.3f} ms (the ib x ib inverses built before it "
+          f"{inv_ms:.3f} ms of that), solve_triangular {lib_ms:.3f} ms (x{lib_ms / k_ms:.2f}), "
+          f"plain {p_ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}",
+          flush=True)
     require(err <= tol, f"panel_apply disagrees with the plain version at {name}")
     return row
+
+
+def panel_apply_host(dev, tag, m, nb, ib, iters):
+    """#3 at fp32 high on one of the path's short panels: calls back to back
+    (what the path pays) beside the same calls queued behind a sleeping
+    kernel (the card's time alone; the difference is the host's), and the
+    ib x ib inverses that the wrapper builds before the C call, alone."""
+    from dla_tpu_torch.kernels import panel
+    from dla_tpu_torch.utils import precision
+
+    g = torch.Generator(device=dev).manual_seed(m + nb)
+    lkk = torch.tril(torch.randn(nb, nb, generator=g, device=dev)) + nb * torch.eye(nb, device=dev)
+    b = torch.randn(m, nb, generator=g, device=dev)
+    with precision.override("high"):
+        call = lambda: panel.panel_apply(lkk, b, ib=ib, tb=min(1024, nb))  # noqa: E731
+        back = cuda_ms(call, iters)
+        card = queued_ms(call, iters)
+        inv = queued_ms(lambda: panel._diag_inverses(lkk, ib), iters)
+    print(f"panel_apply m={m} nb={nb} ib={ib} float32/high: back to back {back:.4f} ms, queued "
+          f"behind a sleeping kernel {card:.4f} ms (the host's share "
+          f"{max(0.0, 1 - card / back):.1%}), of which the ib x ib inverses, queued alone, "
+          f"{inv:.4f} ms {tag}", flush=True)
 
 
 def phase_panel_kernels(dev, tag):
@@ -916,6 +959,8 @@ def phase_panel_kernels(dev, tag):
         rows[("apply", prec)] = panel_apply_case(dev, tag, N_MAIN - nb, nb,
                                                  PANEL_APPLY_KW["panel_ib"], min(1024, nb),
                                                  prec, 5)
+    for m in (3 * nb, nb):  # the path's last panels
+        panel_apply_host(dev, tag, m, nb, PANEL_APPLY_KW["panel_ib"], 10)
     torch.cuda.empty_cache()
     return rows[("factor", "highest")], rows[("apply", "high")]
 
@@ -1017,12 +1062,18 @@ def phase_panel_apply_path(dev, tag, main_median):
     n, nb = N_MAIN, PANEL_APPLY_KW["nb"]
     name = f"panel_apply path potrf_inplace(panel='pallas') N={n} nb={nb} fp32 high"
     per_fact = n // nb - 1
+    bodies = panel.panel_apply_body_launches()
     counts, tmed, l, _ = timed_path(
         dev, tag, name, n, lambda a: TA.potrf_inplace(a, **PANEL_APPLY_KW),
         {(panel, "panel_apply_launches"): per_fact, (tiles, "launches"): per_fact}, reps=3)
+    after = panel.panel_apply_body_launches()
+    require(after["wgmma"] - bodies["wgmma"] == counts["panel_apply_launches"]
+            and after["scalar"] == bodies["scalar"],
+            f"{name}: panel_apply's calls went through {after} (before: {bodies})")
     beside = "not run" if main_median is None else f"{main_median * 1e3:.1f} ms"
     print(f"N={n} fp32 high potrf_inplace median: panel='pallas' {tmed * 1e3:.1f} ms, "
-          f"panel='blocktrsm' (phase 3) {beside} {tag}", flush=True)
+          f"panel='blocktrsm' (phase 3) {beside}; panel='pallas' with #3 on 64-row strips "
+          f"of scalar FMAs, before its redesign: {PANEL_APPLY_PATH_BEFORE} {tag}", flush=True)
     dense_residual(name, T.plgsy(n, seed=51, device=dev), l, n)
     del l
     torch.cuda.empty_cache()

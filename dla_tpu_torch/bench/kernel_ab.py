@@ -1,7 +1,7 @@
 """Two builds of one kernel side by side on one GPU.
 
     python -m dla_tpu_torch.bench.kernel_ab --other DIR
-        --entry lower|packed|df64|potrf_tile|panel_factor|ring|tile_ops
+        --entry lower|packed|df64|potrf_tile|panel_factor|ring|tile_ops|panel_apply
         [--tier high|default|highest] [--dtype f32|f64|bf16] [--iters 3]
 
 ``DIR`` holds another version of the kernel sources (the entry's ``.cu`` and
@@ -35,10 +35,24 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   its slots, allocated beforehand); each case's two outputs must have the
   same bits, and those of the plain version. A ring time is the mean of 10
   launches queued behind a sleeping kernel: the card's time, without the
-  host's enqueue between launches.
+  host's enqueue between launches;
+- ``tile_ops``: ``dla_<op>_tile_<dtype>`` (kernels #6, #7, #8) at 512³ and
+  m=4096, n=k=2048 (#7: m=n), fp32 ``high``, ``default``, ``highest`` and
+  bf16 in one call (``--tier`` and ``--dtype`` unused), with the block body
+  of this build and each case's largest difference to the plain version;
+  the exit code is 1 where a case leaves its tolerance or where both builds
+  run the scalar body and their bits differ, and the last line also says
+  whether every case gave the same bits in both builds (a change that keeps
+  the bodies must);
+- ``panel_apply``: ``dla_panel_apply_f32`` (kernel #3) at the ``panel_apply``
+  path's first panel, m=15360, nb=1024, ib=256, every fp32 tier in one call,
+  with the body of this build, the largest difference between the builds and
+  to the plain version (1e-4 of max|X| at ``high`` and ``highest``, 2^-6 at
+  ``default``), and this build's launches per call.
 
 A version whose C entry takes a split scratch (the tensor-core body's) gets
-one, sized by ``tiles.split_planes``; an older one is called without. Prints
+one, sized by ``tiles.split_planes`` (``panel.panel_apply_schedule`` for
+#3); an older one is called without. Prints
 each launch's time by CUDA events, the largest difference between the two
 outputs (df64, potrf_tile, panel_factor: whether they give the same bits,
 which they must; the exit code is 1 when they do not), and the card's name
@@ -60,7 +74,8 @@ import torch
 
 SOURCE = {"lower": "trailing_lower.cu", "packed": "trailing_packed.cu",
           "df64": "trailing_df64.cu", "potrf_tile": "potrf_tile.cu",
-          "panel_factor": "panel_factor.cu", "ring": "ring.cu", "tile_ops": "tile_ops.cu"}
+          "panel_factor": "panel_factor.cu", "ring": "ring.cu", "tile_ops": "tile_ops.cu",
+          "panel_apply": "panel_apply.cu"}
 RING_CASES = [  # (kind, m, root, group) on D=4 fp64 members of 1024 columns
     ("broadcast", 15360, 1, 4), ("broadcast", 1024, 1, 4), ("broadcast", 1024, 0, 2),
     ("broadcast", 1024, 1, 2), ("gather", 1024, 0, 4), ("gather", 1024, 0, 2)]
@@ -68,6 +83,7 @@ DIAG_TIERS = [("f32", "highest"), ("f32", "high"), ("f32", "default"), ("f64", "
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
 TILE_CASES = [(512, 512, 512), (4096, 2048, 2048)]  # (m, n, k)
 TILE_TIERS = [("f32", "high"), ("f32", "default"), ("f32", "highest"), ("bf16", "high")]
+PANEL_APPLY_CASE = (15360, 1024, 256)  # (m, nb, ib)
 
 
 def _build_lib(csrc: Path, out: Path, entry: str) -> ctypes.CDLL:
@@ -376,21 +392,25 @@ def _tile_ab(args, card: str) -> int:
     from dla_tpu_torch.utils import precision
 
     dev = torch.device("cuda")
-    ok = True
+    ok = all_same = True
     with tempfile.TemporaryDirectory() as tmp:
         libs = {}
         for version, csrc in (("other", Path(args.other)), ("this", _build.CSRC)):
             scratch = "void* scratch" in (csrc / SOURCE["tile_ops"]).read_text()
             libs[version] = (_build_lib(csrc, Path(tmp) / f"{version}.so", "tile_ops"), scratch)
-        for op in ("trsm", "gemm"):
+        for op in ("trsm", "syrk", "gemm"):
             for m, n, k in TILE_CASES:
                 k = n if op == "trsm" else k
+                m = n if op == "syrk" else m
                 for sfx, tier_name in TILE_TIERS:
                     dtype = DTYPES[sfx]
                     g = torch.Generator(device=dev).manual_seed(m + 3 * n + 7 * k)
                     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
                     if op == "trsm":  # trsm_tile(linv (n, n), b (m, n)): a = b, b = linv
                         c, a, b = None, rnd(m, n), torch.tril(rnd(n, n))
+                    elif op == "syrk":  # syrk_tile(c (n, n), a (n, k)): b = a
+                        c, a = rnd(n, n), rnd(n, k)
+                        b = a
                     else:
                         c, a, b = rnd(m, n), rnd(m, k), rnd(n, k)
                     launch = {v: _tile_launcher(lib, op, sfx, sc) for v, (lib, sc) in libs.items()}
@@ -410,8 +430,9 @@ def _tile_ab(args, card: str) -> int:
                         times[version].append(t0.elapsed_time(t1) / reps)
                         outs[version] = out
                     with precision.override(tier_name):
-                        ref = (tiles.trsm_tile_plain(b, a) if op == "trsm"
-                               else tiles.gemm_tile_plain(c, a, b))
+                        ref = (tiles.trsm_tile_plain(b, a) if op == "trsm" else
+                               tiles.syrk_tile_plain(c, a) if op == "syrk" else
+                               tiles.gemm_tile_plain(c, a, b))
                     scale = (a.double().norm(dim=1).max() * b.double().norm(dim=1).max()).item()
                     tol = (1e-5 * scale if dtype == torch.float32 else
                            2**-6 * ((0.0 if c is None else c.double().abs().max().item()) + scale))
@@ -422,6 +443,7 @@ def _tile_ab(args, card: str) -> int:
                     body = tiles.tile_op_body(op, dtype, tier_name)
                     good = err <= tol and (same or body != "scalar")
                     ok = ok and good
+                    all_same = all_same and same
                     med = {v: sorted(ts[1:])[len(ts[1:]) // 2] for v, ts in times.items()}
                     print(f"{op}_tile m={m} n={n} k={k} {sfx}/{tier_name}: this body {body}; "
                           f"max |this - other| {diff:.3e}, same bits {same}; max |this - plain| "
@@ -433,7 +455,97 @@ def _tile_ab(args, card: str) -> int:
                     del c, a, b, outs, ref, launch
                     torch.cuda.empty_cache()
     print(f"tile_ops: every case within tolerance, same bits where both builds run the scalar "
-          f"body: {ok} [{card}]")
+          f"body: {ok}; same bits in every case: {all_same} [{card}]")
+    return 0 if ok else 1
+
+
+def _panel_apply_launcher(lib, scratch: bool):
+    """launch(lkk, b, out, tier) -> CUDA error through the build's own C
+    signature of ``dla_panel_apply_f32``: one that takes a split scratch gets
+    the one ``panel.panel_apply_schedule`` sizes, an older one is called
+    without; the inverses and the right-hand side scratch are made once."""
+    from dla_tpu_torch.kernels import panel, tiles
+
+    fn = lib.dla_panel_apply_f32
+    npointers, nints = (6, 6) if scratch else (5, 5)
+    fn.argtypes = [ctypes.c_void_p] * npointers + [ctypes.c_longlong] * nints + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    m, nb, ib = PANEL_APPLY_CASE
+    dev = torch.device("cuda")
+    rhs = torch.empty(m, ib, device=dev)
+    bufs = {}
+
+    def launch(lkk, dinv, b, out, tier_name):
+        ptrs = (b.data_ptr(), lkk.data_ptr(), dinv.data_ptr(), out.data_ptr(), rhs.data_ptr())
+        ints = (m, nb, ib, b.stride(0), lkk.stride(0))
+        code = tiles._TIER_CODE[tier_name]
+        if not scratch:
+            return fn(*ptrs, *ints, code, stream)
+        sched = panel.panel_apply_schedule(m, nb, ib, planes=panel.panel_apply_planes(tier_name))
+        if sched.scratch not in bufs:
+            bufs.clear()
+            bufs[sched.scratch] = panel._split_scratch(sched, dev)
+        buf = bufs[sched.scratch]
+        nbytes = 0 if buf is None else buf.numel() * buf.element_size()
+        return fn(*ptrs, None if buf is None else buf.data_ptr(), *ints, nbytes, code, stream)
+    return launch
+
+
+def _panel_apply_ab(args, card: str) -> int:
+    """#3 of two builds at every fp32 tier: times, the body, the largest
+    differences between the builds and to the plain version."""
+    from dla_tpu_torch.kernels import _build, panel
+    from dla_tpu_torch.utils import precision
+
+    dev = torch.device("cuda")
+    m, nb, ib = PANEL_APPLY_CASE
+    g = torch.Generator(device=dev).manual_seed(m + nb + ib)
+    lkk = torch.tril(torch.randn(nb, nb, generator=g, device=dev)) + nb * torch.eye(nb, device=dev)
+    b = torch.randn(m, nb, generator=g, device=dev)
+    dinv = panel._diag_inverses(lkk, ib)
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        launch = {}
+        for version, csrc in (("other", Path(args.other)), ("this", _build.CSRC)):
+            scratch = "void* scratch" in (csrc / SOURCE["panel_apply"]).read_text()
+            launch[version] = _panel_apply_launcher(
+                _build_lib(csrc, Path(tmp) / f"{version}.so", "panel_apply"), scratch)
+        for tier_name in ("high", "default", "highest"):
+            outs, times = {}, {"other": [], "this": []}
+            for version in ["other", "this", "this", "other"] * args.iters:
+                out = torch.empty(m, nb, device=dev)
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                err = launch[version](lkk, dinv, b, out, tier_name)
+                t1.record()
+                t1.synchronize()
+                if err:
+                    raise RuntimeError(f"{version}: CUDA error {err}")
+                times[version].append(t0.elapsed_time(t1))
+                outs[version] = out
+            with precision.override(tier_name):
+                ref = panel.panel_apply_plain(lkk, b, ib=ib, tb=1024)
+            tol = (2**-6 if tier_name == "default" else 1e-4) * ref.abs().max().item()
+            diff = (outs["this"] - outs["other"]).abs().max().item()
+            err = (outs["this"] - ref).abs().max().item()
+            good = err <= tol and bool(torch.isfinite(outs["this"]).all())
+            ok = ok and good
+            sched = panel.panel_apply_schedule(m, nb, ib,
+                                               planes=panel.panel_apply_planes(tier_name))
+            med = {v: sorted(ts[1:])[len(ts[1:]) // 2] for v, ts in times.items()}
+            print(f"panel_apply m={m} nb={nb} ib={ib} f32/{tier_name}: this body "
+                  f"{panel.panel_apply_body(tier_name)}, {sched.launches} launches a call; max "
+                  f"|this - other| {diff:.3e}; max |this - plain| {err:.3e} (tol {tol:.3e})"
+                  f"{'' if good else ' FAILED'}; other median {med['other']:.4f} ms of "
+                  f"{[round(t, 4) for t in times['other']]}, this median {med['this']:.4f} ms of "
+                  f"{[round(t, 4) for t in times['this']]}, x{med['other'] / med['this']:.2f} "
+                  f"[{card}]", flush=True)
+            del outs, ref
+            torch.cuda.empty_cache()
+    print(f"panel_apply: every tier within tolerance of the plain version: {ok} [{card}]")
     return 0 if ok else 1
 
 
@@ -459,6 +571,8 @@ def main(argv=None) -> int:
         return _ring_ab(args, card)
     if args.entry == "tile_ops":
         return _tile_ab(args, card)
+    if args.entry == "panel_apply":
+        return _panel_apply_ab(args, card)
     stream = torch.cuda.current_stream().cuda_stream
     dtype = DTYPES[args.dtype]
     if args.entry == "df64":

@@ -6,7 +6,9 @@
   product with the inverse. CUDA kernel ``csrc/panel_factor.cu``.
 - :func:`panel_apply` (``:429``; body ``:417``): the panel solve X·Lᵀ = B
   as a blocked TRSM over ib-wide column blocks, with the ib×ib diagonal
-  inverses built outside the kernel. CUDA kernel ``csrc/panel_apply.cu``.
+  inverses built outside the kernel. CUDA kernel ``csrc/panel_apply.cu``:
+  the chain of products :func:`panel_apply_schedule` lists, on the block
+  bodies of the task kernels (``csrc/tile_body.cuh``).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel; on a
 CPU tensor it runs its ``*_plain`` version, the same function in torch ops.
@@ -25,13 +27,16 @@ interpret-mode value is a pure fp32 one; the plain versions here keep the
 TPU's semantics.
 
 ``panel_factor_launches`` and ``panel_apply_launches`` count each kernel's
-launches (and nothing else).
+launches (and nothing else): a call of :func:`panel_apply` counts one, though
+its C call launches a kernel or two per product; the C side counts its calls
+per body (:func:`panel_apply_body_launches`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,8 +46,10 @@ from dla_tpu_torch.kernels.tiles import (
     _dot_nt_plain,
     _factor_lower_plain,
     _invert_lower_plain,
+    _pair_shape,
     _row_major,
     _same_device,
+    split_planes,
 )
 from dla_tpu_torch.utils.precision import tier
 
@@ -177,18 +184,97 @@ def panel_apply_plain(lkk: torch.Tensor, b: torch.Tensor, *, ib: int = 512,
     return out
 
 
+class PanelProduct(NamedTuple):
+    """One product of :func:`panel_apply`'s C call: ``epilogue`` "gemm" is
+    the correction rhs = B_j − X[:, :col]·L[col:col+n, :col]ᵀ, "trsm" the
+    product X_j = rhs·inv(L_jj)ᵀ (at col = 0 B_0 itself is the right-hand
+    side); out is (m, n), the sum runs over k columns."""
+
+    epilogue: str
+    col: int
+    m: int
+    n: int
+    k: int
+
+
+class PanelApplySchedule(NamedTuple):
+    """What one call of :func:`panel_apply` launches on the card: its
+    products in order, the shape (rows, kpad) of the bf16 split scratch that
+    the largest of them needs (None on the scalar body), and the kernel
+    launches (a split and a main kernel per product on the tensor-core body,
+    one kernel per product on the scalar body)."""
+
+    products: tuple[PanelProduct, ...]
+    scratch: tuple[int, int] | None
+    launches: int
+
+
+def panel_apply_planes(tier_name: str) -> int:
+    """bf16 planes of each operand that #3's products take on the tensor-core
+    body: fp32 ``high`` 2, ``default`` 1, ``highest`` 0 (the scalar body).
+    ``dla_panel_apply_f32`` of ``csrc/panel_apply.cu`` dispatches on the same
+    table."""
+    return split_planes(torch.float32, tier_name)
+
+
+def panel_apply_body(tier_name: str) -> str:
+    """Which block body #3's products run: ``"wgmma"`` or ``"scalar"``."""
+    return "wgmma" if panel_apply_planes(tier_name) else "scalar"
+
+
+def panel_apply_body_launches() -> dict[str, int]:
+    """Calls of #3's kernel in this process through each block body, as the
+    C side counts them (once a call, where all of its products launched):
+    ``{"scalar": n, "wgmma": n}``; apart from the task kernels' count
+    (``tiles.tile_body_launches``). Needs the kernel library."""
+    fn = _build.load().dla_panel_apply_body_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return {"scalar": fn(0), "wgmma": fn(1)}
+
+
+def panel_apply_schedule(m: int, nb: int, ib: int, *, planes: int | None = None
+                         ) -> PanelApplySchedule:
+    """The products that :func:`panel_apply` launches for B (m, nb) in
+    ib-wide column blocks, 2·nb/ib − 1 of them, in the order of
+    ``csrc/panel_apply.cu``: for each block j, a correction over k = j·ib
+    columns (j > 0), then the product with inv(L_jj) (k = ib). ``planes`` is
+    the bf16 planes of the tier (default: the current tier's)."""
+    if planes is None:
+        planes = panel_apply_planes(tier())
+    products = []
+    for col in range(0, nb, ib):
+        if col:
+            products.append(PanelProduct("gemm", col, m, ib, col))
+        products.append(PanelProduct("trsm", col, m, ib, ib))
+    kmax = max(p.k for p in products)
+    scratch = _pair_shape(m, ib, kmax, planes) if planes else None
+    return PanelApplySchedule(tuple(products), scratch, (2 if planes else 1) * len(products))
+
+
+def _split_scratch(sched: PanelApplySchedule, device: torch.device) -> torch.Tensor | None:
+    """Uninitialised split scratch of the schedule (each product's split
+    kernel writes its part); None on the scalar body."""
+    if sched.scratch is None:
+        return None
+    return torch.empty(sched.scratch, dtype=torch.bfloat16, device=device)
+
+
 def panel_apply(lkk: torch.Tensor, b: torch.Tensor, *, ib: int = 512,
                 tb: int = 1024) -> torch.Tensor:
     """Panel solve X·Lᵀ = B (``lkk`` lower triangular, (nb, nb); ``b`` (m, nb))
     as a blocked TRSM: X_j = (B_j − Σ_{i<j} X_i·L_{j,i}ᵀ)·inv(L_jj)ᵀ over the
     nb/ib column blocks j. The ib×ib inverses are built here, outside the
-    kernel. Returns a new (m, nb) row-major tensor. Real float32 only; the
-    reference's checks (``nb % ib``, ``tb = min(tb, m)`` dividing m) hold,
-    though the kernel's own row strips are 64 rows whatever tb is.
+    kernel. Returns a new (m, nb) row-major tensor; ``b`` is only read (it may
+    be a view of a wider matrix). Real float32 only; the reference's checks
+    (``nb % ib``, ``tb = min(tb, m)`` dividing m) hold, though the kernel
+    takes the rows whatever tb is.
 
-    On the card one thread block owns a 64-row strip and walks j in order;
-    the strip's X lives in the output and the current right-hand side in a
-    scratch tensor, both in device memory.
+    On the card one C call launches the products of
+    :func:`panel_apply_schedule` on the current stream, each a grid of
+    output tiles over all m rows: at fp32 ``high``/``default`` on the
+    tensor-core body of the task kernels (``csrc/tile_body.cuh``, a split
+    scratch reused by every product), at ``highest`` on their scalar body.
+    The right-hand side of each block lies in an (m, ib) scratch tensor.
     """
     global panel_apply_launches
     if _same_device("panel_apply", lkk, b):
@@ -196,14 +282,21 @@ def panel_apply(lkk: torch.Tensor, b: torch.Tensor, *, ib: int = 512,
     _check_panel_apply(lkk, b, ib, tb)
     _row_major("panel_apply", lkk, b)
     m, nb = b.shape
+    t = tier()
+    sched = panel_apply_schedule(m, nb, ib, planes=panel_apply_planes(t))
     dinv = _diag_inverses(lkk, ib)
     out = torch.empty((m, nb), dtype=b.dtype, device=b.device)
-    rhs = torch.empty((m, ib), dtype=b.dtype, device=b.device)
-    fn = _kernel("panel_apply", b.dtype, 5, 5)
+    rhs = torch.empty((m, ib), dtype=b.dtype, device=b.device) if nb > ib else None
+    scratch = _split_scratch(sched, b.device)
+    nbytes = 0 if scratch is None else scratch.numel() * scratch.element_size()
+    # b, lkk, dinv, out, rhs, scratch; m, nb, ib, two leading dimensions, the scratch's bytes
+    fn = _kernel("panel_apply", b.dtype, 6, 6)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = fn(b.data_ptr(), lkk.data_ptr(), dinv.data_ptr(), out.data_ptr(), rhs.data_ptr(),
-                 m, nb, ib, b.stride(0), lkk.stride(0), _TIER_CODE[tier()], stream)
+        err = fn(b.data_ptr(), lkk.data_ptr(), dinv.data_ptr(), out.data_ptr(),
+                 None if rhs is None else rhs.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), m, nb, ib, b.stride(0),
+                 lkk.stride(0), nbytes, _TIER_CODE[t], stream)
     if err != 0:
         raise RuntimeError(f"panel_apply kernel launch failed: CUDA error {err}")
     panel_apply_launches += 1

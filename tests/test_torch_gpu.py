@@ -21,6 +21,9 @@ and the kernels a profiler sees show which body ran. The task kernels #6
 ``trsm_tile`` and #8 ``gemm_tile`` run the same tensor-core pipeline with two
 operands at those tiers (#7 ``syrk_tile`` stays on the scalar body); their
 split scratch, body counts, views, short k and refusals are tested below.
+The panel solve #3 ``panel_apply`` runs a chain of those products (the
+tensor-core body at fp32 ``high``/``default``, the scalar one at
+``highest``), with its own count of calls per body.
 """
 
 import pytest
@@ -682,6 +685,8 @@ PANEL_APPLY_CASES = [  # (m, nb, ib, tb, precision)
     (100, 40, 20, 100, "high"),  # a ragged last strip of 36 rows
     (2048, 1024, 256, 1024, "high"),
     (2048, 1024, 512, 1024, "highest"),
+    (3000, 1024, 256, 1000, "high"),  # m not a multiple of the 128-row tile
+    (2048, 1024, 512, 1024, "default"),
 ]
 
 
@@ -700,6 +705,65 @@ def test_panel_apply_matches_plain(cuda, m, nb, ib, tb, prec):
     assert panel.panel_apply_launches == before + 1
     tol = (2**-6 if prec == "default" else 1e-4) * ref.abs().max().item()
     assert (got.cpu() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("prec", ["high", "default", "highest"])
+def test_panel_apply_of_a_view_leaves_it_unwritten(cuda, prec):
+    # as potrf_inplace passes it: B is a view of the matrix being factored, leading
+    # dimension N; the kernel reads it and writes only out and its scratches
+    from dla_tpu_torch.kernels import panel
+
+    n, off, nb, ib = 4096, 1024, 1024, 256
+    g = torch.Generator(device=cuda).manual_seed(n + nb)
+    a = torch.randn(n, n, generator=g, device=cuda)
+    lkk = torch.tril(a[off : off + nb, off : off + nb]) + nb * torch.eye(nb, device=cuda)
+    before = a.clone()
+    b = a[off + nb :, off : off + nb]
+    assert b.stride(0) == n
+    with precision.override(prec):
+        got = panel.panel_apply(lkk, b, ib=ib, tb=nb)
+        ref = panel.panel_apply_plain(lkk.cpu(), b.cpu(), ib=ib, tb=nb)
+        torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), before.view(torch.int32))
+    tol = (2**-6 if prec == "default" else 1e-4) * ref.abs().max().item()
+    assert (got.cpu() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("prec,body", [("high", "wgmma"), ("default", "wgmma"),
+                                       ("highest", "scalar")])
+def test_panel_apply_body_that_ran(cuda, prec, body):
+    # one call counts once, through the tier's body; the task kernels' count stays put
+    from dla_tpu_torch.kernels import panel
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lkk = torch.tril(torch.randn(512, 512, generator=g, device=cuda)) + 512 * torch.eye(
+        512, device=cuda)
+    b = torch.randn(1000, 512, generator=g, device=cuda)
+    with precision.override(prec):
+        assert panel.panel_apply_body(prec) == body
+        before, tile_before = panel.panel_apply_body_launches(), tiles.tile_body_launches()
+        panel.panel_apply(lkk, b, ib=128, tb=1000)
+        torch.cuda.synchronize()
+        after, tile_after = panel.panel_apply_body_launches(), tiles.tile_body_launches()
+    assert after[body] == before[body] + 1
+    assert [x for x in after if after[x] != before[x]] == [body]
+    assert tile_after == tile_before
+
+
+def test_panel_apply_refused_launch_raises(cuda, monkeypatch):
+    # split scratch one row short: the C call refuses before it launches anything, the
+    # wrapper raises, and no count moves
+    from dla_tpu_torch.kernels import panel
+
+    real = panel._split_scratch
+    monkeypatch.setattr(panel, "_split_scratch", lambda *args: real(*args)[:-1])
+    lkk = torch.eye(512, device=cuda)
+    b = torch.randn(1024, 512, device=cuda)
+    before = (panel.panel_apply_launches, panel.panel_apply_body_launches())
+    with precision.override("high"), pytest.raises(RuntimeError, match="CUDA error 1"):
+        panel.panel_apply(lkk, b, ib=128)
+    torch.cuda.synchronize()
+    assert (panel.panel_apply_launches, panel.panel_apply_body_launches()) == before
 
 
 def test_panel_kernels_raise_on_column_major(cuda):
