@@ -41,8 +41,9 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     the f64x path's shapes (m=24576, tb=512, nb=1024, s=7, w=8, origin 0 and
     24), plus an nk=2 case (w=9) and a tb=96 case: both planes must come back
     **bit-identical** to the plain version, elements outside the visited
-    tiles bit-unchanged, one launch per call; kernel and plain times, and the
-    kernel's rate counted as s(s+1)/2 = 28 one-pass products;
+    tiles bit-unchanged, one launch per call; the block body (``wgmma``, the
+    only df64 body), kernel and plain times, the kernel's rate counted as
+    s(s+1)/2 = 28 one-pass products, and its share of the bound;
 11. the f64x path, the reference's emulated-fp64 tier: ``plgsy(24576)`` in
     fp32 with lo = 0 → ``potrf_df64(nb=1024, s=7, trailing="pallas",
     tb=512)``, one warm-up and two timed repeats, the kernel launched
@@ -88,8 +89,9 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     card at the packed df64 path's shapes (n=40960, nb=1024, tb=512, s=7, w=8,
     steps k=0 and k=nt/2), plus an nk=2 case (w=9, s=6) and a tb=96 case at
     small n: both planes **bit-identical** to the plain version, elements
-    outside the visited tiles bit-unchanged, one launch per call; kernel and
-    plain times, the rate counted as 28 one-pass products;
+    outside the visited tiles bit-unchanged, one launch per call; the body,
+    kernel and plain times, the rate counted as 28 one-pass products, and the
+    share of the bound;
 21. the packed df64 path at the JAX package's packed-df64 record size:
     ``plgsy_packed(40960, 1024, seed=51)`` in fp32 with lo = 0 →
     ``potrf_packed_df64(ktb=512, s=7)``, one timed factorization (no warm-up:
@@ -161,7 +163,7 @@ every selected phase passed.
 
 Then the ``kernels`` JSON line (each kernel's launches on its path, its
 error and times against the plain version, the bound, and the library call
-where one PyTorch call computes the same function; for the two trailing
+where one PyTorch call computes the same function; for the four trailing
 kernels and #6 to #8 also the block ``body`` their path's case ran; for #6
 and #8 also ``big``, the kernel, library and bound ms at m=4096, n=k=2048),
 the total wall time, the card as ``nvidia-smi`` reports it, and last
@@ -666,6 +668,11 @@ def phase_packed_check(dev):
 
 
 # ---- 10. the df64 kernel against its plain version -------------------------------
+# the one block body of #9 and #10 (csrc/trailing_df64.cuh): s(s+1)/2 wgmma chunk
+# products, folded in registers; csrc/ holds no other df64 body
+DF64_BODY = "wgmma"
+
+
 def df64_case(dev, tag, m, nb, tb, s, w, origin, iters):
     from dla_tpu_torch.kernels import df64_tiles
     from dla_tpu_torch.kernels.df64_tiles import trailing_update_df64_plain
@@ -700,13 +707,14 @@ def df64_case(dev, tag, m, nb, tb, s, w, origin, iters):
     flops = 2 * pairs * tb * tb * nb * (s * (s + 1) // 2)
     # s(s+1)/2 one-pass bf16 products; both fp32 planes of each visited tile
     # read and written once, the slices read once
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None, body=DF64_BODY,
                **bound(flops / PEAK["bf16"], 2 * 2 * pairs * tb * tb * 4
                        + sum(x.numel() * x.element_size() for x in sx)))
     name = f"m={m} tb={tb} nb={nb} s={s} w={w} origin={origin}"
-    print(f"trailing_update_df64 {name}: bits equal {same} (max_abs_err={err:.3e}) "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, kernel {flops / k_ms / 1e9:.2f} TF/s "
-          f"one-pass, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}", flush=True)
+    print(f"trailing_update_df64 {name}: body {DF64_BODY}, bits equal {same} (max_abs_err="
+          f"{err:.3e}) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, kernel "
+          f"{flops / k_ms / 1e9:.2f} TF/s one-pass, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}), {row['bound_ms'] / k_ms:.1%} of the bound {tag}", flush=True)
     require(same, f"df64 kernel and plain version differ in their bits at {name}")
     del out, ref, sx
     torch.cuda.empty_cache()
@@ -1154,13 +1162,14 @@ def packed_df64_case(dev, tag, n, nb, tb, s, w, k, iters):
     flops = 2 * pairs * tb * tb * nb * (s * (s + 1) // 2)
     # s(s+1)/2 one-pass bf16 products; both fp32 planes of each visited tile
     # read and written once, the slices read once
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None, body=DF64_BODY,
                **bound(flops / PEAK["bf16"], 2 * 2 * pairs * tb * tb * 4
                        + sum(x.numel() * x.element_size() for x in sx)))
     name = f"n={n} nb={nb} tb={tb} s={s} w={w} k={k}"
-    print(f"trailing_update_packed_df64 {name}: bits equal {same} (max_abs_err={err:.3e}) "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, kernel {flops / k_ms / 1e9:.2f} TF/s "
-          f"one-pass, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}", flush=True)
+    print(f"trailing_update_packed_df64 {name}: body {DF64_BODY}, bits equal {same} "
+          f"(max_abs_err={err:.3e}) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, kernel "
+          f"{flops / k_ms / 1e9:.2f} TF/s one-pass, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}), {row['bound_ms'] / k_ms:.1%} of the bound {tag}", flush=True)
     require(same, f"packed df64 kernel and plain version differ in their bits at {name}")
     del out, ref, sx
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 """Two builds of one kernel side by side on one GPU.
 
     python -m dla_tpu_torch.bench.kernel_ab --other DIR
-        --entry lower|packed|df64|potrf_tile|panel_factor|ring|tile_ops|panel_apply
+        --entry lower|packed|df64|packed_df64|potrf_tile|panel_factor|ring|tile_ops|panel_apply
         [--tier high|default|highest] [--dtype f32|f64|bf16] [--iters 3]
 
 ``DIR`` holds another version of the kernel sources (the entry's ``.cu`` and
@@ -18,6 +18,9 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   path's first update, n=81920, w=4096, ktb=1024, k=0;
 - ``df64``: ``dla_trailing_df64`` (kernel #9) at the f64x path's, m=24576,
   tb=512, nb=1024, s=7, w=8, origin 0 (``--tier`` and ``--dtype`` unused);
+- ``packed_df64``: ``dla_trailing_packed_df64`` (kernel #10) at the packed
+  df64 path's first update, n=40960, nb=1024, tb=512, s=7, w=8, k=0 (``--n``,
+  ``--k``; a 6.9 GB pair, each launch on a fresh copy);
 - ``potrf_tile``: ``dla_potrf_tile_<dtype>`` (kernel #5, ``(a, l, linv, n,
   lda, tier, stream)``) at the tile-task path's n=512, on an SPD tile with
   NaN above its diagonal, and
@@ -54,7 +57,7 @@ A version whose C entry takes a split scratch (the tensor-core body's) gets
 one, sized by ``tiles.split_planes`` (``panel.panel_apply_schedule`` for
 #3); an older one is called without. Prints
 each launch's time by CUDA events, the largest difference between the two
-outputs (df64, potrf_tile, panel_factor: whether they give the same bits,
+outputs (df64, packed_df64, potrf_tile, panel_factor: whether they give the same bits,
 which they must; the exit code is 1 when they do not), and the card's name
 and power limit. Two versions are only comparable inside one such call.
 
@@ -73,7 +76,8 @@ from pathlib import Path
 import torch
 
 SOURCE = {"lower": "trailing_lower.cu", "packed": "trailing_packed.cu",
-          "df64": "trailing_df64.cu", "potrf_tile": "potrf_tile.cu",
+          "df64": "trailing_df64.cu", "packed_df64": "trailing_packed_df64.cu",
+          "potrf_tile": "potrf_tile.cu",
           "panel_factor": "panel_factor.cu", "ring": "ring.cu", "tile_ops": "tile_ops.cu",
           "panel_apply": "panel_apply.cu"}
 RING_CASES = [  # (kind, m, root, group) on D=4 fp64 members of 1024 columns
@@ -107,8 +111,9 @@ def _compile(csrc: Path, out: Path, entry: str, symbol: str):
     whether it takes a split scratch."""
     src = csrc / SOURCE[entry]
     fn = getattr(_build_lib(csrc, out, entry), symbol)
-    scratch = entry != "df64" and "void* scratch" in src.read_text()
-    if entry == "df64":
+    df64 = entry in ("df64", "packed_df64")
+    scratch = not df64 and "void* scratch" in src.read_text()
+    if df64:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
                        + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     elif scratch:
@@ -138,6 +143,30 @@ def _df64_case(m, stream):
         return fn(h.data_ptr(), l.data_ptr(), ptrs, m, nb, m, nb, 0, tb, nb, s, 3, stream)
 
     return (ch, cl), launch, f"m={m} tb={tb} nb={nb} s={s}"
+
+
+def _packed_df64_case(n, k, stream):
+    """The packed df64 path's update at step k: (inputs to clone, launch(fn,
+    scratch, outs))."""
+    from dla_tpu_torch.algos.packed import packed_rows
+    from dla_tpu_torch.ops.df64 import slice_rows, to_df64
+
+    tb, nb, s = 512, 1024, 7
+    m, base = n - (k + 1) * nb, (k + 1) * nb
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    ph, pl = to_df64(torch.randn(packed_rows(n, nb), nb, generator=g, device=dev,
+                                 dtype=torch.float64))
+    sx = slice_rows(*to_df64(torch.randn(m, nb, generator=g, device=dev, dtype=torch.float64)),
+                    s=s, w=8)[0]
+    ptrs = (ctypes.c_void_p * s)(*[x.data_ptr() for x in sx])
+
+    def launch(fn, _scratch, outs):
+        h, l = outs
+        return fn(h.data_ptr(), l.data_ptr(), ptrs, m, nb, nb, base, n // nb, tb, nb, s, 3,
+                  stream)
+
+    return (ph, pl), launch, f"n={n} nb={nb} tb={tb} s={s} k={k}"
 
 
 def _trailing_case(entry, dtype, tier_name, stream):
@@ -556,6 +585,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tier", choices=["high", "default", "highest"], default="high")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--m", type=int, default=24576, help="df64: the window's size")
+    ap.add_argument("--n", type=int, default=40960, help="packed_df64: the matrix's size")
+    ap.add_argument("--k", type=int, default=0, help="packed_df64: the step")
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -578,6 +609,9 @@ def main(argv=None) -> int:
     if args.entry == "df64":
         inputs, launch, name = _df64_case(args.m, stream)
         symbol, scale = "dla_trailing_df64", None
+    elif args.entry == "packed_df64":
+        inputs, launch, name = _packed_df64_case(args.n, args.k, stream)
+        symbol, scale = "dla_trailing_packed_df64", None
     else:
         inputs, launch, name, scale = _trailing_case(args.entry, dtype, args.tier, stream)
         symbol = f"dla_trailing_{args.entry}_{args.dtype}"

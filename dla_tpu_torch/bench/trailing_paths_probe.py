@@ -1,19 +1,26 @@
-"""Where the time of the two trailing kernels' paths goes, on one GPU.
+"""Where the time of the trailing kernels' paths goes, on one GPU.
 
-    python -m dla_tpu_torch.bench.trailing_paths_probe [--paths main,packed]
+    python -m dla_tpu_torch.bench.trailing_paths_probe [--paths main,packed,f64x,packed_df64]
 
 - ``main``: the dense main path, ``potrf_inplace`` of ``plgsy(16384,
   seed=51)`` in fp32 at ``high`` (nb=tb=kb=1024, ib=512, two-level diagonal
   factor: ``chip_smoke.py`` phase 3), kernel #1 15 times;
 - ``packed``: the packed path, ``potrf_packed`` of ``plgsy_packed(81920,
   4096, seed=51)`` in fp32 at ``default`` (ktb=1024, kb=4096, ib=512,
-  two-level diagonal factor: phase 7), kernel #2 19 times.
+  two-level diagonal factor: phase 7), kernel #2 19 times;
+- ``f64x``: the f64x path, ``potrf_df64`` of ``plgsy(24576, bump=24576,
+  seed=51)`` in fp32 with lo = 0 (nb=1024, s=7, tb=512: phase 11), kernel #9
+  23 times;
+- ``packed_df64``: the packed df64 path, ``potrf_packed_df64`` of
+  ``plgsy_packed(40960, 1024, bump=40960, seed=51)`` with lo = 0 (ktb=512,
+  s=7: phase 21), kernel #10 39 times.
 
 Each path is factored once as a warm-up, then once under ``torch.profiler``
 (the factorization alone, its input made before): the wall time, the device's
 busy and idle share of it and the device time by kernel name (the largest
 ten; the trailing kernels are ``trailing_tc_kernel`` and ``split_kernel`` of
-``csrc/trailing_wgmma.cuh``), then the peak device memory of a third
+``csrc/trailing_wgmma.cuh``, and ``trailing_df64_tc_kernel`` of
+``csrc/trailing_df64.cuh``), then the peak device memory of a third
 factorization timed alone, with the card's name and power limit.
 
 It needs a CUDA device and fails without one.
@@ -33,6 +40,7 @@ from dla_tpu_torch.bench.ring_planes_probe import device_split
 MAIN_KW = dict(nb=1024, tb=1024, kb=1024, ib=512, diag_factor="twolevel", precision="high")
 PACKED_KW = dict(diag_factor="twolevel", ib=512, precision="default", trailing="pallas",
                  ktb=1024, kb=4096)
+DF64_KW = dict(nb=1024, s=7, trailing="pallas", tb=512)
 
 
 def _paths(dev):
@@ -46,7 +54,19 @@ def _paths(dev):
         "packed": ("packed path potrf_packed N=81920 w=4096 fp32 default",
                    lambda: TA.plgsy_packed(81920, 4096, seed=51, device=dev),
                    lambda a: T.potrf_packed(a, 81920, 4096, **PACKED_KW)),
+        "f64x": ("f64x path potrf_df64 N=24576 nb=1024 s=7",
+                 lambda: _pair(T.plgsy(24576, bump=24576.0, seed=51, device=dev)),
+                 lambda a: TA.potrf_df64(*a, **DF64_KW)),
+        "packed_df64": ("packed df64 path potrf_packed_df64 N=40960 nb=1024 s=7",
+                        lambda: _pair(TA.plgsy_packed(40960, 1024, bump=40960.0, seed=51,
+                                                      device=dev)),
+                        lambda a: TA.potrf_packed_df64(*a, 40960, 1024, ktb=512, s=7)),
     }
+
+
+def _pair(hi):
+    """A df64 pair of an fp32 matrix: (hi, zeros)."""
+    return hi, torch.zeros_like(hi)
 
 
 def main(argv=None) -> int:

@@ -173,7 +173,7 @@ int launch_tc(const T* c, const T* a, const T* b, T* out, long long m, long long
       rows > 0x7fffffffLL || kpad / kBK > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;
-  int err = encode_planes(&map, scratch, rows, kpad);
+  int err = encode_bf16(&map, scratch, rows, kpad, kpad);
   if (err != 0) return err;
 
   split_kernel<T, PLANES><<<(unsigned)(mpad + npad), 256, 0, s>>>(

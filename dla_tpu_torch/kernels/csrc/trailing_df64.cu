@@ -14,21 +14,22 @@
 
 namespace {
 
-// element (r, c) of the window: C[off + r, off + c], leading dimension ldc
+// element (r, c) of the window: C[off + r, off + c], leading dimension ldc,
+// at offset row(r) + col(c)
 struct DensePairWindow {
   long long ldc, off;
-  __device__ __forceinline__ long long operator()(long long r, long long c) const {
-    return (off + r) * ldc + off + c;
-  }
+  __device__ __forceinline__ long long row(long long r) const { return (off + r) * ldc; }
+  __device__ __forceinline__ long long col(long long c) const { return off + c; }
 };
 
 }  // namespace
 
 // C interface, loaded with ctypes. ch and cl are the two planes of the full
 // pair (leading dimension ldc), slices a host array of s device pointers to
-// the w x nb slices (leading dimension ldp), off = origin * tb, kb the exact
-// chunk (nb a multiple of it). Returns cudaGetLastError() after the launch:
-// 0 means launched.
+// the w x nb slices (leading dimension ldp, as TMA asks: 16-byte aligned, ldp
+// a multiple of 8), off = origin * tb, kb the exact chunk (nb a multiple of
+// it). Returns the CUDA error of the first step that failed: 0 means
+// launched.
 extern "C" int dla_trailing_df64(void* ch, void* cl, const void* const* slices, long long w,
                                  long long nb, long long ldc, long long ldp, long long off,
                                  long long tb, long long kb, int s, int precise_deg,

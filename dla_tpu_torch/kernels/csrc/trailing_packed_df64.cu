@@ -18,23 +18,26 @@
 //
 // Design. The reference drives a sequential TPU grid from four prefetched
 // index tables. Here no table is needed: the block body is the dense df64
-// kernel's, whose 64 x 64 blocks find their own window coordinates from
-// blockIdx and return when they lie above the tb-diagonal, and only the
-// offset map differs (PackedWindow, the fp32 packed kernel's). Each plane
+// kernel's tensor-core body, whose 128 x 128 blocks find their own window
+// coordinates from blockIdx and return when they lie above the tb-diagonal,
+// and only the offset map differs (PackedWindow, the fp32 packed kernel's;
+// a block may straddle two slabs, so the map is per element). Each plane
 // holds 8.6e8 elements at n = 40960, nb = 1024 and 3.4e9 at n = 81920: every
 // offset is 64-bit.
 //
-// Bound. As the dense df64 kernel: s(s+1)/2 scalar-FMA passes over the panel
-// width for each output, against one read and one write of the pair.
+// Bound. As the dense df64 kernel: s(s+1)/2 bf16 tensor-core products over
+// the panel width for each visited element, against one read and one write
+// of the pair.
 
 #include "packed_window.cuh"
 #include "trailing_df64.cuh"
 
 // C interface, loaded with ctypes. ph and pl are the two (n(n+nb)/(2nb), nb)
 // planes, slices a host array of s device pointers to the m x nb slices
-// (leading dimension ldp) with m = n - base, base = (k+1)*nb, nt = n / nb,
-// tb the tile of the lower-pairs mask, kb the exact chunk (nb a multiple of
-// it). Returns cudaGetLastError() after the launch: 0 means launched.
+// (leading dimension ldp; 16-byte aligned, ldp a multiple of 8) with m =
+// n - base, base = (k+1)*nb, nt = n / nb, tb the tile of the lower-pairs
+// mask, kb the exact chunk (nb a multiple of it). Returns the CUDA error of
+// the first step that failed: 0 means launched.
 extern "C" int dla_trailing_packed_df64(void* ph, void* pl, const void* const* slices,
                                         long long m, long long nb, long long ldp,
                                         long long base, long long nt, long long tb,

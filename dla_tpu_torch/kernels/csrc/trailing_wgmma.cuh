@@ -2,7 +2,9 @@
 // launch that picks a body: C <- C - P * P^T over the lower tb-tile pairs of
 // a square window, in place. Its pipeline (split, mainloop, stage_sums) is
 // also the body of the task kernels trsm_tile and gemm_tile (tile_ops.cu),
-// which multiply two operands, A * B^T, into a new tensor.
+// which multiply two operands, A * B^T, into a new tensor; its parts (the
+// TMA loads, mbarriers, wgmma128, block_tile, encode_bf16) also build the
+// df64 body (trailing_df64.cuh).
 //
 // What it computes is what the scalar body (trailing_block.cuh) computes:
 // every element with r/tb >= c/tb (whole diagonal tiles) becomes
@@ -410,17 +412,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a planes scratch of rows x kpad bf16 (kpad a multiple
-// of kBK): boxes of kBK x kBM, 128-byte swizzled. Returns a CUDA error.
-inline int encode_planes(CUtensorMap* map, void* scratch, long long rows, long long kpad) {
+// The tensor map of a rows x cols bf16 matrix, row-major with leading
+// dimension ld (ptr 16-byte aligned, ld a multiple of 8): boxes of kBK x kBM,
+// 128-byte swizzled; a box's rows and columns past the matrix read as zeros.
+// Returns a CUDA error.
+inline int encode_bf16(CUtensorMap* map, const void* ptr, long long rows, long long cols,
+                       long long ld) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)kpad, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(kpad * 2)};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * 2)};
   const cuuint32_t box[2] = {kBK, kBM};
   const cuuint32_t unit[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, scratch, dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -454,7 +459,7 @@ int launch(const T* p, long long w, long long nb, long long ldp, long long tb, A
       PLANES * wpad > 0x7fffffffLL || kpad / kBK > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;
-  int err = encode_planes(&map, scratch, PLANES * wpad, kpad);
+  int err = encode_bf16(&map, scratch, PLANES * wpad, kpad, kpad);
   if (err != 0) return err;
 
   split_kernel<T, PLANES><<<(unsigned)wpad, 256, 0, stream>>>(

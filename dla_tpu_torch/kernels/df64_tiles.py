@@ -14,12 +14,16 @@ plain version give the same bits.
 
 On CUDA tensors :func:`trailing_update_df64` launches the hand-written Hopper
 kernel ``csrc/trailing_df64.cu`` and :func:`trailing_update_packed_df64`
-launches ``csrc/trailing_packed_df64.cu`` (one block body,
-``csrc/trailing_df64.cuh``, with two offset maps); on CPU tensors they run
-:func:`trailing_update_df64_plain` and
+launches ``csrc/trailing_packed_df64.cu`` (one tensor-core block body,
+``csrc/trailing_df64.cuh``, with two offset maps: each chunk product is a
+``wgmma`` sum, exact because every partial sum lies on the pair's grid); on CPU
+tensors they run :func:`trailing_update_df64_plain` and
 :func:`trailing_update_packed_df64_plain`, the same functions in torch ops. Any
-other device, or a CUDA tensor the kernel does not take, raises. ``launches``
-and ``packed_launches`` count each kernel's launches and nothing else.
+other device, or a CUDA tensor the kernel does not take, raises. The kernel
+reads each slice through a TMA tensor map; slices TMA cannot address (a row
+stride that is not a multiple of 16 bytes) are first copied into a padded
+scratch. ``launches`` and ``packed_launches`` count each kernel's launches and
+nothing else.
 """
 
 from __future__ import annotations
@@ -41,6 +45,10 @@ packed_launches = 0
 
 #: most slices the kernels take (``DF64_MAX_SLICES`` in ``csrc/trailing_df64.cuh``)
 MAX_SLICES = 8
+
+#: columns of k the kernels' tensor-core body reads per stage (``kBK`` in
+#: ``csrc/trailing_wgmma.cuh``): a chunk shorter than the panel must be a multiple
+K_STEP = 64
 
 
 def _check(ch: torch.Tensor, cl: torch.Tensor, slices, origin: int, tb: int,
@@ -94,9 +102,11 @@ def _pass_loop(ah, al, f, r0: int, tb: int, kb: int, precise_deg: int):
     return quick_two_sum(ah, al)
 
 
-def _cuda_slices(name: str, pair, slices):
-    """The CUDA wrappers' device and slice-layout checks; returns the slices'
-    leading dimension and the host array of their device pointers."""
+def _cuda_slices(name: str, pair, slices, kb: int):
+    """The CUDA wrappers' device and slice-layout checks; returns the slices
+    the kernel reads (the given ones, or their copy in a padded scratch where
+    TMA cannot address them), their leading dimension and the host array of
+    their device pointers. Keep the slices alive until the launch is queued."""
     ch = pair[0]
     tensors = (*pair, *slices)
     if ch.device.type != "cuda" or any(t.device != ch.device for t in tensors):
@@ -106,12 +116,19 @@ def _cuda_slices(name: str, pair, slices):
         )
     if len(slices) > MAX_SLICES:
         raise ValueError(f"the kernel takes at most {MAX_SLICES} slices; got {len(slices)}")
-    nb = slices[0].shape[1]
+    h, nb = slices[0].shape
     ldp = slices[0].stride(0)
     if any(x.stride() != (ldp, 1) for x in slices) or ldp < nb:
         raise ValueError(f"{name} needs row-major slices with one stride; got "
                          f"{[x.stride() for x in slices]}")
-    return ldp, (ctypes.c_void_p * len(slices))(*[x.data_ptr() for x in slices])
+    if kb < nb and kb % K_STEP:
+        raise ValueError(f"{name}: a chunk of {kb} columns (w too large) is not a multiple of "
+                         f"the kernel's {K_STEP}-column k-step")
+    if ldp % 8 or any(x.data_ptr() % 16 for x in slices):
+        ldp = -(-nb // 8) * 8  # TMA: 16-byte aligned rows
+        pad = torch.empty((len(slices), h, ldp), dtype=torch.bfloat16, device=ch.device)
+        slices = [pad[t, :, :nb].copy_(x) for t, x in enumerate(slices)]
+    return slices, ldp, (ctypes.c_void_p * len(slices))(*[x.data_ptr() for x in slices])
 
 
 def trailing_update_df64_plain(
@@ -175,7 +192,7 @@ def trailing_update_df64(
         return trailing_update_df64_plain(ch, cl, slices, origin=origin, tb=tb, w=w,
                                           precise_deg=precise_deg)
     kb = _check(ch, cl, slices, origin, tb, w)
-    ldp, ptrs = _cuda_slices("trailing_update_df64", (ch, cl), slices)
+    slices, ldp, ptrs = _cuda_slices("trailing_update_df64", (ch, cl), slices, kb)
     m = ch.shape[0]
     h, nb = slices[0].shape
     if ch.stride() != cl.stride() or ch.stride(1) != 1 or ch.stride(0) < m:
@@ -278,7 +295,7 @@ def trailing_update_packed_df64(
         return trailing_update_packed_df64_plain(ph, pl, slices, n=n, nb=nb, k=k, tb=tb, w=w,
                                                  precise_deg=precise_deg)
     kb = _check_packed(ph, pl, slices, n, nb, k, tb, w)
-    ldp, ptrs = _cuda_slices("trailing_update_packed_df64", (ph, pl), slices)
+    slices, ldp, ptrs = _cuda_slices("trailing_update_packed_df64", (ph, pl), slices, kb)
     if not ph.is_contiguous() or not pl.is_contiguous():
         raise ValueError("trailing_update_packed_df64 needs two contiguous row-major planes; "
                          f"got strides {ph.stride()} and {pl.stride()}")

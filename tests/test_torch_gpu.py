@@ -26,6 +26,7 @@ tensor-core body at fp32 ``high``/``default``, the scalar one at
 ``highest``), with its own count of calls per body.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -434,6 +435,29 @@ def _bits32(t):
     return t.view(torch.int32)
 
 
+def adversarial_slices(rows, nb, s, w, kind, seed):
+    """``s`` bf16 slices of shape (rows, nb) on ``slice_rows``' grids (row r of
+    slice t on g_t(r) = mu_r·2^(1−(t+1)w), mu_r a power of 2), at the edges of
+    the df64 kernels' exactness argument (``csrc/trailing_df64.cuh``):
+    ``"max"``: every element 2^(w−1) units, positive, so every product of a
+    pair is 2^(2w−2) units of one sign and a chunk of kb = 2^(26−2w) of them
+    sums to exactly 2^24 units; ``"alternating"``: magnitudes 2^(w−1) or one
+    unit less, signs flipping every 1, 16 or 512 columns or never, by row:
+    chunk sums that climb towards 2^24 units, or to 2^23 and cancel."""
+    rng = np.random.default_rng(seed)
+    mu = 2.0 ** rng.integers(-4, 5, size=(rows, 1))
+    k = np.arange(nb)
+    out = []
+    for t in range(s):
+        if kind == "max":
+            units = np.full((rows, nb), 2.0 ** (w - 1))
+        else:
+            period = np.array([1, 16, 512, nb])[np.arange(rows) % 4][:, None]
+            units = (-1.0) ** (k // period) * (2.0 ** (w - 1) - (rng.random((rows, nb)) < 0.25))
+        out.append(torch.from_numpy(units * mu * 2.0 ** (1 - (t + 1) * w)).to(torch.bfloat16))
+    return out
+
+
 @pytest.mark.parametrize("m,nb,tb,s,w,origin", DF64_CASES)
 def test_df64_kernel_same_bits_as_plain(cuda, m, nb, tb, s, w, origin):
     from dla_tpu_torch.kernels import df64_tiles
@@ -451,6 +475,82 @@ def test_df64_kernel_same_bits_as_plain(cuda, m, nb, tb, s, w, origin):
         got = got.cpu()
         assert torch.equal(_bits32(got), _bits32(want))
         assert torch.equal(_bits32(got[~mask]), _bits32(orig[~mask]))
+
+
+ADVERSARIAL_CASES = [  # (m, nb, tb, s, w, kind)
+    (512, 1024, 128, 7, 8, "max"),  # one chunk of kb = 1024: sums of exactly 2^24 units
+    (512, 1024, 128, 7, 8, "alternating"),
+    (384, 512, 96, 6, 9, "max"),  # two chunks of kb = 256
+    (384, 512, 96, 6, 9, "alternating"),
+]
+
+
+@pytest.mark.parametrize("m,nb,tb,s,w,kind", ADVERSARIAL_CASES)
+def test_df64_kernel_adversarial_slices_same_bits(cuda, m, nb, tb, s, w, kind):
+    from dla_tpu_torch.kernels import df64_tiles
+    from dla_tpu_torch.ops.df64 import to_df64
+
+    g = torch.Generator().manual_seed(m + w)
+    ch, cl = to_df64(torch.randn(m, m, generator=g, dtype=torch.float64))
+    sx = adversarial_slices(m, nb, s, w, kind, seed=m + nb)
+    kw = dict(tb=tb, w=w)
+    ref = df64_tiles.trailing_update_df64_plain(ch.clone(), cl.clone(), sx, **kw)
+    out = df64_tiles.trailing_update_df64(ch.to(cuda), cl.to(cuda), [x.to(cuda) for x in sx],
+                                          **kw)
+    torch.cuda.synchronize()
+    for got, want in zip(out, ref):
+        assert torch.equal(_bits32(got.cpu()), _bits32(want))
+
+
+def test_df64_kernel_20_launches_back_to_back(cuda):
+    # one pair through 20 queued launches, as a factorization queues them, against
+    # the plain version's 20 steps on the card; four slice sets, origins 0 and 1
+    from dla_tpu_torch.kernels import df64_tiles
+
+    m, nb, tb, s, w = 1024, 1024, 256, 7, 8
+    ch, cl, _ = _df64_inputs(m, 16, tb, 1, w, 0, seed=20)
+    sets = [[x.to(cuda) for x in _df64_inputs(m, nb, tb, s, w, t // 2, seed=30 + t)[2]]
+            for t in range(4)]
+    out = (ch.to(cuda), cl.to(cuda))
+    ref = (ch.to(cuda), cl.to(cuda))
+    before = df64_tiles.launches
+    for t in range(20):
+        df64_tiles.trailing_update_df64(*out, sets[t % 4], origin=t % 4 // 2, tb=tb, w=w)
+    torch.cuda.synchronize()
+    assert df64_tiles.launches == before + 20
+    for t in range(20):
+        df64_tiles.trailing_update_df64_plain(*ref, sets[t % 4], origin=t % 4 // 2, tb=tb, w=w)
+    for got, want in zip(out, ref):
+        assert torch.equal(_bits32(got), _bits32(want))
+
+
+def test_df64_body_registers_no_spill(cuda):
+    # ptxas's registers and spills for the tensor-core body of both df64 kernels
+    import re
+    import subprocess
+    import tempfile
+
+    from dla_tpu_torch.kernels import _build
+
+    for src in ("trailing_df64.cu", "trailing_packed_df64.cu"):
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                   f"{tmp}/k.o", str(_build.CSRC / src)]
+            log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+        kernel = None
+        seen = {}
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif kernel and "trailing_df64_tc_kernel" in kernel:
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                regs = re.search(r"Used (\d+) registers", line)
+                if spill:
+                    seen["spill"] = int(spill[1]) + int(spill[2])
+                if regs:
+                    seen["registers"] = int(regs[1])
+        print(f"{src}: trailing_df64_tc_kernel {seen}")
+        assert seen.get("spill") == 0 and 0 < seen.get("registers", 0) <= 255, (src, seen)
 
 
 def test_df64_kernel_offsets_past_2_pow_31(cuda):
@@ -485,6 +585,8 @@ def test_df64_kernel_checks_raise(cuda):
         df64_tiles.trailing_update_df64(ch, ch.clone(), sx * 3, tb=64)
     with pytest.raises(ValueError, match="CUDA"):
         df64_tiles.trailing_update_df64(ch, ch.clone(), [x.cpu() for x in sx], tb=64)
+    with pytest.raises(ValueError, match="k-step"):  # w = 11: chunks of 16 columns
+        df64_tiles.trailing_update_df64(ch, ch.clone(), sx, tb=64, w=11)
 
 
 def test_df64_elementwise_same_bits_on_card(cuda):
@@ -569,6 +671,54 @@ def test_packed_df64_kernel_same_bits_as_plain(cuda, n, nb, tb, s, w, k):
         assert torch.equal(_bits32(got), _bits32(want))
         assert torch.equal(_bits32(got[~mask]), _bits32(orig[~mask]))
     assert not torch.equal(out[0].cpu()[mask], ch[mask])
+
+
+PACKED_ADVERSARIAL_CASES = [  # (n, nb, tb, s, w, k, kind)
+    (2048, 1024, 512, 7, 8, 0, "max"),  # one chunk of kb = 1024: sums of exactly 2^24 units
+    (2048, 1024, 512, 7, 8, 0, "alternating"),
+    (1536, 768, 96, 6, 9, 0, "max"),  # three chunks of kb = 256, tb = 96
+    (1536, 768, 96, 6, 9, 0, "alternating"),
+]
+
+
+@pytest.mark.parametrize("n,nb,tb,s,w,k,kind", PACKED_ADVERSARIAL_CASES)
+def test_packed_df64_kernel_adversarial_slices_same_bits(cuda, n, nb, tb, s, w, k, kind):
+    from dla_tpu_torch.kernels import df64_tiles
+
+    ch, cl, _ = _packed_df64_inputs(n, nb, 1, w, k, seed=n + w)
+    sx = adversarial_slices(n - (k + 1) * nb, nb, s, w, kind, seed=n + nb)
+    kw = dict(n=n, nb=nb, k=k, tb=tb, w=w)
+    ref = df64_tiles.trailing_update_packed_df64_plain(ch.clone(), cl.clone(), sx, **kw)
+    out = df64_tiles.trailing_update_packed_df64(ch.to(cuda), cl.to(cuda),
+                                                 [x.to(cuda) for x in sx], **kw)
+    torch.cuda.synchronize()
+    for got, want in zip(out, ref):
+        assert torch.equal(_bits32(got.cpu()), _bits32(want))
+
+
+def test_packed_df64_kernel_20_launches_back_to_back(cuda):
+    # one packed pair through 20 queued launches at steps k = 0..6 in turn, as a
+    # factorization's steps, against the plain version's 20 steps on the card
+    from dla_tpu_torch.kernels import df64_tiles
+
+    n, nb, tb, s, w = 2048, 256, 128, 7, 8
+    nt = n // nb
+    ch, cl, _ = _packed_df64_inputs(n, nb, 1, w, 0, seed=20)
+    sets = [[x.to(cuda) for x in _packed_df64_inputs(n, nb, s, w, k, seed=40 + k)[2]]
+            for k in range(nt - 1)]
+    out = (ch.to(cuda), cl.to(cuda))
+    ref = (ch.to(cuda), cl.to(cuda))
+    before = df64_tiles.packed_launches
+    for t in range(20):
+        k = t % (nt - 1)
+        df64_tiles.trailing_update_packed_df64(*out, sets[k], n=n, nb=nb, k=k, tb=tb, w=w)
+    torch.cuda.synchronize()
+    assert df64_tiles.packed_launches == before + 20
+    for t in range(20):
+        k = t % (nt - 1)
+        df64_tiles.trailing_update_packed_df64_plain(*ref, sets[k], n=n, nb=nb, k=k, tb=tb, w=w)
+    for got, want in zip(out, ref):
+        assert torch.equal(_bits32(got), _bits32(want))
 
 
 def test_packed_df64_kernel_offsets_past_2_pow_31(cuda):
