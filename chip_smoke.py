@@ -14,8 +14,10 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
    upper tiles must come back bit-identical; kernel and plain times by CUDA
    events, the rate and the share of the bound; which block body one call
    launched (the kernel library's count of launches through each body:
-   ``wgmma`` for fp32 ``high``/``default`` and bf16, ``scalar`` for
-   ``highest`` and fp64, as ``tiles.trailing_body`` says);
+   ``wgmma`` for fp32 ``high``/``default`` and bf16, ``simt`` for ``highest``,
+   ``dmma`` for fp64, as ``tiles.trailing_body`` says); at ``highest`` and
+   fp64 the output must also be, bit for bit, what ``gemm_tile``'s scalar
+   body (the same fma chain per element) gives tile column by tile column;
 3. the main path: ``plgsy(16384)`` → ``potrf_inplace`` in fp32 at ``high``
    (nb=tb=kb=1024, ib=512, two-level diagonal factor), the kernel launched
    n/nb − 1 times per factorization, the residual under the driver's gate;
@@ -27,8 +29,9 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
    N=81920, w=4096, ktb=1024 at steps k=0 and k=nt/2 for the fp32 tiers,
    bf16 storage at the same shape, fp64 at N=32768, and a ragged n=384,
    w=96, ktb=32 case; elements outside the visited tiles must come back
-   bit-identical and each call must launch the kernel once; the body, rate
-   and share of the bound as in phase 2;
+   bit-identical and each call must launch the kernel once; the body, rate,
+   share of the bound and, at ``highest`` and fp64, the bits of
+   ``gemm_tile``'s scalar body as in phase 2;
 7. the packed path at the reference's ``default:packed`` tier:
    ``plgsy_packed(81920, 4096)`` → ``potrf_packed(trailing="pallas")`` in
    fp32 at ``default`` (ktb=1024, kb=4096, ib=512, two-level diagonal
@@ -50,7 +53,8 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     N/nb − 1 = 23 times per factorization, the blocked df64 residual under
     1e-10 and the native fp64 residual of the same factor under it;
     then the port's native fp64 ``potrf_inplace`` at the same N, timed once
-    beside it;
+    beside it and beside ``NATIVE_FP64_BEFORE``, kernel #1 launched
+    N/nb − 1 = 23 times, every launch through the ``dmma`` body;
 12. the df64 kernel path against the plain path: N=4096 factored on the card
     and through the plain versions on the CPU, max|ΔL| ≤ 1e-12·max|L|, both
     df64 residuals under 1e-10;
@@ -72,10 +76,12 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     ``potrf_shrink(nb=8192, panel="blocktrsm", trailing="pallas", tb=1024,
     kb=256, trailing_alias=False, diag_factor="lax", precision="highest",
     ib=512)``, a warm-up and three timed repeats, kernel #1 launched 3 times
-    per factorization, the residual under the fp32 gate;
+    per factorization, every launch through the ``simt`` body, the residual
+    under the fp32 gate, the median beside ``HIGHEST_PATH_BEFORE``;
 16. the ``panel_factor`` path at the same matrix: ``potrf_shrink(nb=512,
     panel="pallas", trailing="pallas")`` at ``highest``, 64 panel_factor and
-    63 trailing launches per factorization;
+    63 trailing launches per factorization (every one through ``simt``), the
+    median beside ``PANEL_FACTOR_PATH_BEFORE``;
 17. the ``panel_apply`` path at the main path's configuration:
     ``potrf_inplace(panel="pallas", panel_ib=256)``, 15 panel_apply and 15
     trailing launches per factorization, every panel_apply call through the
@@ -209,6 +215,11 @@ PANEL_APPLY_KW = dict(MAIN_KW, panel="pallas", panel_ib=256)
 # phase 17's path median with #3 as it was before its redesign (64-row strips of
 # scalar FMAs, commit 9e5533b), printed beside this run's for comparison
 PANEL_APPLY_PATH_BEFORE = "59.6 and 59.9 ms in two runs (NVIDIA H100 80GB HBM3, 700.00 W)"
+# the medians of phases 15 and 16 and phase 11's native fp64 time with #1/#2's
+# fp32 highest and fp64 body on scalar 64 x 64 nt_block blocks (commit 49d9d4e)
+HIGHEST_PATH_BEFORE = "509.3 ms (NVIDIA H100 80GB HBM3, 700.00 W)"
+PANEL_FACTOR_PATH_BEFORE = "680.6 ms (NVIDIA H100 80GB HBM3, 700.00 W)"
+NATIVE_FP64_BEFORE = "394.4 ms, residual 1.205e-15 (NVIDIA H100 80GB HBM3, 700.00 W)"
 N_MODES = 4096  # every potrf mode, card against CPU
 # the packed df64 path: the driver's configuration (potrf_driver.py: ktb = min(512, NB))
 N_PDF64, NB_PDF64, KTB_PDF64 = 40960, 1024, 512
@@ -314,9 +325,9 @@ def pair_bound(pairs: int, tb: int, nb: int, item: int, p_bytes: float, dtype, p
 
 
 def kernel_body(fn) -> str:
-    """Which block body of the trailing kernels ``fn`` launched: ``"wgmma"``
-    or ``"scalar"``, from the library's count of launches through each body
-    (``tiles.body_launches``) before and after one call."""
+    """Which block body of the trailing kernels ``fn`` launched: ``"wgmma"``,
+    ``"simt"`` or ``"dmma"``, from the library's count of launches through
+    each body (``tiles.body_launches``) before and after one call."""
     from dla_tpu_torch.kernels import tiles
 
     before = tiles.body_launches()
@@ -327,14 +338,37 @@ def kernel_body(fn) -> str:
     return rose[0]
 
 
-def trailing_report(kind, name, row, tol, pairs, tb, nb, tag):
+def trailing_report(kind, name, row, tol, pairs, tb, nb, tag, same=None):
     """Print a trailing kernel case: error, times, rate (2·pairs·tb²·nb
-    operations), the share of the bound, the body."""
+    operations), the share of the bound, the body and, for the chain bodies,
+    whether the bits are ``gemm_tile``'s scalar body's."""
     tfs = 2 * pairs * tb * tb * nb / (row["ms"] * 1e-3) / 1e12
+    chain = "" if same is None else f", bits of gemm_tile's scalar body: {same}"
     print(f"{kind} {name}: body {row['body']}, max_abs_err={row['max_abs_err']:.3e} (tol "
           f"{tol:.3e}) kernel {row['ms']:.3f} ms = {tfs:.2f} TF/s, plain {row['plain_ms']:.3f} "
           f"ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%}"
-          f" of the bound {tag}", flush=True)
+          f" of the bound{chain} {tag}", flush=True)
+
+
+def chain_bits(out, c, p, columns, dtype, prec) -> bool | None:
+    """Whether ``out`` holds, in every tile column of the window, the bits of
+    ``gemm_tile``'s scalar body (``tile_kernel`` on ``nt_block``: one fma chain
+    per element in ascending k, as the ``simt`` and ``dmma`` bodies sum) on
+    the same tiles of ``c`` and ``p``; None where the tier runs ``wgmma`` or
+    the tensors lie on the CPU (whose plain versions sum otherwise).
+    ``columns`` gives each tile column as (the block of ``c``, its first row
+    of ``p``, tb)."""
+    from dla_tpu_torch.kernels import tiles
+
+    if tiles.trailing_body(dtype, prec) == "wgmma" or out.device.type != "cuda":
+        return None
+    require(tiles.tile_op_body("gemm", dtype, prec) == "scalar",
+            "gemm_tile does not run its scalar body at this tier")
+    for blk, r0, tb in columns:
+        ref = tiles.gemm_tile(c[blk], p[r0:], p[r0:r0 + tb])
+        if not torch.equal(bits(out[blk]), bits(ref)):
+            return False
+    return True
 
 
 def tolerance(dtype, c: torch.Tensor, p: torch.Tensor) -> float:
@@ -374,6 +408,9 @@ def lower_case(dev, tag, m, tb, nb, origin, dtype, prec, iters):
                 "elements outside the lower window tiles changed")
         err = torch.where(lower, (out.double() - ref.double()).abs(), 0).max().item()
         tol = tolerance(dtype, c, p)
+        o = origin * tb
+        same = chain_bits(out, c, p, [((slice(o + j0, None), slice(o + j0, o + j0 + tb)), j0, tb)
+                                      for j0 in range(0, m - o, tb)], dtype, prec)
         k_ms = cuda_ms(lambda: tiles.trailing_update_lower(out, p, **kw), iters)
         p_ms = cuda_ms(lambda: trailing_update_lower_plain(ref, p, **kw), iters)
         body = kernel_body(lambda: tiles.trailing_update_lower(out, p, **kw))
@@ -384,9 +421,10 @@ def lower_case(dev, tag, m, tb, nb, origin, dtype, prec, iters):
                **pair_bound(pairs, tb, nb, c.element_size(), p.numel() * p.element_size(),
                             dtype, prec))
     name = f"m={m} tb={tb} nb={nb} origin={origin} {str(dtype)[6:]}/{prec}"
-    trailing_report("trailing_update_lower", name, row, tol, pairs, tb, nb, tag)
+    trailing_report("trailing_update_lower", name, row, tol, pairs, tb, nb, tag, same)
     require(err <= tol, f"kernel disagrees with the plain version at {name}")
     require(body == want, f"the {body} body ran at {name}, not the {want} one")
+    require(same is not False, f"the {body} body lost gemm_tile's scalar bits at {name}")
     return row
 
 
@@ -517,7 +555,7 @@ def slab_visit(dev, n, w, tb, base, j):
 
 
 def packed_case(dev, tag, n, w, ktb, k, dtype, prec, iters):
-    from dla_tpu_torch.algos.packed import packed_rows
+    from dla_tpu_torch.algos.packed import _row_offset, packed_rows
     from dla_tpu_torch.kernels import tiles
     from dla_tpu_torch.kernels.tiles import trailing_update_packed_plain
     from dla_tpu_torch.utils import precision
@@ -547,6 +585,12 @@ def packed_case(dev, tag, n, w, ktb, k, dtype, prec, iters):
             del visit, o, c0, d
         require(changed, "the packed kernel changed nothing")
         tol = tolerance(dtype, c, p)
+        columns = []
+        for c0 in range(0, n - base, ktb):  # each tile column lies in one slab
+            j, cs = divmod(base + c0, w)
+            r0 = _row_offset(j, nt, w) + cs
+            columns.append(((slice(r0, r0 + n - base - c0), slice(cs, cs + ktb)), c0, ktb))
+        same = chain_bits(out, c, p, columns, dtype, prec)
         del c
         k_ms = cuda_ms(lambda: tiles.trailing_update_packed(out, p, **kw), iters)
         p_ms = cuda_ms(lambda: trailing_update_packed_plain(ref, p, **kw), iters)
@@ -558,9 +602,10 @@ def packed_case(dev, tag, n, w, ktb, k, dtype, prec, iters):
                **pair_bound(pairs, ktb, w, out.element_size(), p.numel() * p.element_size(),
                             dtype, prec))
     name = f"n={n} w={w} ktb={ktb} k={k} {str(dtype)[6:]}/{prec}"
-    trailing_report("trailing_update_packed", name, row, tol, pairs, ktb, w, tag)
+    trailing_report("trailing_update_packed", name, row, tol, pairs, ktb, w, tag, same)
     require(err <= tol, f"packed kernel disagrees with the plain version at {name}")
     require(body == want, f"the {body} body ran at {name}, not the {want} one")
+    require(same is not False, f"the {body} body lost gemm_tile's scalar bits at {name}")
     del out, ref, p
     torch.cuda.empty_cache()
     return row
@@ -735,7 +780,7 @@ def phase_df64_path(dev, tag):
     import dla_tpu_torch as T
     import dla_tpu_torch.algos as TA
     from dla_tpu_torch.algos import potrf_df64, residual_potrf_df64_blocked
-    from dla_tpu_torch.kernels import df64_tiles
+    from dla_tpu_torch.kernels import df64_tiles, tiles
 
     n = N_DF64
     per_fact = n // NB_DF64 - 1
@@ -785,18 +830,26 @@ def phase_df64_path(dev, tag):
     torch.cuda.empty_cache()
     a64 = T.plgsy(n, bump=float(n), seed=51, dtype=torch.float64, device=dev)
     sync()
+    before, bodies = tiles.launches, tiles.body_launches()
     t0 = time.perf_counter()
     l64 = TA.potrf_inplace(a64, nb=NB_DF64, tb=NB_DF64, kb=NB_DF64, ib=512,
                           diag_factor="twolevel")
     sync()
     dt64 = time.perf_counter() - t0
+    native = tiles.launches - before
+    rose = {b: v - bodies[b] for b, v in tiles.body_launches().items() if v != bodies[b]}
+    require(native == per_fact and rose == {"dmma": native},
+            f"native fp64 potrf_inplace: {native} #1 launches through {rose}, expected "
+            f"{per_fact} through dmma")
     r64 = float(T.residual_potrf(T.plgsy(n, bump=float(n), seed=51, dtype=torch.float64,
                                          device=dev), torch.tril(l64), assume_symmetric=True,
                                  assume_tril=True, row_chunk=min(n, 4096)))
     print(f"N={n} fp64 routes: df64 potrf_df64 {tmed * 1e3:.1f} ms "
           f"({n**3 / 3 / tmed / 1e9:.2f} GFLOP/s), native fp64 potrf_inplace "
-          f"{dt64 * 1e3:.1f} ms ({n**3 / 3 / dt64 / 1e9:.2f} GFLOP/s, residual {r64:.3e}) "
+          f"{dt64 * 1e3:.1f} ms ({n**3 / 3 / dt64 / 1e9:.2f} GFLOP/s, residual {r64:.3e}, "
+          f"{native} #1 launches through dmma; with #1 on nt_block: {NATIVE_FP64_BEFORE}) "
           f"{tag}", flush=True)
+    require(r64 <= 1e-14, "native fp64 residual above 1e-14")
     del a64, l64
     torch.cuda.empty_cache()
     return launches
@@ -1029,6 +1082,15 @@ def dense_residual(name, a, l, n, ms=None):
     return res
 
 
+def simt_launches(name, bodies, launches):
+    """Require that the trailing kernels' ``launches`` since ``bodies`` (the
+    counts per body) all went through the ``simt`` body."""
+    from dla_tpu_torch.kernels import tiles
+
+    rose = {b: v - bodies[b] for b, v in tiles.body_launches().items() if v != bodies[b]}
+    require(rose == {"simt": launches}, f"{name}: {launches} #1 launches went through {rose}")
+
+
 def phase_highest_tier(dev, tag):
     import dla_tpu_torch as T
     import dla_tpu_torch.algos as TA
@@ -1036,8 +1098,12 @@ def phase_highest_tier(dev, tag):
 
     n, nb = N_HIGHEST, HIGHEST_KW["nb"]
     name = f"highest tier potrf_shrink N={n} nb={nb} blocktrsm/pallas fp32 highest"
-    _, tmed, l, a = timed_path(dev, tag, name, n, lambda a: TA.potrf_shrink(a, **HIGHEST_KW),
-                               {(tiles, "launches"): n // nb - 1}, reps=3)
+    bodies = tiles.body_launches()
+    counts, tmed, l, a = timed_path(dev, tag, name, n, lambda a: TA.potrf_shrink(a, **HIGHEST_KW),
+                                    {(tiles, "launches"): n // nb - 1}, reps=3)
+    simt_launches(name, bodies, counts["launches"])
+    print(f"{name}: median {tmed * 1e3:.1f} ms; with #1 on nt_block: {HIGHEST_PATH_BEFORE} {tag}",
+          flush=True)
     dense_residual(name, a, l, n)
     del a, l
     torch.cuda.empty_cache()
@@ -1051,11 +1117,15 @@ def phase_panel_factor_path(dev, tag):
 
     n, nb = N_HIGHEST, NB_PANEL_FACTOR
     name = f"panel_factor path potrf_shrink N={n} nb={nb} pallas/pallas fp32 highest"
-    counts, _, l, a = timed_path(
+    bodies = tiles.body_launches()
+    counts, tmed, l, a = timed_path(
         dev, tag, name, n,
         lambda a: TA.potrf_shrink(a, nb=nb, panel="pallas", trailing="pallas",
                                  precision="highest"),
         {(panel, "panel_factor_launches"): n // nb, (tiles, "launches"): n // nb - 1}, reps=2)
+    simt_launches(name, bodies, counts["launches"])
+    print(f"{name}: median {tmed * 1e3:.1f} ms; with #1 on nt_block: {PANEL_FACTOR_PATH_BEFORE} "
+          f"{tag}", flush=True)
     dense_residual(name, a, l, n)
     del a, l
     torch.cuda.empty_cache()

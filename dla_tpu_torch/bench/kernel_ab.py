@@ -15,7 +15,11 @@ the same inputs at its path's shape, in turns: other, this, this, other.
 - ``lower``: ``dla_trailing_lower_<dtype>`` (kernel #1) at the main path's
   first update, m=16384, nb=tb=1024, origin 0;
 - ``packed``: ``dla_trailing_packed_<dtype>`` (kernel #2) at the packed
-  path's first update, n=81920, w=4096, ktb=1024, k=0;
+  path's first update, n=81920, w=4096, ktb=1024, k=0 (fp64: n=32768, as
+  ``chip_smoke.py`` phase 6; ``--n``, ``--k``);
+  for both, the block body each build ran (its own count of launches per
+  body), and the exit code is 1 where fp32 ``highest`` or fp64 gives other
+  bits in the two builds (both sum one fma chain per element in ascending k);
 - ``df64``: ``dla_trailing_df64`` (kernel #9) at the f64x path's, m=24576,
   tb=512, nb=1024, s=7, w=8, origin 0 (``--tier`` and ``--dtype`` unused);
 - ``packed_df64``: ``dla_trailing_packed_df64`` (kernel #10) at the packed
@@ -75,7 +79,7 @@ from pathlib import Path
 
 import torch
 
-SOURCE = {"lower": "trailing_lower.cu", "packed": "trailing_packed.cu",
+SOURCE = {"lower": "trailing_lower.cu", "packed": ("trailing_packed.cu", "trailing_lower.cu"),
           "df64": "trailing_df64.cu", "packed_df64": "trailing_packed_df64.cu",
           "potrf_tile": "potrf_tile.cu",
           "panel_factor": "panel_factor.cu", "ring": "ring.cu", "tile_ops": "tile_ops.cu",
@@ -95,8 +99,9 @@ def _build_lib(csrc: Path, out: Path, entry: str) -> ctypes.CDLL:
     register, spill and shared-memory counts."""
     from dla_tpu_torch.kernels import _build
 
+    srcs = SOURCE[entry] if isinstance(SOURCE[entry], tuple) else (SOURCE[entry],)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(out),
-           str(csrc / SOURCE[entry])]
+           *(str(csrc / src) for src in srcs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stderr}")
@@ -106,11 +111,25 @@ def _build_lib(csrc: Path, out: Path, entry: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
+def _bodies(lib, csrc: Path):
+    """A build's launches of the trailing kernels per block body (None where
+    the build has no such count): ``{"simt", "wgmma", "dmma"}`` where its
+    chain bodies exist, else ``{"scalar", "wgmma"}``."""
+    fn = getattr(lib, "dla_trailing_body_launches", None)
+    if fn is None:
+        return None
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    chain = (csrc / "trailing_chain.cuh").exists()
+    names = ("simt", "wgmma", "dmma") if chain else ("scalar", "wgmma")
+    return lambda: {name: fn(i) for i, name in enumerate(names)}
+
+
 def _compile(csrc: Path, out: Path, entry: str, symbol: str):
-    """Build ``csrc``'s source of ``entry`` into ``out``; the C function and
-    whether it takes a split scratch."""
-    src = csrc / SOURCE[entry]
-    fn = getattr(_build_lib(csrc, out, entry), symbol)
+    """Build ``csrc``'s source of ``entry`` into ``out``; the C function,
+    whether it takes a split scratch, and its body counts (trailing kernels)."""
+    src = csrc / (SOURCE[entry][0] if isinstance(SOURCE[entry], tuple) else SOURCE[entry])
+    lib = _build_lib(csrc, out, entry)
+    fn = getattr(lib, symbol)
     df64 = entry in ("df64", "packed_df64")
     scratch = not df64 and "void* scratch" in src.read_text()
     if df64:
@@ -123,7 +142,7 @@ def _compile(csrc: Path, out: Path, entry: str, symbol: str):
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 6 + [ctypes.c_int,
                                                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, scratch
+    return fn, scratch, _bodies(lib, csrc)
 
 
 def _df64_case(m, stream):
@@ -169,8 +188,9 @@ def _packed_df64_case(n, k, stream):
     return (ph, pl), launch, f"n={n} nb={nb} tb={tb} s={s} k={k}"
 
 
-def _trailing_case(entry, dtype, tier_name, stream):
-    """The lower or packed path's first update at ``tier_name``."""
+def _trailing_case(entry, dtype, tier_name, stream, n=None, k=0):
+    """The lower or packed path's first update at ``tier_name``; packed at
+    (n, k), by default phase 6's n (81920, fp64 32768) and k = 0."""
     from dla_tpu_torch.algos.packed import packed_rows
     from dla_tpu_torch.kernels import tiles
 
@@ -183,11 +203,13 @@ def _trailing_case(entry, dtype, tier_name, stream):
         ints = (m, nb, m, nb, 0, tb)
         name = f"m={m} nb=tb={tb} origin 0"
     else:
-        n, w, tb = 81920, 4096, 1024
+        w, tb = 4096, 1024
+        n = n or (32768 if dtype == torch.float64 else 81920)
+        base = (k + 1) * w
         c = torch.randn(packed_rows(n, w), w, generator=g, device=dev).to(dtype)
-        p = torch.randn(n - w, w, generator=g, device=dev).to(dtype)
-        ints = (n - w, w, w, w, n // w, tb)
-        name = f"n={n} w={w} ktb={tb} k=0"
+        p = torch.randn(n - base, w, generator=g, device=dev).to(dtype)
+        ints = (n - base, w, w, base, n // w, tb)
+        name = f"n={n} w={w} ktb={tb} k={k}"
     planes = tiles.split_planes(dtype, tier_name)
     code = tiles._TIER_CODE[tier_name]
 
@@ -585,8 +607,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tier", choices=["high", "default", "highest"], default="high")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--m", type=int, default=24576, help="df64: the window's size")
-    ap.add_argument("--n", type=int, default=40960, help="packed_df64: the matrix's size")
-    ap.add_argument("--k", type=int, default=0, help="packed_df64: the step")
+    ap.add_argument("--n", type=int, default=None,
+                    help="packed_df64 (default 40960), packed (default 81920, fp64 32768): "
+                         "the matrix's size")
+    ap.add_argument("--k", type=int, default=0, help="packed_df64, packed: the step")
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -610,18 +634,20 @@ def main(argv=None) -> int:
         inputs, launch, name = _df64_case(args.m, stream)
         symbol, scale = "dla_trailing_df64", None
     elif args.entry == "packed_df64":
-        inputs, launch, name = _packed_df64_case(args.n, args.k, stream)
+        inputs, launch, name = _packed_df64_case(args.n or 40960, args.k, stream)
         symbol, scale = "dla_trailing_packed_df64", None
     else:
-        inputs, launch, name, scale = _trailing_case(args.entry, dtype, args.tier, stream)
+        inputs, launch, name, scale = _trailing_case(args.entry, dtype, args.tier, stream,
+                                                     args.n, args.k)
         symbol = f"dla_trailing_{args.entry}_{args.dtype}"
     with tempfile.TemporaryDirectory() as tmp:
         fns = {"other": _compile(Path(args.other), Path(tmp) / "other.so", args.entry, symbol),
                "this": _compile(_build.CSRC, Path(tmp) / "this.so", args.entry, symbol)}
-        outs, times = {}, {"other": [], "this": []}
+        outs, times, ran = {}, {"other": [], "this": []}, {}
         for version in ["other", "this", "this", "other"] * args.iters:
             out = tuple(x.clone() for x in inputs)
-            fn, scratch = fns[version]
+            fn, scratch, bodies = fns[version]
+            before = bodies() if bodies else None
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
             err = launch(fn, scratch, out)
@@ -629,6 +655,8 @@ def main(argv=None) -> int:
             t1.synchronize()
             if err:
                 raise RuntimeError(f"{version}: CUDA error {err}")
+            if bodies:
+                ran[version] = [b for b, v in bodies().items() if v != before[b]]
             times[version].append(t0.elapsed_time(t1))
             outs[version] = out
             del out
@@ -641,13 +669,19 @@ def main(argv=None) -> int:
                    for a, b in zip(outs["other"], outs["this"]))
         print(f"{args.entry} {name}: same bits {same} [{card}]")
         return 0 if same else 1
+    for version, bodies in ran.items():
+        print(f"{version}: body {', '.join(bodies)}")
     a, b = (outs[v][0].view(-1) for v in ("other", "this"))
     chunk = 1 << 26  # a packed buffer in fp64 at once would not fit beside the others
     diff = max((a[i:i + chunk].double() - b[i:i + chunk].double()).abs().max().item()
                for i in range(0, a.numel(), chunk))
+    view = {torch.float32: torch.int32, torch.float64: torch.int64, torch.bfloat16: torch.int16}
+    same = all(torch.equal(a[i:i + chunk].view(view[dtype]), b[i:i + chunk].view(view[dtype]))
+               for i in range(0, a.numel(), chunk))
     print(f"{args.entry} {name}: max |this - other| = {diff:.3e} = {diff / scale:.3e} of "
-          f"max_i ||p_i||^2 [{card}]")
-    return 0
+          f"max_i ||p_i||^2, same bits {same} [{card}]")
+    chain = dtype == torch.float64 or (dtype == torch.float32 and args.tier == "highest")
+    return 1 if chain and not same else 0
 
 
 if __name__ == "__main__":

@@ -1,28 +1,13 @@
-// The scalar block body of the two trailing-update kernels: C <- C - P * P^T
-// over the lower tb-tile pairs of a square window, in place.
+// The scalar block body nt_block, C += A * B^T for a 64 x 64 block, and the
+// precision helpers the trailing, panel and task kernels share.
 //
-// trailing_lower.cu writes the window into a dense matrix, trailing_packed.cu
-// into the column-slab packed triangle. They differ only in where element
-// (r, c) of the window lives, so the staging, the k-loop, the precision tiers
-// and the epilogue are here once, templated on an address functor
-// Addr(r, c) -> T*, and the two kernels cannot drift apart. This body serves
-// the tiers the tensor cores cannot (fp32 highest, fp64); the others run the
-// tensor-core body of trailing_wgmma.cuh, which also holds the launch that
-// picks a body. The k-loop is nt_block, a 64 x 64 block of A * B^T; the panel
-// kernels (panel_factor.cu, panel_apply.cu) and the task kernels
-// (tile_ops.cu) form their products with it at every tier, so those
-// products follow one definition of the tiers.
-//
-// What a block computes. The window's w rows and columns are cut into
-// tb x tb tiles (the ragged last tile included). A 2-D grid of 64 x 64
-// output blocks covers the window; a block returns at once when all of it
-// lies in tiles above the diagonal, so the lower-pairs-only walk needs no
-// host pair table. Every element with r/tb >= c/tb becomes
-// C[r, c] - sum_k P[r, k] * P[c, k] (whole diagonal tiles, strict-upper
-// elements included); every other element is never written. The mask and
-// the address are per element, so a block may straddle tile and slab
-// boundaries. P holds the window's w rows, row-major with leading
-// dimension ldp, and nb columns.
+// nt_block is the body of the task kernels (tile_ops.cu, through tile_kernel
+// of tile_body.cuh: #7 at every tier, #6 and #8 at fp32 highest and fp64),
+// of the panel solve at highest (panel_apply.cu) and of the panel factor's
+// products (panel_factor.cu, through diag_block.cuh), so those products
+// follow one definition of the tiers. The fp32 highest and fp64 bodies of
+// the trailing kernels (trailing_chain.cuh) keep its sum, one fma chain per
+// element in ascending k over 16-column steps, and so its bits.
 //
 // Precision, as the reference's _dot_nt (pallas_tiles.py:68-88):
 //   float,  tier 0 (highest)  fp32 FMAs;
@@ -170,40 +155,6 @@ __device__ __forceinline__ void nt_block(const T* a, long long lda, long long ra
       }
     }
     __syncthreads();
-  }
-}
-
-// The trailing update at fp32 highest and fp64 (trailing_wgmma.cuh takes
-// the other tiers).
-template <typename T, typename Addr>
-__global__ void __launch_bounds__(TPB)
-trailing_kernel(const T* __restrict__ p, long long w, long long nb, long long ldp,
-                long long tb, Addr addr) {
-  using A = typename AccOf<T>::type;
-
-  const long long row0 = (long long)blockIdx.y * BM;
-  const long long col0 = (long long)blockIdx.x * BM;
-  const long long last_row = min(row0 + BM, w) - 1;
-  if (last_row / tb < col0 / tb) return;  // every element in an upper tile
-
-  A acc[TM][TM];
-  A accx[TM][TM];  // nt_block's cross terms, unused at highest
-  nt_block<T, kHighest>(p + row0 * ldp, ldp, w - row0, p + col0 * ldp, ldp, w - col0, nb, acc,
-                        accx);
-
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long r = row0 + ty + 16 * i;
-    if (r >= w) continue;
-    const long long rtile = r / tb;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const long long cc = col0 + tx + 16 * j;
-      if (cc >= w || cc / tb > rtile) continue;
-      subtract(addr(r, cc), acc[i][j]);
-    }
   }
 }
 

@@ -18,19 +18,19 @@
 // Design. The reference drives a sequential TPU grid from four prefetched
 // index tables. Here no table is needed: the block bodies are the dense
 // kernel's (trailing_wgmma.cuh for fp32 high and default and bf16 storage,
-// trailing_block.cuh for fp32 highest and fp64: output blocks that find
-// their own window coordinates from blockIdx and return when they lie above
-// the tb-diagonal, the k-loop, the precision tiers), and only the address
-// map differs (PackedWindow, shared with the df64 packed kernel). The buffer
+// trailing_chain.cuh for fp32 highest and fp64: output blocks that find
+// their own window coordinates from blockIdx, the k-loop, the precision
+// tiers), and only the address map differs (PackedWindow, shared with the
+// df64 packed kernel). The buffer
 // holds rows * w = 3.5e9 elements at n = 81920, w = 4096 (5.9e9 at
 // n = 106496), past 2^31, so every offset is 64-bit.
 //
 // Bound. As the dense kernel: the tensor-core body is bound by its bf16
 // products (w operations per element and pass against one read and one
-// write), the scalar body by FMA issue and shared-memory reads.
+// write), the chain bodies by their fp32 FMAs and fp64 tensor-core products.
 
 #include "packed_window.cuh"
-#include "trailing_wgmma.cuh"
+#include "trailing_chain.cuh"
 
 namespace {
 
@@ -63,8 +63,8 @@ int run(void* packed, const void* p, void* scratch, long long m, long long w, lo
 // C interface, loaded with ctypes. packed is the (n(n+w)/(2w), w) buffer,
 // p the panel (m x w, leading dimension ldp) with m = n - base, base =
 // (k+1)*w, nt = n / w, tb the tile of the lower-pairs mask, scratch the
-// wrapper's scratch_bytes for the split planes of P (unused by the scalar
-// body). Each returns the CUDA error of the first step that failed; 0 means
+// wrapper's scratch_bytes for the split planes of P (unused by the chain
+// bodies). Each returns the CUDA error of the first step that failed; 0 means
 // launched.
 extern "C" int dla_trailing_packed_f32(void* packed, const void* p, void* scratch,
                                        long long m, long long w, long long ldp, long long base,

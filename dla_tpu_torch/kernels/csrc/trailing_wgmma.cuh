@@ -1,12 +1,13 @@
-// The tensor-core block body of the two trailing-update kernels, and the
-// launch that picks a body: C <- C - P * P^T over the lower tb-tile pairs of
-// a square window, in place. Its pipeline (split, mainloop, stage_sums) is
+// The tensor-core block body of the two trailing-update kernels: C <- C -
+// P * P^T over the lower tb-tile pairs of a square window, in place (the
+// launch that picks a body is launch_trailing, trailing_chain.cuh). Its
+// pipeline (split, mainloop, stage_sums) is
 // also the body of the task kernels trsm_tile and gemm_tile (tile_ops.cu),
 // which multiply two operands, A * B^T, into a new tensor; its parts (the
 // TMA loads, mbarriers, wgmma128, block_tile, encode_bf16) also build the
 // df64 body (trailing_df64.cuh).
 //
-// What it computes is what the scalar body (trailing_block.cuh) computes:
+// What it computes is what the FMA-chain bodies (trailing_chain.cuh) compute:
 // every element with r/tb >= c/tb (whole diagonal tiles) becomes
 // C[r, c] - sum_k P[r, k] * P[c, k], every other element is never written,
 // and the address of element (r, c) comes from the kernel's address functor
@@ -19,8 +20,9 @@
 //   float, default   bf16(a) * bf16(b), fp32 accumulation;
 //   bf16 storage     bf16 operands, fp32 accumulation, and the epilogue
 //                    bf16(c - bf16(acc)).
-// float highest and double keep the scalar body: the tensor cores give
-// neither IEEE fp32 products nor the fp64 the reference asks for.
+// float highest and double take the FMA-chain bodies of trailing_chain.cuh:
+// bf16 products give neither IEEE fp32 products nor the fp64 the reference
+// asks for.
 //
 // Design.
 // - Split once. A small kernel writes P (w x nb, leading dimension ldp) into
@@ -479,64 +481,8 @@ int launch(const T* p, long long w, long long nb, long long ldp, long long tb, A
 
 }  // namespace tc
 
-// The scalar body over a w x w window: 64 x 64 blocks on a 2-D grid.
-template <typename T, typename Addr>
-int launch_scalar(const T* p, long long w, long long nb, long long ldp, long long tb, Addr addr,
-                  cudaStream_t stream) {
-  const long long g = (w + BM - 1) / BM;
-  if (g > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)g, (unsigned)g);
-  trailing_kernel<T, Addr><<<grid, TPB, 0, stream>>>(p, w, nb, ldp, tb, addr);
-  return (int)cudaGetLastError();
-}
-
-// Launch the update over a w x w window on `stream`. The body follows the
-// storage type and tier: fp32 high takes the tensor-core body with two bf16
-// planes of P, fp32 default and bf16 storage (any tier) with one, fp32
-// highest and fp64 the scalar body (kernels/tiles.py:split_planes keeps the
-// same table, to size the scratch). scratch holds scratch_bytes for the
-// planes; the scalar body does not read it. Returns the CUDA error of the
-// first step that failed (0 = launched); a refused launch is never retried
-// through the other body.
-// Launches of both trailing kernels in this process through each body
-// (kScalarBody, kTensorCoreBody), counted where a launch succeeds;
-// dla_trailing_body_launches (trailing_lower.cu) reads them.
+// The block bodies of the task kernels and the panel solve (tile_ops.cu,
+// panel_apply.cu), which count their launches per body with these indices.
 enum Body { kScalarBody = 0, kTensorCoreBody = 1 };
-inline long long body_launches[2] = {0, 0};
-
-inline int counted(int err, Body body) {
-  if (err == 0) ++body_launches[body];
-  return err;
-}
-
-template <typename T, typename Addr>
-int launch_trailing(int tier, const void* p, long long w, long long nb, long long ldp,
-                    long long tb, Addr addr, void* scratch, long long scratch_bytes,
-                    void* stream) {
-  if (w <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const T* pp = (const T*)p;
-  if constexpr (std::is_same_v<T, float>) {
-    switch (tier) {
-      case kHighest:
-        return counted(launch_scalar<T>(pp, w, nb, ldp, tb, addr, s), kScalarBody);
-      case kHigh:
-        return counted(tc::launch<T, 2>(pp, w, nb, ldp, tb, addr, scratch, scratch_bytes, s),
-                       kTensorCoreBody);
-      case kDefault:
-        return counted(tc::launch<T, 1>(pp, w, nb, ldp, tb, addr, scratch, scratch_bytes, s),
-                       kTensorCoreBody);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  } else if constexpr (std::is_same_v<T, double>) {
-    (void)tier, (void)scratch, (void)scratch_bytes;
-    return counted(launch_scalar<T>(pp, w, nb, ldp, tb, addr, s), kScalarBody);
-  } else {
-    (void)tier;
-    return counted(tc::launch<T, 1>(pp, w, nb, ldp, tb, addr, scratch, scratch_bytes, s),
-                   kTensorCoreBody);
-  }
-}
 
 }  // namespace dla

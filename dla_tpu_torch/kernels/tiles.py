@@ -26,18 +26,22 @@ The four task kernels of the reference's tile DAG, one launch per task:
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel; on a
 CPU tensor it runs its ``*_plain`` version, the same function in torch ops.
 Any other device, or a CUDA tensor the kernel does not take, raises. The two
-trailing kernels share two block bodies and differ only in their address
-maps: fp32 ``high`` and ``default`` and bf16 storage run on the tensor cores
-(``csrc/trailing_wgmma.cuh``: ``wgmma`` on bf16 planes of P, which a split
-kernel writes into scratch the wrapper allocates, :func:`split_planes`
-planes of it), fp32 ``highest`` and fp64 on scalar FMAs
-(``csrc/trailing_block.cuh``). :func:`split_plain` is the split in torch ops.
+trailing kernels share three block bodies and differ only in their address
+maps: fp32 ``high`` and ``default`` and bf16 storage run on the bf16 tensor
+cores (``csrc/trailing_wgmma.cuh``: ``wgmma`` on bf16 planes of P, which a
+split kernel writes into scratch the wrapper allocates, :func:`split_planes`
+planes of it), fp32 ``highest`` on a register-blocked fp32 FMA chain and fp64
+on an fp64 chain through the fp64 tensor cores (``csrc/trailing_chain.cuh``;
+both keep the bits of the scalar ``nt_block`` that the task kernels run).
+:func:`trailing_body` names the body, :func:`split_plain` is the split in
+torch ops, and :func:`chain_grid` and :func:`chain_owners` model the chain
+bodies' grid and which thread holds which output.
 
 The reference walks host tables of tile pairs (``_lower_pairs``, ``:322``;
-``_packed_pairs``, ``:531``). Here no table is needed: each kernel block
-computes its own tile indices and returns when it lies above the diagonal,
-and the plain versions walk the window's tile columns, one product per
-column.
+``_packed_pairs``, ``:531``). Here no pair table is needed: each kernel block
+computes its own tile indices (the tensor-core body returns when it lies
+above the diagonal; the chain bodies launch no such block), and the plain
+versions walk the window's tile columns, one product per column.
 
 ``launches``, ``packed_launches`` and ``potrf_tile_launches``,
 ``trsm_tile_launches``, ``syrk_tile_launches``, ``gemm_tile_launches`` count
@@ -106,8 +110,8 @@ SPLIT_ROWS, SPLIT_K = 128, 64
 def split_planes(dtype: torch.dtype, tier_name: str) -> int:
     """How many bf16 planes of P the trailing kernels' tensor-core body takes
     for this storage dtype and tier: fp32 ``high`` 2 (hi, lo), fp32
-    ``default`` 1, bf16 storage 1 at any tier; 0 means the scalar body (fp32
-    ``highest``, fp64). ``launch_trailing`` of ``csrc/trailing_wgmma.cuh``
+    ``default`` 1, bf16 storage 1 at any tier; 0 means a chain body (fp32
+    ``highest``, fp64). ``launch_trailing`` of ``csrc/trailing_chain.cuh``
     dispatches on the same table."""
     if dtype == torch.bfloat16:
         return 1
@@ -117,18 +121,101 @@ def split_planes(dtype: torch.dtype, tier_name: str) -> int:
 
 
 def trailing_body(dtype: torch.dtype, tier_name: str) -> str:
-    """Which block body the trailing kernels run: ``"wgmma"`` (tensor cores)
-    or ``"scalar"``."""
-    return "wgmma" if split_planes(dtype, tier_name) else "scalar"
+    """Which block body the trailing kernels run: ``"wgmma"`` (bf16 tensor
+    cores), ``"simt"`` (fp32 ``highest``: the fp32 FMA chain) or ``"dmma"``
+    (fp64: the fp64 chain on the fp64 tensor cores)."""
+    if split_planes(dtype, tier_name):
+        return "wgmma"
+    return "dmma" if dtype == torch.float64 else "simt"
 
 
 def body_launches() -> dict[str, int]:
     """Launches of both trailing kernels in this process through each block
-    body, as the C launch counts them where it launches: ``{"scalar": n,
-    "wgmma": n}``. Needs the kernel library (a CUDA device and ``nvcc``)."""
+    body, as the C launch counts them where it launches: ``{"simt": n,
+    "wgmma": n, "dmma": n}``. Needs the kernel library (a CUDA device and
+    ``nvcc``)."""
     fn = _build.load().dla_trailing_body_launches
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-    return {"scalar": fn(0), "wgmma": fn(1)}
+    return {"simt": fn(0), "wgmma": fn(1), "dmma": fn(2)}
+
+
+#: the chain bodies' output tile, block rows per group and most groups
+#: (``kTile``, ``kGroup``, ``kMaxGroups`` of ``csrc/trailing_chain.cuh``)
+CHAIN_TILE, CHAIN_GROUP, CHAIN_MAX_GROUPS = 128, 8, 512
+#: the chain bodies' k-step: nt_block's, so k is zero-padded alike
+CHAIN_K = 16
+#: the DMMA body's warps along the tile's rows and columns (``kDWarpsM``,
+#: ``kDWarpsN``): 16 warps of 32 × 32 outputs
+CHAIN_DMMA_WARPS = (4, 4)
+
+
+def chain_row_blocks(bi: int, w: int, tb: int) -> int:
+    """Output tiles of block row ``bi`` that the chain bodies launch: the
+    columns before the end of the tb-tile of the block's last row
+    (``row_blocks`` of ``csrc/trailing_chain.cuh``)."""
+    g = -(-w // CHAIN_TILE)
+    last = min(bi * CHAIN_TILE + CHAIN_TILE - 1, w - 1)
+    return min(g, -(-((last // tb + 1) * tb) // CHAIN_TILE))
+
+
+def chain_grid(w: int, tb: int) -> list[tuple[int, int]]:
+    """(row0, col0) of the output tile of each block of the chain bodies, in
+    block order, decoded as ``lower_tile`` of ``csrc/trailing_chain.cuh``
+    decodes ``blockIdx.x``: the group's first block (``lower_grid``'s table)
+    by bisection, then the group's column-by-column walk, in which column
+    ``bj`` holds the group's rows whose :func:`chain_row_blocks` exceeds it."""
+    g = -(-w // CHAIN_TILE)
+    groups = -(-g // CHAIN_GROUP)
+    if groups > CHAIN_MAX_GROUPS:
+        raise ValueError(f"window {w} needs {groups} block groups, more than {CHAIN_MAX_GROUPS}")
+    counts = [chain_row_blocks(bi, w, tb) for bi in range(g)]
+    start = [sum(counts[: G * CHAIN_GROUP]) for G in range(groups)] + [sum(counts)]
+    tiles_ = []
+    for b in range(start[-1]):
+        lo, hi = 0, groups - 1
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if start[mid] <= b else (lo, mid - 1)
+        first = lo * CHAIN_GROUP
+        rows = min(g - first, CHAIN_GROUP)
+        left, prev = b - start[lo], 0
+        for s in range(rows):
+            span = (counts[first + s] - prev) * (rows - s)
+            if left < span:
+                tiles_.append(((first + s + left % (rows - s)) * CHAIN_TILE,
+                               (prev + left // (rows - s)) * CHAIN_TILE))
+                break
+            left -= span
+            prev = counts[first + s]
+    return tiles_
+
+
+def chain_owners(body: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Which outputs of a 128×128 tile each thread of a chain body holds:
+    (rows, cols), each (threads, outputs a thread), entry [t, e] the tile row
+    and column of thread t's e-th sum. ``"simt"``, 256 threads: thread
+    (ty, tx) = (t // 16, t % 16) holds rows ty·4 + i and 64 + ty·4 + i by
+    columns tx·4 + j and 64 + tx·4 + j. ``"dmma"``, 512 threads: warp
+    (wm, wn) = (warp % 4, warp // 4) holds rows wm·32 … +31 by columns
+    wn·32 … +31 as 2 × 4 m16n8 fragments; lane (g, q) = (lane // 4, lane % 4)
+    holds rows g and g + 8 and columns 2q and 2q + 1 of each."""
+    if body == "simt":
+        t, e = torch.arange(256)[:, None], torch.arange(64)[None, :]
+        i, j = e // 8, e % 8
+        rows = (i // 4) * 64 + (t // 16) * 4 + i % 4
+        cols = (j // 4) * 64 + (t % 16) * 4 + j % 4
+    elif body == "dmma":
+        wm_n, wn_n = CHAIN_DMMA_WARPS
+        mi_n, ni_n = CHAIN_TILE // 16 // wm_n, CHAIN_TILE // 8 // wn_n
+        t = torch.arange(32 * wm_n * wn_n)[:, None]
+        e = torch.arange(4 * mi_n * ni_n)[None, :]
+        warp, lane = t // 32, t % 32
+        mi, ni, x = e // (4 * ni_n), e // 4 % ni_n, e % 4
+        rows = (warp % wm_n) * 16 * mi_n + mi * 16 + lane // 4 + 8 * (x // 2)
+        cols = (warp // wm_n) * 8 * ni_n + ni * 8 + 2 * (lane % 4) + x % 2
+    else:
+        raise ValueError(f"no chain body {body!r}")
+    return rows, cols
 
 
 def tile_op_planes(op: str, dtype: torch.dtype, tier_name: str) -> int:
@@ -204,7 +291,7 @@ def _pair_scratch(m: int, n: int, k: int, planes: int,
 
 def _split_scratch(p: torch.Tensor, planes: int) -> torch.Tensor | None:
     """Uninitialised scratch for the split planes (the split kernel writes all
-    of it, padding included); None for the scalar body."""
+    of it, padding included); None for the chain bodies."""
     if not planes:
         return None
     return torch.empty(_split_shape(p, planes), dtype=torch.bfloat16, device=p.device)

@@ -13,11 +13,17 @@ order); bf16 storage 2^-6 of (max|c| + scale) (two bf16 roundings, each
 possibly one ulp apart).
 
 The trailing kernels run fp32 ``high``/``default`` and bf16 storage through
-the tensor-core body (``csrc/trailing_wgmma.cuh``) and fp32 ``highest`` and
-fp64 through the scalar one; the cases below meet the tensor-core body's
-edges (w not a multiple of its 128-row tile, tb below or not dividing 128,
-nb not a multiple of its 64-column k-step, a strided panel, many k-steps),
-and the kernels a profiler sees show which body ran. The task kernels #6
+the tensor-core body (``csrc/trailing_wgmma.cuh``), fp32 ``highest`` through
+the SIMT body and fp64 through the DMMA body (``csrc/trailing_chain.cuh``);
+the cases below meet the tensor-core body's edges (w not a multiple of its
+128-row tile, tb below or not dividing 128, nb not a multiple of its
+64-column k-step, a strided panel, many k-steps), and the kernels a profiler
+sees show which body ran. The two chain bodies must give, bit for bit, what
+``gemm_tile``'s scalar body (``tile_kernel`` on ``nt_block``, the same fma
+chain per element) gives on the same tiles, at tb 32 and 96, nb 7, windows
+off 128, P views aligned or not, packed steps across slabs and 20 launches
+back to back; one fp64 tensor-core instruction of each shape must round as
+an exact chain of fmas; ptxas must show no spill. The task kernels #6
 ``trsm_tile`` and #8 ``gemm_tile`` run the same tensor-core pipeline with two
 operands at those tiers (#7 ``syrk_tile`` stays on the scalar body); their
 split scratch, body counts, views, short k and refusals are tested below.
@@ -151,7 +157,8 @@ def _kernel_names(fn):
             fn()
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages()]
-        if any("trailing_tc_kernel" in k or "trailing_kernel<" in k for k in names):
+        if any(b in k for k in names for b in ("trailing_tc_kernel", "trailing_simt_kernel",
+                                               "trailing_dmma_kernel")):
             break
     return names
 
@@ -161,7 +168,8 @@ def _kernel_names(fn):
                                         (torch.float32, "highest"), (torch.float64, "high")])
 @pytest.mark.parametrize("kind", ["lower", "packed"])
 def test_body_that_ran(cuda, kind, dtype, prec):
-    # fp32 high/default and bf16 run the tensor-core kernel and never the scalar one
+    # fp32 high/default and bf16 run the tensor-core kernel, fp32 highest the
+    # SIMT chain, fp64 the DMMA chain, each the one body its tier names
     n, w = 384, 128
     p = torch.randn(n - w, w, device=cuda).to(dtype)
     if kind == "lower":
@@ -176,9 +184,10 @@ def test_body_that_ran(cuda, kind, dtype, prec):
         names = _kernel_names(call)
         after = tiles.body_launches()
     assert [b for b in after if after[b] != before[b]] == [want]
-    tc = any("trailing_tc_kernel" in k for k in names)
-    scalar = any("trailing_kernel<" in k for k in names)
-    assert (tc, scalar) == (want == "wgmma", want == "scalar"), names
+    ran = {b for b, kernel in (("wgmma", "trailing_tc_kernel"), ("simt", "trailing_simt_kernel"),
+                               ("dmma", "trailing_dmma_kernel")) if any(kernel in k for k in names)}
+    assert ran == {want}, names
+    assert not any("trailing_kernel<" in k for k in names), names  # the old scalar body is gone
     assert any("split_kernel" in k for k in names) == (want == "wgmma")
 
 
@@ -245,6 +254,220 @@ def test_refused_launch_raises(cuda, monkeypatch, kind):
     torch.cuda.synchronize()
     assert (tiles.launches, tiles.packed_launches) == before
     assert torch.equal(c, keep)
+
+
+# ---- the FMA-chain bodies: fp32 highest (SIMT) and fp64 (DMMA) ------------------------
+
+CHAIN_TIERS = [(torch.float32, "highest"), (torch.float64, "high")]
+
+
+def _chain_bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _chain_ref_lower(c, p, tb, origin):
+    """The lower update built tile column by tile column from gemm_tile's
+    scalar body (tile_kernel on nt_block: the same fma chain per element)."""
+    out, o, w = c.clone(), origin * tb, p.shape[0]
+    for j0 in range(0, w, tb):
+        cols = slice(o + j0, o + j0 + tb)
+        out[o + j0:, cols] = tiles.gemm_tile(c[o + j0:, cols], p[j0:], p[j0:j0 + tb])
+    return out
+
+
+def _chain_ref_packed(c, p, n, w, tb, k):
+    """The packed update of step k built the same way, one tile column of the
+    window (inside one slab) at a time."""
+    out, base, m = c.clone(), (k + 1) * w, p.shape[0]
+    for c0 in range(0, m, tb):
+        j, cs = divmod(base + c0, w)
+        r0 = P._row_offset(j, n // w, w) + cs
+        blk = (slice(r0, r0 + m - c0), slice(cs, cs + tb))
+        out[blk] = tiles.gemm_tile(c[blk], p[c0:], p[c0:c0 + tb])
+    return out
+
+
+CHAIN_LOWER = [  # (m, tb, nb, origin, ld of P): tb 32/96, nb 7 (rows not 16-byte
+    # aligned), w off 128, P views that are aligned (ld 132) or not (ld 131, offset 1)
+    (96, 32, 7, 1, 7), (288, 96, 40, 1, 40), (480, 32, 50, 3, 131), (640, 128, 200, 1, 200),
+    (384, 96, 64, 0, 132), (1000, 200, 33, 2, 33), (2048, 1024, 1024, 0, 1024),
+    (2048, 1024, 1024, 1, 1024),
+]
+
+
+@pytest.mark.parametrize("dtype,prec", CHAIN_TIERS)
+@pytest.mark.parametrize("m,tb,nb,origin,ld", CHAIN_LOWER)
+def test_chain_lower_same_bits_as_gemm_tile(cuda, m, tb, nb, origin, ld, dtype, prec):
+    g = torch.Generator(device=cuda).manual_seed(m + nb + ld)
+    c = torch.randn(m, m, generator=g, device=cuda, dtype=dtype)
+    big = torch.randn(m - origin * tb, ld, generator=g, device=cuda, dtype=dtype)
+    p = big[:, 1:nb + 1] if ld != nb and ld % 4 else big[:, :nb]  # ld 131: off 16 bytes
+    assert p.stride(0) == ld
+    with precision.override(prec):
+        assert tiles.tile_op_body("gemm", dtype, prec) == "scalar"
+        ref = _chain_ref_lower(c, p, tb, origin)
+        before = tiles.body_launches()
+        out = trailing_update_lower(c.clone(), p, tb=tb, origin=origin)
+        after = tiles.body_launches()
+    torch.cuda.synchronize()
+    assert after[tiles.trailing_body(dtype, prec)] == before[tiles.trailing_body(dtype, prec)] + 1
+    assert torch.equal(_chain_bits(out), _chain_bits(ref))
+
+
+CHAIN_PACKED = [  # (n, w, ktb, k): slabs of 96 and 160 straddled by 128-row tiles, k > 0
+    (384, 96, 32, 0), (384, 96, 32, 1), (640, 160, 40, 1), (576, 192, 96, 1),
+    (2048, 512, 256, 1), (4096, 1024, 512, 0), (4096, 1024, 1024, 2),
+]
+
+
+@pytest.mark.parametrize("dtype,prec", CHAIN_TIERS)
+@pytest.mark.parametrize("n,w,ktb,k", CHAIN_PACKED)
+def test_chain_packed_same_bits_as_gemm_tile(cuda, n, w, ktb, k, dtype, prec):
+    g = torch.Generator(device=cuda).manual_seed(n + w + k)
+    c = torch.randn(P.packed_rows(n, w), w, generator=g, device=cuda, dtype=dtype)
+    p = torch.randn(n - (k + 1) * w, w, generator=g, device=cuda, dtype=dtype)
+    with precision.override(prec):
+        ref = _chain_ref_packed(c, p, n, w, ktb, k)
+        out = trailing_update_packed(c.clone(), p, n=n, w=w, k=k, tb=ktb)
+    torch.cuda.synchronize()
+    assert torch.equal(_chain_bits(out), _chain_bits(ref))
+    assert torch.equal(_chain_bits(out[~_packed_visited(n, w, ktb, k).to(cuda)]),
+                       _chain_bits(c[~_packed_visited(n, w, ktb, k).to(cuda)]))
+
+
+@pytest.mark.parametrize("dtype,prec", CHAIN_TIERS)
+def test_chain_20_launches_back_to_back(cuda, dtype, prec):
+    # 20 queued updates of one matrix (origins 0..3, four panels), as a
+    # factorization queues them, against the same steps through gemm_tile
+    m, tb, nb = 768, 128, 96
+    g = torch.Generator(device=cuda).manual_seed(20)
+    c = torch.randn(m, m, generator=g, device=cuda, dtype=dtype)
+    panels = [torch.randn(m - (t % 4) * tb, nb, generator=g, device=cuda, dtype=dtype)
+              for t in range(4)]
+    with precision.override(prec):
+        out = c.clone()
+        before = tiles.launches
+        for t in range(20):
+            trailing_update_lower(out, panels[t % 4], tb=tb, origin=t % 4)
+        torch.cuda.synchronize()
+        assert tiles.launches == before + 20
+        ref = c.clone()
+        for t in range(20):
+            ref = _chain_ref_lower(ref, panels[t % 4], tb, t % 4)
+    assert torch.equal(_chain_bits(out), _chain_bits(ref))
+
+
+def _fma(a, b, c):
+    """fma(a, b, c) rounded once, to nearest even, from the exact value."""
+    from fractions import Fraction
+
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _probe_inputs(rows, k, seed):
+    """Operands on which a chain of rounded fmas, the same chain in the other
+    order and a once-rounded sum of the k terms give different doubles: wide
+    exponents, and crafted rows (1 then half-ulp terms; the same reversed; a
+    product that only an fma keeps whole)."""
+    rng = np.random.default_rng(seed)
+
+    def wide(shape):
+        sign = rng.choice([-1.0, 1.0], shape)
+        return sign * np.ldexp(1.0 + rng.random(shape), rng.integers(-26, 27, shape))
+
+    a, b, c = wide((rows, k)), wide((8, k)), wide((rows, 8))
+    half = 2.0**-53
+    b[0] = 1.0
+    a[0] = [1.0] + [half] * (k - 1)
+    a[1] = [half] * (k - 1) + [1.0]
+    c[0, 0] = c[1, 0] = half / 4
+    b[1, 0], a[2] = 1 + 2.0**-30, [1 + 2.0**-30] + [0.0] * (k - 1)
+    c[2, 1] = -1.0
+    return a, b, c
+
+
+def _chains(a, b, c):
+    """Per output: the ascending chain, the descending chain, the once-rounded sum."""
+    from fractions import Fraction
+
+    rows, k = a.shape
+    asc, desc, once = (np.empty((rows, 8)) for _ in range(3))
+    for r in range(rows):
+        for j in range(8):
+            x = c[r, j]
+            for t in range(k):
+                x = _fma(a[r, t], b[j, t], x)
+            asc[r, j] = x
+            x = c[r, j]
+            for t in reversed(range(k)):
+                x = _fma(a[r, t], b[j, t], x)
+            desc[r, j] = x
+            once[r, j] = float(sum((Fraction(a[r, t]) * Fraction(b[j, t]) for t in range(k)),
+                                   Fraction(c[r, j])))
+    return asc, desc, once
+
+
+@pytest.mark.parametrize("shape", [0, 4, 8, 16])
+def test_dmma_rounds_as_an_fma_chain(cuda, shape):
+    # one fp64 tensor-core instruction (m8n8k4, m16n8k4, k8, k16) on inputs
+    # where the chain, the reversed chain and a once-rounded sum all differ:
+    # it gives the ascending chain's doubles, the sum the DMMA body relies on
+    # for nt_block's bits
+    import ctypes
+
+    from dla_tpu_torch.kernels import _build
+
+    rows, k = (8, 4) if shape == 0 else (16, shape)
+    a, b, c = _probe_inputs(rows, k, seed=shape)
+    asc, desc, once = _chains(a, b, c)
+    assert (asc != once).sum() >= 4 and (asc != desc).sum() >= 4  # the inputs tell them apart
+    dev = [torch.from_numpy(x).to(cuda) for x in (a, b, c)]
+    d = torch.full((rows, 8), float("nan"), dtype=torch.float64, device=cuda)
+    fn = _build.load().dla_dmma_probe
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(x.data_ptr() for x in dev), d.data_ptr(), shape,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    got = d.cpu().numpy()
+    print(f"shape {shape}: chain {int((got == asc).sum())}/{asc.size}, once-rounded "
+          f"{int((got == once).sum())}, reversed chain {int((got == desc).sum())}")
+    np.testing.assert_array_equal(got, asc)
+
+
+def test_chain_bodies_registers_no_spill(cuda):
+    # ptxas's registers and spills for the SIMT and DMMA bodies of both trailing kernels
+    import re
+    import subprocess
+    import tempfile
+
+    from dla_tpu_torch.kernels import _build
+
+    for src in ("trailing_lower.cu", "trailing_packed.cu"):
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                   f"{tmp}/k.o", str(_build.CSRC / src)]
+            log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+        kernel, seen = None, {}
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif kernel and ("trailing_simt_kernel" in kernel or "trailing_dmma_kernel" in kernel):
+                body = "simt" if "simt" in kernel else "dmma"
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                regs = re.search(r"Used (\d+) registers", line)
+                if spill:
+                    seen.setdefault(body, []).append(("spill", int(spill[1]) + int(spill[2])))
+                if regs:
+                    seen.setdefault(body, []).append(("registers", int(regs[1])))
+        print(f"{src}: {seen}")
+        for body in ("simt", "dmma"):
+            spills = [v for key, v in seen.get(body, []) if key == "spill"]
+            regs = [v for key, v in seen.get(body, []) if key == "registers"]
+            # four instantiations each: two address maps (one per source) x aligned or not
+            assert spills and all(v == 0 for v in spills), (src, body, seen)
+            assert regs and all(0 < v <= 255 for v in regs), (src, body, seen)
 
 
 def test_column_major_input_raises(cuda):

@@ -158,7 +158,8 @@ BODY_TABLE = [  # (dtype, tier, planes)
 @pytest.mark.parametrize("dtype,tier_name,planes", BODY_TABLE)
 def test_body_dispatch_table(dtype, tier_name, planes):
     assert split_planes(dtype, tier_name) == planes
-    assert trailing_body(dtype, tier_name) == ("wgmma" if planes else "scalar")
+    chain = "dmma" if dtype == torch.float64 else "simt"  # the FMA-chain bodies
+    assert trailing_body(dtype, tier_name) == ("wgmma" if planes else chain)
 
 
 def test_cpu_route_allocates_no_split(monkeypatch):
