@@ -16,8 +16,9 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
    launched (the kernel library's count of launches through each body:
    ``wgmma`` for fp32 ``high``/``default`` and bf16, ``simt`` for ``highest``,
    ``dmma`` for fp64, as ``tiles.trailing_body`` says); at ``highest`` and
-   fp64 the output must also be, bit for bit, what ``gemm_tile``'s scalar
-   body (the same fma chain per element) gives tile column by tile column;
+   fp64 the output must also be, bit for bit, what the task kernels' scalar
+   body (the same fma chain per element, through the test-only entry
+   ``tiles.tile_op_reference``) gives tile column by tile column;
 3. the main path: ``plgsy(16384)`` → ``potrf_inplace`` in fp32 at ``high``
    (nb=tb=kb=1024, ib=512, two-level diagonal factor), the kernel launched
    n/nb − 1 times per factorization, the residual under the driver's gate;
@@ -31,7 +32,7 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
    w=96, ktb=32 case; elements outside the visited tiles must come back
    bit-identical and each call must launch the kernel once; the body, rate,
    share of the bound and, at ``highest`` and fp64, the bits of
-   ``gemm_tile``'s scalar body as in phase 2;
+   the task kernels' scalar body as in phase 2;
 7. the packed path at the reference's ``default:packed`` tier:
    ``plgsy_packed(81920, 4096)`` → ``potrf_packed(trailing="pallas")`` in
    fp32 at ``default`` (ktb=1024, kb=4096, ib=512, two-level diagonal
@@ -123,15 +124,24 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     schedule's launches and largest grid), #7's upper triangle bit-identical
     to C's, one launch per call, through the block body ``tiles.tile_op_body``
     names (the library's count of launches through each body: ``wgmma`` for
-    #6 and #8 at fp32 ``high``/``default`` and bf16, ``scalar`` otherwise);
-    beside ``torch.matmul`` (#6), ``torch.addmm`` (#8) and ``cholesky_ex`` +
-    ``solve_triangular`` (#5, two calls, their sum);
+    #6 and #8 at fp32 ``high``/``default`` and bf16, ``simt`` at fp32
+    ``highest``, ``dmma`` at fp64, ``scalar`` for #7); on the two chain
+    bodies, also at the fp64 path's tile (256) and in fp64 at m=4096,
+    n=k=2048, the bits of the scalar body (``tiles.tile_op_reference``) at
+    the launcher's tile edge and, for ``simt``, at both edges, and the card's
+    time alone (launches queued behind a sleeping kernel) of the kernel, of
+    the scalar body and of each ``simt`` edge; beside ``torch.matmul`` (#6), ``torch.addmm``
+    (#8) and ``cholesky_ex`` + ``solve_triangular`` (#5, two calls, their
+    sum);
 25. the tile-task path, the reference's task DAG with one launch per task:
     ``plgsy(16384, seed=51)`` fp32 at ``high``, NB=512, a warm-up and two timed
     factorizations, each launching exactly ``dag_counts(32)`` = 32 POTRF + 496
     TRSM + 496 SYRK + 4960 GEMM = 5984 task kernels, the residual under the
     fp32 gate with the path's median time beside it, and that time beside
-    phase 3's; and fp64 at N=4096, NB=256 under the reference's 1e-10 gate;
+    phase 3's; and fp64 at N=4096, NB=256 under the reference's 1e-10 gate,
+    its factor bit for bit the one the same DAG gives with #6 and #8 on the
+    scalar body (``tiles.tile_op_reference``; the bodies they ran before
+    their chain bodies);
 26. ``freivalds_device`` on the main path's factor beside ``residual_potrf``
     of the same factor (both under the gate), and on that factor with one
     corrupted tile (far above it);
@@ -162,6 +172,18 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     two timed factorizations each, exactly 2·nt − 1 = 31 ``ring_broadcast``
     launches per factorization, the time inside them (CUDA events around each
     call), and the residual under the reference's 1e-10 gate.
+
+33. the dense solve and serving path at the main path's width: ``plgsy(16384)``
+    fp32 factored by ``potrf_inplace`` as in phase 3 (kernel #1 launched
+    n/nb − 1 times, counted from 0 around the factorization), nrhs = 64
+    seeded right-hand sides; ``potrs``, ``potri`` + ``solve_inverse`` and
+    ``posv_refined_host`` (an fp32 ``potrf_shrink`` factor, fp64 residuals on
+    the card), each timed, each ``residual_posv`` under the driver's gate
+    (N·2e-6 for the fp32 solves, 1e-10 refined), and the fp32 solves within
+    ``FWD_TOL`` (1e-4, max norm) of an fp64 ``cholesky_solve`` on the same
+    factor, which a solve at a lower precision would miss; the driver with
+    ``--mode inplace --solve refined --nrhs 64`` at N=16384 (``SOLVE PASS``,
+    exit code 0); and one fp64 ``posv_refined`` at N=8192 under 1e-10.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -233,6 +255,8 @@ N_TASK_BIG, M_TASK_BIG = 2048, 4096  # #6-#8 at a size clear of the launch floor
 BENCH_TIERS = "high:inplace:1024:1024:61440,bf16:packed:4096:4096:106496"
 BENCH_ENV = {"BENCH_ITERS": "2"}
 N_HEADLINE, NB_HEADLINE = 61440, 1024
+# the dense solve and serving path on the main path's factor, and fp64 refinement
+NRHS_SOLVE, N_REFINED64 = 64, 8192
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -341,9 +365,9 @@ def kernel_body(fn) -> str:
 def trailing_report(kind, name, row, tol, pairs, tb, nb, tag, same=None):
     """Print a trailing kernel case: error, times, rate (2·pairs·tb²·nb
     operations), the share of the bound, the body and, for the chain bodies,
-    whether the bits are ``gemm_tile``'s scalar body's."""
+    whether the bits are the task kernels' scalar body's."""
     tfs = 2 * pairs * tb * tb * nb / (row["ms"] * 1e-3) / 1e12
-    chain = "" if same is None else f", bits of gemm_tile's scalar body: {same}"
+    chain = "" if same is None else f", bits of the task kernels' scalar body: {same}"
     print(f"{kind} {name}: body {row['body']}, max_abs_err={row['max_abs_err']:.3e} (tol "
           f"{tol:.3e}) kernel {row['ms']:.3f} ms = {tfs:.2f} TF/s, plain {row['plain_ms']:.3f} "
           f"ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%}"
@@ -352,20 +376,18 @@ def trailing_report(kind, name, row, tol, pairs, tb, nb, tag, same=None):
 
 def chain_bits(out, c, p, columns, dtype, prec) -> bool | None:
     """Whether ``out`` holds, in every tile column of the window, the bits of
-    ``gemm_tile``'s scalar body (``tile_kernel`` on ``nt_block``: one fma chain
-    per element in ascending k, as the ``simt`` and ``dmma`` bodies sum) on
-    the same tiles of ``c`` and ``p``; None where the tier runs ``wgmma`` or
-    the tensors lie on the CPU (whose plain versions sum otherwise).
-    ``columns`` gives each tile column as (the block of ``c``, its first row
-    of ``p``, tb)."""
+    the task kernels' scalar body (``tile_kernel`` on ``nt_block``: one fma
+    chain per element in ascending k, as the ``simt`` and ``dmma`` bodies
+    sum; the test-only entry ``tiles.tile_op_reference``) on the same tiles
+    of ``c`` and ``p``; None where the tier runs ``wgmma`` or the tensors lie
+    on the CPU (whose plain versions sum otherwise). ``columns`` gives each
+    tile column as (the block of ``c``, its first row of ``p``, tb)."""
     from dla_tpu_torch.kernels import tiles
 
     if tiles.trailing_body(dtype, prec) == "wgmma" or out.device.type != "cuda":
         return None
-    require(tiles.tile_op_body("gemm", dtype, prec) == "scalar",
-            "gemm_tile does not run its scalar body at this tier")
     for blk, r0, tb in columns:
-        ref = tiles.gemm_tile(c[blk], p[r0:], p[r0:r0 + tb])
+        ref = tiles.tile_op_reference("gemm", c[blk], p[r0:], p[r0:r0 + tb])
         if not torch.equal(bits(out[blk]), bits(ref)):
             return False
     return True
@@ -424,7 +446,7 @@ def lower_case(dev, tag, m, tb, nb, origin, dtype, prec, iters):
     trailing_report("trailing_update_lower", name, row, tol, pairs, tb, nb, tag, same)
     require(err <= tol, f"kernel disagrees with the plain version at {name}")
     require(body == want, f"the {body} body ran at {name}, not the {want} one")
-    require(same is not False, f"the {body} body lost gemm_tile's scalar bits at {name}")
+    require(same is not False, f"the {body} body lost the scalar body's bits at {name}")
     return row
 
 
@@ -605,7 +627,7 @@ def packed_case(dev, tag, n, w, ktb, k, dtype, prec, iters):
     trailing_report("trailing_update_packed", name, row, tol, pairs, ktb, w, tag, same)
     require(err <= tol, f"packed kernel disagrees with the plain version at {name}")
     require(body == want, f"the {body} body ran at {name}, not the {want} one")
-    require(same is not False, f"the {body} body lost gemm_tile's scalar bits at {name}")
+    require(same is not False, f"the {body} body lost the scalar body's bits at {name}")
     del out, ref, p
     torch.cuda.empty_cache()
     return row
@@ -1454,6 +1476,7 @@ def task_product_case(dev, tag, op, m, n, k, dtype, prec, iters):
         tol = product_tol(dtype, c, a, b)
         k_ms = cuda_ms(lambda: kernel(*args), iters)
         p_ms = cuda_ms(lambda: plain(*args), iters)
+        chain = chain_case(op, body, out, c, a, b, iters) if body in ("simt", "dmma") else ""
     lib_ms = cuda_ms(lib, iters) if lib else None
     row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, body=body,
                **bound(product_s(flops, dtype, prec), nbytes * a.element_size()))
@@ -1461,9 +1484,47 @@ def task_product_case(dev, tag, op, m, n, k, dtype, prec, iters):
     print(f"{op}_tile {name}: body {body}, max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.4f} ms "
           f"({flops / k_ms / 1e9:.3f} TF/s), plain {p_ms:.4f} ms, library "
           f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {row['bound_ms']:.5f} ms "
-          f"({row['bound_by']}) {tag}", flush=True)
+          f"({row['bound_by']}){chain} {tag}", flush=True)
     require(err <= tol, f"{op}_tile disagrees with the plain version at {name}")
     return row
+
+
+def chain_case(op, body, out, c, a, b, iters) -> str:
+    """On the chain bodies: ``out`` must be the scalar body's bits
+    (``tiles.tile_op_reference``), and so must the simt body at each tile
+    edge (the dmma body has one); the card's time alone (launches queued
+    behind a sleeping kernel) of the wrapper's launch, of the scalar body and
+    of each simt edge, and the edge the launcher takes on this card
+    (``tiles.chain_tile_edge``)."""
+    from dla_tpu_torch.kernels import tiles
+
+    def through(tile):
+        return lambda: tiles.tile_op_reference(op, c, a, b, tile=tile)
+
+    ref = through(0)()
+    sync()
+    require(torch.equal(bits(out), bits(ref)),
+            f"{op}_tile: the {body} body lost the scalar body's bits")
+    edges = (64, 128) if body == "simt" else ()
+    for tile in edges:
+        require(torch.equal(bits(through(tile)()), bits(ref)),
+                f"{op}_tile: the {body} body at tile {tile} lost the scalar body's bits")
+    if op == "trsm":
+        wrapper = lambda: tiles.trsm_tile(b, a)  # noqa: E731
+    else:
+        wrapper = lambda: tiles.gemm_tile(c, a, b)  # noqa: E731
+    n_calls = max(5, min(20, iters))
+    q = {name: queued_ms(fn, n_calls) for name, fn in (
+        [("kernel", wrapper), ("scalar", through(0))]
+        + [(f"edge {t}", through(t)) for t in edges])}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    aligned = all(x.data_ptr() % 16 == 0 and x.stride(0) * x.element_size() % 16 == 0
+                  for x in (a, b))
+    edge = tiles.chain_tile_edge(a.shape[0], b.shape[0], body, sms, aligned)
+    return (f"; the scalar body's bits: True (edge {edge} of {sms} SMs"
+            f"{', and both edges' if edges else ''}); card time alone: "
+            + ", ".join(f"{name} {ms:.4f} ms" for name, ms in q.items())
+            + f", kernel / scalar {q['kernel'] / q['scalar']:.3f}")
 
 
 def potrf_tile_case(dev, tag, n, dtype, prec, iters):
@@ -1533,16 +1594,24 @@ def phase_task_kernels(dev, tag):
         if (dtype, prec) == (torch.float32, TASK_PREC):
             rows["potrf"] = r
     potrf_tile_case(dev, tag, 96, torch.float32, "high", 5)
+    chain_tiers = [(torch.float32, "highest"), (torch.float64, "high")]
     for op in ("trsm", "syrk", "gemm"):
         for dtype, prec in tiers + [(torch.bfloat16, "high")]:
             r = task_product_case(dev, tag, op, nb, nb, nb, dtype, prec, 50)
             if (dtype, prec) == (torch.float32, TASK_PREC):
                 rows[op] = r
         task_product_case(dev, tag, op, 200, 96, 72, torch.float32, "high", 20)  # ragged
-        for prec in ("high", "highest", "default"):
+        if op != "syrk":  # the chain bodies at the fp64 path's tile and ragged
+            for dtype, prec in chain_tiers:
+                task_product_case(dev, tag, op, NB_TASK64, NB_TASK64, NB_TASK64, dtype, prec,
+                                  50)
+                task_product_case(dev, tag, op, 200, 96, 72, dtype, prec, 20)
+        for dtype, prec in [(torch.float32, p) for p in ("high", "highest", "default")] + (
+                [(torch.float64, "high")] if op != "syrk" else []):
             r = task_product_case(dev, tag, op, M_TASK_BIG, N_TASK_BIG, N_TASK_BIG,
-                                  torch.float32, prec, 5)
-            if prec == TASK_PREC and op != "syrk":  # no one library call masks syrk's triangle
+                                  dtype, prec, 5)
+            if (dtype, prec) == (torch.float32, TASK_PREC) and op != "syrk":
+                # no one library call masks syrk's triangle
                 rows[op]["big"] = {k: r[k] for k in ("ms", "library_ms", "bound_ms")}
     torch.cuda.empty_cache()
     return rows
@@ -1553,14 +1622,26 @@ TASK_COUNTERS = {"POTRF": "potrf_tile_launches", "TRSM": "trsm_tile_launches",
                  "SYRK": "syrk_tile_launches", "GEMM": "gemm_tile_launches"}
 
 
-def tile_task_potrf(a, nb):
+def tile_task_potrf(a, nb, scalar=False):
     """The reference's task DAG, one kernel launch per task, in the order of
     ``client_distrib.cpp:506-565``: for each k, POTRF(k,k), then TRSM(i,k),
     SYRK(i,i) and GEMM(i,j,k) for i > j > k. The tiles of ``a`` (views, found
     through ``TileLayout``) are read; the factor is assembled in a new
-    matrix, zero above the diagonal tiles."""
+    matrix, zero above the diagonal tiles. ``scalar`` runs TRSM and GEMM
+    through the scalar body (``tiles.tile_op_reference``, uncounted)
+    instead of the task kernels' own body."""
     from dla_tpu_torch import TileLayout
-    from dla_tpu_torch.kernels.tiles import gemm_tile, potrf_tile, syrk_tile, trsm_tile
+    from dla_tpu_torch.kernels import tiles
+    from dla_tpu_torch.kernels.tiles import potrf_tile, syrk_tile
+
+    if scalar:
+        def trsm_tile(linv, b):
+            return tiles.tile_op_reference("trsm", None, b, linv)
+
+        def gemm_tile(c, ai, aj):
+            return tiles.tile_op_reference("gemm", c, ai, aj)
+    else:
+        trsm_tile, gemm_tile = tiles.trsm_tile, tiles.gemm_tile
 
     lay = TileLayout(mb=nb, nb=nb, lm=a.shape[0], ln=a.shape[1])
     nt = lay.nt
@@ -1632,12 +1713,31 @@ def phase_task_path(dev, tag, main_median):
     n64, nb64 = N_TASK64, NB_TASK64
     a64 = T.plgsy(n64, seed=7, dtype=torch.float64, device=dev)
     before = sum(getattr(tiles, v) for v in TASK_COUNTERS.values())
+    bodies = tiles.tile_body_launches()
     l64 = tile_task_potrf(a64, nb64)
     sync()
+    want64 = dag_counts(n64 // nb64)
     require(sum(getattr(tiles, v) for v in TASK_COUNTERS.values()) - before
-            == dag_counts(n64 // nb64)["total"], "fp64 tile-task launch count")
+            == want64["total"], "fp64 tile-task launch count")
+    ran = {x: v - bodies[x] for x, v in tiles.tile_body_launches().items()}
+    require(ran == {"scalar": want64["SYRK"], "wgmma": 0, "simt": 0,
+                    "dmma": want64["TRSM"] + want64["GEMM"]},
+            f"fp64 tile-task bodies {ran}: TRSM and GEMM on dmma, SYRK on scalar expected")
+    l64s = tile_task_potrf(a64, nb64, scalar=True)
+    sync()
+    same = torch.equal(bits(l64), bits(l64s))
+    took = {False: [], True: []}  # after the warm-up above, in turns
+    for scalar in (False, True, True, False):
+        t0 = time.perf_counter()
+        tile_task_potrf(a64, nb64, scalar=scalar)
+        sync()
+        took[scalar].append((time.perf_counter() - t0) * 1e3)
     r64 = float(T.residual_potrf(a64, l64))
-    print(f"tile-task path N={n64} NB={nb64} fp64 residual {r64:.3e} (gate 1e-10)", flush=True)
+    print(f"tile-task path N={n64} NB={nb64} fp64 ({ran} launches a factorization): "
+          f"{took[False][0]:.1f} / {took[False][1]:.1f} ms, with TRSM and GEMM on the scalar "
+          f"body {took[True][0]:.1f} / {took[True][1]:.1f} ms, the same factor bit for bit: "
+          f"{same}; residual {r64:.3e} (gate 1e-10) {tag}", flush=True)
+    require(same, "the fp64 tile-task factor differs from the scalar body's")
     require(r64 < 1e-10, "tile-task fp64 residual above the reference's 1e-10 gate")
     return counts
 
@@ -1866,7 +1966,96 @@ def phase_ring_plane(dev, tag, phase):
     return launches
 
 
-LAST_PHASE = 32
+# ---- 33. the dense solve and serving path -----------------------------------------------
+#: the fp32 solves' largest relative difference from the fp64 solve on the same factor
+#: (max norm): about 840 fp32 ulps (2^-23), a tenth of one TF32 ulp (2^-10)
+FWD_TOL = 1e-4
+
+
+def timed_call(fn):
+    """fn() and its wall time between two synchronizations."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def phase_solve(dev, tag):
+    import dla_tpu_torch as T
+    import dla_tpu_torch.algos as TA
+    from dla_tpu_torch.kernels import tiles
+    from dla_tpu_torch.validate import residual_posv
+
+    n, nrhs = N_MAIN, NRHS_SOLVE
+    a = T.plgsy(n, seed=51, device=dev)
+    tiles.launches = 0
+    l, dt = timed_call(lambda: TA.potrf_inplace(a.clone(), **MAIN_KW))
+    launches = tiles.launches
+    require(launches == n // NB_MAIN - 1,
+            f"the solve path's factor launched #1 {launches} times")
+    g = torch.Generator(device=dev).manual_seed(nrhs)
+    b = torch.randn(n, nrhs, generator=g, device=dev)
+    gate = n * 2e-6  # the driver's fp32 potrs / inverse gate
+    print(f"solve path N={n} fp32 high: potrf_inplace {dt * 1e3:.1f} ms, #1 launched "
+          f"{launches} times {tag}", flush=True)
+    # The driver's gate mirrors the reference's and is loose; an fp64 solve on the same
+    # factor holds the fp32 solves to their own precision: a solve with TF32 (2^-11) or
+    # bf16 (2^-8) products would be off from it by more than FWD_TOL.
+    x64 = torch.cholesky_solve(b.double(), torch.tril(l).double())
+
+    def forward(x):
+        return ((x.double() - x64).abs().max() / x64.abs().max()).item()
+
+    T.potrs(l, b[:, :1])  # warm-up of the solve's kernels and allocations
+    x, dt = timed_call(lambda: T.potrs(l, b))
+    res, fwd = float(residual_posv(a, b, x)), forward(x)
+    print(f"solve path potrs nrhs={nrhs}: {dt * 1e3:.1f} ms, ||B - A X||_inf / (||A||_inf "
+          f"||X||_inf) = {res:.3e} (gate {gate:g}), max|X - X64| / max|X64| = {fwd:.3e} "
+          f"(X64 the fp64 solve on the same factor; limit {FWD_TOL:g}) {tag}", flush=True)
+    require(res < gate, "potrs residual above the driver's fp32 gate")
+    require(fwd < FWD_TOL, "potrs is off the fp64 solve on its factor by more than fp32 allows")
+    ainv, dt_inv = timed_call(lambda: T.potri(l))
+    x, dt = timed_call(lambda: T.solve_inverse(ainv, b))
+    res, fwd = float(residual_posv(a, b, x)), forward(x)
+    print(f"solve path potri {dt_inv * 1e3:.1f} ms, then solve_inverse nrhs={nrhs} "
+          f"{dt * 1e3:.3f} ms, ||B - A X||_inf / (||A||_inf ||X||_inf) = {res:.3e} "
+          f"(gate {gate:g}), max|X - X64| / max|X64| = {fwd:.3e} (limit {FWD_TOL:g}) {tag}",
+          flush=True)
+    require(res < gate, "potri + solve_inverse residual above the driver's fp32 gate")
+    require(fwd < FWD_TOL,
+            "potri + solve_inverse is off the fp64 solve on its factor by more than fp32 allows")
+    del ainv, l, x, x64
+    torch.cuda.empty_cache()
+    a64 = torch.tril(a).double()
+    (x, err, used), dt = timed_call(lambda: TA.posv_refined_host(a64, b.double(), nb=NB_MAIN,
+                                                                        device=dev))
+    res = float(residual_posv(a, b, x))
+    print(f"solve path posv_refined_host nrhs={nrhs}: {dt * 1e3:.1f} ms, {used} iterations, "
+          f"backward error {err:.3e}, ||B - A X||_inf / (||A||_inf ||X||_inf) = {res:.3e} "
+          f"(gate 1e-10) {tag}", flush=True)
+    require(res < 1e-10 and err < 1e-10, "posv_refined_host above the 1e-10 gate")
+    del a, a64, x
+    torch.cuda.empty_cache()
+    out = phase_driver(tag, ["--n", str(n), "--nb", str(NB_MAIN), "--dtype", "s", "--mode",
+                             "inplace", "--solve", "refined", "--nrhs", str(nrhs),
+                             "--repeats", "1"])
+    require("SOLVE PASS" in out, "the driver's refined solve did not pass")
+    n64 = N_REFINED64
+    a = T.plgsy(n64, seed=51, dtype=torch.float64, device=dev)
+    b = torch.randn(n64, nrhs, generator=g, device=dev, dtype=torch.float64)
+    (_, x, rmax), dt = timed_call(lambda: TA.posv_refined(a, b))
+    res = float(residual_posv(a, b, x))
+    print(f"solve path fp64 posv_refined N={n64} nrhs={nrhs}: {dt * 1e3:.1f} ms, max|B - A X| "
+          f"{float(rmax):.3e}, ||B - A X||_inf / (||A||_inf ||X||_inf) = {res:.3e} "
+          f"(gate 1e-10) {tag}", flush=True)
+    require(res < 1e-10, "fp64 posv_refined above the 1e-10 gate")
+    del a, b, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+LAST_PHASE = 33
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -1996,6 +2185,8 @@ def main(argv=None) -> int:
         if phase in sel:
             got["ring_bcast_launches"] = (got.get("ring_bcast_launches", 0)
                                           + phase_ring_plane(dev, tag, phase))
+    if 33 in sel:
+        phase_solve(dev, tag)
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

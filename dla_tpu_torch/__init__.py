@@ -21,7 +21,10 @@ where A and L do not fit the device together, the matrix-free
 kernels of the reference's tile DAG, ``potrf_tile``, ``trsm_tile``,
 ``syrk_tile`` and ``gemm_tile`` (``dla_tpu_torch.kernels.tiles``), with the
 tile descriptor ``TileLayout`` and the DAG's task counts
-(``dla_tpu_torch.cli.session.dag_counts``); and the two entry points, the
+(``dla_tpu_torch.cli.session.dag_counts``); the dense solve and serving path
+after the factor, ``potrs``, ``posv``, ``posv_refined``,
+``posv_refined_host``, ``potri``, ``solve_inverse`` and ``lauum``, with
+``residual_posv``; and the two entry points, the
 driver (``python -m dla_tpu_torch.cli.potrf_driver``) and the tiered bench
 (``python -m dla_tpu_torch.bench.bench``). The top level exports the names
 the JAX package's top level does; the rest is exported by
@@ -37,16 +40,21 @@ pin_ieee_fp32()
 
 from dla_tpu_torch.algos import (  # noqa: E402
     pack_tri,
+    posv,
     potrf,
     potrf_blocked,
     potrf_masked,
     potrf_packed,
+    potri,
+    potrs,
     potrs_packed,
+    solve_inverse,
     unpack_tri,
 )
 from dla_tpu_torch.ops import (  # noqa: E402
     gemm,
     lange,
+    lauum,
     plgsy,
     plgsy_tile,
     potrf_unblocked,
@@ -61,16 +69,21 @@ __all__ = [
     "cholesky_invariants",
     "gemm",
     "lange",
+    "lauum",
     "pack_tri",
     "plgsy",
     "plgsy_tile",
+    "posv",
     "potrf",
     "potrf_blocked",
     "potrf_masked",
     "potrf_packed",
     "potrf_unblocked",
+    "potri",
+    "potrs",
     "potrs_packed",
     "residual_potrf",
+    "solve_inverse",
     "syrk",
     "trsm",
     "unpack_tri",

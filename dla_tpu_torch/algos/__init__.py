@@ -27,6 +27,14 @@ from dla_tpu_torch.algos.potrf_df64 import (
     residual_potrf_df64_blocked,
     trmm_packed_df64,
 )
+from dla_tpu_torch.algos.potri import potrf_batched, potri, solve_inverse
+from dla_tpu_torch.algos.solve import (
+    posv,
+    posv_refined,
+    posv_refined_host,
+    potrs,
+    potrs_batched,
+)
 
 __all__ = [
     "freivalds_packed",
@@ -34,7 +42,11 @@ __all__ = [
     "pack_tri",
     "packed_len",
     "plgsy_packed",
+    "posv",
+    "posv_refined",
+    "posv_refined_host",
     "potrf",
+    "potrf_batched",
     "potrf_blocked",
     "potrf_df64",
     "potrf_inplace",
@@ -43,11 +55,15 @@ __all__ = [
     "potrf_packed_df64",
     "potrf_packed_df64_split",
     "potrf_shrink",
+    "potri",
+    "potrs",
+    "potrs_batched",
     "potrs_df64",
     "potrs_packed",
     "potrs_packed_df64",
     "residual_potrf_df64",
     "residual_potrf_df64_blocked",
+    "solve_inverse",
     "trmm_packed_df64",
     "unpack_tri",
 ]

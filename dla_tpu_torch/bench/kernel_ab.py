@@ -43,14 +43,17 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   same bits, and those of the plain version. A ring time is the mean of 10
   launches queued behind a sleeping kernel: the card's time, without the
   host's enqueue between launches;
-- ``tile_ops``: ``dla_<op>_tile_<dtype>`` (kernels #6, #7, #8) at 512³ and
-  m=4096, n=k=2048 (#7: m=n), fp32 ``high``, ``default``, ``highest`` and
-  bf16 in one call (``--tier`` and ``--dtype`` unused), with the block body
-  of this build and each case's largest difference to the plain version;
-  the exit code is 1 where a case leaves its tolerance or where both builds
-  run the scalar body and their bits differ, and the last line also says
-  whether every case gave the same bits in both builds (a change that keeps
-  the bodies must);
+- ``tile_ops``: ``dla_<op>_tile_<dtype>`` (kernels #6, #7, #8) at 512³,
+  256³ and m=4096, n=k=2048 (#7: m=n), fp32 ``high``, ``default``,
+  ``highest``, fp64 and bf16 in one call (``--tier`` and ``--dtype``
+  unused), with the block body each build ran (its own count of launches
+  per body) and each case's largest difference to the plain version; at
+  512³ and 256³ also each build's card time alone, 20 launches queued behind
+  a sleeping kernel. The exit code is 1 where a case leaves its tolerance or
+  where this build runs the scalar body or a chain body (fp32 ``highest``,
+  fp64: one fma chain per element, the scalar body's bits) and the two
+  builds' bits differ; the last line also says whether every case gave the
+  same bits in both builds;
 - ``panel_apply``: ``dla_panel_apply_f32`` (kernel #3) at the ``panel_apply``
   path's first panel, m=15360, nb=1024, ib=256, every fp32 tier in one call,
   with the body of this build, the largest difference between the builds and
@@ -89,8 +92,9 @@ RING_CASES = [  # (kind, m, root, group) on D=4 fp64 members of 1024 columns
     ("broadcast", 1024, 1, 2), ("gather", 1024, 0, 4), ("gather", 1024, 0, 2)]
 DIAG_TIERS = [("f32", "highest"), ("f32", "high"), ("f32", "default"), ("f64", "high")]
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
-TILE_CASES = [(512, 512, 512), (4096, 2048, 2048)]  # (m, n, k)
-TILE_TIERS = [("f32", "high"), ("f32", "default"), ("f32", "highest"), ("bf16", "high")]
+TILE_CASES = [(512, 512, 512), (256, 256, 256), (4096, 2048, 2048)]  # (m, n, k)
+TILE_TIERS = [("f32", "high"), ("f32", "default"), ("f32", "highest"), ("f64", "high"),
+              ("bf16", "high")]
 PANEL_APPLY_CASE = (15360, 1024, 256)  # (m, nb, ib)
 
 
@@ -437,8 +441,19 @@ def _tile_launcher(lib, op: str, sfx: str, scratch: bool):
     return launch
 
 
+def _tile_bodies(lib):
+    """A build's launches of the task kernels per block body: ``{"scalar",
+    "wgmma", "simt", "dmma"}`` where it has the chain bodies (and their
+    reference entry), else ``{"scalar", "wgmma"}``."""
+    fn = lib.dla_tile_body_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    chain = hasattr(lib, "dla_tile_op_scalar_f32")
+    names = ("scalar", "wgmma", "simt", "dmma") if chain else ("scalar", "wgmma")
+    return lambda: {name: fn(i) for i, name in enumerate(names)}
+
+
 def _tile_ab(args, card: str) -> int:
-    """#6 and #8 of two builds: times, the body, and the largest differences."""
+    """#6 to #8 of two builds: times, the bodies, and the largest differences."""
     from dla_tpu_torch.kernels import _build, tiles
     from dla_tpu_torch.utils import precision
 
@@ -465,48 +480,64 @@ def _tile_ab(args, card: str) -> int:
                     else:
                         c, a, b = rnd(m, n), rnd(m, k), rnd(n, k)
                     launch = {v: _tile_launcher(lib, op, sfx, sc) for v, (lib, sc) in libs.items()}
+                    counts = {v: _tile_bodies(lib) for v, (lib, _) in libs.items()}
                     reps = 20 if m <= 512 else 1
-                    outs, times = {}, {"other": [], "this": []}
+                    outs, times, ran = {}, {"other": [], "this": []}, {}
+                    queued = {"other": [], "this": []}
                     for version in ["other", "this", "this", "other"] * args.iters:
                         out = torch.empty(m, n, device=dev, dtype=dtype)
+
+                        def call():
+                            err = launch[version](c, a, b, out, tier_name)  # noqa: B023
+                            if err:
+                                raise RuntimeError(f"{version}: CUDA error {err}")  # noqa: B023
+
+                        before = counts[version]()
                         t0 = torch.cuda.Event(enable_timing=True)
                         t1 = torch.cuda.Event(enable_timing=True)
                         t0.record()
                         for _ in range(reps):
-                            err = launch[version](c, a, b, out, tier_name)
-                            if err:
-                                raise RuntimeError(f"{version}: CUDA error {err}")
+                            call()
                         t1.record()
                         t1.synchronize()
+                        after = counts[version]()
+                        ran[version] = [x for x in after if after[x] != before[x]]
                         times[version].append(t0.elapsed_time(t1) / reps)
+                        if m <= 512:
+                            queued[version].append(_queued_ms(call, 20))
                         outs[version] = out
                     with precision.override(tier_name):
                         ref = (tiles.trsm_tile_plain(b, a) if op == "trsm" else
                                tiles.syrk_tile_plain(c, a) if op == "syrk" else
                                tiles.gemm_tile_plain(c, a, b))
                     scale = (a.double().norm(dim=1).max() * b.double().norm(dim=1).max()).item()
-                    tol = (1e-5 * scale if dtype == torch.float32 else
-                           2**-6 * ((0.0 if c is None else c.double().abs().max().item()) + scale))
+                    tol = {torch.float64: 1e-12 * scale, torch.float32: 1e-5 * scale}.get(
+                        dtype, 2**-6 * ((0.0 if c is None else c.double().abs().max().item())
+                                        + scale))
                     diff = (outs["this"].double() - outs["other"].double()).abs().max().item()
                     err = (outs["this"].double() - ref.double()).abs().max().item()
-                    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[out.element_size()]
                     same = torch.equal(outs["this"].view(view), outs["other"].view(view))
                     body = tiles.tile_op_body(op, dtype, tier_name)
-                    good = err <= tol and (same or body != "scalar")
+                    good = err <= tol and (same or body == "wgmma")
                     ok = ok and good
                     all_same = all_same and same
                     med = {v: sorted(ts[1:])[len(ts[1:]) // 2] for v, ts in times.items()}
-                    print(f"{op}_tile m={m} n={n} k={k} {sfx}/{tier_name}: this body {body}; "
+                    card_ms = "".join(
+                        f", {v} queued median {sorted(q)[len(q) // 2]:.4f} ms of "
+                        f"{[round(t, 4) for t in q]}" for v, q in queued.items() if q)
+                    print(f"{op}_tile m={m} n={n} k={k} {sfx}/{tier_name}: other body "
+                          f"{ran['other']}, this body {ran['this']} (table: {body}); "
                           f"max |this - other| {diff:.3e}, same bits {same}; max |this - plain| "
                           f"{err:.3e} (tol {tol:.3e}){'' if good else ' FAILED'}; other median "
                           f"{med['other']:.4f} ms of {[round(t, 4) for t in times['other']]}, "
                           f"this median {med['this']:.4f} ms of "
                           f"{[round(t, 4) for t in times['this']]}, "
-                          f"x{med['other'] / med['this']:.2f} [{card}]", flush=True)
+                          f"x{med['other'] / med['this']:.2f}{card_ms} [{card}]", flush=True)
                     del c, a, b, outs, ref, launch
                     torch.cuda.empty_cache()
-    print(f"tile_ops: every case within tolerance, same bits where both builds run the scalar "
-          f"body: {ok}; same bits in every case: {all_same} [{card}]")
+    print(f"tile_ops: every case within tolerance, same bits where this build runs the scalar "
+          f"or a chain body: {ok}; same bits in every case: {all_same} [{card}]")
     return 0 if ok else 1
 
 

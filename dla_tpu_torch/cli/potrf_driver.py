@@ -48,6 +48,20 @@ generated path certifies straight off the packed pair with
 segments of slab steps (0: segments of at most 40 steps), the same bits as
 one run.
 
+``--solve potrs|inverse|refined`` (dense modes) then solves A·X = B for
+``--nrhs`` right-hand sides of ones, as the reference driver's dense branches
+(``dla_tpu/cli/potrf_driver.py:901-961``): ``potrs`` of the factor,
+``solve_inverse(potri(L))``, or mixed-precision refinement, and prints
+``||B - A X||_inf / (||A||_inf ||X||_inf) = %.2e`` and ``SOLVE PASS``/``SOLVE
+FAIL``, which also makes the exit code non-zero. The gates: 1e-10 for an
+fp64 factor, N·2e-6 for fp32 ``potrs``/``inverse``, 1e-10 for ``refined``.
+``refined`` is ``posv_refined_host`` (an fp32 ``potrf_shrink`` factor of
+tril(A) in fp64, early stop at 1e-11) unless ``--x64`` or an fp64 dtype
+picks ``posv_refined`` (an fp32 ``potrf_blocked`` factor, eight fp64
+refinement steps), as the reference picks by ``jax_enable_x64``; both run
+their fp64 residuals on the chosen device. The packed mode's ``--solve`` is
+not ported yet and exits 2.
+
 Only the factorization is timed, between two ``torch.cuda.synchronize()``
 calls; the input is regenerated from its seed before each repeat, untimed
 (``v6_test.c:54-57`` times dpotrf only). ``--mode packed`` generates the
@@ -64,6 +78,8 @@ Usage:
     python -m dla_tpu_torch.cli.potrf_driver --n 24576 --nb 1024 --mode df64 --trailing pallas
     python -m dla_tpu_torch.cli.potrf_driver --n 40960 --nb 1024 --mode df64-packed
     python -m dla_tpu_torch.cli.potrf_driver --n 512 --nb 128 --dtype d --device cpu
+    python -m dla_tpu_torch.cli.potrf_driver --n 16384 --nb 1024 --dtype s --mode inplace \
+        --solve refined --nrhs 64
 """
 
 from __future__ import annotations
@@ -123,6 +139,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gate", type=float, default=None,
                     help="PASS threshold (default: dtype-aware)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--solve", choices=["none", "potrs", "refined", "inverse"], default="none",
+                    help="dense modes: also solve A·X=B: plain POTRS, mixed-precision "
+                         "iterative refinement (fp32 factor, fp64 residuals), or the explicit "
+                         "inverse (POTRI, then one product per block of right-hand sides)")
+    ap.add_argument("--nrhs", type=int, default=1, help="right-hand sides for --solve")
+    ap.add_argument("--x64", action="store_true",
+                    help="--solve refined through posv_refined (the reference's "
+                         "jax_enable_x64 branch), as an fp64 --dtype does")
     return ap
 
 
@@ -172,6 +196,14 @@ def main(argv=None) -> int:
     slices = args.slices or 7
     if args.input and not df64:
         print("[dla-potrf] --input is ported for --mode df64|df64-packed only (ROADMAP.md)",
+              file=sys.stderr)
+        return 2
+    if args.solve != "none" and df64:
+        print("[dla-potrf] --solve with the df64 modes: use --solve refined on the fp32 modes "
+              "(the same 1e-10 contract)", file=sys.stderr)
+        return 2
+    if args.solve != "none" and cfg.mode == "packed":
+        print("[dla-potrf] --solve with --mode packed is not ported yet (ROADMAP.md)",
               file=sys.stderr)
         return 2
     # the pure packed-df64 path: exactly-fp32 generation on the device
@@ -270,7 +302,7 @@ def main(argv=None) -> int:
     print(f"Elapsed: {tmed * 1e3:.1f} ms")
     print(f"Performance: {gflops(flops, tmed):.2f} Gflop/s", flush=True)
 
-    if not cfg.check:
+    if not cfg.check and args.solve == "none":
         return 0
     if packed:
         res = float(freivalds_packed(l, cfg.n, cfg.nb, seed=cfg.seed, bump=bump))
@@ -281,25 +313,76 @@ def main(argv=None) -> int:
         sync()
         res = _df64_gate(a, l, cfg, bump, slices, device, df64_packed)
         return _verdict(res, args.gate, cfg)
-    chunk = 4096 if cfg.n >= 16384 and cfg.n % 4096 == 0 else None
-    # The reference's choice (``dla_tpu/cli/potrf_driver.py:741-766``): where
-    # the exact residual's operands do not fit the budget, validate
-    # matrix-free. The budget is what the device holds unless
-    # ``DLA_TPU_VALIDATE_HBM_BUDGET`` sets it.
-    need = _residual_bytes(cfg.n, dtype, chunk)
-    budget = int(os.environ.get("DLA_TPU_VALIDATE_HBM_BUDGET", _memory_bytes(device)))
-    chunk_f = next((c for c in (4096, 2048, 1024, 512, 256, 128) if cfg.n % c == 0), None)
-    if need > budget and chunk_f:
-        from dla_tpu_torch.validate import freivalds_device
+    rc = 0
+    if cfg.check:
+        chunk = 4096 if cfg.n >= 16384 and cfg.n % 4096 == 0 else None
+        # The reference's choice (``dla_tpu/cli/potrf_driver.py:741-766``):
+        # where the exact residual's operands do not fit the budget, validate
+        # matrix-free. The budget is what the device holds unless
+        # ``DLA_TPU_VALIDATE_HBM_BUDGET`` sets it.
+        need = _residual_bytes(cfg.n, dtype, chunk)
+        budget = int(os.environ.get("DLA_TPU_VALIDATE_HBM_BUDGET", _memory_bytes(device)))
+        chunk_f = next((c for c in (4096, 2048, 1024, 512, 256, 128) if cfg.n % c == 0), None)
+        if need > budget and chunk_f:
+            from dla_tpu_torch.validate import freivalds_device
 
-        res = float(freivalds_device(l, seed=cfg.seed, bump=bump, probes=2, row_chunk=chunk_f))
-        print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
-        return _verdict(res, args.gate, cfg)
-    l = torch.tril(l)
-    res = float(residual_potrf(fresh_a(), l, assume_symmetric=True,
-                               assume_tril=True, row_chunk=chunk))
-    print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
-    return _verdict(res, args.gate, cfg)
+            res = float(freivalds_device(l, seed=cfg.seed, bump=bump, probes=2,
+                                         row_chunk=chunk_f))
+            print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
+        else:
+            l = torch.tril(l)
+            res = float(residual_potrf(fresh_a(), l, assume_symmetric=True,
+                                       assume_tril=True, row_chunk=chunk))
+            print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
+        rc = _verdict(res, args.gate, cfg)
+    if args.solve != "none":
+        rc = max(rc, _solve(args, cfg, fresh_a(), l, device, sync))
+    return rc
+
+
+def _solve(args, cfg, a, l, device, sync) -> int:
+    """The reference driver's dense ``--solve`` branches
+    (``dla_tpu/cli/potrf_driver.py:901-961``) on the generated A and its
+    factor L (only tril(L) is read): print the solve residual and
+    ``SOLVE PASS``/``SOLVE FAIL``; the exit code. Its ``HostTileStore``
+    regeneration of A (``:909-915``) is not ported: the refined solve takes
+    tril(A) in fp64."""
+    import torch
+
+    from dla_tpu_torch.algos import posv_refined, posv_refined_host, potri, potrs, solve_inverse
+    from dla_tpu_torch.validate import residual_posv
+
+    x64 = args.x64 or cfg.dtype == "float64"
+    n = cfg.n
+    if args.solve == "refined" and not x64:
+        a64 = torch.tril(a).to(torch.float64)
+        b64 = torch.ones((n, args.nrhs), dtype=torch.float64, device=device)
+        kwp = {}
+        if cfg.mode in ("blocked", "shrink"):
+            kwp = {"panel": args.panel, "trailing": args.trailing, "diag_factor": args.diag}
+        t0 = time.perf_counter()
+        _, serr, used = posv_refined_host(a64, b64, nb=cfg.nb, potrf_kwargs=kwp, device=device)
+        sync()
+        print(f"[dla-potrf] refined solve: {used} iterations, "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms (fp32 factor, fp64 residuals, on "
+              f"{device.type})")
+        sgate = args.gate if args.gate is not None else 1e-10
+    else:
+        b = torch.ones((n, args.nrhs), dtype=l.dtype, device=device)
+        fp64 = cfg.dtype == "float64"
+        if args.solve == "refined":
+            _, x, _ = posv_refined(a, b, nb=cfg.nb, factor_dtype=torch.float32)
+            sgate = 1e-10
+        else:
+            x = solve_inverse(potri(l), b) if args.solve == "inverse" else potrs(l, b)
+            sgate = args.gate if args.gate is not None else (1e-10 if fp64 else n * 2e-6)
+        serr = float(residual_posv(a, b.to(x.dtype), x))
+    print(f"||B - A X||_inf / (||A||_inf ||X||_inf) = {serr:.2e}")
+    if serr < sgate:  # False for NaN
+        print(f"SOLVE PASS (residual < {sgate:g})", flush=True)
+        return 0
+    print(f"SOLVE FAIL (residual >= {sgate:g})", flush=True)
+    return 1
 
 
 def _residual_bytes(n: int, dtype, row_chunk: int | None) -> int:

@@ -1,5 +1,5 @@
 // One NT product A * B^T into an output with its own leading dimension, on
-// two block bodies, with two epilogues: the products of the task kernels
+// four block bodies, with three epilogues: the products of the task kernels
 // trsm_tile, syrk_tile and gemm_tile (tile_ops.cu) and of the panel solve
 // panel_apply (panel_apply.cu), which include this header.
 //
@@ -13,7 +13,7 @@
 // .astype(c_ref.dtype) does in the reference. m, n and k need not be
 // multiples of anything, and no pointer or leading dimension need be aligned.
 //
-// The two bodies:
+// The bodies:
 // - tile_tc_kernel (launch_tc), the tensor-core pipeline of trailing_wgmma.cuh
 //   with two operands, for bf16 products (fp32 high: two bf16 planes,
 //   default and bf16 storage: one). The split kernel writes A's planes and
@@ -24,9 +24,18 @@
 //   thread per column, coalesced. Its sums are not the scalar body's bits:
 //   wgmma adds in another order and does not round to nearest between
 //   promotions (every 256 columns of k), within 1e-5 of max|a_i| * max|b_j|.
+// - tile_simt_kernel and tile_dmma_kernel (launch_chain), the FMA-chain
+//   bodies of trailing_chain.cuh (simt_sums: fp32 highest; dmma_sums: fp64 on
+//   the fp64 tensor cores) on a ceil(m/T) x ceil(n/T) grid in the same
+//   grouped order (chain_tile; tiles.chain_tile_grid models it). One fma
+//   chain per output in ascending k from +0 over 16-column steps, so the
+//   scalar body's bits at every T. The simt body takes T = 128 where that
+//   grid keeps every SM busy at once, else 64 (at 512^3 a 128 grid has 16
+//   blocks, the 64 grid 64); the dmma body takes 64 (its 128-tile main loop
+//   serves the trailing kernels only).
 // - tile_kernel (launch_scalar), one 64 x 64 nt_block (trailing_block.cuh)
-//   per block of a 2-D grid, scalar FMAs: every tier, for fp32 highest, fp64
-//   and the products the caller keeps off the tensor cores.
+//   per block of a 2-D grid, scalar FMAs: syrk at every tier, the panel
+//   solve at highest, and the task kernels' test-only reference entry.
 //
 // Everything here sits in an anonymous namespace: each source that includes
 // the header has its own kernels and its own once-per-device flag of
@@ -34,7 +43,7 @@
 
 #pragma once
 
-#include "trailing_wgmma.cuh"
+#include "trailing_chain.cuh"
 
 namespace {
 
@@ -97,6 +106,164 @@ int launch_scalar(const T* c, const T* a, const T* b, T* out, long long m, long 
   const dim3 grid((unsigned)gx, (unsigned)gy);
   tile_kernel<T, TIER, EPI><<<grid, dla::TPB, 0, s>>>(c, ldc, a, lda, b, ldb, out, ldo, m, n, k);
   return (int)cudaGetLastError();
+}
+
+// ---- the FMA-chain bodies -----------------------------------------------------------
+
+// out[r, cc] from the product of one element, by epilogue
+template <int EPI, typename T>
+__device__ __forceinline__ void put(const T* __restrict__ c, long long ldc, T* __restrict__ out,
+                                    long long ldo, long long r, long long cc, T prod) {
+  if constexpr (EPI == kTrsm) {
+    out[r * ldo + cc] = prod;
+  } else {
+    T v = c[r * ldc + cc];
+    if (EPI == kGemm || r >= cc) v = dla::minus(v, prod);
+    out[r * ldo + cc] = v;
+  }
+}
+
+// Block -> (row0, col0) of a gm x gn grid of T x T output tiles: groups of
+// kGroup row tiles walked column by column, as block_tile orders 128-tiles
+template <int T>
+__device__ __forceinline__ void chain_tile(long long gm, long long gn, long long& row0,
+                                           long long& col0) {
+  using dla::chain::kGroup;
+  const long long per_group = kGroup * gn;
+  const long long first = (long long)blockIdx.x / per_group * kGroup;
+  const long long in_group = (long long)blockIdx.x % per_group;
+  const long long rows = gm - first < kGroup ? gm - first : kGroup;
+  row0 = (first + in_group % rows) * T;
+  col0 = in_group / rows * T;
+}
+
+template <int T, bool VEC, int EPI>
+__global__ void __launch_bounds__(dla::chain::kSimtThreads,
+                                  VEC || T < dla::chain::kTile ? dla::chain::kSimtBlocks : 1)
+tile_simt_kernel(const float* __restrict__ c, long long ldc, const float* __restrict__ a,
+                 long long lda, const float* __restrict__ b, long long ldb,
+                 float* __restrict__ out, long long ldo, long long m, long long n, long long k) {
+  using namespace dla::chain;
+  long long row0, col0;
+  chain_tile<T>((m + T - 1) / T, (n + T - 1) / T, row0, col0);
+  float acc[T / 16][T / 16];
+  simt_sums<T, VEC, true>(a, lda, row0, m, b, ldb, col0, n, k, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int j = 0; j < T / 16; ++j) {
+    const long long cc = col0 + simt_pos(j, tx);
+    if (cc >= n) continue;
+#pragma unroll
+    for (int i = 0; i < T / 16; ++i) {
+      const long long r = row0 + simt_pos(i, ty);
+      if (r < m) put<EPI>(c, ldc, out, ldo, r, cc, acc[i][j]);
+    }
+  }
+}
+
+template <int T, bool VEC, int EPI>
+__global__ void __launch_bounds__(dla::chain::dmma_threads<T>(), 1)
+tile_dmma_kernel(const double* __restrict__ c, long long ldc, const double* __restrict__ a,
+                 long long lda, const double* __restrict__ b, long long ldb,
+                 double* __restrict__ out, long long ldo, long long m, long long n, long long k) {
+  using namespace dla::chain;
+  extern __shared__ __align__(16) double ring[];
+  long long row0, col0;
+  chain_tile<T>((m + T - 1) / T, (n + T - 1) / T, row0, col0);
+  double acc[kMI][kNI][4];
+  dmma_sums<T, VEC>(a, lda, row0, m, b, ldb, col0, n, k, ring, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = warp % dmma_warps<T>(), wn = warp / dmma_warps<T>();
+#pragma unroll
+  for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+    for (int ec = 0; ec < 2; ++ec) {
+      const long long cc = col0 + wn * 8 * kNI + ni * 8 + 2 * q + ec;
+      if (cc >= n) continue;
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int er = 0; er < 2; ++er) {
+          const long long r = row0 + wm * 16 * kMI + mi * 16 + g + 8 * er;
+          if (r < m) put<EPI>(c, ldc, out, ldo, r, cc, acc[mi][ni][2 * er + ec]);
+        }
+    }
+}
+
+template <int T, bool VEC, int EPI>
+int launch_simt_tile(const float* c, const float* a, const float* b, float* out, long long m,
+                     long long n, long long k, long long ldc, long long lda, long long ldb,
+                     long long ldo, cudaStream_t s) {
+  const long long blocks = ((m + T - 1) / T) * ((n + T - 1) / T);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  tile_simt_kernel<T, VEC, EPI><<<(unsigned)blocks, dla::chain::kSimtThreads, 0, s>>>(
+      c, ldc, a, lda, b, ldb, out, ldo, m, n, k);
+  return (int)cudaGetLastError();
+}
+
+template <int T, bool VEC, int EPI>
+int launch_dmma_tile(const double* c, const double* a, const double* b, double* out, long long m,
+                     long long n, long long k, long long ldc, long long lda, long long ldb,
+                     long long ldo, cudaStream_t s) {
+  using namespace dla::chain;
+  const long long blocks = ((m + T - 1) / T) * ((n + T - 1) / T);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = tile_dmma_kernel<T, VEC, EPI>;
+  static std::atomic<unsigned long long> smem_set{0};
+  const int err = dla::tc::allow_smem(kernel, dmma_smem<T>(), smem_set);
+  if (err != 0) return err;
+  kernel<<<(unsigned)blocks, dmma_threads<T>(), dmma_smem<T>(), s>>>(c, ldc, a, lda, b, ldb, out,
+                                                                     ldo, m, n, k);
+  return (int)cudaGetLastError();
+}
+
+// The simt body's tile edge: 128 where its grid has at least as many blocks
+// as the card runs at once (SMs x blocks an SM: 2 on 16-byte rows, else 1),
+// else 64. tiles.chain_tile_edge keeps the same rule. The SM count is read
+// once per device (devices past 64 read it every time).
+inline int chain_edge(long long m, long long n, int per_sm, int& edge) {
+  static std::atomic<int> sms_of[64] = {};
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64) sms = sms_of[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
+  const long long t = dla::chain::kTile;
+  edge = ((m + t - 1) / t) * ((n + t - 1) / t) >= (long long)sms * per_sm ? 128 : 64;
+  return 0;
+}
+
+// Launch the chain body of the storage type, 128-bit operand loads where A's
+// and B's rows start on 16 bytes. float: the simt body at tile edge `tile`
+// (64 or 128; 0: chain_edge's choice). double: the dmma body on 64-tiles (4
+// warps, two blocks an SM), whatever `tile` is: on the card it beat the
+// 128-tile at 256^3 and 512^3 by 2x and at 4096 x 2048 x 2048 by 3%.
+template <typename T, int EPI>
+int launch_chain(const T* c, const T* a, const T* b, T* out, long long m, long long n,
+                 long long k, long long ldc, long long lda, long long ldb, long long ldo,
+                 int tile, cudaStream_t s) {
+  const bool vec = dla::chain::rows_aligned(a, lda) && dla::chain::rows_aligned(b, ldb);
+  if constexpr (std::is_same_v<T, double>) {
+    (void)tile;
+    return vec ? launch_dmma_tile<64, true, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, s)
+               : launch_dmma_tile<64, false, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, s);
+  } else {
+    if (tile != 0 && tile != 64 && tile != 128) return (int)cudaErrorInvalidValue;
+    if (tile == 0) {
+      const int err = chain_edge(m, n, vec ? dla::chain::kSimtBlocks : 1, tile);
+      if (err != 0) return err;
+    }
+    if (tile == 128)
+      return vec ? launch_simt_tile<128, true, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, s)
+                 : launch_simt_tile<128, false, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, s);
+    return vec ? launch_simt_tile<64, true, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, s)
+               : launch_simt_tile<64, false, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, s);
+  }
 }
 
 // ---- the tensor-core body -----------------------------------------------------------

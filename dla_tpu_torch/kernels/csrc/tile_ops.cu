@@ -1,5 +1,5 @@
 // TRSM, SYRK and GEMM task kernels: one NT product with three epilogues, on
-// two block bodies.
+// four block bodies.
 //
 // Replaces dla_tpu/kernels/pallas_tiles.py:trsm_tile, syrk_tile and gemm_tile
 // (bodies _trsm_kernel, _syrk_kernel, _gemm_kernel), the three product tasks
@@ -16,96 +16,134 @@
 // bf16 (and subtracts in bf16), as .astype(c_ref.dtype) does in the
 // reference. m, n and k need not be multiples of anything.
 //
-// Two bodies, by tier (kernels/tiles.py:tile_op_planes keeps the same table),
-// both in tile_body.cuh, with out's leading dimension n:
+// Four bodies, by tier (kernels/tiles.py:tile_op_body keeps the same
+// table), all in tile_body.cuh, with out's leading dimension n:
 // - trsm and gemm at fp32 high (two bf16 planes) and default (one), and bf16
 //   storage at any tier (one): tile_tc_kernel, the tensor-core pipeline of
 //   trailing_wgmma.cuh with two operands, one 128 x 128 output tile a block;
-// - syrk at every tier, and fp32 highest and fp64: tile_kernel, one 64 x 64
-//   nt_block (trailing_block.cuh) per block, scalar FMAs.
-// The launches through each body are counted apart from panel_apply.cu's,
-// which runs the same bodies.
+// - trsm and gemm at fp32 highest: tile_simt_kernel, the register-blocked
+//   fp32 FMA chain of trailing_chain.cuh (simt_sums), 128- or 64-tiles;
+// - trsm and gemm at fp64: tile_dmma_kernel, the fp64 chain on the fp64
+//   tensor cores (dmma_sums), 64-tiles;
+// - syrk at every tier: tile_kernel, one 64 x 64 nt_block
+//   (trailing_block.cuh) per block, scalar FMAs.
+// The two chain bodies keep tile_kernel's bits (one fma chain per output in
+// ascending k); dla_tile_op_scalar runs tile_kernel on trsm and gemm for the
+// card tests to hold them to, and dla_tile_op_chain_f32 the simt body at a
+// given tile edge, for measurements. The launches through each body are counted
+// apart from panel_apply.cu's, which runs the same bodies; the two test-only
+// entries count nothing.
 //
 // Bound. A 512-tile call moves 3 MB and does 0.27 GFLOP: a few microseconds
 // of card time, so at the DAG's tile size a call is bound by its launches
 // (split, main kernel) and the host. At m=4096, n=k=2048 the tensor-core
-// body is bound by its bf16 products (three passes at high), the scalar body
-// by FMA issue.
+// body is bound by its bf16 products (three passes at high), the chain
+// bodies by fp32 FMA issue and by the fp64 tensor cores.
 
 #include "tile_body.cuh"
 
 namespace {
 
-// launches of the three task kernels in this process through each body
-// (dla::kScalarBody, dla::kTensorCoreBody), counted where a launch succeeds
-long long tile_body_launches[2] = {0, 0};
+// the bodies the three task kernels launch through
+enum TileBody { kScalar = 0, kWgmma = 1, kSimt = 2, kDmma = 3 };
 
-int tile_counted(int err, dla::Body body) {
+// launches of the three task kernels in this process through each body,
+// counted where a launch succeeds
+long long tile_body_launches[4] = {0, 0, 0, 0};
+
+int tile_counted(int err, TileBody body) {
   if (err == 0) ++tile_body_launches[body];
   return err;
 }
 
-// fp64 and bf16 storage have one tier each (bf16 operands make every tier's
-// products exact).
-template <typename T, int EPI>
-int run_scalar(const T* c, const T* a, const T* b, T* out, long long m, long long n,
-               long long k, long long ldc, long long lda, long long ldb, int tier,
-               cudaStream_t s) {
+// fp32 tiers of syrk; fp64 and bf16 storage have one tier each (bf16
+// operands make every tier's products exact)
+template <typename T>
+int run_syrk(const T* c, const T* a, T* out, long long n, long long k, long long ldc,
+             long long lda, int tier, cudaStream_t s) {
   if constexpr (std::is_same_v<T, float>) {
     switch (tier) {
       case dla::kHighest:
-        return launch_scalar<T, dla::kHighest, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, n, s);
+        return launch_scalar<T, dla::kHighest, kSyrk>(c, a, a, out, n, n, k, ldc, lda, lda, n, s);
       case dla::kHigh:
-        return launch_scalar<T, dla::kHigh, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, n, s);
+        return launch_scalar<T, dla::kHigh, kSyrk>(c, a, a, out, n, n, k, ldc, lda, lda, n, s);
       case dla::kDefault:
-        return launch_scalar<T, dla::kDefault, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, n, s);
+        return launch_scalar<T, dla::kDefault, kSyrk>(c, a, a, out, n, n, k, ldc, lda, lda, n, s);
       default:
         return (int)cudaErrorInvalidValue;
     }
   } else {
     (void)tier;
-    return launch_scalar<T, dla::kHighest, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, n, s);
+    return launch_scalar<T, dla::kHighest, kSyrk>(c, a, a, out, n, n, k, ldc, lda, lda, n, s);
   }
 }
 
+bool bad_args(int epi, long long m, long long n, long long k, long long ldc, long long lda,
+              long long ldb) {
+  return m <= 0 || n <= 0 || k < 0 || lda < k || ldb < k || (epi != kTrsm && ldc < n);
+}
+
 // The body follows the op, the storage type and the tier; a launch one body
-// refuses is never retried through the other.
+// refuses is never retried through another.
 template <typename T, int EPI>
 int run(const void* c, const void* a, const void* b, void* out, void* scratch, long long m,
         long long n, long long k, long long ldc, long long lda, long long ldb,
         long long scratch_bytes, int tier, void* stream) {
-  if (m <= 0 || n <= 0 || k < 0 || lda < k || ldb < k || (EPI != kTrsm && ldc < n))
-    return (int)cudaErrorInvalidValue;
+  if (bad_args(EPI, m, n, k, ldc, lda, ldb)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const T *cp = (const T*)c, *ap = (const T*)a, *bp = (const T*)b;
   T* o = (T*)out;
-  if constexpr (EPI == kSyrk || std::is_same_v<T, double>) {
-    (void)scratch, (void)scratch_bytes;
-    return tile_counted(run_scalar<T, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, tier, s),
-                   dla::kScalarBody);
+  if constexpr (EPI == kSyrk) {
+    (void)bp, (void)scratch, (void)scratch_bytes;
+    return tile_counted(run_syrk<T>(cp, ap, o, n, k, ldc, lda, tier, s), kScalar);
+  } else if constexpr (std::is_same_v<T, double>) {
+    (void)tier, (void)scratch, (void)scratch_bytes;
+    return tile_counted(launch_chain<T, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, 0, s),
+                        kDmma);
   } else if constexpr (std::is_same_v<T, float>) {
     switch (tier) {
       case dla::kHighest:
-        return tile_counted(launch_scalar<T, dla::kHighest, EPI>(cp, ap, bp, o, m, n, k, ldc, lda,
-                                                            ldb, n, s),
-                       dla::kScalarBody);
+        return tile_counted(launch_chain<T, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, 0, s),
+                            kSimt);
       case dla::kHigh:
         return tile_counted(launch_tc<T, 2, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n,
-                                            scratch, scratch_bytes, s),
-                       dla::kTensorCoreBody);
+                                                 scratch, scratch_bytes, s),
+                            kWgmma);
       case dla::kDefault:
         return tile_counted(launch_tc<T, 1, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n,
-                                            scratch, scratch_bytes, s),
-                       dla::kTensorCoreBody);
+                                                 scratch, scratch_bytes, s),
+                            kWgmma);
       default:
         return (int)cudaErrorInvalidValue;
     }
   } else {
     (void)tier;
     return tile_counted(launch_tc<T, 1, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, scratch,
-                                        scratch_bytes, s),
-                   dla::kTensorCoreBody);
+                                             scratch_bytes, s),
+                        kWgmma);
   }
+}
+
+// trsm (op 0) or gemm (op 2) of the test-only entries: through tile_kernel
+// (tile 0) or, fp32 only, through the simt body at the given tile edge;
+// counted nowhere
+template <typename T>
+int run_reference(int op, const void* c, const void* a, const void* b, void* out, long long m,
+                  long long n, long long k, long long ldc, long long lda, long long ldb, int tile,
+                  void* stream) {
+  if ((op != kTrsm && op != kGemm) || bad_args(op, m, n, k, ldc, lda, ldb) ||
+      (tile != 0 && !std::is_same_v<T, float>))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const T *cp = (const T*)c, *ap = (const T*)a, *bp = (const T*)b;
+  T* o = (T*)out;
+  if (tile == 0 && op == kTrsm)
+    return launch_scalar<T, dla::kHighest, kTrsm>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, s);
+  if (tile == 0)
+    return launch_scalar<T, dla::kHighest, kGemm>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, s);
+  return op == kTrsm
+             ? launch_chain<T, kTrsm>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, tile, s)
+             : launch_chain<T, kGemm>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, tile, s);
 }
 
 }  // namespace
@@ -114,7 +152,7 @@ int run(const void* c, const void* a, const void* b, void* out, void* scratch, l
 // m, n, k, ldc, lda, ldb, scratch_bytes, tier, stream). out is (m, n),
 // contiguous; trsm reads no c (pass a null pointer), syrk is given b = a;
 // scratch holds scratch_bytes for the split planes of the tensor-core body
-// (the scalar body reads neither). Each returns the CUDA error of the first
+// (the other bodies read neither). Each returns the CUDA error of the first
 // step that failed; 0 means launched.
 #define DLA_TILE_OP(op, EPI, suffix, T)                                                       \
   extern "C" int dla_##op##_tile_##suffix(const void* c, const void* a, const void* b,        \
@@ -136,5 +174,33 @@ DLA_TILE_OPS(f64, double)
 DLA_TILE_OPS(bf16, __nv_bfloat16)
 
 // Launches of the three task kernels in this process through the scalar body
-// (body = 0) or the tensor-core body (1).
-extern "C" long long dla_tile_body_launches(int body) { return tile_body_launches[body != 0]; }
+// (body = 0), the tensor-core body (1), the simt chain (2) or the dmma
+// chain (3).
+extern "C" long long dla_tile_body_launches(int body) {
+  return body >= 0 && body < 4 ? tile_body_launches[body] : 0;
+}
+
+// Test-only entries, on no library path: trsm (op 0) or gemm (op 2) as the
+// task kernels compute them at fp32 highest and fp64, out (m, n) contiguous.
+// dla_tile_op_scalar_<f32|f64> runs tile_kernel (nt_block: the bits the chain
+// bodies must keep), dla_tile_op_chain_f32 the simt body at tile edge 64 or
+// 128 (fp64 has one edge, the library's). Neither counts a launch. Each
+// returns a CUDA error.
+#define DLA_TILE_SCALAR(suffix, T)                                                             \
+  extern "C" int dla_tile_op_scalar_##suffix(int op, const void* c, const void* a,             \
+                                             const void* b, void* out, long long m,            \
+                                             long long n, long long k, long long ldc,          \
+                                             long long lda, long long ldb, void* stream) {     \
+    return run_reference<T>(op, c, a, b, out, m, n, k, ldc, lda, ldb, 0, stream);             \
+  }
+
+DLA_TILE_SCALAR(f32, float)
+DLA_TILE_SCALAR(f64, double)
+
+extern "C" int dla_tile_op_chain_f32(int op, const void* c, const void* a, const void* b,
+                                     void* out, long long m, long long n, long long k,
+                                     long long ldc, long long lda, long long ldb, int tile,
+                                     void* stream) {
+  if (tile == 0) return (int)cudaErrorInvalidValue;
+  return run_reference<float>(op, c, a, b, out, m, n, k, ldc, lda, ldb, tile, stream);
+}

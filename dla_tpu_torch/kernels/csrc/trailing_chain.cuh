@@ -13,9 +13,10 @@
 //
 // The sum. Each output is one chain acc = fma(P[r, k], P[c, k], acc), k = 0,
 // 1, ... in order from +0, rounded at every step, then c - acc: the sum of
-// the scalar body nt_block (trailing_block.cuh), which the task kernels still
-// run at these tiers. k runs on to the next multiple of 16 over zeros, as
-// nt_block's 16-column steps do, so even a -0 sum ends as nt_block's does.
+// the scalar body nt_block (trailing_block.cuh), which the task kernels ran
+// at these tiers before they took these bodies too. k runs on to the next
+// multiple of 16 over zeros, as nt_block's 16-column steps do, so even a -0
+// sum ends as nt_block's does.
 // No split of k, no second partial sum, no reassociation: however the work
 // is tiled, staged or ordered, the bits are nt_block's.
 //
@@ -29,6 +30,14 @@
 // group's first block into the kernel's parameters (LowerGrid); a block finds
 // its group by bisection and its tile in at most kGroup steps.
 // tiles.chain_grid models the same map in torch.
+//
+// The sums of one output tile are a main loop of their own (simt_sums,
+// dmma_sums), apart from the grid and the epilogue: two operands A and B with
+// their own leading dimensions (here both P), and the tile edge T as a
+// template (the lower grid runs T = 128). The task kernels trsm_tile and
+// gemm_tile (tile_body.cuh) run the same loops on a rectangular grid into a
+// separate output, at T = 128 or 64. At T = 64 the SIMT body's thread holds
+// 4 x 4 sums (one 4-row group a side) and the DMMA body runs 4 warps.
 //
 // fp32 highest: trailing_simt_kernel. 256 threads, 8 x 8 outputs each (rows
 // ty*4 + i and 64 + ty*4 + i, columns likewise from tx), in registers, two
@@ -71,29 +80,35 @@
 namespace dla {
 namespace chain {
 
-constexpr int kTile = 128;       // output tile rows = cols
+constexpr int kTile = 128;       // output tile rows = cols (the task kernels also take 64)
 constexpr int kGroup = 8;        // block rows per group of the block order
 constexpr int kMaxGroups = 512;  // w up to 512 * 8 * 128 = 524288
 constexpr int kSimtThreads = 256;
 constexpr int kK = 16;           // k columns per slab: nt_block's step, so the same zero padding
 
-// fp32: [k][row] slabs, two buffers; two blocks an SM (128 registers a
-// thread) where P's rows take 128-bit loads, one where they do not (the
-// scalar loads' guards would spill at 128)
-constexpr int kSLd = kTile + 4;
+// fp32: [k][row] slabs of T + 4 floats, two buffers; two blocks an SM (128
+// registers a thread at T = 128) where the operands' rows take 128-bit
+// loads, one where they do not (the scalar loads' guards would spill at 128)
 constexpr int kSimtBlocks = 2;
 
-// fp64: [row][k] slabs in a ring
+// fp64: [row][k] slabs in a ring; a warp takes 32 x 32 outputs of the tile
 constexpr int kDmmaK = 4;                      // mma.sync.m16n8k4.f64
 constexpr int kDLd = kK + 4;                   // 4 mod 16: fragment reads conflict-free
 constexpr int kDStages = 4;
-constexpr int kDWarpsM = 4;                    // warps along the tile's rows
-constexpr int kDWarpsN = 4;                    // and columns: 32 x 32 outputs each
-constexpr int kDThreads = 32 * kDWarpsM * kDWarpsN;
-constexpr int kMI = kTile / 16 / kDWarpsM;     // m16 fragments a warp
-constexpr int kNI = kTile / 8 / kDWarpsN;      // n8 fragments a warp
-constexpr int kDStage = 2 * kTile * kDLd;      // doubles of one slab: row block, column block
-constexpr int kDSmem = kDStages * kDStage * 8; // 160 KB
+constexpr int kDWarpTile = 32;                 // a warp's outputs along each axis
+constexpr int kMI = kDWarpTile / 16;           // m16 fragments a warp
+constexpr int kNI = kDWarpTile / 8;            // n8 fragments a warp
+// warps along each axis of a T x T tile (16 warps at 128), threads, the
+// doubles of one slab (row block, column block) and the ring's bytes (160 KB
+// at 128)
+template <int T> __host__ __device__ constexpr int dmma_warps() { return T / kDWarpTile; }
+template <int T> __host__ __device__ constexpr int dmma_threads() {
+  return 32 * dmma_warps<T>() * dmma_warps<T>();
+}
+template <int T> __host__ __device__ constexpr int dmma_stage() { return 2 * T * kDLd; }
+template <int T> __host__ __device__ constexpr int dmma_smem() {
+  return kDStages * dmma_stage<T>() * 8;
+}
 
 __host__ __device__ __forceinline__ long long lmin(long long a, long long b) {
   return a < b ? a : b;
@@ -165,8 +180,9 @@ __device__ __forceinline__ void lower_tile(const LowerGrid& grid, long long& row
 
 // ---- fp32 highest: the SIMT body ------------------------------------------------------
 
-// four floats of row `row` of P from column k, zeros past nb (row < 0: past
-// the window, all zeros); 128 bits at once where VEC says P's rows allow it
+// four floats of row `row` of an operand from column k, zeros past nb (row <
+// 0: past the operand's rows, all zeros); 128 bits at once where VEC says the
+// rows allow it
 template <bool VEC>
 __device__ __forceinline__ void load4(const float* __restrict__ p, long long ldp, long long nb,
                                       long long row, long long k, float (&v)[4]) {
@@ -184,32 +200,82 @@ __device__ __forceinline__ void load4(const float* __restrict__ p, long long ldp
     if (k + e < nb) v[e] = __ldg(src + e);
 }
 
-template <bool VEC, typename Addr>
-__global__ void __launch_bounds__(kSimtThreads, VEC ? kSimtBlocks : 1)
-trailing_simt_kernel(const float* __restrict__ p, long long nb, long long ldp,
-                     const __grid_constant__ LowerGrid grid, const __grid_constant__ Addr addr) {
-  __shared__ __align__(16) float sa[2][kK][kSLd];
-  __shared__ __align__(16) float sb[2][kK][kSLd];
-  long long row0, col0;
-  lower_tile(grid, row0, col0);
-  const long long w = grid.w;
+// the same from a row's address (null: all zeros)
+template <bool VEC>
+__device__ __forceinline__ void load4(const float* __restrict__ row, long long nb, long long k,
+                                      float (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = 0.0f;
+  if (row == nullptr) return;
+  const float* src = row + k;
+  if (VEC && k + 4 <= nb) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (k + e < nb) v[e] = __ldg(src + e);
+}
+
+// The row (column) of a T x T tile that the SIMT body's sum i (j) of thread
+// row ty (column tx) belongs to: 4-row groups 64 apart
+__device__ __forceinline__ int simt_pos(int i, int t) {
+  return (i / 4) * 64 + t * 4 + i % 4;
+}
+
+// The SIMT body's sums over one T x T output tile (T = 64 or 128): thread
+// (ty, tx) = (t / 16, t % 16) ends with acc[i][j] = the fma chain over k of
+// A[arow0 + simt_pos(i, ty), k] * B[brow0 + simt_pos(j, tx), k], from +0, k
+// ascending and zero-padded to a multiple of kK. A is am rows of leading
+// dimension lda (rows past am count as zeros), B likewise; both nb columns.
+// Every thread of the block calls it; it ends on a __syncthreads().
+template <int T, bool VEC, bool HOLD>
+__device__ __forceinline__ void simt_sums(const float* __restrict__ a, long long lda,
+                                          long long arow0, long long am,
+                                          const float* __restrict__ b, long long ldb,
+                                          long long brow0, long long bm, long long nb,
+                                          float (&acc)[T / 16][T / 16]) {
+  constexpr int kOut = T / 16;     // sums a thread along each axis
+  constexpr int kGroups = T / 64;  // 4-row groups a thread along each axis
+  __shared__ __align__(16) float sa[2][kK][T + 4];
+  __shared__ __align__(16) float sb[2][kK][T + 4];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  // staging: chunks t and t + 256 of each operand's 128 x 16 slab; chunk c is
-  // row c / 4, columns 4 * (c % 4) .. + 3 (a warp reads 8 rows of 64 bytes)
-  float va[2][4], vb[2][4];
+  // staging: chunks t + 256 e of each operand's T x 16 slab; chunk c is
+  // row c / 4, columns 4 * (c % 4) .. + 3 (a warp reads 8 rows of 64 bytes).
+  // The rows a thread stages are fixed. HOLD takes their addresses once and
+  // keeps them in registers (the task kernels: recomputed from two operands'
+  // bases and leading dimensions they spill at 128 registers); otherwise each
+  // fetch recomputes them from the row index (the trailing kernels: held,
+  // they spill).
+  const float* ra[kGroups];
+  const float* rb[kGroups];
+#pragma unroll
+  for (int e = 0; e < kGroups; ++e) {
+    const long long r = (threadIdx.x + e * kSimtThreads) / 4;
+    ra[e] = HOLD && arow0 + r < am ? a + (arow0 + r) * lda : nullptr;
+    rb[e] = HOLD && brow0 + r < bm ? b + (brow0 + r) * ldb : nullptr;
+  }
+  const int kc = 4 * (threadIdx.x % 4);  // c % 4 is t % 4 for every chunk
+  float va[kGroups][4], vb[kGroups][4];
   auto fetch = [&](long long k0) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = threadIdx.x + e * kSimtThreads;
-      const long long k = k0 + 4 * (c % 4);
-      load4<VEC>(p, ldp, nb, row0 + c / 4 < w ? row0 + c / 4 : -1, k, va[e]);
-      load4<VEC>(p, ldp, nb, col0 + c / 4 < w ? col0 + c / 4 : -1, k, vb[e]);
+    for (int e = 0; e < kGroups; ++e) {
+      if constexpr (HOLD) {
+        load4<VEC>(ra[e], nb, k0 + kc, va[e]);
+        load4<VEC>(rb[e], nb, k0 + kc, vb[e]);
+      } else {
+        const int c = threadIdx.x + e * kSimtThreads;
+        const long long k = k0 + 4 * (c % 4);
+        load4<VEC>(a, lda, nb, arow0 + c / 4 < am ? arow0 + c / 4 : -1, k, va[e]);
+        load4<VEC>(b, ldb, nb, brow0 + c / 4 < bm ? brow0 + c / 4 : -1, k, vb[e]);
+      }
     }
   };
   auto stash = [&](int buf) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
+    for (int e = 0; e < kGroups; ++e) {
       const int c = threadIdx.x + e * kSimtThreads;
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
@@ -219,11 +285,10 @@ trailing_simt_kernel(const float* __restrict__ p, long long nb, long long ldp,
     }
   };
 
-  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kOut; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.0f;
 
   const long long ksteps = (nb + kK - 1) / kK;
   if (ksteps > 0) {
@@ -236,30 +301,54 @@ trailing_simt_kernel(const float* __restrict__ p, long long nb, long long ldp,
     if (ks + 1 < ksteps) fetch((ks + 1) * kK);  // in flight while this slab is multiplied
 #pragma unroll
     for (int kk = 0; kk < kK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sa[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&sa[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sb[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sb[buf][kk][64 + tx * 4]);
-      const float x[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float y[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      // the row operand's reads, then the column operand's
+      float4 av[kGroups], bv[kGroups];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int g = 0; g < kGroups; ++g)
+        av[g] = *reinterpret_cast<const float4*>(&sa[buf][kk][64 * g + ty * 4]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(x[i], y[j], acc[i][j]);
+      for (int g = 0; g < kGroups; ++g)
+        bv[g] = *reinterpret_cast<const float4*>(&sb[buf][kk][64 * g + tx * 4]);
+      float x[kOut], y[kOut];
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        x[4 * g] = av[g].x, x[4 * g + 1] = av[g].y;
+        x[4 * g + 2] = av[g].z, x[4 * g + 3] = av[g].w;
+        y[4 * g] = bv[g].x, y[4 * g + 1] = bv[g].y;
+        y[4 * g + 2] = bv[g].z, y[4 * g + 3] = bv[g].w;
+      }
+#pragma unroll
+      for (int i = 0; i < kOut; ++i)
+#pragma unroll
+        for (int j = 0; j < kOut; ++j) acc[i][j] = __fmaf_rn(x[i], y[j], acc[i][j]);
     }
     if (ks + 1 < ksteps) stash(buf ^ 1);  // every thread left buf ^ 1 at the last barrier
     __syncthreads();
   }
+}
 
-  // C[r, c] -= acc where r/tb >= c/tb
+template <bool VEC, typename Addr>
+__global__ void __launch_bounds__(kSimtThreads, VEC ? kSimtBlocks : 1)
+trailing_simt_kernel(const float* __restrict__ p, long long nb, long long ldp,
+                     const __grid_constant__ LowerGrid grid, const __grid_constant__ Addr addr) {
+  long long row0, col0;
+  lower_tile(grid, row0, col0);
+  const long long w = grid.w;
+  float acc[kTile / 16][kTile / 16];
+  simt_sums<kTile, VEC, false>(p, ldp, row0, w, p, ldp, col0, w, nb, acc);
+
+  // C[r, c] -= acc where r/tb >= c/tb; the positions of simt_pos summed
+  // from row0 and col0 in 64 bits (with simt_pos's int sum this kernel
+  // compiled to more integer instructions and ran 1.6% slower on the card)
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kTile / 16; ++j) {
     const long long c = col0 + (j < 4 ? 0 : 64) + tx * 4 + j % 4;
     if (c >= w) continue;
     const long long rmin = c / grid.tb * grid.tb;
     const long long cpart = addr.col(c);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < kTile / 16; ++i) {
       const long long r = row0 + (i < 4 ? 0 : 64) + ty * 4 + i % 4;
       if (r >= w || r < rmin) continue;
       float* q = addr.at(addr.row(r), cpart);
@@ -318,42 +407,50 @@ __device__ __forceinline__ void dmma884(double (&d)[2], double a, double b) {
       : "d"(a), "d"(b));
 }
 
-template <bool VEC, typename Addr>
-__global__ void __launch_bounds__(kDThreads, 1)
-trailing_dmma_kernel(const double* __restrict__ p, long long nb, long long ldp,
-                     const __grid_constant__ LowerGrid grid, const __grid_constant__ Addr addr) {
-  extern __shared__ __align__(16) double ring[];
-  long long row0, col0;
-  lower_tile(grid, row0, col0);
-  const long long w = grid.w;
+// The DMMA body's sums over one T x T output tile (T = 64 or 128): warp
+// (wm, wn) = (warp % W, warp / W), W = T / 32, lane (g, q) = (lane / 4,
+// lane % 4) ends with acc[mi][ni][e] = the chain over k of A[arow0 + row, k]
+// * B[brow0 + col, k], row = wm * 32 + mi * 16 + g + 8 (e / 2), col = wn * 32
+// + ni * 8 + 2 q + e % 2, from +0, k ascending over slabs of kK (zero past
+// nb). Rows of A past am and of B past bm are zeros. ring is the block's
+// dmma_smem<T>() bytes of dynamic shared memory. Every thread calls it.
+template <int T, bool VEC>
+__device__ __forceinline__ void dmma_sums(const double* __restrict__ a, long long lda,
+                                          long long arow0, long long am,
+                                          const double* __restrict__ b, long long ldb,
+                                          long long brow0, long long bm, long long nb,
+                                          double* ring, double (&acc)[kMI][kNI][4]) {
+  constexpr int kWarps = dmma_warps<T>(), kThreads = dmma_threads<T>();
+  constexpr int kStage = dmma_stage<T>();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
-  const int wm = warp % kDWarpsM, wn = warp / kDWarpsM;  // rows wm*16*kMI .., columns wn*8*kNI ..
+  const int wm = warp % kWarps, wn = warp / kWarps;  // rows wm*16*kMI .., columns wn*8*kNI ..
   const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
 
-  // slab kt into slot: the row block's 128 rows of 16 columns, then the
-  // column block's; zeros past the window and past nb
+  // slab kt into slot: A's T rows of 16 columns, then B's; zeros past am, bm
+  // and nb
   auto load = [&](long long kt, int slot) {
     const long long k0 = kt * kK;
     constexpr int kPer = VEC ? 2 : 1;                  // doubles per copy
-    constexpr int kCopies = 2 * kTile * kK / kPer / kDThreads;
+    constexpr int kCopies = 2 * T * kK / kPer / kThreads;
 #pragma unroll
     for (int e = 0; e < kCopies; ++e) {
-      const int c = threadIdx.x + e * kDThreads;
-      const int row = c / (kK / kPer);                 // 0 .. 255: row block, then column block
+      const int c = threadIdx.x + e * kThreads;
+      const int row = c / (kK / kPer);                 // 0 .. 2T - 1: A's rows, then B's
       const int kc = c % (kK / kPer) * kPer;
-      const long long src_row = (row < kTile ? row0 : col0 - kTile) + row;
+      const bool in_a = row < T;
+      const long long src_row = in_a ? arow0 + row : brow0 + (row - T);
       const long long k = k0 + kc;
-      const long long left = src_row < w ? lmin(nb - k, kPer) : 0;
+      const long long left = src_row < (in_a ? am : bm) ? lmin(nb - k, kPer) : 0;
       const int bytes = left > 0 ? (int)left * 8 : 0;
-      const double* src = bytes ? p + src_row * ldp + k : p;
-      const uint32_t dst = ring_s + (uint32_t)((slot * kDStage + row * kDLd + kc) * 8);
+      const double* base = in_a ? a : b;
+      const double* src = bytes ? base + src_row * (in_a ? lda : ldb) + k : base;
+      const uint32_t dst = ring_s + (uint32_t)((slot * kStage + row * kDLd + kc) * 8);
       if constexpr (VEC) cp_async16(dst, src, bytes);
       else cp_async8(dst, src, bytes);
     }
   };
 
-  double acc[kMI][kNI][4];
 #pragma unroll
   for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
@@ -372,29 +469,44 @@ trailing_dmma_kernel(const double* __restrict__ p, long long nb, long long ldp,
     __syncthreads();                // and every warp is done with slab kt - 1's slot
     if (kt + kDStages - 1 < ksteps) load(kt + kDStages - 1, (int)((kt + kDStages - 1) % kDStages));
     cp_async_commit();
-    const double* sa = ring + (kt % kDStages) * kDStage + (wm * 16 * kMI) * kDLd;
-    const double* sb = ring + (kt % kDStages) * kDStage + (kTile + wn * 8 * kNI) * kDLd;
+    const double* sa = ring + (kt % kDStages) * kStage + (wm * 16 * kMI) * kDLd;
+    const double* sb = ring + (kt % kDStages) * kStage + (T + wn * 8 * kNI) * kDLd;
 #pragma unroll
     for (int kk = 0; kk < kK; kk += kDmmaK) {
-      double a[kMI][kDmmaK / 2], b[kNI][kDmmaK / 4];
+      double fa[kMI][kDmmaK / 2], fb[kNI][kDmmaK / 4];
 #pragma unroll
       for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
         for (int i = 0; i < kDmmaK / 2; ++i)
-          a[mi][i] = sa[(mi * 16 + g + 8 * (i % 2)) * kDLd + kk + q + 4 * (i / 2)];
+          fa[mi][i] = sa[(mi * 16 + g + 8 * (i % 2)) * kDLd + kk + q + 4 * (i / 2)];
 #pragma unroll
       for (int ni = 0; ni < kNI; ++ni)
 #pragma unroll
-        for (int i = 0; i < kDmmaK / 4; ++i) b[ni][i] = sb[(ni * 8 + g) * kDLd + kk + q + 4 * i];
+        for (int i = 0; i < kDmmaK / 4; ++i) fb[ni][i] = sb[(ni * 8 + g) * kDLd + kk + q + 4 * i];
 #pragma unroll
       for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < kNI; ++ni) dmma<kDmmaK>(acc[mi][ni], a[mi], b[ni]);
+        for (int ni = 0; ni < kNI; ++ni) dmma<kDmmaK>(acc[mi][ni], fa[mi], fb[ni]);
     }
   }
   cp_async_wait<0>();
+}
+
+template <bool VEC, typename Addr>
+__global__ void __launch_bounds__(dmma_threads<kTile>(), 1)
+trailing_dmma_kernel(const double* __restrict__ p, long long nb, long long ldp,
+                     const __grid_constant__ LowerGrid grid, const __grid_constant__ Addr addr) {
+  extern __shared__ __align__(16) double ring[];
+  long long row0, col0;
+  lower_tile(grid, row0, col0);
+  const long long w = grid.w;
+  double acc[kMI][kNI][4];
+  dmma_sums<kTile, VEC>(p, ldp, row0, w, p, ldp, col0, w, nb, ring, acc);
 
   // C[r, c] -= acc where r/tb >= c/tb
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = warp % dmma_warps<kTile>(), wn = warp / dmma_warps<kTile>();
 #pragma unroll
   for (int ni = 0; ni < kNI; ++ni)
 #pragma unroll
@@ -453,7 +565,7 @@ inline int probe(const double* a, const double* b, const double* c, double* d, i
 
 // ---- launches -------------------------------------------------------------------------
 
-// P's rows start on 16 bytes: the pointer and every row
+// an operand's rows start on 16 bytes: the pointer and every row
 template <typename T> bool rows_aligned(const T* p, long long ldp) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ldp * (long long)sizeof(T)) % 16 == 0;
 }
@@ -477,9 +589,10 @@ int launch_dmma_kernel(const double* p, long long nb, long long ldp, const Lower
                        Addr addr, cudaStream_t s) {
   auto kernel = trailing_dmma_kernel<VEC, Addr>;
   static std::atomic<unsigned long long> smem_set{0};
-  const int err = tc::allow_smem(kernel, kDSmem, smem_set);
+  const int err = tc::allow_smem(kernel, dmma_smem<kTile>(), smem_set);
   if (err != 0) return err;
-  kernel<<<grid.start[grid.groups], kDThreads, kDSmem, s>>>(p, nb, ldp, grid, addr);
+  kernel<<<grid.start[grid.groups], dmma_threads<kTile>(), dmma_smem<kTile>(), s>>>(p, nb, ldp,
+                                                                                  grid, addr);
   return (int)cudaGetLastError();
 }
 

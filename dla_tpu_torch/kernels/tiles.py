@@ -20,8 +20,12 @@ The four task kernels of the reference's tile DAG, one launch per task:
   alone, as the Pallas calls do. trsm and gemm at fp32 ``high``/``default``
   and bf16 storage run the trailing kernels' tensor-core pipeline with two
   operands (:func:`tile_op_planes`; the split scratch, A's planes then B's,
-  is :func:`split_pair_plain` in torch ops); syrk, fp32 ``highest`` and fp64
-  the scalar body.
+  is :func:`split_pair_plain` in torch ops), at fp32 ``highest`` and fp64
+  the trailing kernels' two FMA-chain bodies on a rectangular grid
+  (:func:`chain_tile_grid`, with the tile edge :func:`chain_tile_edge`);
+  syrk the scalar body. :func:`tile_op_body` names the body and
+  :func:`tile_op_reference` runs trsm or gemm through the scalar body, the
+  chain bodies' bit reference in the card tests.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel; on a
 CPU tensor it runs its ``*_plain`` version, the same function in torch ops.
@@ -71,6 +75,7 @@ gemm_tile_launches = 0  # tile_ops.cu, the gemm epilogue
 _DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 _TIER_CODE = {"highest": 0, "high": 1, "default": 2}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+_OP_CODE = {"trsm": 0, "gemm": 2}  # the Epilogue of csrc/tile_body.cuh
 
 
 def _check(c: torch.Tensor, p: torch.Tensor, tb: int, kb: int | None,
@@ -144,9 +149,14 @@ def body_launches() -> dict[str, int]:
 CHAIN_TILE, CHAIN_GROUP, CHAIN_MAX_GROUPS = 128, 8, 512
 #: the chain bodies' k-step: nt_block's, so k is zero-padded alike
 CHAIN_K = 16
-#: the DMMA body's warps along the tile's rows and columns (``kDWarpsM``,
-#: ``kDWarpsN``): 16 warps of 32 × 32 outputs
-CHAIN_DMMA_WARPS = (4, 4)
+#: a DMMA warp's outputs along each axis of the tile (``kDWarpTile``): 16
+#: warps of 32 × 32 outputs in a 128 tile, 4 in a 64 tile
+CHAIN_DMMA_WARP_TILE = 32
+#: the task kernels' smaller chain tile edge
+CHAIN_SMALL_TILE = 64
+#: blocks an SM of the SIMT body at the 128 tile where the operands' rows
+#: start on 16 bytes (``kSimtBlocks``); one otherwise, and for the DMMA body
+CHAIN_SIMT_BLOCKS = 2
 
 
 def chain_row_blocks(bi: int, w: int, tb: int) -> int:
@@ -190,32 +200,66 @@ def chain_grid(w: int, tb: int) -> list[tuple[int, int]]:
     return tiles_
 
 
-def chain_owners(body: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Which outputs of a 128×128 tile each thread of a chain body holds:
-    (rows, cols), each (threads, outputs a thread), entry [t, e] the tile row
-    and column of thread t's e-th sum. ``"simt"``, 256 threads: thread
-    (ty, tx) = (t // 16, t % 16) holds rows ty·4 + i and 64 + ty·4 + i by
-    columns tx·4 + j and 64 + tx·4 + j. ``"dmma"``, 512 threads: warp
-    (wm, wn) = (warp % 4, warp // 4) holds rows wm·32 … +31 by columns
-    wn·32 … +31 as 2 × 4 m16n8 fragments; lane (g, q) = (lane // 4, lane % 4)
-    holds rows g and g + 8 and columns 2q and 2q + 1 of each."""
+def chain_owners(body: str, tile: int = CHAIN_TILE) -> tuple[torch.Tensor, torch.Tensor]:
+    """Which outputs of a tile × tile block (128 or 64) each thread of a chain
+    body holds: (rows, cols), each (threads, outputs a thread), entry [t, e]
+    the tile row and column of thread t's e-th sum. ``"simt"``, 256 threads:
+    thread (ty, tx) = (t // 16, t % 16) holds rows g·64 + ty·4 + i (g <
+    tile/64, i < 4) by the columns of the same form from tx. ``"dmma"``,
+    (tile/32)² warps: warp (wm, wn) = (warp % W, warp // W), W = tile/32,
+    holds rows wm·32 … +31 by columns wn·32 … +31 as 2 × 4 m16n8 fragments;
+    lane (g, q) = (lane // 4, lane % 4) holds rows g and g + 8 and columns 2q
+    and 2q + 1 of each."""
+    if tile not in (CHAIN_TILE, CHAIN_SMALL_TILE):
+        raise ValueError(f"no chain tile edge {tile}")
     if body == "simt":
-        t, e = torch.arange(256)[:, None], torch.arange(64)[None, :]
-        i, j = e // 8, e % 8
+        per = tile // 16  # sums a thread along each axis
+        t, e = torch.arange(256)[:, None], torch.arange(per * per)[None, :]
+        i, j = e // per, e % per
         rows = (i // 4) * 64 + (t // 16) * 4 + i % 4
         cols = (j // 4) * 64 + (t % 16) * 4 + j % 4
     elif body == "dmma":
-        wm_n, wn_n = CHAIN_DMMA_WARPS
-        mi_n, ni_n = CHAIN_TILE // 16 // wm_n, CHAIN_TILE // 8 // wn_n
-        t = torch.arange(32 * wm_n * wn_n)[:, None]
+        warps = tile // CHAIN_DMMA_WARP_TILE
+        mi_n, ni_n = CHAIN_DMMA_WARP_TILE // 16, CHAIN_DMMA_WARP_TILE // 8
+        t = torch.arange(32 * warps * warps)[:, None]
         e = torch.arange(4 * mi_n * ni_n)[None, :]
         warp, lane = t // 32, t % 32
         mi, ni, x = e // (4 * ni_n), e // 4 % ni_n, e % 4
-        rows = (warp % wm_n) * 16 * mi_n + mi * 16 + lane // 4 + 8 * (x // 2)
-        cols = (warp // wm_n) * 8 * ni_n + ni * 8 + 2 * (lane % 4) + x % 2
+        rows = (warp % warps) * CHAIN_DMMA_WARP_TILE + mi * 16 + lane // 4 + 8 * (x // 2)
+        cols = (warp // warps) * CHAIN_DMMA_WARP_TILE + ni * 8 + 2 * (lane % 4) + x % 2
     else:
         raise ValueError(f"no chain body {body!r}")
     return rows, cols
+
+
+def chain_tile_grid(m: int, n: int, tile: int) -> list[tuple[int, int]]:
+    """(row0, col0) of the output tile of each block of the task kernels'
+    chain bodies on an (m, n) output, in block order, decoded as
+    ``chain_tile`` of ``csrc/tile_body.cuh`` decodes ``blockIdx.x``: the
+    ⌈m/tile⌉ × ⌈n/tile⌉ tiles in groups of :data:`CHAIN_GROUP` block rows,
+    each group walked column by column (the order of the tensor-core body's
+    ``block_tile``)."""
+    gm, gn = -(-m // tile), -(-n // tile)
+    out = []
+    for b in range(gm * gn):
+        first = b // (CHAIN_GROUP * gn) * CHAIN_GROUP
+        in_group = b % (CHAIN_GROUP * gn)
+        rows = min(gm - first, CHAIN_GROUP)
+        out.append(((first + in_group % rows) * tile, in_group // rows * tile))
+    return out
+
+
+def chain_tile_edge(m: int, n: int, body: str, sms: int, aligned: bool = True) -> int:
+    """The tile edge the task kernels' chain body takes on an (m, n) output
+    (``launch_chain`` and ``chain_edge`` of ``csrc/tile_body.cuh``): ``"simt"``
+    128 where the 128-tile grid has at least as many blocks as ``sms`` SMs
+    run at once (two an SM on operands whose rows start on 16 bytes, else
+    one), 64 otherwise; ``"dmma"`` always 64."""
+    if body == "dmma":
+        return CHAIN_SMALL_TILE
+    per_sm = CHAIN_SIMT_BLOCKS if aligned else 1
+    blocks = -(-m // CHAIN_TILE) * -(-n // CHAIN_TILE)
+    return CHAIN_TILE if blocks >= sms * per_sm else CHAIN_SMALL_TILE
 
 
 def tile_op_planes(op: str, dtype: torch.dtype, tier_name: str) -> int:
@@ -227,17 +271,61 @@ def tile_op_planes(op: str, dtype: torch.dtype, tier_name: str) -> int:
 
 
 def tile_op_body(op: str, dtype: torch.dtype, tier_name: str) -> str:
-    """Which block body the task kernel ``op`` runs: ``"wgmma"`` or ``"scalar"``."""
-    return "wgmma" if tile_op_planes(op, dtype, tier_name) else "scalar"
+    """Which block body the task kernel ``op`` runs: syrk ``"scalar"`` at every
+    tier; trsm and gemm ``"wgmma"`` where :func:`tile_op_planes` gives planes,
+    else the chain body, ``"simt"`` (fp32 ``highest``) or ``"dmma"`` (fp64),
+    as :func:`trailing_body` names them. ``run`` of ``csrc/tile_ops.cu``
+    dispatches on the same table."""
+    if op == "syrk":
+        return "scalar"
+    return trailing_body(dtype, tier_name)
+
+
+#: the bodies of ``csrc/tile_ops.cu``, by the index its launch count takes
+TILE_BODIES = ("scalar", "wgmma", "simt", "dmma")
 
 
 def tile_body_launches() -> dict[str, int]:
     """Launches of the three task kernels of ``csrc/tile_ops.cu`` in this
     process through each block body, as the C side counts them where it
-    launches: ``{"scalar": n, "wgmma": n}``. Needs the kernel library."""
+    launches: ``{"scalar": n, "wgmma": n, "simt": n, "dmma": n}``. Needs the
+    kernel library."""
     fn = _build.load().dla_tile_body_launches
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-    return {"scalar": fn(0), "wgmma": fn(1)}
+    return {body: fn(i) for i, body in enumerate(TILE_BODIES)}
+
+
+def tile_op_reference(op: str, c: torch.Tensor | None, a: torch.Tensor, b: torch.Tensor, *,
+                      tile: int = 0) -> torch.Tensor:
+    """out = P (``op`` "trsm", c None) or c − P ("gemm"), P = a·bᵀ, at fp32
+    ``highest`` or fp64, through a body named by ``tile``: 0 the scalar body
+    (``tile_kernel`` on ``nt_block``, the bits #6 and #8 had before their
+    chain bodies), 64 or 128 (fp32 only) the simt body at that tile edge;
+    fp64's dmma body has one edge, the library's. For the card tests and
+    measurements: no library path calls it, and it counts no launch. CUDA
+    tensors only; returns a new (m, n) tensor."""
+    if a.dtype not in (torch.float32, torch.float64) or op not in ("trsm", "gemm"):
+        raise ValueError(f"tile_op_reference takes trsm or gemm on fp32 or fp64; got {op}, "
+                         f"{a.dtype}")
+    if tile and a.dtype != torch.float32:
+        raise ValueError(f"tile_op_reference takes a tile edge on fp32 only; got {a.dtype}")
+    _row_major("tile_op_reference", *(t for t in (c, a, b) if t is not None))
+    m, n, k = a.shape[0], b.shape[0], a.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    lib = _build.load()
+    kind = "chain" if tile else "scalar"
+    fn = getattr(lib, f"dla_tile_op_{kind}_{_SUFFIX[a.dtype]}")
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
+                   + [ctypes.c_int] * bool(tile) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(_OP_CODE[op], None if c is None else c.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), m, n, k, 0 if c is None else c.stride(0), a.stride(0),
+                 b.stride(0), *((tile,) if tile else ()), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_op_reference launch failed: CUDA error {err}")
+    return out
 
 
 def _split_shape(p: torch.Tensor, planes: int) -> tuple[int, int, int]:

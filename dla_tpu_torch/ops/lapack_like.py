@@ -5,8 +5,11 @@
   generator. It matches the JAX package bit for bit, so both packages factor
   the same matrix from the same seed.
 - ``lange`` ↔ ``CHAMELEON_dlange_Tile`` (``v6_test.c:72,84``).
+- ``lauum`` ↔ ``CHAMELEON_dlauum_Tile`` (``v6_test.c:76-78``).
 - ``potrf_unblocked``: the rank-1 column loop behind
   ``diag_factor="unblocked"``.
+- ``trtri_lower``: the inverse of a lower-triangular tile by forward
+  substitution.
 
 The generators build on the card unless the caller asks for another device
 (``device="cpu"``); without a card the default call raises.
@@ -119,6 +122,35 @@ def lange(norm: str, a: torch.Tensor) -> torch.Tensor:
     if norm == "F":
         return torch.sqrt(torch.sum(torch.square(a)))
     raise ValueError(f"unknown norm {norm!r}")
+
+
+def lauum(uplo: str, a: torch.Tensor) -> torch.Tensor:
+    """``dlauum`` with LAPACK semantics (``dla_tpu/ops/lapack_like.py:210``):
+    lower → Lᵀ·L, upper → U·Uᵀ, from the relevant triangle of ``a`` only; the
+    product in ``a``'s dtype (IEEE fp32 for fp32: TF32 is pinned off)."""
+    u = uplo.upper()
+    if u in ("L", "LOWER"):
+        l = torch.tril(a)
+        return l.mT @ l
+    if u in ("U", "UPPER"):
+        r = torch.triu(a)
+        return r @ r.mT
+    raise ValueError(f"unknown uplo {uplo!r}")
+
+
+def trtri_lower(l: torch.Tensor) -> torch.Tensor:
+    """Inverse of a lower-triangular tile by forward substitution
+    (``dla_tpu/ops/lapack_like.py:263``): n steps, each dividing row j of the
+    running inverse by the pivot ``l[j, j]`` and taking the rank-1 update of
+    column j below the diagonal from the rows beneath; returns tril of the
+    result. Only the lower triangle of ``l`` is read."""
+    n = l.shape[-1]
+    x = torch.eye(n, dtype=l.dtype, device=l.device)
+    for j in range(n):
+        xrow = x[j] / l[j, j]
+        x[j] = xrow
+        x[j + 1 :] -= torch.outer(l[j + 1 :, j], xrow)
+    return torch.tril(x)
 
 
 def potrf_unblocked(a: torch.Tensor) -> torch.Tensor:

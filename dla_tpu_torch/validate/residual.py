@@ -153,6 +153,23 @@ def freivalds_device(
     return (num / xinf).max() / norm_a
 
 
+def residual_posv(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
+                  assume_symmetric: bool = False) -> torch.Tensor:
+    """Relative solve residual ``||B − A·X||_inf / (||A||_inf ||X||_inf)``,
+    the normwise backward error of the solve path (POTRS / POSV;
+    ``dla_tpu/validate/residual.py:120``). In float64 (complex128) on every
+    device, as the JAX package under x64; ``a`` is symmetrized from its lower
+    triangle unless ``assume_symmetric``. ``b`` and ``x`` may be vectors."""
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    aw = a.to(wide)
+    aa = aw if assume_symmetric else _symmetrize_lower(aw)
+    xx = x.to(wide)
+    xx = xx if xx.ndim == 2 else xx[:, None]
+    bb = b.to(wide)
+    r = (bb if bb.ndim == 2 else bb[:, None]) - aa @ xx
+    return lange("I", r) / (lange("I", aa) * lange("I", xx))
+
+
 class CholeskyInvariants(NamedTuple):
     """The reference worker's debug quantities as a checkable record."""
 

@@ -132,3 +132,18 @@ PARSED = {
 def test_parse_tier(spec):
     assert bench.parse_tier(spec, nb=8192, kb=256, n=32768) == PARSED[spec]
     assert spec in PARSED and (spec in bench.DEFAULT_TIERS.split(",") or ":" in spec)
+
+
+def test_task_path_ab_dag_is_the_factor():
+    # the probe's task DAG through the task kernels' wrappers (their plain versions on the
+    # CPU) gives the fp64 Cholesky factor, zero above the diagonal
+    import dla_tpu_torch as T
+    from dla_tpu_torch.bench import task_path_ab
+    from dla_tpu_torch.kernels import tiles
+
+    a = T.plgsy(256, seed=7, dtype=torch.float64, device="cpu")
+    l = task_path_ab._dag(a, 64, tiles.potrf_tile, tiles.trsm_tile, tiles.syrk_tile,
+                          tiles.gemm_tile)
+    assert torch.equal(l, torch.tril(l))
+    assert float(T.residual_potrf(a, l)) < 1e-10
+    torch.testing.assert_close(l, torch.linalg.cholesky(a), rtol=1e-12, atol=1e-12)

@@ -19,14 +19,17 @@ the cases below meet the tensor-core body's edges (w not a multiple of its
 128-row tile, tb below or not dividing 128, nb not a multiple of its
 64-column k-step, a strided panel, many k-steps), and the kernels a profiler
 sees show which body ran. The two chain bodies must give, bit for bit, what
-``gemm_tile``'s scalar body (``tile_kernel`` on ``nt_block``, the same fma
-chain per element) gives on the same tiles, at tb 32 and 96, nb 7, windows
-off 128, P views aligned or not, packed steps across slabs and 20 launches
-back to back; one fp64 tensor-core instruction of each shape must round as
-an exact chain of fmas; ptxas must show no spill. The task kernels #6
-``trsm_tile`` and #8 ``gemm_tile`` run the same tensor-core pipeline with two
-operands at those tiers (#7 ``syrk_tile`` stays on the scalar body); their
-split scratch, body counts, views, short k and refusals are tested below.
+the task kernels' scalar body (``tile_kernel`` on ``nt_block``, the same fma
+chain per element, through the test-only entry ``tiles.tile_op_reference``)
+gives on the same tiles, at tb 32 and 96, nb 7, windows off 128, P views
+aligned or not, packed steps across slabs and 20 launches back to back; one
+fp64 tensor-core instruction of each shape must round as an exact chain of
+fmas; ptxas must show no spill. The task kernels #6 ``trsm_tile`` and #8
+``gemm_tile`` run the same tensor-core pipeline with two operands at fp32
+``high``/``default`` and bf16 storage, and the same two chain bodies at fp32
+``highest`` and fp64 (#7 ``syrk_tile`` stays on the scalar body); their split
+scratch, body counts, views, short k, refusals and, on the chain bodies, the
+scalar body's bits at both tile edges are tested below.
 The panel solve #3 ``panel_apply`` runs a chain of those products (the
 tensor-core body at fp32 ``high``/``default``, the scalar one at
 ``highest``), with its own count of calls per body.
@@ -266,12 +269,14 @@ def _chain_bits(t):
 
 
 def _chain_ref_lower(c, p, tb, origin):
-    """The lower update built tile column by tile column from gemm_tile's
-    scalar body (tile_kernel on nt_block: the same fma chain per element)."""
+    """The lower update built tile column by tile column from the task
+    kernels' scalar body (tile_kernel on nt_block: the same fma chain per
+    element), through the test-only reference entry."""
     out, o, w = c.clone(), origin * tb, p.shape[0]
     for j0 in range(0, w, tb):
         cols = slice(o + j0, o + j0 + tb)
-        out[o + j0:, cols] = tiles.gemm_tile(c[o + j0:, cols], p[j0:], p[j0:j0 + tb])
+        out[o + j0:, cols] = tiles.tile_op_reference("gemm", c[o + j0:, cols], p[j0:],
+                                                     p[j0:j0 + tb])
     return out
 
 
@@ -283,7 +288,7 @@ def _chain_ref_packed(c, p, n, w, tb, k):
         j, cs = divmod(base + c0, w)
         r0 = P._row_offset(j, n // w, w) + cs
         blk = (slice(r0, r0 + m - c0), slice(cs, cs + tb))
-        out[blk] = tiles.gemm_tile(c[blk], p[c0:], p[c0:c0 + tb])
+        out[blk] = tiles.tile_op_reference("gemm", c[blk], p[c0:], p[c0:c0 + tb])
     return out
 
 
@@ -304,7 +309,6 @@ def test_chain_lower_same_bits_as_gemm_tile(cuda, m, tb, nb, origin, ld, dtype, 
     p = big[:, 1:nb + 1] if ld != nb and ld % 4 else big[:, :nb]  # ld 131: off 16 bytes
     assert p.stride(0) == ld
     with precision.override(prec):
-        assert tiles.tile_op_body("gemm", dtype, prec) == "scalar"
         ref = _chain_ref_lower(c, p, tb, origin)
         before = tiles.body_launches()
         out = trailing_update_lower(c.clone(), p, tb=tb, origin=origin)
@@ -438,13 +442,14 @@ def test_dmma_rounds_as_an_fma_chain(cuda, shape):
 
 def test_chain_bodies_registers_no_spill(cuda):
     # ptxas's registers and spills for the SIMT and DMMA bodies of both trailing kernels
+    # and of the task kernels (tile_simt_kernel, tile_dmma_kernel)
     import re
     import subprocess
     import tempfile
 
     from dla_tpu_torch.kernels import _build
 
-    for src in ("trailing_lower.cu", "trailing_packed.cu"):
+    for src in ("trailing_lower.cu", "trailing_packed.cu", "tile_ops.cu"):
         with tempfile.TemporaryDirectory() as tmp:
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                    f"{tmp}/k.o", str(_build.CSRC / src)]
@@ -453,8 +458,9 @@ def test_chain_bodies_registers_no_spill(cuda):
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1]
-            elif kernel and ("trailing_simt_kernel" in kernel or "trailing_dmma_kernel" in kernel):
-                body = "simt" if "simt" in kernel else "dmma"
+            elif kernel and any(f"{kind}_{b}_kernel" in kernel for kind in ("trailing", "tile")
+                                for b in ("simt", "dmma")):
+                body = "simt" if "simt_kernel" in kernel else "dmma"
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
                 regs = re.search(r"Used (\d+) registers", line)
                 if spill:
@@ -465,7 +471,9 @@ def test_chain_bodies_registers_no_spill(cuda):
         for body in ("simt", "dmma"):
             spills = [v for key, v in seen.get(body, []) if key == "spill"]
             regs = [v for key, v in seen.get(body, []) if key == "registers"]
-            # four instantiations each: two address maps (one per source) x aligned or not
+            # per trailing source two instantiations each (aligned or not); tile_ops.cu
+            # simt eight (two tile edges x aligned or not x trsm and gemm), dmma six (no
+            # unaligned 128-tile; the aligned one only through the forced-edge entry)
             assert spills and all(v == 0 for v in spills), (src, body, seen)
             assert regs and all(0 < v <= 255 for v in regs), (src, body, seen)
 
@@ -1419,18 +1427,19 @@ def test_tile_split_scratch_bits_of_split_pair_plain(cuda, m, n, k, ld, dtype, p
 @pytest.mark.parametrize("dtype,prec", TIERS + [(torch.bfloat16, "highest")])
 @pytest.mark.parametrize("op", ["trsm", "syrk", "gemm"])
 def test_tile_body_that_ran(cuda, op, dtype, prec):
-    # trsm and gemm at fp32 high/default and bf16 run the tensor-core body; syrk at every
-    # tier, fp32 highest and fp64 the scalar one, once a call
-    tc = op != "syrk" and (dtype == torch.bfloat16 or (dtype == torch.float32
-                                                       and prec != "highest"))
+    # trsm and gemm at fp32 high/default and bf16 run the tensor-core body, at fp32 highest
+    # the simt chain and at fp64 the dmma chain; syrk the scalar one at every tier; once a
+    # call
+    tc = dtype == torch.bfloat16 or (dtype == torch.float32 and prec != "highest")
+    want = ("scalar" if op == "syrk" else "wgmma" if tc
+            else "dmma" if dtype == torch.float64 else "simt")
     c, a, b = _tile_inputs(cuda, op, 256, 256, 256, dtype, seed=11)
     with precision.override(prec):
-        assert tiles.tile_op_body(op, dtype, prec) == ("wgmma" if tc else "scalar")
+        assert tiles.tile_op_body(op, dtype, prec) == want
         before = tiles.tile_body_launches()
         _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)
         torch.cuda.synchronize()
         after = tiles.tile_body_launches()
-    want = "wgmma" if tc else "scalar"
     assert after[want] == before[want] + 1
     assert [x for x in after if after[x] != before[x]] == [want]
 
@@ -1518,6 +1527,146 @@ def test_tile_op_refused_launch_raises(cuda, monkeypatch, op):
         _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)
     torch.cuda.synchronize()
     assert (getattr(tiles, counter), tiles.tile_body_launches()) == before
+
+
+# ---- #6 and #8 on the FMA-chain bodies (csrc/tile_ops.cu + csrc/trailing_chain.cuh) ------
+
+CHAIN_TILE_TIERS = [(torch.float32, "highest"), (torch.float64, "high")]
+
+
+def _chain_op(op, c, a, b, prec):
+    """(the wrapper's output, the scalar reference's, the simt body at each
+    tile edge (none for fp64: the dmma body has one)), the bodies' launch
+    counts before and after the wrapper's call; trsm_tile(linv, b) takes a =
+    the right-hand side, b = linv."""
+    with precision.override(prec):
+        before = tiles.tile_body_launches()
+        out = _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)
+        torch.cuda.synchronize()
+        after = tiles.tile_body_launches()
+    ref = tiles.tile_op_reference(op, c, a, b)
+    edges = [tiles.tile_op_reference(op, c, a, b, tile=t)
+             for t in ((64, 128) if a.dtype == torch.float32 else ())]
+    torch.cuda.synchronize()
+    assert tiles.tile_body_launches() == after  # the reference entries count nothing
+    return out, ref, edges, before, after
+
+
+CHAIN_TILE_CASES = [  # (m, n, k): the path's 512 and 256 tiles, the 96 tile, ragged, the big
+    # shape, k short of one 16-column step, k = 0
+    (512, 512, 512), (256, 256, 256), (96, 96, 96), (200, 96, 72), (4096, 2048, 2048),
+    (130, 257, 7), (64, 300, 0),
+]
+
+
+@pytest.mark.parametrize("dtype,prec", CHAIN_TILE_TIERS)
+@pytest.mark.parametrize("m,n,k", CHAIN_TILE_CASES)
+@pytest.mark.parametrize("op", ["trsm", "gemm"])
+def test_chain_tile_op_same_bits_as_scalar_body(cuda, op, m, n, k, dtype, prec):
+    if op == "trsm":  # trsm's k is n
+        k = n
+    c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=m + n + k)
+    out, ref, edges, before, after = _chain_op(op, c, a, b, prec)
+    body = "dmma" if dtype == torch.float64 else "simt"
+    assert {x: after[x] - before[x] for x in after} == {
+        x: int(x == body) for x in tiles.TILE_BODIES}
+    assert torch.equal(_bits(out), _bits(ref))
+    for e in edges:  # the bits do not depend on the tile edge
+        assert torch.equal(_bits(e), _bits(ref))
+    if k == 0:  # gemm: c - (+0) = c, bit for bit
+        assert torch.equal(_bits(out), _bits(c))
+
+
+@pytest.mark.parametrize("dtype,prec", CHAIN_TILE_TIERS)
+@pytest.mark.parametrize("op", ["trsm", "gemm"])
+def test_chain_tile_op_signed_zeros_and_specials(cuda, op, dtype, prec):
+    # -0 in c, rows of zeros and of -0, a row whose products cancel to 0 exactly
+    # (1.5 x - 1.5 x), inf and NaN: every output as the scalar body's
+    m, n, k = 130, 100, 24
+    c, a, b = _tile_inputs(cuda, op, n, m, k if op == "gemm" else n, dtype, seed=5)
+    a, b = a.clone(), b.clone()
+    a[0] = 0.0
+    a[1] = -0.0
+    a[2, 0], a[3, 1] = float("inf"), float("nan")
+    a[4] = 0.0
+    a[4, 0], a[4, 1] = 1.5, -1.5
+    b[:, 1] = b[:, 0]
+    if c is not None:
+        c = c.clone()
+        c[:, ::3] = -0.0
+    out, ref, edges, _, _ = _chain_op(op, c, a, b, prec)
+    assert torch.equal(_bits(out), _bits(ref))
+    assert all(torch.equal(_bits(e), _bits(ref)) for e in edges)
+
+
+@pytest.mark.parametrize("dtype,prec", CHAIN_TILE_TIERS)
+@pytest.mark.parametrize("op", ["trsm", "gemm"])
+def test_chain_tile_op_unaligned_views(cuda, op, dtype, prec):
+    # views into a wider matrix, as the tile-task path passes them: rows on 16 bytes (ld
+    # 1028) and not (ld 1027, offset 1: the unaligned loads)
+    for ld, off in ((1028, 0), (1027, 1)):
+        g = torch.Generator(device=cuda).manual_seed(ld)
+        big = torch.randn(1024, ld, generator=g, device=cuda, dtype=dtype)
+        if op == "trsm":
+            c, a, b = None, big[256:768, off:off + 256], torch.tril(big[:256, off + 300:off + 556])
+        else:
+            c, a = big[256:768, off:off + 300], big[256:768, off + 300:off + 556]
+            b = big[:300, off + 600:off + 856]
+        out, ref, edges, _, _ = _chain_op(op, c, a, b, prec)
+        assert torch.equal(_bits(out), _bits(ref)), (ld, off)
+        assert all(torch.equal(_bits(e), _bits(ref)) for e in edges), (ld, off)
+
+
+@pytest.mark.parametrize("dtype,prec", CHAIN_TILE_TIERS)
+def test_chain_tile_op_20_launches_back_to_back(cuda, dtype, prec):
+    # 20 queued trsm and gemm calls, each reading the last's output, as the tile-task path
+    # queues them, against the same steps through the scalar body
+    n = 256
+    c, a, b = _tile_inputs(cuda, "gemm", n, n, n, dtype, seed=21)
+    linv = torch.tril(b) / n
+    with precision.override(prec):
+        before = tiles.tile_body_launches()
+        x = a
+        for t in range(20):
+            x = tiles.trsm_tile(linv, x) if t % 2 else tiles.gemm_tile(c, x, b)
+        torch.cuda.synchronize()
+        after = tiles.tile_body_launches()
+    body = "dmma" if dtype == torch.float64 else "simt"
+    assert after[body] - before[body] == 20 and after["scalar"] == before["scalar"]
+    y = a
+    for t in range(20):
+        y = (tiles.tile_op_reference("trsm", None, y, linv) if t % 2
+             else tiles.tile_op_reference("gemm", c, y, b))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(x), _bits(y))
+
+
+def test_chain_tile_edge_on_this_card(cuda):
+    # the launcher's rule against the torch model, through the bodies' counts and the grid:
+    # the reference entry at the edge the model picks gives the wrapper's bits at fp32 highest,
+    # and the scalar reference the dmma body's (one edge) at fp64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, prec in CHAIN_TILE_TIERS:
+        body = "dmma" if dtype == torch.float64 else "simt"
+        for m, n in ((512, 512), (4096, 2048)):
+            c, a, b = _tile_inputs(cuda, "gemm", n, m, 64, dtype, seed=m)
+            with precision.override(prec):
+                out = tiles.gemm_tile(c, a, b)
+            edge = tiles.chain_tile_edge(m, n, body, sms)
+            assert edge == (128 if m == 4096 and body == "simt" else 64)
+            assert torch.equal(_bits(out), _bits(tiles.tile_op_reference(
+                "gemm", c, a, b, tile=edge if body == "simt" else 0)))
+
+
+def test_tile_op_reference_refuses_what_it_does_not_take(cuda):
+    z = torch.zeros(64, 64, device=cuda)
+    with pytest.raises(ValueError, match="trsm or gemm"):
+        tiles.tile_op_reference("syrk", z, z, z)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tiles.tile_op_reference("gemm", z, z, z, tile=96)
+    z64 = z.double()
+    with pytest.raises(ValueError, match="fp32 only"):
+        tiles.tile_op_reference("gemm", z64, z64, z64, tile=64)
 
 
 # ---- freivalds_device on the card ------------------------------------------------------

@@ -141,7 +141,10 @@ DISPATCH = [  # (dtype, tier, planes of trsm and gemm); syrk is always 0
 def test_tile_op_dispatch_table(op, dtype, tier_name, planes):
     want = 0 if op == "syrk" else planes
     assert tile_op_planes(op, dtype, tier_name) == want
-    assert tile_op_body(op, dtype, tier_name) == ("wgmma" if want else "scalar")
+    # no planes: syrk on the scalar body, trsm and gemm on the chain bodies
+    chain = "dmma" if dtype == torch.float64 else "simt"
+    assert tile_op_body(op, dtype, tier_name) == (
+        "wgmma" if want else "scalar" if op == "syrk" else chain)
 
 
 def test_cpu_route_allocates_no_scratch(monkeypatch):
