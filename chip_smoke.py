@@ -124,24 +124,26 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     schedule's launches and largest grid), #7's upper triangle bit-identical
     to C's, one launch per call, through the block body ``tiles.tile_op_body``
     names (the library's count of launches through each body: ``wgmma`` for
-    #6 and #8 at fp32 ``high``/``default`` and bf16, ``simt`` at fp32
-    ``highest``, ``dmma`` at fp64, ``scalar`` for #7); on the two chain
-    bodies, also at the fp64 path's tile (256) and in fp64 at m=4096,
-    n=k=2048, the bits of the scalar body (``tiles.tile_op_reference``) at
-    the launcher's tile edge and, for ``simt``, at both edges, and the card's
+    #6 to #8 at fp32 ``high``/``default`` and bf16, ``simt`` at fp32
+    ``highest``, ``dmma`` at fp64); on the two chain bodies, also at the fp64
+    path's tile (256), ragged and in fp64 at m=4096, n=k=2048 (#7: n=k=2048),
+    the bits of the scalar body (``tiles.tile_op_reference``) at the
+    launcher's tile edge and, for ``simt``, at both edges, and the card's
     time alone (launches queued behind a sleeping kernel) of the kernel, of
-    the scalar body and of each ``simt`` edge; beside ``torch.matmul`` (#6), ``torch.addmm``
-    (#8) and ``cholesky_ex`` + ``solve_triangular`` (#5, two calls, their
-    sum);
+    the scalar body and of each ``simt`` edge; beside ``torch.matmul`` (#6),
+    ``torch.addmm`` (#8; for #7 on the full square, a yardstick, since no one
+    call masks the triangle) and ``cholesky_ex`` + ``solve_triangular`` (#5,
+    two calls, their sum);
 25. the tile-task path, the reference's task DAG with one launch per task:
     ``plgsy(16384, seed=51)`` fp32 at ``high``, NB=512, a warm-up and two timed
     factorizations, each launching exactly ``dag_counts(32)`` = 32 POTRF + 496
     TRSM + 496 SYRK + 4960 GEMM = 5984 task kernels, the residual under the
     fp32 gate with the path's median time beside it, and that time beside
     phase 3's; and fp64 at N=4096, NB=256 under the reference's 1e-10 gate,
-    its factor bit for bit the one the same DAG gives with #6 and #8 on the
-    scalar body (``tiles.tile_op_reference``; the bodies they ran before
-    their chain bodies);
+    every product task through the ``dmma`` body, its factor bit for bit the
+    one the same DAG gives with #6 to #8 on the scalar body
+    (``tiles.tile_op_reference``; the body they ran before their chain
+    bodies);
 26. ``freivalds_device`` on the main path's factor beside ``residual_potrf``
     of the same factor (both under the gate), and on that factor with one
     corrupted tile (far above it);
@@ -184,6 +186,14 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     factor, which a solve at a lower precision would miss; the driver with
     ``--mode inplace --solve refined --nrhs 64`` at N=16384 (``SOLVE PASS``,
     exit code 0); and one fp64 ``posv_refined`` at N=8192 under 1e-10.
+34. the packed serving path through the driver: ``--mode packed --solve
+    inverse`` (``potri_packed`` in place on the packed factor, then
+    ``solve_inverse_packed``) and ``--solve potrs`` (``potrs_packed``) at
+    N=32768, nb=4096 (fp32, the packed kernel #2 on its trailing update),
+    nrhs = 64 right-hand sides of ones: the driver's times, the streamed
+    solve residual (``residual_posv_streamed``, A regenerated from its seed)
+    with ``SOLVE PASS`` under N·2e-6, and the peak device memory of each
+    call beside the packed triangle's bytes.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -193,7 +203,8 @@ Then the ``kernels`` JSON line (each kernel's launches on its path, its
 error and times against the plain version, the bound, and the library call
 where one PyTorch call computes the same function; for the four trailing
 kernels and #6 to #8 also the block ``body`` their path's case ran; for #6
-and #8 also ``big``, the kernel, library and bound ms at m=4096, n=k=2048),
+to #8 also ``big``, the kernel, library and bound ms at m=4096, n=k=2048 (#7:
+n=k=2048, with ``addmm_square_ms``, addmm on the full square, a yardstick),
 the total wall time, the card as ``nvidia-smi`` reports it, and last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, the script fails before
@@ -257,6 +268,7 @@ BENCH_ENV = {"BENCH_ITERS": "2"}
 N_HEADLINE, NB_HEADLINE = 61440, 1024
 # the dense solve and serving path on the main path's factor, and fp64 refinement
 NRHS_SOLVE, N_REFINED64 = 64, 8192
+N_PACKED_SOLVE, NB_PACKED_SOLVE = 32768, 4096  # phase 34: the packed serving path
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -1447,7 +1459,7 @@ def task_product_case(dev, tag, op, m, n, k, dtype, prec, iters):
     elif op == "syrk":  # syrk_tile(c (n, n), a (n, k)): the lower triangle's products
         m = n
         c, a = rnd(n, n), rnd(n, k)
-        b, args, lib = a, (c, a), None  # no one call masks
+        b, args, lib = a, (c, a), None  # no one call masks the triangle
         flops, nbytes = n * (n + 1) * k, 2 * n * n + n * k
     else:  # gemm_tile(c (m, n), ai (m, k), aj (n, k))
         c, a, b = rnd(m, n), rnd(m, k), rnd(n, k)
@@ -1480,11 +1492,16 @@ def task_product_case(dev, tag, op, m, n, k, dtype, prec, iters):
     lib_ms = cuda_ms(lib, iters) if lib else None
     row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, body=body,
                **bound(product_s(flops, dtype, prec), nbytes * a.element_size()))
+    yard = ""
+    if op == "syrk":  # the full square's product, twice syrk's operations: not syrk's function
+        row["addmm_square_ms"] = cuda_ms(lambda: torch.addmm(c, a, a.mT, alpha=-1), iters)
+        yard = f", yardstick torch.addmm(c, a, a.mT, alpha=-1) on the full square " \
+               f"{row['addmm_square_ms']:.4f} ms"
     name = f"m={m} n={n} k={k} {str(dtype)[6:]}/{prec}"
     print(f"{op}_tile {name}: body {body}, max_abs_err={err:.3e} (tol {tol:.3e}) kernel {k_ms:.4f} ms "
           f"({flops / k_ms / 1e9:.3f} TF/s), plain {p_ms:.4f} ms, library "
-          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {row['bound_ms']:.5f} ms "
-          f"({row['bound_by']}){chain} {tag}", flush=True)
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}{yard}, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}){chain} {tag}", flush=True)
     require(err <= tol, f"{op}_tile disagrees with the plain version at {name}")
     return row
 
@@ -1511,6 +1528,8 @@ def chain_case(op, body, out, c, a, b, iters) -> str:
                 f"{op}_tile: the {body} body at tile {tile} lost the scalar body's bits")
     if op == "trsm":
         wrapper = lambda: tiles.trsm_tile(b, a)  # noqa: E731
+    elif op == "syrk":
+        wrapper = lambda: tiles.syrk_tile(c, a)  # noqa: E731
     else:
         wrapper = lambda: tiles.gemm_tile(c, a, b)  # noqa: E731
     n_calls = max(5, min(20, iters))
@@ -1520,7 +1539,7 @@ def chain_case(op, body, out, c, a, b, iters) -> str:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     aligned = all(x.data_ptr() % 16 == 0 and x.stride(0) * x.element_size() % 16 == 0
                   for x in (a, b))
-    edge = tiles.chain_tile_edge(a.shape[0], b.shape[0], body, sms, aligned)
+    edge = tiles.chain_tile_edge(a.shape[0], b.shape[0], body, sms, aligned, op=op)
     return (f"; the scalar body's bits: True (edge {edge} of {sms} SMs"
             f"{', and both edges' if edges else ''}); card time alone: "
             + ", ".join(f"{name} {ms:.4f} ms" for name, ms in q.items())
@@ -1601,18 +1620,22 @@ def phase_task_kernels(dev, tag):
             if (dtype, prec) == (torch.float32, TASK_PREC):
                 rows[op] = r
         task_product_case(dev, tag, op, 200, 96, 72, torch.float32, "high", 20)  # ragged
-        if op != "syrk":  # the chain bodies at the fp64 path's tile and ragged
-            for dtype, prec in chain_tiers:
-                task_product_case(dev, tag, op, NB_TASK64, NB_TASK64, NB_TASK64, dtype, prec,
-                                  50)
-                task_product_case(dev, tag, op, 200, 96, 72, dtype, prec, 20)
-        for dtype, prec in [(torch.float32, p) for p in ("high", "highest", "default")] + (
-                [(torch.float64, "high")] if op != "syrk" else []):
+        if op == "syrk":  # ragged n=200 (the case above is n=96)
+            task_product_case(dev, tag, op, 200, 200, 72, torch.float32, "high", 20)
+        for dtype, prec in chain_tiers:  # the chain bodies at the fp64 path's tile and ragged
+            task_product_case(dev, tag, op, NB_TASK64, NB_TASK64, NB_TASK64, dtype, prec, 50)
+            task_product_case(dev, tag, op, 200, 96, 72, dtype, prec, 20)
+            if op == "syrk":
+                task_product_case(dev, tag, op, 200, 200, 72, dtype, prec, 20)
+        for dtype, prec in [(torch.float32, p) for p in ("high", "highest", "default")] + [
+                (torch.float64, "high")]:
             r = task_product_case(dev, tag, op, M_TASK_BIG, N_TASK_BIG, N_TASK_BIG,
                                   dtype, prec, 5)
-            if (dtype, prec) == (torch.float32, TASK_PREC) and op != "syrk":
-                # no one library call masks syrk's triangle
-                rows[op]["big"] = {k: r[k] for k in ("ms", "library_ms", "bound_ms")}
+            if (dtype, prec) == (torch.float32, TASK_PREC):
+                # syrk's library_ms stays None (no one call masks its triangle); its
+                # yardstick, addmm on the full square, beside it
+                rows[op]["big"] = {k: r[k] for k in ("ms", "library_ms", "bound_ms",
+                                                     "addmm_square_ms") if k in r}
     torch.cuda.empty_cache()
     return rows
 
@@ -1627,21 +1650,24 @@ def tile_task_potrf(a, nb, scalar=False):
     ``client_distrib.cpp:506-565``: for each k, POTRF(k,k), then TRSM(i,k),
     SYRK(i,i) and GEMM(i,j,k) for i > j > k. The tiles of ``a`` (views, found
     through ``TileLayout``) are read; the factor is assembled in a new
-    matrix, zero above the diagonal tiles. ``scalar`` runs TRSM and GEMM
-    through the scalar body (``tiles.tile_op_reference``, uncounted)
+    matrix, zero above the diagonal tiles. ``scalar`` runs TRSM, SYRK and
+    GEMM through the scalar body (``tiles.tile_op_reference``, uncounted)
     instead of the task kernels' own body."""
     from dla_tpu_torch import TileLayout
     from dla_tpu_torch.kernels import tiles
-    from dla_tpu_torch.kernels.tiles import potrf_tile, syrk_tile
+    from dla_tpu_torch.kernels.tiles import potrf_tile
 
     if scalar:
         def trsm_tile(linv, b):
             return tiles.tile_op_reference("trsm", None, b, linv)
 
+        def syrk_tile(c, a):
+            return tiles.tile_op_reference("syrk", c, a, a)
+
         def gemm_tile(c, ai, aj):
             return tiles.tile_op_reference("gemm", c, ai, aj)
     else:
-        trsm_tile, gemm_tile = tiles.trsm_tile, tiles.gemm_tile
+        trsm_tile, syrk_tile, gemm_tile = tiles.trsm_tile, tiles.syrk_tile, tiles.gemm_tile
 
     lay = TileLayout(mb=nb, nb=nb, lm=a.shape[0], ln=a.shape[1])
     nt = lay.nt
@@ -1720,9 +1746,9 @@ def phase_task_path(dev, tag, main_median):
     require(sum(getattr(tiles, v) for v in TASK_COUNTERS.values()) - before
             == want64["total"], "fp64 tile-task launch count")
     ran = {x: v - bodies[x] for x, v in tiles.tile_body_launches().items()}
-    require(ran == {"scalar": want64["SYRK"], "wgmma": 0, "simt": 0,
-                    "dmma": want64["TRSM"] + want64["GEMM"]},
-            f"fp64 tile-task bodies {ran}: TRSM and GEMM on dmma, SYRK on scalar expected")
+    require(ran == {"scalar": 0, "wgmma": 0, "simt": 0,
+                    "dmma": want64["TRSM"] + want64["SYRK"] + want64["GEMM"]},
+            f"fp64 tile-task bodies {ran}: TRSM, SYRK and GEMM on dmma expected")
     l64s = tile_task_potrf(a64, nb64, scalar=True)
     sync()
     same = torch.equal(bits(l64), bits(l64s))
@@ -1734,8 +1760,8 @@ def phase_task_path(dev, tag, main_median):
         took[scalar].append((time.perf_counter() - t0) * 1e3)
     r64 = float(T.residual_potrf(a64, l64))
     print(f"tile-task path N={n64} NB={nb64} fp64 ({ran} launches a factorization): "
-          f"{took[False][0]:.1f} / {took[False][1]:.1f} ms, with TRSM and GEMM on the scalar "
-          f"body {took[True][0]:.1f} / {took[True][1]:.1f} ms, the same factor bit for bit: "
+          f"{took[False][0]:.1f} / {took[False][1]:.1f} ms, with TRSM, SYRK and GEMM on the "
+          f"scalar body {took[True][0]:.1f} / {took[True][1]:.1f} ms, the same factor bit for bit: "
           f"{same}; residual {r64:.3e} (gate 1e-10) {tag}", flush=True)
     require(same, "the fp64 tile-task factor differs from the scalar body's")
     require(r64 < 1e-10, "tile-task fp64 residual above the reference's 1e-10 gate")
@@ -2055,7 +2081,30 @@ def phase_solve(dev, tag):
     return launches
 
 
-LAST_PHASE = 33
+# ---- 34. the packed serving path -----------------------------------------------------
+def phase_packed_serving(tag):
+    """The driver's ``--mode packed --solve inverse`` and ``--solve potrs``,
+    each with the peak device memory of its call beside the packed
+    triangle's bytes."""
+    from dla_tpu_torch.algos.packed import packed_len
+
+    n, nb = N_PACKED_SOLVE, NB_PACKED_SOLVE
+    tri = packed_len(n, nb) * 4
+    for solve in ("inverse", "potrs"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = phase_driver(tag, ["--n", str(n), "--nb", str(nb), "--dtype", "s", "--mode",
+                                 "packed", "--trailing", "pallas", "--solve", solve, "--nrhs",
+                                 str(NRHS_SOLVE), "--repeats", "1"])
+        peak = torch.cuda.max_memory_allocated()
+        print(f"packed serving N={n} nb={nb} --solve {solve} nrhs={NRHS_SOLVE}: peak device "
+              f"memory {peak / 2**30:.3f} GiB, the packed triangle {tri / 2**30:.3f} GiB "
+              f"({peak / tri:.2f}x) {tag}", flush=True)
+        require("SOLVE PASS" in out, f"the driver's packed --solve {solve} did not pass")
+    torch.cuda.empty_cache()
+
+
+LAST_PHASE = 34
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -2187,6 +2236,8 @@ def main(argv=None) -> int:
                                           + phase_ring_plane(dev, tag, phase))
     if 33 in sel:
         phase_solve(dev, tag)
+    if 34 in sel:
+        phase_packed_serving(tag)
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

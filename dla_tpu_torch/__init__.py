@@ -12,7 +12,9 @@ and trailing kernels on their ``"pallas"`` routes) → ``residual_potrf``, or,
 where A and L do not fit the device together, the matrix-free
 ``freivalds_device``; the packed-storage path, ``plgsy_packed`` →
 ``potrf_packed`` (the packed trailing update in a kernel) →
-``freivalds_packed``, with ``potrs_packed``; the emulated-fp64 path,
+``freivalds_packed``, with ``potrs_packed`` and the packed serving path
+(``potri_packed``, ``solve_inverse_packed``, ``residual_posv_streamed``);
+the emulated-fp64 path,
 ``to_df64`` → ``potrf_df64`` (the df64 trailing update in a kernel) →
 ``residual_potrf_df64_blocked``, and its packed form, ``plgsy_packed`` →
 ``potrf_packed_df64`` (the packed df64 trailing update in a kernel) →
@@ -34,7 +36,9 @@ Importing the package switches TF32 off
 (:func:`dla_tpu_torch.utils.precision.pin_ieee_fp32`).
 """
 
-from dla_tpu_torch.utils.precision import pin_ieee_fp32
+__version__ = "0.1.0"
+
+from dla_tpu_torch.utils.precision import pin_ieee_fp32  # noqa: E402
 
 pin_ieee_fp32()
 
@@ -46,9 +50,11 @@ from dla_tpu_torch.algos import (  # noqa: E402
     potrf_masked,
     potrf_packed,
     potri,
+    potri_packed,
     potrs,
     potrs_packed,
     solve_inverse,
+    solve_inverse_packed,
     unpack_tri,
 )
 from dla_tpu_torch.ops import (  # noqa: E402
@@ -80,10 +86,12 @@ __all__ = [
     "potrf_packed",
     "potrf_unblocked",
     "potri",
+    "potri_packed",
     "potrs",
     "potrs_packed",
     "residual_potrf",
     "solve_inverse",
+    "solve_inverse_packed",
     "syrk",
     "trsm",
     "unpack_tri",

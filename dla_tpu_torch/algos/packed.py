@@ -14,12 +14,16 @@ Every algorithm below touches contiguous row ranges of that buffer.
 
 Ported: the factorization path and its matrix-free gate,
 :func:`plgsy_packed` → :func:`potrf_packed` → :func:`freivalds_packed`
-(through :func:`trmm_packed` and :func:`spd_matvec_streamed`), and the packed
+(through :func:`trmm_packed` and :func:`spd_matvec_streamed`); the packed
 substitution :func:`potrs_packed` with its :func:`_diag_invs`, which the
-packed df64 solve builds on. The other packed serving functions
-(``trtri_packed``, ``lauum_packed``, ``potri_packed``,
-``solve_inverse_packed``, ``residual_posv_streamed``) are a later slice
-(``ROADMAP.md``).
+packed df64 solve builds on; and the packed serving path, the inverse in
+packed space (:func:`trtri_packed` → :func:`lauum_packed`, together
+:func:`potri_packed`), its apply :func:`solve_inverse_packed`, and the
+streamed solve residual :func:`residual_posv_streamed`. Like
+:func:`potrf_packed`, the three inverse steps overwrite their input buffer
+column by column and return it (the reference donates the buffer to the same
+effect); the column order keeps that safe. Complex dtypes are not ported
+(``ROADMAP.md`` Queue A item 5).
 """
 
 from __future__ import annotations
@@ -113,6 +117,89 @@ def _diag_invs(packed: torch.Tensor, n: int, tb: int) -> list[torch.Tensor]:
         else:
             out.append(trsm(1.0, dk, eye, side="L", uplo="L", transa=False))
     return out
+
+
+def _real_only(name: str, t: torch.Tensor) -> None:
+    if t.is_complex():
+        raise NotImplementedError(
+            f"{name} on complex dtypes is not ported yet; see ROADMAP.md Queue A5")
+
+
+def trtri_packed(lp: torch.Tensor, n: int, tb: int) -> torch.Tensor:
+    """K = L⁻¹ in packed space, **in place**: ``lp`` is overwritten with K and
+    returned. Column j of K replaces column j of L only after it is whole,
+    and later columns read only columns > j, so the order is safe.
+    Column-oriented right-looking substitution over contiguous column-slab
+    slices, with the diagonal blocks' inverses from :func:`_diag_invs`."""
+    _check(n, tb)
+    _real_only("trtri_packed", lp)
+    nt = n // tb
+    ct = _ctype(lp.dtype)
+    dinv = _diag_invs(lp, n, tb)
+    for j in range(nt):
+        x = torch.zeros(((nt - j) * tb, tb), dtype=ct, device=lp.device)
+        x[:tb] = dinv[j]
+        if j + 1 < nt:
+            strict = col_slab(lp, j, n, tb)[tb:].to(ct)
+            x[tb:] = -gemm(1.0, strict, dinv[j], 0.0, x[tb:])
+        for k in range(j + 1, nt):  # the rest of the substitution, one column step each
+            i0 = (k - j) * tb
+            xk = gemm(1.0, dinv[k], x[i0 : i0 + tb], 0.0, x[i0 : i0 + tb])
+            x[i0 : i0 + tb] = xk
+            if k + 1 < nt:
+                strict = col_slab(lp, k, n, tb)[tb:].to(ct)
+                x[i0 + tb :] = gemm(-1.0, strict, xk, 1.0, x[i0 + tb :])
+        _set_col(lp, j, x, n, tb)
+    return lp
+
+
+def lauum_packed(kp: torch.Tensor, n: int, tb: int) -> torch.Tensor:
+    """Lower triangle of KᵀK from packed K (the lauum-of-inverse step of
+    POTRI), **in place**: ``kp`` is overwritten and returned. One
+    (tb, (nt−i)·tb)·((nt−i)·tb, tb) product per output tile; column j is
+    overwritten only once its slab is done, from columns ≥ j of K."""
+    _check(n, tb)
+    _real_only("lauum_packed", kp)
+    nt = n // tb
+    ct = _ctype(kp.dtype)
+    for j in range(nt):
+        colj = col_slab(kp, j, n, tb).to(ct)
+        z = torch.zeros((tb, tb), dtype=ct, device=kp.device)
+        blocks = [gemm(1.0, col_slab(kp, i, n, tb).to(ct), colj[(i - j) * tb :], 0.0, z,
+                       transa=True) for i in range(j, nt)]
+        _set_col(kp, j, torch.cat(blocks), n, tb)
+    return kp
+
+
+def potri_packed(lp: torch.Tensor, n: int, tb: int) -> torch.Tensor:
+    """Packed factor → packed symmetric inverse, A⁻¹ = L⁻ᵀ·L⁻¹ computed
+    entirely in packed space (about 2·n³/3 flops), **in place**: ``lp`` is
+    overwritten and returned; beside it one column slab at a time."""
+    return lauum_packed(trtri_packed(lp, n, tb), n, tb)
+
+
+def solve_inverse_packed(sp: torch.Tensor, b: torch.Tensor, n: int, tb: int) -> torch.Tensor:
+    """The serving apply X = A⁻¹·B from the *packed symmetric* inverse: it
+    streams the n(n+tb)/2 elements of A⁻¹ once per query, half the dense
+    :func:`~dla_tpu_torch.algos.potri.solve_inverse` product's bytes. Per
+    block column j: X[j·tb:] += S[:, j]·B_j (the lower triangle, diagonal
+    included) and X_j += S[j+1:, j]ᵀ·B[(j+1)·tb:] (the strict upper, by
+    symmetry). ``b`` is (n,) or (n, nrhs); returns a new tensor in the
+    compute dtype."""
+    _check(n, tb)
+    _real_only("solve_inverse_packed", sp)
+    nt = n // tb
+    vec = b.ndim == 1
+    ct = _ctype(sp.dtype)
+    bb = (b[:, None] if vec else b).to(ct)
+    x = torch.zeros((n, bb.shape[-1]), dtype=ct, device=sp.device)
+    for j in range(nt):
+        colj = col_slab(sp, j, n, tb).to(ct)
+        x[j * tb :] = gemm(1.0, colj, bb[j * tb : (j + 1) * tb], 1.0, x[j * tb :])
+        if j + 1 < nt:
+            x[j * tb : (j + 1) * tb] = gemm(1.0, colj[tb:], bb[(j + 1) * tb :], 1.0,
+                                            x[j * tb : (j + 1) * tb], transa=True)
+    return x[:, 0] if vec else x
 
 
 def potrs_packed(lp: torch.Tensor, b: torch.Tensor, n: int, tb: int) -> torch.Tensor:
@@ -310,3 +397,25 @@ def freivalds_packed(
         na += strip.abs().sum(dim=1)
     denom = na.max() * x.abs().max()
     return (ax - y).abs().max() / denom
+
+
+def residual_posv_streamed(
+    x: torch.Tensor, b: torch.Tensor, n: int, *, seed: int = 51,
+    bump: float | None = None, cb: int = 1024,
+) -> torch.Tensor:
+    """``||B − A·X||_inf / (||A||_inf·||X||_inf)`` for the seeded SPD
+    generator matrix, with A applied (:func:`spd_matvec_streamed`) and its
+    row sums accumulated over (n, cb) strips generated on x's device: the
+    solve path's check when A cannot sit beside the packed state (the
+    contract of ``validate.residual_posv``), in x's compute dtype."""
+    _real_only("residual_posv_streamed", x)
+    if bump is None:
+        bump = float(n)
+    cb = min(cb, n)
+    ct = _ctype(x.dtype)
+    ax = spd_matvec_streamed(x, n, seed=seed, bump=bump, cb=cb)
+    na = torch.zeros((n,), dtype=ct, device=x.device)
+    for _, strip in _strips(n, cb, seed, bump, ct, x.device):
+        na += strip.abs().sum(dim=1)
+    denom = na.max() * x.abs().max()
+    return (b.to(ct) - ax).abs().max() / denom

@@ -47,9 +47,9 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   256³ and m=4096, n=k=2048 (#7: m=n), fp32 ``high``, ``default``,
   ``highest``, fp64 and bf16 in one call (``--tier`` and ``--dtype``
   unused), with the block body each build ran (its own count of launches
-  per body) and each case's largest difference to the plain version; at
-  512³ and 256³ also each build's card time alone, 20 launches queued behind
-  a sleeping kernel. The exit code is 1 where a case leaves its tolerance or
+  per body) and each case's largest difference to the plain version, and
+  each build's card time alone, 20 launches queued behind a sleeping
+  kernel. The exit code is 1 where a case leaves its tolerance or
   where this build runs the scalar body or a chain body (fp32 ``highest``,
   fp64: one fma chain per element, the scalar body's bits) and the two
   builds' bits differ; the last line also says whether every case gave the
@@ -503,8 +503,7 @@ def _tile_ab(args, card: str) -> int:
                         after = counts[version]()
                         ran[version] = [x for x in after if after[x] != before[x]]
                         times[version].append(t0.elapsed_time(t1) / reps)
-                        if m <= 512:
-                            queued[version].append(_queued_ms(call, 20))
+                        queued[version].append(_queued_ms(call, 20))
                         outs[version] = out
                     with precision.override(tier_name):
                         ref = (tiles.trsm_tile_plain(b, a) if op == "trsm" else

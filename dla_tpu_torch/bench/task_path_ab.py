@@ -15,12 +15,13 @@ this, other. Each process
   warm-up, then 5 timed factorizations (host clock, synchronized), the task
   kernels' launches per block body in one factorization, a digest of the
   factor's bits and its residual;
-- times one ``trsm_tile`` and one ``gemm_tile`` call at the DAG's tile
-  (256 × 256, fp64): the host's time to return from a call (200 calls queued
-  behind a sleeping kernel, host clock) and the card's time of a call alone
-  (CUDA events around the same 200 calls);
+- times one ``trsm_tile``, one ``syrk_tile`` and one ``gemm_tile`` call at
+  the DAG's tile (256 × 256, fp64): the host's time to return from a call
+  (200 calls queued behind a sleeping kernel, host clock) and the card's
+  time of a call alone (CUDA events around the same 200 calls);
 - where the tree has ``tiles.tile_op_reference`` (the scalar body's test-only
-  entry), the same for the DAG with TRSM and GEMM through it.
+  entry), the same for the DAG with TRSM and GEMM through it, and SYRK too
+  where that entry takes it.
 
 Prints one line per process, then the median factorization time of each
 tree, their ratio, and whether every process gave the factor the same bits,
@@ -107,19 +108,22 @@ def _worker() -> dict:
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     a = T.plgsy(N, seed=7, dtype=torch.float64, device=dev)
-    ops = {"library": (tiles.trsm_tile, tiles.gemm_tile)}
+    ops = {"library": (tiles.trsm_tile, tiles.syrk_tile, tiles.gemm_tile)}
     if hasattr(tiles, "tile_op_reference"):
+        syrk_ref = "syrk" in getattr(tiles, "_OP_CODE", {})  # the entry takes syrk
         ops["scalar reference"] = (
             lambda linv, b: tiles.tile_op_reference("trsm", None, b, linv),
+            (lambda c, a: tiles.tile_op_reference("syrk", c, a, a)) if syrk_ref
+            else tiles.syrk_tile,
             lambda c, ai, aj: tiles.tile_op_reference("gemm", c, ai, aj))
     g = torch.Generator(device=dev).manual_seed(NB)
     c, x, y = (torch.randn(NB, NB, generator=g, device=dev, dtype=torch.float64)
                for _ in range(3))
     linv = torch.tril(y)
     out = {"root": str(Path(T.__file__).resolve().parents[1]), "build_s": build_s}
-    for name, (trsm_tile, gemm_tile) in ops.items():
+    for name, (trsm_tile, syrk_tile, gemm_tile) in ops.items():
         def factor():
-            return _dag(a, NB, tiles.potrf_tile, trsm_tile, tiles.syrk_tile,  # noqa: B023
+            return _dag(a, NB, tiles.potrf_tile, trsm_tile, syrk_tile,  # noqa: B023
                         gemm_tile)  # noqa: B023
 
         before = tiles.tile_body_launches()
@@ -133,12 +137,14 @@ def _worker() -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         trsm_host, trsm_card = _per_call(lambda: trsm_tile(linv, x))  # noqa: B023
+        syrk_host, syrk_card = _per_call(lambda: syrk_tile(c, x))  # noqa: B023
         gemm_host, gemm_card = _per_call(lambda: gemm_tile(c, x, y))  # noqa: B023
         out[name] = {
             "ms": times, "median_ms": statistics.median(times), "bodies": bodies,
             "digest": hashlib.sha256(l.cpu().numpy().tobytes()).hexdigest()[:16],
             "residual": float(T.residual_potrf(a, l)),
             "trsm_host_us": trsm_host, "trsm_card_us": trsm_card,
+            "syrk_host_us": syrk_host, "syrk_card_us": syrk_card,
             "gemm_host_us": gemm_host, "gemm_card_us": gemm_card}
         del l
     return out
@@ -176,7 +182,8 @@ def main(argv=None) -> int:
                   f"{[round(t, 3) for t in m['ms']]} ms, median {m['median_ms']:.3f}; bodies "
                   f"{m['bodies']}; factor {m['digest']}, residual {m['residual']:.3e}; one call "
                   f"at {NB}^3: trsm_tile host {m['trsm_host_us']:.2f} us, card "
-                  f"{m['trsm_card_us']:.2f} us; gemm_tile host {m['gemm_host_us']:.2f} us, card "
+                  f"{m['trsm_card_us']:.2f} us; syrk_tile host {m['syrk_host_us']:.2f} us, card "
+                  f"{m['syrk_card_us']:.2f} us; gemm_tile host {m['gemm_host_us']:.2f} us, card "
                   f"{m['gemm_card_us']:.2f} us; build {r['build_s']:.1f} s [{card}]", flush=True)
     med = {v: statistics.median(t for r in rs for t in r["library"]["ms"])
            for v, rs in runs.items()}

@@ -59,8 +59,17 @@ fp64 factor, N·2e-6 for fp32 ``potrs``/``inverse``, 1e-10 for ``refined``.
 tril(A) in fp64, early stop at 1e-11) unless ``--x64`` or an fp64 dtype
 picks ``posv_refined`` (an fp32 ``potrf_blocked`` factor, eight fp64
 refinement steps), as the reference picks by ``jax_enable_x64``; both run
-their fp64 residuals on the chosen device. The packed mode's ``--solve`` is
-not ported yet and exits 2.
+their fp64 residuals on the chosen device.
+
+``--mode packed --solve potrs|inverse`` solves from the packed factor, as the
+reference driver's packed branch (``dla_tpu/cli/potrf_driver.py:861-900``):
+``potrs_packed``, or ``potri_packed`` (in place on the factor) then
+``solve_inverse_packed``, each timed; the residual is
+``residual_posv_streamed``, A streamed from its seed (the packed mode's input
+is always the generator: the reference's ``residual_posv`` branch serves
+inputs this driver does not take), under 1e-10 for fp64, else N·2e-6.
+``--mode packed --solve refined`` exits 2: ``posv_refined_streamed`` needs
+the native host generator (``ROADMAP.md`` Queue A item 8).
 
 Only the factorization is timed, between two ``torch.cuda.synchronize()``
 calls; the input is regenerated from its seed before each repeat, untimed
@@ -80,6 +89,8 @@ Usage:
     python -m dla_tpu_torch.cli.potrf_driver --n 512 --nb 128 --dtype d --device cpu
     python -m dla_tpu_torch.cli.potrf_driver --n 16384 --nb 1024 --dtype s --mode inplace \
         --solve refined --nrhs 64
+    python -m dla_tpu_torch.cli.potrf_driver --n 32768 --nb 4096 --dtype s --mode packed \
+        --solve inverse --nrhs 64
 """
 
 from __future__ import annotations
@@ -140,9 +151,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="PASS threshold (default: dtype-aware)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--solve", choices=["none", "potrs", "refined", "inverse"], default="none",
-                    help="dense modes: also solve A·X=B: plain POTRS, mixed-precision "
-                         "iterative refinement (fp32 factor, fp64 residuals), or the explicit "
-                         "inverse (POTRI, then one product per block of right-hand sides)")
+                    help="dense and packed modes: also solve A·X=B: plain POTRS, "
+                         "mixed-precision iterative refinement (fp32 factor, fp64 residuals; "
+                         "dense modes only), or the explicit inverse (POTRI, then one product "
+                         "per block of right-hand sides)")
     ap.add_argument("--nrhs", type=int, default=1, help="right-hand sides for --solve")
     ap.add_argument("--x64", action="store_true",
                     help="--solve refined through posv_refined (the reference's "
@@ -202,8 +214,9 @@ def main(argv=None) -> int:
         print("[dla-potrf] --solve with the df64 modes: use --solve refined on the fp32 modes "
               "(the same 1e-10 contract)", file=sys.stderr)
         return 2
-    if args.solve != "none" and cfg.mode == "packed":
-        print("[dla-potrf] --solve with --mode packed is not ported yet (ROADMAP.md)",
+    if args.solve == "refined" and cfg.mode == "packed":
+        print("[dla-potrf] --solve refined with --mode packed is not ported yet: "
+              "posv_refined_streamed needs the native host generator (ROADMAP.md A8)",
               file=sys.stderr)
         return 2
     # the pure packed-df64 path: exactly-fp32 generation on the device
@@ -305,9 +318,14 @@ def main(argv=None) -> int:
     if not cfg.check and args.solve == "none":
         return 0
     if packed:
-        res = float(freivalds_packed(l, cfg.n, cfg.nb, seed=cfg.seed, bump=bump))
-        print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
-        return _verdict(res, args.gate, cfg)
+        rc = 0
+        if cfg.check:
+            res = float(freivalds_packed(l, cfg.n, cfg.nb, seed=cfg.seed, bump=bump))
+            print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
+            rc = _verdict(res, args.gate, cfg)
+        if args.solve != "none":
+            rc = max(rc, _solve_packed(args, cfg, l, bump, device, sync))
+        return rc
     if df64:
         a = None if df64_pure else dense_pair()
         sync()
@@ -377,6 +395,52 @@ def _solve(args, cfg, a, l, device, sync) -> int:
             x = solve_inverse(potri(l), b) if args.solve == "inverse" else potrs(l, b)
             sgate = args.gate if args.gate is not None else (1e-10 if fp64 else n * 2e-6)
         serr = float(residual_posv(a, b.to(x.dtype), x))
+    return _solve_verdict(serr, sgate)
+
+
+def _solve_packed(args, cfg, lp, bump: float, device, sync) -> int:
+    """The reference driver's packed ``--solve potrs|inverse``
+    (``dla_tpu/cli/potrf_driver.py:861-900``) from the packed factor ``lp``
+    (overwritten by ``inverse``): ``--nrhs`` right-hand sides of ones, the
+    solve timed, the streamed residual and ``SOLVE PASS``/``SOLVE FAIL``;
+    the exit code."""
+    import torch
+
+    from dla_tpu_torch.algos import (
+        potri_packed,
+        potrs_packed,
+        residual_posv_streamed,
+        solve_inverse_packed,
+    )
+
+    n, nb = cfg.n, cfg.nb
+    ct = torch.float32 if lp.dtype == torch.bfloat16 else lp.dtype
+    b = torch.ones((n, args.nrhs), dtype=ct, device=device)
+    sync()
+    t0 = time.perf_counter()
+    if args.solve == "inverse":
+        sp = potri_packed(lp, n, nb)
+        sync()
+        t1 = time.perf_counter()
+        x = solve_inverse_packed(sp, b, n, nb)
+        sync()
+        t2 = time.perf_counter()
+        print(f"[dla-potrf] potri_packed {(t1 - t0) * 1e3:.1f} ms, solve_inverse_packed "
+              f"{(t2 - t1) * 1e3:.1f} ms (nrhs={args.nrhs})")
+    else:
+        x = potrs_packed(lp, b, n, nb)
+        sync()
+        print(f"[dla-potrf] potrs_packed {(time.perf_counter() - t0) * 1e3:.1f} ms "
+              f"(nrhs={args.nrhs})")
+    serr = float(residual_posv_streamed(x, b, n, seed=cfg.seed, bump=bump))
+    sgate = args.gate if args.gate is not None else (
+        1e-10 if cfg.dtype == "float64" else n * 2e-6)
+    return _solve_verdict(serr, sgate)
+
+
+def _solve_verdict(serr: float, sgate: float) -> int:
+    """Print the solve residual and SOLVE PASS/FAIL against the gate; the
+    exit code."""
     print(f"||B - A X||_inf / (||A||_inf ||X||_inf) = {serr:.2e}")
     if serr < sgate:  # False for NaN
         print(f"SOLVE PASS (residual < {sgate:g})", flush=True)

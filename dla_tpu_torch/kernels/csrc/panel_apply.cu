@@ -53,8 +53,7 @@ int product(int tier, const float* c, long long ldc, const float* a, long long l
             long long k, void* scratch, long long scratch_bytes, cudaStream_t s) {
   switch (tier) {
     case dla::kHighest:
-      return launch_scalar<float, dla::kHighest, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo,
-                                                      s);
+      return launch_scalar<float, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, s);
     case dla::kHigh:
       return launch_tc<float, 2, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, scratch,
                                       scratch_bytes, s);

@@ -24,6 +24,8 @@
 //   thread per column, coalesced. Its sums are not the scalar body's bits:
 //   wgmma adds in another order and does not round to nearest between
 //   promotions (every 256 columns of k), within 1e-5 of max|a_i| * max|b_j|.
+//   syrk splits A alone (B = A): its scratch holds A's planes only, and the
+//   column tile's rows in the tensor map are A's rows.
 // - tile_simt_kernel and tile_dmma_kernel (launch_chain), the FMA-chain
 //   bodies of trailing_chain.cuh (simt_sums: fp32 highest; dmma_sums: fp64 on
 //   the fp64 tensor cores) on a ceil(m/T) x ceil(n/T) grid in the same
@@ -34,8 +36,16 @@
 //   blocks, the 64 grid 64); the dmma body takes 64 (its 128-tile main loop
 //   serves the trailing kernels only).
 // - tile_kernel (launch_scalar), one 64 x 64 nt_block (trailing_block.cuh)
-//   per block of a 2-D grid, scalar FMAs: syrk at every tier, the panel
-//   solve at highest, and the task kernels' test-only reference entry.
+//   per block of a 2-D grid, scalar FMAs at highest (IEEE fp32, fp64): the
+//   panel solve at highest, and the task kernels' test-only reference entry.
+//
+// syrk's grid. The tensor-core and chain bodies launch as many blocks for
+// syrk as for an n x n gemm, g^2 on a g x g grid of output tiles, but only
+// the g(g+1)/2 tiles on and below the diagonal form a product (the diagonal
+// tiles mask r >= c in the epilogue); the other g(g-1)/2 blocks copy C's
+// tile into out and multiply nothing (syrk_tile; tiles.syrk_tile_grid models
+// it). out is a new tensor, so the upper tiles must still receive C's bits,
+// and one launch writes all of them.
 //
 // Everything here sits in an anonymous namespace: each source that includes
 // the header has its own kernels and its own once-per-device flag of
@@ -61,7 +71,7 @@ __device__ __forceinline__ T narrow(A v) {
 
 // ---- the scalar body ----------------------------------------------------------------
 
-template <typename T, int TIER, int EPI>
+template <typename T, int EPI>
 __global__ void __launch_bounds__(dla::TPB)
 tile_kernel(const T* __restrict__ c, long long ldc, const T* __restrict__ a, long long lda,
             const T* __restrict__ b, long long ldb, T* __restrict__ out, long long ldo,
@@ -72,9 +82,9 @@ tile_kernel(const T* __restrict__ c, long long ldc, const T* __restrict__ a, lon
   const long long row0 = (long long)blockIdx.y * BM;
   const long long col0 = (long long)blockIdx.x * BM;
   A acc[TM][TM];
-  A accx[TM][TM];  // high only: the two cross terms hi*lo + lo*hi
-  dla::nt_block<T, TIER>(a + row0 * lda, lda, m - row0, b + col0 * ldb, ldb, n - col0, k, acc,
-                         accx);
+  A accx[TM][TM];  // nt_block's cross terms of high: zeros at highest
+  dla::nt_block<T, dla::kHighest>(a + row0 * lda, lda, m - row0, b + col0 * ldb, ldb, n - col0,
+                                  k, acc, accx);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
@@ -85,7 +95,7 @@ tile_kernel(const T* __restrict__ c, long long ldc, const T* __restrict__ a, lon
     for (int j = 0; j < TM; ++j) {
       const long long cc = col0 + tx + 16 * j;
       if (cc >= n) continue;
-      const A prod = TIER == dla::kHigh ? acc[i][j] + accx[i][j] : acc[i][j];
+      const A prod = acc[i][j];
       if constexpr (EPI == kTrsm) {
         out[r * ldo + cc] = narrow<T>(prod);
       } else {
@@ -97,15 +107,71 @@ tile_kernel(const T* __restrict__ c, long long ldc, const T* __restrict__ a, lon
   }
 }
 
-template <typename T, int TIER, int EPI>
+template <typename T, int EPI>
 int launch_scalar(const T* c, const T* a, const T* b, T* out, long long m, long long n,
                   long long k, long long ldc, long long lda, long long ldb, long long ldo,
                   cudaStream_t s) {
   const long long gx = (n + dla::BM - 1) / dla::BM, gy = (m + dla::BM - 1) / dla::BM;
   if (gx > 65535 || gy > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)gx, (unsigned)gy);
-  tile_kernel<T, TIER, EPI><<<grid, dla::TPB, 0, s>>>(c, ldc, a, lda, b, ldb, out, ldo, m, n, k);
+  tile_kernel<T, EPI><<<grid, dla::TPB, 0, s>>>(c, ldc, a, lda, b, ldb, out, ldo, m, n, k);
   return (int)cudaGetLastError();
+}
+
+// ---- syrk's triangle ----------------------------------------------------------------
+
+// the largest r with r (r + 1) / 2 <= b (b >= 0)
+__device__ __forceinline__ long long tri_root(long long b) {
+  long long r = (long long)((sqrt(8.0 * (double)b + 1.0) - 1.0) * 0.5);
+  while ((r + 1) * (r + 2) / 2 <= b) ++r;
+  while (r * (r + 1) / 2 > b) --r;
+  return r;
+}
+
+// Block -> (row0, col0) of syrk's g x g grid of T x T output tiles; true for
+// a copy block. Blocks 0 .. g(g+1)/2 - 1 take the tiles with row tile >=
+// column tile in chain_tile's order: groups of kGroup row tiles, each walked
+// column by column, where column first + s of a group holds the group's rows
+// s .. rows - 1 (and every row left of the group's diagonal block). The
+// other g(g-1)/2 blocks take the tiles above the diagonal, column by column.
+template <int T>
+__device__ __forceinline__ bool syrk_tile(long long g, long long& row0, long long& col0) {
+  constexpr long long kG = dla::chain::kGroup;
+  const long long b = blockIdx.x;
+  const long long lower = g * (g + 1) / 2;
+  if (b >= lower) {
+    const long long u = b - lower;
+    const long long col = tri_root(u) + 1;  // the col (col - 1) / 2 upper tiles left of it come first
+    row0 = (u - col * (col - 1) / 2) * T;
+    col0 = col * T;
+    return true;
+  }
+  const long long first = tri_root(b) / kG * kG;  // b's row tile in row order, its group's first
+  const long long rows = g - first < kG ? g - first : kG;
+  long long left = b - first * (first + 1) / 2;
+  if (left < first * rows) {
+    row0 = (first + left % rows) * T;
+    col0 = left / rows * T;
+    return false;
+  }
+  left -= first * rows;
+  long long s = 0;
+  for (; left >= rows - s; ++s) left -= rows - s;
+  row0 = (first + s + left) * T;
+  col0 = (first + s) * T;
+  return false;
+}
+
+// out = c over the T x T tile at (row0, col0) of an n x n output: a copy
+// block of syrk's grid, neighbouring threads on neighbouring columns
+template <int T, typename E>
+__device__ __forceinline__ void copy_tile(const E* __restrict__ c, long long ldc,
+                                          E* __restrict__ out, long long ldo, long long row0,
+                                          long long col0, long long n) {
+  for (int i = threadIdx.x; i < T * T; i += blockDim.x) {
+    const long long r = row0 + i / T, cc = col0 + i % T;
+    if (r < n && cc < n) out[r * ldo + cc] = c[r * ldc + cc];
+  }
 }
 
 // ---- the FMA-chain bodies -----------------------------------------------------------
@@ -145,7 +211,14 @@ tile_simt_kernel(const float* __restrict__ c, long long ldc, const float* __rest
                  float* __restrict__ out, long long ldo, long long m, long long n, long long k) {
   using namespace dla::chain;
   long long row0, col0;
-  chain_tile<T>((m + T - 1) / T, (n + T - 1) / T, row0, col0);
+  if constexpr (EPI == kSyrk) {
+    if (syrk_tile<T>((n + T - 1) / T, row0, col0)) {
+      copy_tile<T>(c, ldc, out, ldo, row0, col0, n);
+      return;
+    }
+  } else {
+    chain_tile<T>((m + T - 1) / T, (n + T - 1) / T, row0, col0);
+  }
   float acc[T / 16][T / 16];
   simt_sums<T, VEC, true>(a, lda, row0, m, b, ldb, col0, n, k, acc);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -169,7 +242,14 @@ tile_dmma_kernel(const double* __restrict__ c, long long ldc, const double* __re
   using namespace dla::chain;
   extern __shared__ __align__(16) double ring[];
   long long row0, col0;
-  chain_tile<T>((m + T - 1) / T, (n + T - 1) / T, row0, col0);
+  if constexpr (EPI == kSyrk) {
+    if (syrk_tile<T>((n + T - 1) / T, row0, col0)) {
+      copy_tile<T>(c, ldc, out, ldo, row0, col0, n);
+      return;
+    }
+  } else {
+    chain_tile<T>((m + T - 1) / T, (n + T - 1) / T, row0, col0);
+  }
   double acc[kMI][kNI][4];
   dmma_sums<T, VEC>(a, lda, row0, m, b, ldb, col0, n, k, ring, acc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -191,6 +271,8 @@ tile_dmma_kernel(const double* __restrict__ c, long long ldc, const double* __re
     }
 }
 
+// syrk's grid has as many blocks as the rectangular one: g(g+1)/2 products
+// and g(g-1)/2 copies of a g x g grid
 template <int T, bool VEC, int EPI>
 int launch_simt_tile(const float* c, const float* a, const float* b, float* out, long long m,
                      long long n, long long k, long long ldc, long long lda, long long ldb,
@@ -218,11 +300,12 @@ int launch_dmma_tile(const double* c, const double* a, const double* b, double* 
   return (int)cudaGetLastError();
 }
 
-// The simt body's tile edge: 128 where its grid has at least as many blocks
-// as the card runs at once (SMs x blocks an SM: 2 on 16-byte rows, else 1),
-// else 64. tiles.chain_tile_edge keeps the same rule. The SM count is read
-// once per device (devices past 64 read it every time).
-inline int chain_edge(long long m, long long n, int per_sm, int& edge) {
+// The simt body's tile edge: 128 where its grid at 128 has at least as many
+// product blocks (`blocks`: syrk's lower tiles only) as the card runs at once
+// (SMs x blocks an SM: 2 on 16-byte rows, else 1), else 64.
+// tiles.chain_tile_edge keeps the same rule. The SM count is read once per
+// device (devices past 64 read it every time).
+inline int chain_edge(long long blocks, int per_sm, int& edge) {
   static std::atomic<int> sms_of[64] = {};
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -233,8 +316,7 @@ inline int chain_edge(long long m, long long n, int per_sm, int& edge) {
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) sms_of[dev].store(sms, std::memory_order_relaxed);
   }
-  const long long t = dla::chain::kTile;
-  edge = ((m + t - 1) / t) * ((n + t - 1) / t) >= (long long)sms * per_sm ? 128 : 64;
+  edge = blocks >= (long long)sms * per_sm ? 128 : 64;
   return 0;
 }
 
@@ -255,7 +337,9 @@ int launch_chain(const T* c, const T* a, const T* b, T* out, long long m, long l
   } else {
     if (tile != 0 && tile != 64 && tile != 128) return (int)cudaErrorInvalidValue;
     if (tile == 0) {
-      const int err = chain_edge(m, n, vec ? dla::chain::kSimtBlocks : 1, tile);
+      const long long t = dla::chain::kTile, gm = (m + t - 1) / t, gn = (n + t - 1) / t;
+      const long long blocks = EPI == kSyrk ? gm * (gm + 1) / 2 : gm * gn;
+      const int err = chain_edge(blocks, vec ? dla::chain::kSimtBlocks : 1, tile);
       if (err != 0) return err;
     }
     if (tile == 128)
@@ -268,8 +352,10 @@ int launch_chain(const T* c, const T* a, const T* b, T* out, long long m, long l
 
 // ---- the tensor-core body -----------------------------------------------------------
 
-// out[r, j] = narrow(A B^T) (trsm) or minus(c[r, j], A B^T) (gemm) over one
-// 128 x 128 tile; A's planes start at row 0 of the map, B's at PLANES * mpad.
+// out[r, j] = narrow(A B^T) (trsm), minus(c[r, j], A B^T) (gemm), or the
+// latter where r >= j and c[r, j] elsewhere (syrk) over one 128 x 128 tile;
+// A's planes start at row 0 of the map, B's at PLANES * mpad (syrk: B = A,
+// the map holds A's planes only and npad is 0).
 template <int PLANES, typename T, int EPI>
 __global__ void __launch_bounds__(dla::tc::kThreads, 1)
 tile_tc_kernel(const __grid_constant__ CUtensorMap planes, const T* __restrict__ c,
@@ -277,26 +363,35 @@ tile_tc_kernel(const __grid_constant__ CUtensorMap planes, const T* __restrict__
                long long mpad, long long npad, int ksteps) {
   using namespace dla::tc;
   long long row0, col0;
-  block_tile(mpad / kBM, npad / kBM, row0, col0);
+  TileRows rows;
+  if constexpr (EPI == kSyrk) {
+    if (syrk_tile<kBM>(mpad / kBM, row0, col0)) {
+      copy_tile<kBM>(c, ldc, out, ldo, row0, col0, n);
+      return;
+    }
+    rows = TileRows{(int)row0, (int)mpad, (int)col0, (int)mpad};
+  } else {
+    block_tile(mpad / kBM, npad / kBM, row0, col0);
+    rows = TileRows{(int)row0, (int)mpad, (int)(PLANES * mpad + col0), (int)npad};
+  }
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle wants 1024-byte tiles
   float sum[64];
   float accx[PLANES == 2 ? 64 : 1];
-  mainloop<PLANES>(&planes,
-                   TileRows{(int)row0, (int)mpad, (int)(PLANES * mpad + col0), (int)npad},
-                   ksteps, base, sum, accx);
+  mainloop<PLANES>(&planes, rows, ksteps, base, sum, accx);
   float* tile = reinterpret_cast<float*>(smem_raw + (base - raw));
   stage_sums<PLANES>(tile, sum, accx);
 
-  // each thread one column, every other row; gemm's loads of c batched ahead of the stores
+  // each thread one column, every other row; gemm's and syrk's loads of c batched ahead of
+  // the stores
   const int t = threadIdx.x;
   const int j = t % kBM;
   const long long gc = col0 + j;
   if (gc >= n) return;
   for (int i0 = t / kBM; i0 < kBM; i0 += 2 * kBatch) {
-    if constexpr (EPI == kGemm) {
+    if constexpr (EPI != kTrsm) {
       T old[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -306,7 +401,10 @@ tile_tc_kernel(const __grid_constant__ CUtensorMap planes, const T* __restrict__
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const long long r = row0 + i0 + 2 * u;
-        if (r < m) out[r * ldo + gc] = dla::minus(old[u], tile[(i0 + 2 * u) * kLd + j]);
+        if (r < m)
+          out[r * ldo + gc] = EPI == kGemm || r >= gc
+                                  ? dla::minus(old[u], tile[(i0 + 2 * u) * kLd + j])
+                                  : old[u];
       }
     } else {
 #pragma unroll
@@ -319,6 +417,7 @@ tile_tc_kernel(const __grid_constant__ CUtensorMap planes, const T* __restrict__
 }
 
 // the split scratch's bytes for one product: PLANES x (mpad + npad) rows of kpad bf16
+// (syrk: n = 0, A's planes only)
 inline long long tc_scratch_bytes(int planes, long long m, long long n, long long k) {
   using namespace dla::tc;
   const long long mpad = (m + kBM - 1) / kBM * kBM, npad = (n + kBM - 1) / kBM * kBM;
@@ -326,17 +425,19 @@ inline long long tc_scratch_bytes(int planes, long long m, long long n, long lon
   return planes * (mpad + npad) * kpad * 2;
 }
 
-// split A and B into the scratch, then the main kernel; both on s
+// split A and B (syrk: A alone) into the scratch, then the main kernel; both on s
 template <typename T, int PLANES, int EPI>
 int launch_tc(const T* c, const T* a, const T* b, T* out, long long m, long long n, long long k,
               long long ldc, long long lda, long long ldb, long long ldo, void* scratch,
               long long scratch_bytes, cudaStream_t s) {
   using namespace dla::tc;
-  const long long mpad = (m + kBM - 1) / kBM * kBM, npad = (n + kBM - 1) / kBM * kBM;
+  constexpr bool kSelf = EPI == kSyrk;  // B = A: A's planes serve both operands
+  const long long nb_rows = kSelf ? 0 : n;  // B's rows in the scratch
+  const long long mpad = (m + kBM - 1) / kBM * kBM, npad = (nb_rows + kBM - 1) / kBM * kBM;
   const long long kpad = k > kBK ? (k + kBK - 1) / kBK * kBK : kBK;  // no empty map at k < 64
   const long long rows = PLANES * (mpad + npad);
-  if (scratch_bytes < tc_scratch_bytes(PLANES, m, n, k) ||
-      (mpad / kBM) * (npad / kBM) > 0x7fffffffLL ||
+  const long long blocks = kSelf ? (mpad / kBM) * (mpad / kBM) : (mpad / kBM) * (npad / kBM);
+  if (scratch_bytes < tc_scratch_bytes(PLANES, m, nb_rows, k) || blocks > 0x7fffffffLL ||
       rows > 0x7fffffffLL || kpad / kBK > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;
@@ -344,7 +445,7 @@ int launch_tc(const T* c, const T* a, const T* b, T* out, long long m, long long
   if (err != 0) return err;
 
   split_kernel<T, PLANES><<<(unsigned)(mpad + npad), 256, 0, s>>>(
-      a, m, lda, mpad, b, n, ldb, npad, k, (__nv_bfloat16*)scratch, kpad);
+      a, m, lda, mpad, kSelf ? nullptr : b, nb_rows, ldb, npad, k, (__nv_bfloat16*)scratch, kpad);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
 
@@ -353,8 +454,8 @@ int launch_tc(const T* c, const T* a, const T* b, T* out, long long m, long long
   static std::atomic<unsigned long long> smem_set{0};
   err = allow_smem(kernel, smem, smem_set);
   if (err != 0) return err;
-  kernel<<<(unsigned)((mpad / kBM) * (npad / kBM)), kThreads, smem, s>>>(
-      map, c, ldc, out, ldo, m, n, mpad, npad, (int)(kpad / kBK));
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(map, c, ldc, out, ldo, m, n, mpad, npad,
+                                                  (int)(kpad / kBK));
   return (int)cudaGetLastError();
 }
 

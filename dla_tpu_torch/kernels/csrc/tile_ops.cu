@@ -16,29 +16,36 @@
 // bf16 (and subtracts in bf16), as .astype(c_ref.dtype) does in the
 // reference. m, n and k need not be multiples of anything.
 //
-// Four bodies, by tier (kernels/tiles.py:tile_op_body keeps the same
-// table), all in tile_body.cuh, with out's leading dimension n:
-// - trsm and gemm at fp32 high (two bf16 planes) and default (one), and bf16
-//   storage at any tier (one): tile_tc_kernel, the tensor-core pipeline of
-//   trailing_wgmma.cuh with two operands, one 128 x 128 output tile a block;
-// - trsm and gemm at fp32 highest: tile_simt_kernel, the register-blocked
-//   fp32 FMA chain of trailing_chain.cuh (simt_sums), 128- or 64-tiles;
-// - trsm and gemm at fp64: tile_dmma_kernel, the fp64 chain on the fp64
-//   tensor cores (dmma_sums), 64-tiles;
-// - syrk at every tier: tile_kernel, one 64 x 64 nt_block
-//   (trailing_block.cuh) per block, scalar FMAs.
-// The two chain bodies keep tile_kernel's bits (one fma chain per output in
-// ascending k); dla_tile_op_scalar runs tile_kernel on trsm and gemm for the
-// card tests to hold them to, and dla_tile_op_chain_f32 the simt body at a
-// given tile edge, for measurements. The launches through each body are counted
-// apart from panel_apply.cu's, which runs the same bodies; the two test-only
-// entries count nothing.
+// Three bodies, by tier, the same for all three ops (kernels/tiles.py:
+// tile_op_body keeps the same table), all in tile_body.cuh, with out's
+// leading dimension n:
+// - fp32 high (two bf16 planes) and default (one), and bf16 storage at any
+//   tier (one): tile_tc_kernel, the tensor-core pipeline of
+//   trailing_wgmma.cuh with two operands (syrk: A's planes serve both), one
+//   128 x 128 output tile a block;
+// - fp32 highest: tile_simt_kernel, the register-blocked fp32 FMA chain of
+//   trailing_chain.cuh (simt_sums), 128- or 64-tiles;
+// - fp64: tile_dmma_kernel, the fp64 chain on the fp64 tensor cores
+//   (dmma_sums), 64-tiles.
+// syrk launches products for the output tiles on and below the diagonal only
+// and copies C into the tiles above it, in the same launch (syrk_tile of
+// tile_body.cuh). The two chain bodies keep the bits of tile_kernel (one
+// 64 x 64 nt_block of scalar FMAs per block, trailing_block.cuh: one fma
+// chain per output in ascending k); dla_tile_op_scalar runs tile_kernel on
+// any of the three ops for the card tests to hold them to, and
+// dla_tile_op_chain_f32 the simt body at a given tile edge, for
+// measurements. The launches through each body are counted apart from
+// panel_apply.cu's, which runs the same bodies; the two test-only entries
+// count nothing, and no launch of the library takes the scalar body (its
+// count stays 0; kept at index 0 so that the indices are those of earlier
+// builds).
 //
 // Bound. A 512-tile call moves 3 MB and does 0.27 GFLOP: a few microseconds
 // of card time, so at the DAG's tile size a call is bound by its launches
-// (split, main kernel) and the host. At m=4096, n=k=2048 the tensor-core
-// body is bound by its bf16 products (three passes at high), the chain
-// bodies by fp32 FMA issue and by the fp64 tensor cores.
+// (split, main kernel) and the host. At m=4096, n=k=2048 (syrk: n=k=2048,
+// half the products) the tensor-core body is bound by its bf16 products
+// (three passes at high), the chain bodies by fp32 FMA issue and by the
+// fp64 tensor cores.
 
 #include "tile_body.cuh"
 
@@ -56,35 +63,16 @@ int tile_counted(int err, TileBody body) {
   return err;
 }
 
-// fp32 tiers of syrk; fp64 and bf16 storage have one tier each (bf16
-// operands make every tier's products exact)
-template <typename T>
-int run_syrk(const T* c, const T* a, T* out, long long n, long long k, long long ldc,
-             long long lda, int tier, cudaStream_t s) {
-  if constexpr (std::is_same_v<T, float>) {
-    switch (tier) {
-      case dla::kHighest:
-        return launch_scalar<T, dla::kHighest, kSyrk>(c, a, a, out, n, n, k, ldc, lda, lda, n, s);
-      case dla::kHigh:
-        return launch_scalar<T, dla::kHigh, kSyrk>(c, a, a, out, n, n, k, ldc, lda, lda, n, s);
-      case dla::kDefault:
-        return launch_scalar<T, dla::kDefault, kSyrk>(c, a, a, out, n, n, k, ldc, lda, lda, n, s);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    (void)tier;
-    return launch_scalar<T, dla::kHighest, kSyrk>(c, a, a, out, n, n, k, ldc, lda, lda, n, s);
-  }
-}
-
+// syrk is square: m = n (and b = a)
 bool bad_args(int epi, long long m, long long n, long long k, long long ldc, long long lda,
               long long ldb) {
-  return m <= 0 || n <= 0 || k < 0 || lda < k || ldb < k || (epi != kTrsm && ldc < n);
+  return m <= 0 || n <= 0 || k < 0 || lda < k || ldb < k || (epi != kTrsm && ldc < n) ||
+         (epi == kSyrk && m != n);
 }
 
-// The body follows the op, the storage type and the tier; a launch one body
-// refuses is never retried through another.
+// The body follows the storage type and the tier (fp64 and bf16 storage have
+// one tier each: bf16 operands make every tier's products exact); a launch
+// one body refuses is never retried through another.
 template <typename T, int EPI>
 int run(const void* c, const void* a, const void* b, void* out, void* scratch, long long m,
         long long n, long long k, long long ldc, long long lda, long long ldb,
@@ -93,10 +81,7 @@ int run(const void* c, const void* a, const void* b, void* out, void* scratch, l
   const cudaStream_t s = (cudaStream_t)stream;
   const T *cp = (const T*)c, *ap = (const T*)a, *bp = (const T*)b;
   T* o = (T*)out;
-  if constexpr (EPI == kSyrk) {
-    (void)bp, (void)scratch, (void)scratch_bytes;
-    return tile_counted(run_syrk<T>(cp, ap, o, n, k, ldc, lda, tier, s), kScalar);
-  } else if constexpr (std::is_same_v<T, double>) {
+  if constexpr (std::is_same_v<T, double>) {
     (void)tier, (void)scratch, (void)scratch_bytes;
     return tile_counted(launch_chain<T, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, 0, s),
                         kDmma);
@@ -124,26 +109,35 @@ int run(const void* c, const void* a, const void* b, void* out, void* scratch, l
   }
 }
 
-// trsm (op 0) or gemm (op 2) of the test-only entries: through tile_kernel
-// (tile 0) or, fp32 only, through the simt body at the given tile edge;
-// counted nowhere
+// one op of the test-only entries: through tile_kernel (tile 0) or, fp32
+// only, through the simt body at the given tile edge; counted nowhere
+template <typename T, int EPI>
+int run_reference(const void* c, const void* a, const void* b, void* out, long long m,
+                  long long n, long long k, long long ldc, long long lda, long long ldb, int tile,
+                  void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const T *cp = (const T*)c, *ap = (const T*)a, *bp = (const T*)b;
+  T* o = (T*)out;
+  if (tile == 0)
+    return launch_scalar<T, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, s);
+  return launch_chain<T, EPI>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, tile, s);
+}
+
 template <typename T>
 int run_reference(int op, const void* c, const void* a, const void* b, void* out, long long m,
                   long long n, long long k, long long ldc, long long lda, long long ldb, int tile,
                   void* stream) {
-  if ((op != kTrsm && op != kGemm) || bad_args(op, m, n, k, ldc, lda, ldb) ||
+  if (op < kTrsm || op > kGemm || bad_args(op, m, n, k, ldc, lda, ldb) ||
       (tile != 0 && !std::is_same_v<T, float>))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const T *cp = (const T*)c, *ap = (const T*)a, *bp = (const T*)b;
-  T* o = (T*)out;
-  if (tile == 0 && op == kTrsm)
-    return launch_scalar<T, dla::kHighest, kTrsm>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, s);
-  if (tile == 0)
-    return launch_scalar<T, dla::kHighest, kGemm>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, s);
-  return op == kTrsm
-             ? launch_chain<T, kTrsm>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, tile, s)
-             : launch_chain<T, kGemm>(cp, ap, bp, o, m, n, k, ldc, lda, ldb, n, tile, s);
+  switch (op) {
+    case kTrsm:
+      return run_reference<T, kTrsm>(c, a, b, out, m, n, k, ldc, lda, ldb, tile, stream);
+    case kSyrk:
+      return run_reference<T, kSyrk>(c, a, a, out, m, n, k, ldc, lda, lda, tile, stream);
+    default:
+      return run_reference<T, kGemm>(c, a, b, out, m, n, k, ldc, lda, ldb, tile, stream);
+  }
 }
 
 }  // namespace
@@ -174,14 +168,15 @@ DLA_TILE_OPS(f64, double)
 DLA_TILE_OPS(bf16, __nv_bfloat16)
 
 // Launches of the three task kernels in this process through the scalar body
-// (body = 0), the tensor-core body (1), the simt chain (2) or the dmma
-// chain (3).
+// (body = 0: none since syrk left it), the tensor-core body (1), the simt
+// chain (2) or the dmma chain (3).
 extern "C" long long dla_tile_body_launches(int body) {
   return body >= 0 && body < 4 ? tile_body_launches[body] : 0;
 }
 
-// Test-only entries, on no library path: trsm (op 0) or gemm (op 2) as the
-// task kernels compute them at fp32 highest and fp64, out (m, n) contiguous.
+// Test-only entries, on no library path: trsm (op 0), syrk (op 1, m = n,
+// b read as a) or gemm (op 2) as the task kernels compute them at fp32
+// highest and fp64, out (m, n) contiguous.
 // dla_tile_op_scalar_<f32|f64> runs tile_kernel (nt_block: the bits the chain
 // bodies must keep), dla_tile_op_chain_f32 the simt body at tile edge 64 or
 // 128 (fp64 has one edge, the library's). Neither counts a launch. Each

@@ -1,11 +1,10 @@
 // The scalar block body nt_block, C += A * B^T for a 64 x 64 block, and the
 // precision helpers the trailing, panel and task kernels share.
 //
-// nt_block is the body of the task kernels (tile_ops.cu, through tile_kernel
-// of tile_body.cuh: #7 at every tier, #6 and #8 at fp32 highest and fp64),
-// of the panel solve at highest (panel_apply.cu) and of the panel factor's
-// products (panel_factor.cu, through diag_block.cuh), so those products
-// follow one definition of the tiers. The fp32 highest and fp64 bodies of
+// nt_block is the body of the panel factor's products (panel_factor.cu,
+// through diag_block.cuh), at every tier, and, at highest only, of the panel
+// solve (panel_apply.cu) and of the task kernels' test-only bit reference
+// (tile_ops.cu), both through tile_kernel of tile_body.cuh. The fp32 highest and fp64 bodies of
 // the trailing kernels (trailing_chain.cuh) keep its sum, one fma chain per
 // element in ascending k over 16-column steps, and so its bits.
 //

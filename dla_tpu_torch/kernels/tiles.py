@@ -17,15 +17,17 @@ The four task kernels of the reference's tile DAG, one launch per task:
   :func:`gemm_tile` (``:238``): B·inv(L)ᵀ, C − A·Aᵀ on the lower triangle and
   C − Aᵢ·Aⱼᵀ, one CUDA kernel with three epilogues, ``csrc/tile_ops.cu``.
   They are not in place: each returns a new tensor and leaves its inputs
-  alone, as the Pallas calls do. trsm and gemm at fp32 ``high``/``default``
-  and bf16 storage run the trailing kernels' tensor-core pipeline with two
+  alone, as the Pallas calls do. At fp32 ``high``/``default`` and bf16
+  storage they run the trailing kernels' tensor-core pipeline with two
   operands (:func:`tile_op_planes`; the split scratch, A's planes then B's,
-  is :func:`split_pair_plain` in torch ops), at fp32 ``highest`` and fp64
-  the trailing kernels' two FMA-chain bodies on a rectangular grid
-  (:func:`chain_tile_grid`, with the tile edge :func:`chain_tile_edge`);
-  syrk the scalar body. :func:`tile_op_body` names the body and
-  :func:`tile_op_reference` runs trsm or gemm through the scalar body, the
-  chain bodies' bit reference in the card tests.
+  or A's alone for syrk, is :func:`split_pair_plain` in torch ops), at fp32
+  ``highest`` and fp64 the trailing kernels' two FMA-chain bodies on a
+  rectangular grid (:func:`chain_tile_grid`, with the tile edge
+  :func:`chain_tile_edge`). syrk forms products for the tiles on and below
+  the diagonal only and copies C into the others in the same launch
+  (:func:`syrk_tile_grid`). :func:`tile_op_body` names the body and
+  :func:`tile_op_reference` runs any of the three through the scalar body,
+  the chain bodies' bit reference in the card tests.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel; on a
 CPU tensor it runs its ``*_plain`` version, the same function in torch ops.
@@ -57,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -75,7 +78,7 @@ gemm_tile_launches = 0  # tile_ops.cu, the gemm epilogue
 _DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 _TIER_CODE = {"highest": 0, "high": 1, "default": 2}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
-_OP_CODE = {"trsm": 0, "gemm": 2}  # the Epilogue of csrc/tile_body.cuh
+_OP_CODE = {"trsm": 0, "syrk": 1, "gemm": 2}  # the Epilogue of csrc/tile_body.cuh
 
 
 def _check(c: torch.Tensor, p: torch.Tensor, tb: int, kb: int | None,
@@ -249,39 +252,84 @@ def chain_tile_grid(m: int, n: int, tile: int) -> list[tuple[int, int]]:
     return out
 
 
-def chain_tile_edge(m: int, n: int, body: str, sms: int, aligned: bool = True) -> int:
+def syrk_tile_grid(n: int, tile: int) -> list[tuple[int, int, bool]]:
+    """(row0, col0, copy) of the output tile of each block of syrk on an (n,
+    n) output, in block order, decoded as ``syrk_tile`` of
+    ``csrc/tile_body.cuh`` decodes ``blockIdx.x`` (every body, at its tile
+    edge): g² blocks for a g × g grid of tiles, g = ⌈n/tile⌉. The first
+    g(g+1)/2 take the tiles with row tile ≥ column tile and form a product,
+    in :func:`chain_tile_grid`'s order restricted to them (groups of
+    :data:`CHAIN_GROUP` row tiles, each walked column by column, where a
+    column inside the group's diagonal block holds the group's rows from the
+    diagonal down); the other g(g−1)/2 take the tiles above the diagonal,
+    column by column, and only copy C (``copy`` True)."""
+    g = -(-n // tile)
+    lower = g * (g + 1) // 2
+
+    def tri_root(b):  # the largest r with r(r + 1)/2 <= b
+        return (math.isqrt(8 * b + 1) - 1) // 2
+
+    out = []
+    for b in range(g * g):
+        if b >= lower:
+            u = b - lower
+            col = tri_root(u) + 1
+            out.append(((u - col * (col - 1) // 2) * tile, col * tile, True))
+            continue
+        first = tri_root(b) // CHAIN_GROUP * CHAIN_GROUP
+        rows = min(g - first, CHAIN_GROUP)
+        left = b - first * (first + 1) // 2
+        if left < first * rows:
+            out.append(((first + left % rows) * tile, left // rows * tile, False))
+            continue
+        left -= first * rows
+        s = 0
+        while left >= rows - s:
+            left -= rows - s
+            s += 1
+        out.append(((first + s + left) * tile, (first + s) * tile, False))
+    return out
+
+
+def chain_tile_edge(m: int, n: int, body: str, sms: int, aligned: bool = True,
+                    op: str = "gemm") -> int:
     """The tile edge the task kernels' chain body takes on an (m, n) output
     (``launch_chain`` and ``chain_edge`` of ``csrc/tile_body.cuh``): ``"simt"``
-    128 where the 128-tile grid has at least as many blocks as ``sms`` SMs
-    run at once (two an SM on operands whose rows start on 16 bytes, else
-    one), 64 otherwise; ``"dmma"`` always 64."""
+    128 where the 128-tile grid has at least as many product blocks (syrk:
+    its lower tiles, :func:`syrk_tile_grid`) as ``sms`` SMs run at once (two
+    an SM on operands whose rows start on 16 bytes, else one), 64 otherwise;
+    ``"dmma"`` always 64."""
     if body == "dmma":
         return CHAIN_SMALL_TILE
     per_sm = CHAIN_SIMT_BLOCKS if aligned else 1
-    blocks = -(-m // CHAIN_TILE) * -(-n // CHAIN_TILE)
+    gm, gn = -(-m // CHAIN_TILE), -(-n // CHAIN_TILE)
+    blocks = gm * (gm + 1) // 2 if op == "syrk" else gm * gn
     return CHAIN_TILE if blocks >= sms * per_sm else CHAIN_SMALL_TILE
 
 
 def tile_op_planes(op: str, dtype: torch.dtype, tier_name: str) -> int:
     """How many bf16 planes of each operand the task kernel ``op`` (trsm,
-    syrk, gemm) takes on the tensor-core body: :func:`split_planes`' table for
-    trsm and gemm, 0 (the scalar body) for syrk at every tier. ``run`` of
-    ``csrc/tile_ops.cu`` dispatches on the same table."""
-    return 0 if op == "syrk" else split_planes(dtype, tier_name)
+    syrk, gemm) takes on the tensor-core body: :func:`split_planes`' table,
+    for all three (0: a chain body). ``run`` of ``csrc/tile_ops.cu``
+    dispatches on the same table."""
+    if op not in _OP_CODE:
+        raise ValueError(f"no task kernel {op!r}")
+    return split_planes(dtype, tier_name)
 
 
 def tile_op_body(op: str, dtype: torch.dtype, tier_name: str) -> str:
-    """Which block body the task kernel ``op`` runs: syrk ``"scalar"`` at every
-    tier; trsm and gemm ``"wgmma"`` where :func:`tile_op_planes` gives planes,
-    else the chain body, ``"simt"`` (fp32 ``highest``) or ``"dmma"`` (fp64),
-    as :func:`trailing_body` names them. ``run`` of ``csrc/tile_ops.cu``
+    """Which block body the task kernel ``op`` runs: ``"wgmma"`` where
+    :func:`tile_op_planes` gives planes, else the chain body, ``"simt"``
+    (fp32 ``highest``) or ``"dmma"`` (fp64), as :func:`trailing_body` names
+    them; the same for all three ops. ``run`` of ``csrc/tile_ops.cu``
     dispatches on the same table."""
-    if op == "syrk":
-        return "scalar"
+    if op not in _OP_CODE:
+        raise ValueError(f"no task kernel {op!r}")
     return trailing_body(dtype, tier_name)
 
 
 #: the bodies of ``csrc/tile_ops.cu``, by the index its launch count takes
+#: (no launch of the library takes ``"scalar"`` any more: its count stays 0)
 TILE_BODIES = ("scalar", "wgmma", "simt", "dmma")
 
 
@@ -297,16 +345,20 @@ def tile_body_launches() -> dict[str, int]:
 
 def tile_op_reference(op: str, c: torch.Tensor | None, a: torch.Tensor, b: torch.Tensor, *,
                       tile: int = 0) -> torch.Tensor:
-    """out = P (``op`` "trsm", c None) or c − P ("gemm"), P = a·bᵀ, at fp32
-    ``highest`` or fp64, through a body named by ``tile``: 0 the scalar body
-    (``tile_kernel`` on ``nt_block``, the bits #6 and #8 had before their
-    chain bodies), 64 or 128 (fp32 only) the simt body at that tile edge;
-    fp64's dmma body has one edge, the library's. For the card tests and
-    measurements: no library path calls it, and it counts no launch. CUDA
-    tensors only; returns a new (m, n) tensor."""
-    if a.dtype not in (torch.float32, torch.float64) or op not in ("trsm", "gemm"):
-        raise ValueError(f"tile_op_reference takes trsm or gemm on fp32 or fp64; got {op}, "
-                         f"{a.dtype}")
+    """out = P (``op`` "trsm", c None), c − P ("gemm") or c − P on the lower
+    triangle and c above it ("syrk", b = a), P = a·bᵀ, at fp32 ``highest`` or
+    fp64, through a body named by ``tile``: 0 the scalar body (``tile_kernel``
+    on ``nt_block``, the bits #6, #7 and #8 had before their chain bodies), 64
+    or 128 (fp32 only) the simt body at that tile edge; fp64's dmma body has
+    one edge, the library's. For the card tests and measurements: no library
+    path calls it, and it counts no launch. CUDA tensors only; returns a new
+    (m, n) tensor."""
+    if a.dtype not in (torch.float32, torch.float64) or op not in _OP_CODE:
+        raise ValueError(f"tile_op_reference takes trsm, syrk or gemm on fp32 or fp64; got "
+                         f"{op}, {a.dtype}")
+    if op == "syrk" and (b.data_ptr(), b.shape, b.stride()) != (a.data_ptr(), a.shape,
+                                                                 a.stride()):
+        raise ValueError("tile_op_reference: syrk takes b = a")
     if tile and a.dtype != torch.float32:
         raise ValueError(f"tile_op_reference takes a tile edge on fp32 only; got {a.dtype}")
     _row_major("tile_op_reference", *(t for t in (c, a, b) if t is not None))
@@ -350,20 +402,22 @@ def split_plain(p: torch.Tensor, planes: int) -> torch.Tensor:
 
 def _pair_shape(m: int, n: int, k: int, planes: int) -> tuple[int, int]:
     """(rows, kpad) of the task kernels' split scratch: A's planes × mpad
-    rows, then B's planes × npad, rows padded to 128; k padded to 64 and at
-    least 64, so that k = 0 still gives a full TMA box (of zeros)."""
+    rows, then B's planes × npad, rows padded to 128 (syrk: n = 0, A's planes
+    alone); k padded to 64 and at least 64, so that k = 0 still gives a full
+    TMA box (of zeros)."""
     pad = lambda x: -(-x // SPLIT_ROWS) * SPLIT_ROWS  # noqa: E731
     return planes * (pad(m) + pad(n)), max(SPLIT_K, -(-k // SPLIT_K) * SPLIT_K)
 
 
-def split_pair_plain(a: torch.Tensor, b: torch.Tensor, planes: int) -> torch.Tensor:
+def split_pair_plain(a: torch.Tensor, b: torch.Tensor | None, planes: int) -> torch.Tensor:
     """The split scratch of the task kernels' tensor-core body, in torch ops
     (the split kernel of ``csrc/trailing_wgmma.cuh`` writes the same bits):
     shape :func:`_pair_shape`, bf16; rows 0 … planes·mpad − 1 are
     :func:`split_plain` of ``a``, the rest that of ``b``, each zero-padded
-    along k to the common kpad."""
-    kpad = _pair_shape(a.shape[0], b.shape[0], a.shape[1], planes)[1]
-    parts = [split_plain(x, planes) for x in (a, b)]
+    along k to the common kpad. ``b`` None: syrk's scratch, ``a``'s planes
+    alone."""
+    kpad = _pair_shape(a.shape[0], 0, a.shape[1], planes)[1]
+    parts = [split_plain(x, planes) for x in (a, b) if x is not None]
     return torch.cat([torch.nn.functional.pad(x, (0, kpad - x.shape[-1])).reshape(-1, kpad)
                       for x in parts])
 
@@ -371,7 +425,7 @@ def split_pair_plain(a: torch.Tensor, b: torch.Tensor, planes: int) -> torch.Ten
 def _pair_scratch(m: int, n: int, k: int, planes: int,
                   device: torch.device) -> torch.Tensor | None:
     """Uninitialised scratch for the task kernels' split planes (the split
-    kernel writes all of it); None for the scalar body."""
+    kernel writes all of it); None for the chain bodies."""
     if not planes:
         return None
     return torch.empty(_pair_shape(m, n, k, planes), dtype=torch.bfloat16, device=device)
@@ -769,7 +823,9 @@ def _launch_tile_op(op: str, c: torch.Tensor | None, a: torch.Tensor,
         raise ValueError(f"{op}_tile on a CUDA tensor takes no empty tile; got ({m}, {n})")
     t = tier()
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    scratch = _pair_scratch(m, n, k, tile_op_planes(op, a.dtype, t), a.device)
+    # syrk's b is a: the scratch holds a's planes alone
+    scratch = _pair_scratch(m, 0 if op == "syrk" else n, k, tile_op_planes(op, a.dtype, t),
+                            a.device)
     nbytes = 0 if scratch is None else scratch.numel() * scratch.element_size()
     # c, a, b, out, scratch; m, n, k, three leading dimensions, the scratch's bytes
     fn = _task_entry(op, a.dtype, 5, 7)

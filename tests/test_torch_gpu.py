@@ -24,12 +24,13 @@ chain per element, through the test-only entry ``tiles.tile_op_reference``)
 gives on the same tiles, at tb 32 and 96, nb 7, windows off 128, P views
 aligned or not, packed steps across slabs and 20 launches back to back; one
 fp64 tensor-core instruction of each shape must round as an exact chain of
-fmas; ptxas must show no spill. The task kernels #6 ``trsm_tile`` and #8
-``gemm_tile`` run the same tensor-core pipeline with two operands at fp32
-``high``/``default`` and bf16 storage, and the same two chain bodies at fp32
-``highest`` and fp64 (#7 ``syrk_tile`` stays on the scalar body); their split
-scratch, body counts, views, short k, refusals and, on the chain bodies, the
-scalar body's bits at both tile edges are tested below.
+fmas; ptxas must show no spill. The task kernels #6 ``trsm_tile``, #7
+``syrk_tile`` and #8 ``gemm_tile`` run the same tensor-core pipeline with two
+operands (syrk: A's planes alone) at fp32 ``high``/``default`` and bf16
+storage, and the same two chain bodies at fp32 ``highest`` and fp64 (syrk on
+its lower tiles only, copy blocks above); their split scratch, body counts,
+views, short k, refusals, syrk's upper triangle (C's bits) and, on the chain
+bodies, the scalar body's bits at both tile edges are tested below.
 The panel solve #3 ``panel_apply`` runs a chain of those products (the
 tensor-core body at fp32 ``high``/``default``, the scalar one at
 ``highest``), with its own count of calls per body.
@@ -442,7 +443,8 @@ def test_dmma_rounds_as_an_fma_chain(cuda, shape):
 
 def test_chain_bodies_registers_no_spill(cuda):
     # ptxas's registers and spills for the SIMT and DMMA bodies of both trailing kernels
-    # and of the task kernels (tile_simt_kernel, tile_dmma_kernel)
+    # and of the task kernels (tile_simt_kernel, tile_dmma_kernel), and for the task
+    # kernels' tensor-core body (tile_tc_kernel), syrk's instantiations included
     import re
     import subprocess
     import tempfile
@@ -459,8 +461,9 @@ def test_chain_bodies_registers_no_spill(cuda):
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1]
             elif kernel and any(f"{kind}_{b}_kernel" in kernel for kind in ("trailing", "tile")
-                                for b in ("simt", "dmma")):
-                body = "simt" if "simt_kernel" in kernel else "dmma"
+                                for b in ("simt", "dmma", "tc")):
+                body = ("simt" if "simt_kernel" in kernel else "dmma" if "dmma_kernel" in kernel
+                        else "tc")
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
                 regs = re.search(r"Used (\d+) registers", line)
                 if spill:
@@ -468,12 +471,13 @@ def test_chain_bodies_registers_no_spill(cuda):
                 if regs:
                     seen.setdefault(body, []).append(("registers", int(regs[1])))
         print(f"{src}: {seen}")
-        for body in ("simt", "dmma"):
+        for body in ("simt", "dmma") + (("tc",) if src == "tile_ops.cu" else ()):
             spills = [v for key, v in seen.get(body, []) if key == "spill"]
             regs = [v for key, v in seen.get(body, []) if key == "registers"]
             # per trailing source two instantiations each (aligned or not); tile_ops.cu
-            # simt eight (two tile edges x aligned or not x trsm and gemm), dmma six (no
-            # unaligned 128-tile; the aligned one only through the forced-edge entry)
+            # simt twelve (two tile edges x aligned or not x trsm, syrk and gemm), dmma six
+            # (64-tiles, aligned or not, three ops), tc nine (three ops x fp32 high, fp32
+            # default and bf16)
             assert spills and all(v == 0 for v in spills), (src, body, seen)
             assert regs and all(0 < v <= 255 for v in regs), (src, body, seen)
 
@@ -1227,10 +1231,11 @@ def _call_tile(op, fn_of, c, a, b):
 
 
 @pytest.mark.parametrize("dtype,prec", TIERS)
-@pytest.mark.parametrize("n,m,k", [(96, 96, 96), (512, 512, 512), (96, 200, 72)])
+@pytest.mark.parametrize("n,m,k", [(96, 96, 96), (512, 512, 512), (96, 200, 72),
+                                   (200, 96, 72)])
 @pytest.mark.parametrize("op", ["trsm", "syrk", "gemm"])
 def test_tile_op_matches_plain(cuda, op, n, m, k, dtype, prec):
-    """Within :func:`_tile_tol`."""
+    """Within :func:`_tile_tol` (syrk: n × n, a (n, k); its upper triangle c's bits)."""
     if op == "trsm":
         k = n
     c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=n + m + k)
@@ -1247,7 +1252,7 @@ def test_tile_op_matches_plain(cuda, op, n, m, k, dtype, prec):
         assert t is None or torch.equal(t, t0)
     assert (out.double() - ref.double()).abs().max().item() <= _tile_tol(dtype, c, a, b)
     if op == "syrk":  # above the diagonal c passes through bit for bit
-        assert torch.equal(torch.triu(out, 1), torch.triu(c, 1))
+        assert torch.equal(_bits(torch.triu(out, 1)), _bits(torch.triu(c, 1)))
 
 
 def _spd_tile(cuda, n, dtype, seed, upper=float("nan")):
@@ -1259,7 +1264,7 @@ def _spd_tile(cuda, n, dtype, seed, upper=float("nan")):
 
 
 def _bits(t):
-    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
 @pytest.mark.parametrize("dtype,prec", TIERS[:4])
@@ -1424,15 +1429,36 @@ def test_tile_split_scratch_bits_of_split_pair_plain(cuda, m, n, k, ld, dtype, p
     assert torch.equal(scratch.cpu().view(torch.int16), want.view(torch.int16))
 
 
+@pytest.mark.parametrize("dtype,prec", WGMMA_TIERS)
+@pytest.mark.parametrize("n,k,ld", [(200, 72, 72), (200, 72, 130), (257, 40, 40), (100, 0, 8)])
+def test_syrk_split_scratch_is_a_alone(cuda, n, k, ld, dtype, prec):
+    # syrk's split writes A's planes once and nothing else: split_pair_plain(a, None)'s bits,
+    # in a scratch of exactly that size
+    g = torch.Generator().manual_seed(n + k + ld)
+    big_a = (torch.randn(n, ld, generator=g) * torch.logspace(-40, 3, ld)).to(dtype)
+    a = big_a.to(cuda)[:, :k]
+    c = torch.zeros(n, n, device=cuda, dtype=dtype)
+    out = torch.empty(n, n, device=cuda, dtype=dtype)
+    planes = tiles.tile_op_planes("syrk", dtype, prec)
+    scratch = torch.full(tiles._pair_shape(n, 0, k, planes), float("nan"), device=cuda,
+                         dtype=torch.bfloat16)
+    err = tiles._task_entry("syrk", dtype, 5, 7)(
+        c.data_ptr(), a.data_ptr(), a.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, n, k,
+        n, ld, ld, scratch.numel() * 2, tiles._TIER_CODE[prec],
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want = tiles.split_pair_plain(big_a[:, :k], None, planes)
+    assert torch.equal(scratch.cpu().view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("dtype,prec", TIERS + [(torch.bfloat16, "highest")])
 @pytest.mark.parametrize("op", ["trsm", "syrk", "gemm"])
 def test_tile_body_that_ran(cuda, op, dtype, prec):
-    # trsm and gemm at fp32 high/default and bf16 run the tensor-core body, at fp32 highest
-    # the simt chain and at fp64 the dmma chain; syrk the scalar one at every tier; once a
-    # call
+    # all three ops at fp32 high/default and bf16 run the tensor-core body, at fp32 highest
+    # the simt chain and at fp64 the dmma chain; once a call, never the scalar body
     tc = dtype == torch.bfloat16 or (dtype == torch.float32 and prec != "highest")
-    want = ("scalar" if op == "syrk" else "wgmma" if tc
-            else "dmma" if dtype == torch.float64 else "simt")
+    want = "wgmma" if tc else "dmma" if dtype == torch.float64 else "simt"
     c, a, b = _tile_inputs(cuda, op, 256, 256, 256, dtype, seed=11)
     with precision.override(prec):
         assert tiles.tile_op_body(op, dtype, prec) == want
@@ -1445,23 +1471,29 @@ def test_tile_body_that_ran(cuda, op, dtype, prec):
 
 
 @pytest.mark.parametrize("prec", ["high", "default"])
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_tile_op_big_shape(cuda, op, prec):
-    # m=4096, n=k=2048: 32 x 16 output tiles, 32 k-steps (8 promotions)
+    # m=4096, n=k=2048: 32 x 16 output tiles, 32 k-steps (8 promotions); syrk n=k=2048:
+    # 136 product tiles and 120 copies
     m, n, k = 4096, 2048, 2048
+    if op == "syrk":
+        m = n
     c, a, b = _tile_inputs(cuda, op, n, m, k, torch.float32, seed=4096 + n)
     out, err = _tile_against_plain(op, c, a, b, prec)
     assert out.shape == (m, n) and err <= _tile_tol(torch.float32, c, a, b)
 
 
 @pytest.mark.parametrize("dtype,prec", WGMMA_TIERS)
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_tile_op_views_of_a_wide_matrix(cuda, op, dtype, prec):
     # as in the tile-task path: tiles of a 16384-wide matrix, leading dimension 16384
     g = torch.Generator(device=cuda).manual_seed(16384)
     big = torch.randn(1024, 16384, generator=g, device=cuda).to(dtype)
     if op == "trsm":  # trsm_tile(linv, b): a = the right-hand side, b = linv
         c, a, b = None, big[512:, 512:1024], torch.tril(big[:512, 1024:1536])
+    elif op == "syrk":  # syrk_tile(c, a): b = a
+        c, a = big[512:, 2048:2560], big[512:, :512]
+        b = a
     else:
         c, a, b = big[512:, 2048:2560], big[512:, :512], big[:512, 4096:4608]
     assert a.stride(0) == 16384 and (op == "trsm" or c.stride(0) == 16384)
@@ -1471,7 +1503,8 @@ def test_tile_op_views_of_a_wide_matrix(cuda, op, dtype, prec):
 
 @pytest.mark.parametrize("dtype,prec", WGMMA_TIERS)
 @pytest.mark.parametrize("op,m,n,k", [("gemm", 200, 300, 0), ("gemm", 200, 300, 40),
-                                      ("trsm", 200, 40, 40)])
+                                      ("trsm", 200, 40, 40), ("syrk", 300, 300, 0),
+                                      ("syrk", 300, 300, 40)])
 def test_tile_op_short_k(cuda, op, m, n, k, dtype, prec):
     # k below one 64-column stage: the split pads k to 64 with zeros; k = 0 gives c back
     c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=k + 1)
@@ -1480,7 +1513,7 @@ def test_tile_op_short_k(cuda, op, m, n, k, dtype, prec):
 
 
 @pytest.mark.parametrize("dtype,prec", WGMMA_TIERS)
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_tile_op_launches_same_bits(cuda, op, dtype, prec):
     c, a, b = _tile_inputs(cuda, op, 512, 512, 512, dtype, seed=20)
     with precision.override(prec):
@@ -1492,15 +1525,18 @@ def test_tile_op_launches_same_bits(cuda, op, dtype, prec):
 
 
 @pytest.mark.parametrize("dtype,prec", WGMMA_TIERS + [(torch.float32, "highest")])
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_tile_op_allocates_out_and_scratch_only(cuda, op, dtype, prec):
     # one allocation for out and, on the tensor-core body, one for the split scratch, of
-    # exactly their sizes (the caching allocator's own rounding aside: requested bytes)
+    # exactly their sizes (the caching allocator's own rounding aside: requested bytes);
+    # syrk's scratch holds A's planes alone
     m, n, k = 512, 384, 384
+    if op == "syrk":
+        m = n
     c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=7)
     call = lambda: _call_tile(op, lambda o: getattr(tiles, f"{o}_tile"), c, a, b)  # noqa: E731
     planes = tiles.tile_op_planes(op, dtype, prec)
-    rows, kpad = tiles._pair_shape(m, n, k, planes)
+    rows, kpad = tiles._pair_shape(m, 0 if op == "syrk" else n, k, planes)
     nbytes = m * n * a.element_size() + rows * kpad * 2 * (planes > 0)
     keys = ("allocation.all.allocated", "requested_bytes.all.allocated")
     with precision.override(prec):
@@ -1514,7 +1550,7 @@ def test_tile_op_allocates_out_and_scratch_only(cuda, op, dtype, prec):
     del out
 
 
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_tile_op_refused_launch_raises(cuda, monkeypatch, op):
     # scratch one row short: the C entry refuses the launch (cudaErrorInvalidValue) and the
     # wrapper raises; nothing falls back to the scalar body or counts a launch
@@ -1561,10 +1597,12 @@ CHAIN_TILE_CASES = [  # (m, n, k): the path's 512 and 256 tiles, the 96 tile, ra
 
 @pytest.mark.parametrize("dtype,prec", CHAIN_TILE_TIERS)
 @pytest.mark.parametrize("m,n,k", CHAIN_TILE_CASES)
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_chain_tile_op_same_bits_as_scalar_body(cuda, op, m, n, k, dtype, prec):
     if op == "trsm":  # trsm's k is n
         k = n
+    if op == "syrk":  # syrk is square; its k stays
+        m = n
     c, a, b = _tile_inputs(cuda, op, n, m, k, dtype, seed=m + n + k)
     out, ref, edges, before, after = _chain_op(op, c, a, b, prec)
     body = "dmma" if dtype == torch.float64 else "simt"
@@ -1573,34 +1611,45 @@ def test_chain_tile_op_same_bits_as_scalar_body(cuda, op, m, n, k, dtype, prec):
     assert torch.equal(_bits(out), _bits(ref))
     for e in edges:  # the bits do not depend on the tile edge
         assert torch.equal(_bits(e), _bits(ref))
-    if k == 0:  # gemm: c - (+0) = c, bit for bit
+    if k == 0 and op != "trsm":  # gemm and syrk: c - (+0) = c, bit for bit
         assert torch.equal(_bits(out), _bits(c))
+    if op == "syrk":  # the copy blocks and the diagonal tiles' mask: c's bits above
+        assert torch.equal(_bits(torch.triu(out, 1)), _bits(torch.triu(c, 1)))
 
 
 @pytest.mark.parametrize("dtype,prec", CHAIN_TILE_TIERS)
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_chain_tile_op_signed_zeros_and_specials(cuda, op, dtype, prec):
     # -0 in c, rows of zeros and of -0, a row whose products cancel to 0 exactly
-    # (1.5 x - 1.5 x), inf and NaN: every output as the scalar body's
+    # (1.5 x - 1.5 x), inf and NaN: every output as the scalar body's; syrk's upper
+    # triangle (-0 and NaN payloads of c among it) c's bits
     m, n, k = 130, 100, 24
-    c, a, b = _tile_inputs(cuda, op, n, m, k if op == "gemm" else n, dtype, seed=5)
-    a, b = a.clone(), b.clone()
+    if op == "syrk":
+        m = n = 130
+    c, a, b = _tile_inputs(cuda, op, n, m, k if op != "trsm" else n, dtype, seed=5)
+    a = a.clone()
+    b = a if op == "syrk" else b.clone()
     a[0] = 0.0
     a[1] = -0.0
     a[2, 0], a[3, 1] = float("inf"), float("nan")
     a[4] = 0.0
     a[4, 0], a[4, 1] = 1.5, -1.5
-    b[:, 1] = b[:, 0]
+    if op != "syrk":
+        b[:, 1] = b[:, 0]
     if c is not None:
         c = c.clone()
         c[:, ::3] = -0.0
+        if op == "syrk":
+            c[0, 5:] = float("nan")
     out, ref, edges, _, _ = _chain_op(op, c, a, b, prec)
     assert torch.equal(_bits(out), _bits(ref))
     assert all(torch.equal(_bits(e), _bits(ref)) for e in edges)
+    if op == "syrk":
+        assert torch.equal(_bits(torch.triu(out, 1)), _bits(torch.triu(c, 1)))
 
 
 @pytest.mark.parametrize("dtype,prec", CHAIN_TILE_TIERS)
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_chain_tile_op_unaligned_views(cuda, op, dtype, prec):
     # views into a wider matrix, as the tile-task path passes them: rows on 16 bytes (ld
     # 1028) and not (ld 1027, offset 1: the unaligned loads)
@@ -1609,6 +1658,9 @@ def test_chain_tile_op_unaligned_views(cuda, op, dtype, prec):
         big = torch.randn(1024, ld, generator=g, device=cuda, dtype=dtype)
         if op == "trsm":
             c, a, b = None, big[256:768, off:off + 256], torch.tril(big[:256, off + 300:off + 556])
+        elif op == "syrk":
+            c, a = big[256:556, off:off + 300], big[256:556, off + 300:off + 556]
+            b = a
         else:
             c, a = big[256:768, off:off + 300], big[256:768, off + 300:off + 556]
             b = big[:300, off + 600:off + 856]
@@ -1619,24 +1671,28 @@ def test_chain_tile_op_unaligned_views(cuda, op, dtype, prec):
 
 @pytest.mark.parametrize("dtype,prec", CHAIN_TILE_TIERS)
 def test_chain_tile_op_20_launches_back_to_back(cuda, dtype, prec):
-    # 20 queued trsm and gemm calls, each reading the last's output, as the tile-task path
-    # queues them, against the same steps through the scalar body
+    # 20 queued trsm, syrk and gemm calls, each reading the last's output, as the tile-task
+    # path queues them, against the same steps through the scalar body
     n = 256
     c, a, b = _tile_inputs(cuda, "gemm", n, n, n, dtype, seed=21)
     linv = torch.tril(b) / n
+    steps = [lambda x: tiles.gemm_tile(c, x, b), lambda x: tiles.trsm_tile(linv, x),
+             lambda x: tiles.syrk_tile(x, x / n)]
+    ref_steps = [lambda y: tiles.tile_op_reference("gemm", c, y, b),
+                 lambda y: tiles.tile_op_reference("trsm", None, y, linv),
+                 lambda y: (lambda s: tiles.tile_op_reference("syrk", y, s, s))(y / n)]
     with precision.override(prec):
         before = tiles.tile_body_launches()
         x = a
         for t in range(20):
-            x = tiles.trsm_tile(linv, x) if t % 2 else tiles.gemm_tile(c, x, b)
+            x = steps[t % 3](x)
         torch.cuda.synchronize()
         after = tiles.tile_body_launches()
     body = "dmma" if dtype == torch.float64 else "simt"
     assert after[body] - before[body] == 20 and after["scalar"] == before["scalar"]
     y = a
     for t in range(20):
-        y = (tiles.tile_op_reference("trsm", None, y, linv) if t % 2
-             else tiles.tile_op_reference("gemm", c, y, b))
+        y = ref_steps[t % 3](y)
     torch.cuda.synchronize()
     assert torch.equal(_bits(x), _bits(y))
 
@@ -1656,12 +1712,22 @@ def test_chain_tile_edge_on_this_card(cuda):
             assert edge == (128 if m == 4096 and body == "simt" else 64)
             assert torch.equal(_bits(out), _bits(tiles.tile_op_reference(
                 "gemm", c, a, b, tile=edge if body == "simt" else 0)))
+        for n in (2048, 4096):  # syrk counts its lower tiles: 136 < 264 <= 528 at 128
+            c, a, _ = _tile_inputs(cuda, "syrk", n, n, 64, dtype, seed=n)
+            with precision.override(prec):
+                out = tiles.syrk_tile(c, a)
+            edge = tiles.chain_tile_edge(n, n, body, sms, op="syrk")
+            assert edge == (128 if n == 4096 and body == "simt" else 64)
+            assert torch.equal(_bits(out), _bits(tiles.tile_op_reference(
+                "syrk", c, a, a, tile=edge if body == "simt" else 0)))
 
 
 def test_tile_op_reference_refuses_what_it_does_not_take(cuda):
     z = torch.zeros(64, 64, device=cuda)
-    with pytest.raises(ValueError, match="trsm or gemm"):
-        tiles.tile_op_reference("syrk", z, z, z)
+    with pytest.raises(ValueError, match="trsm, syrk or gemm"):
+        tiles.tile_op_reference("potrf", z, z, z)
+    with pytest.raises(ValueError, match="b = a"):
+        tiles.tile_op_reference("syrk", z, z, z.clone())
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         tiles.tile_op_reference("gemm", z, z, z, tile=96)
     z64 = z.double()

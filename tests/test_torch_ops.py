@@ -277,8 +277,7 @@ def _top_level_names(init: Path) -> set[str]:
 class TestTopLevelExports:
     # names of dla_tpu's top level that the port does not have yet; later
     # slices shrink this set
-    MISSING = {"geadd", "lacpy", "plghe", "plghe_tile", "spd_gershgorin", "potri_packed",
-               "solve_inverse_packed"}
+    MISSING = {"geadd", "lacpy", "plghe", "plghe_tile", "spd_gershgorin"}
 
     def test_port_exports_only_reference_names(self):
         ref = _top_level_names(REPO / "dla_tpu" / "__init__.py")

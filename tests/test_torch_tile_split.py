@@ -1,11 +1,12 @@
-"""The split scratch that the task kernels #6 ``trsm_tile`` and #8
-``gemm_tile`` read on the tensor-core body, the table that picks their body,
-and a torch model of that body's arithmetic, held against the JAX reference.
+"""The split scratch that the task kernels #6 ``trsm_tile``, #7 ``syrk_tile``
+and #8 ``gemm_tile`` read on the tensor-core body, the table that picks their
+body, syrk's grid of lower tiles, and a torch model of that body's
+arithmetic, held against the JAX reference.
 
-On a CUDA tensor trsm and gemm at fp32 ``high``/``default`` and bf16 storage
-run the trailing kernels' tensor-core pipeline with two operands: a split
-kernel writes A's bf16 planes and then B's into one scratch
-(``csrc/trailing_wgmma.cuh``), whose bits ``tiles.split_pair_plain`` gives in
+On a CUDA tensor the three at fp32 ``high``/``default`` and bf16 storage run
+the trailing kernels' tensor-core pipeline with two operands: a split kernel
+writes A's bf16 planes and then B's into one scratch (syrk: A's alone, B = A;
+``csrc/trailing_wgmma.cuh``), whose bits ``tiles.split_pair_plain`` gives in
 torch ops (the card tests hold the kernel to it). Here it is held to the
 ``ahi``/``alo`` of the reference's ``_dot_nt``
 (``dla_tpu/kernels/pallas_tiles.py:68-88``), bit for bit, on seeded numpy
@@ -19,6 +20,13 @@ partial sum added into a running fp32 sum, plus (at ``high``) the cross terms
 hi·loᵀ + lo·hiᵀ over all of k. It must agree with the plain versions and with
 JAX's kernels (interpret mode) within the card tests' tolerance, 1e-5 of
 max|aᵢ|·max|bⱼ| for fp32 (bf16 storage: 2^-6 of max|c| + that).
+
+syrk's grid (``tiles.syrk_tile_grid``, decoded as ``syrk_tile`` of
+``csrc/tile_body.cuh`` decodes ``blockIdx.x`` on every body): each element
+with r ≥ c is written by exactly one product block, each with r < c by
+exactly one copy block or, inside a diagonal tile, by its product block's
+mask (a copy of C), for ragged n and at every body's tile edge; and the
+update assembled block by block through it agrees with JAX's ``syrk_tile``.
 """
 
 import jax.numpy as jnp
@@ -31,8 +39,13 @@ from dla_tpu.kernels import pallas_tiles as JK
 from dla_tpu.utils import precision as jprec
 from dla_tpu_torch.kernels import tiles
 from dla_tpu_torch.kernels.tiles import (
+    CHAIN_GROUP,
+    chain_owners,
+    chain_tile_edge,
+    chain_tile_grid,
     split_pair_plain,
     split_plain,
+    syrk_tile_grid,
     tile_op_body,
     tile_op_planes,
 )
@@ -123,7 +136,7 @@ def test_split_pair_of_bf16_storage_is_a_copy():
     assert torch.equal(got[128:192, :40].view(torch.int16), b.view(torch.int16))
 
 
-DISPATCH = [  # (dtype, tier, planes of trsm and gemm); syrk is always 0
+DISPATCH = [  # (dtype, tier, planes of each operand of trsm, syrk and gemm)
     (torch.float32, "high", 2),
     (torch.float32, "default", 1),
     (torch.float32, "highest", 0),
@@ -139,12 +152,17 @@ DISPATCH = [  # (dtype, tier, planes of trsm and gemm); syrk is always 0
 @pytest.mark.parametrize("dtype,tier_name,planes", DISPATCH)
 @pytest.mark.parametrize("op", ["trsm", "syrk", "gemm"])
 def test_tile_op_dispatch_table(op, dtype, tier_name, planes):
-    want = 0 if op == "syrk" else planes
-    assert tile_op_planes(op, dtype, tier_name) == want
-    # no planes: syrk on the scalar body, trsm and gemm on the chain bodies
+    # one table for the three ops; no planes: the chain bodies
+    assert tile_op_planes(op, dtype, tier_name) == planes
     chain = "dmma" if dtype == torch.float64 else "simt"
-    assert tile_op_body(op, dtype, tier_name) == (
-        "wgmma" if want else "scalar" if op == "syrk" else chain)
+    assert tile_op_body(op, dtype, tier_name) == ("wgmma" if planes else chain)
+    assert tile_op_body(op, dtype, tier_name) == tiles.trailing_body(dtype, tier_name)
+
+
+def test_tile_op_table_refuses_an_unknown_op():
+    for fn in (tile_op_planes, tile_op_body):
+        with pytest.raises(ValueError, match="potrf"):
+            fn("potrf", torch.float32, "high")
 
 
 def test_cpu_route_allocates_no_scratch(monkeypatch):
@@ -162,6 +180,7 @@ def test_cpu_route_allocates_no_scratch(monkeypatch):
     with tprec.override("high"):
         assert torch.equal(tiles.gemm_tile(c, ai, aj), tiles.gemm_tile_plain(c, ai, aj))
         assert torch.equal(tiles.trsm_tile(linv, c), tiles.trsm_tile_plain(linv, c))
+        assert torch.equal(tiles.syrk_tile(c[:48], aj), tiles.syrk_tile_plain(c[:48], aj))
 
 
 def _body_model(a, b, planes):
@@ -191,7 +210,7 @@ MODEL_CASES = [(torch.float32, "high"), (torch.float32, "default"), (torch.bfloa
 
 
 @pytest.mark.parametrize("dtype,prec", MODEL_CASES)
-@pytest.mark.parametrize("op", ["trsm", "gemm"])
+@pytest.mark.parametrize("op", ["trsm", "gemm", "syrk"])
 def test_body_model_matches_plain_and_jax(op, dtype, prec):
     # m=200, n=96, k=600: three promotions (the last one partial), ragged rows and k
     m, n, k = 200, 96, 600
@@ -201,6 +220,11 @@ def test_body_model_matches_plain_and_jax(op, dtype, prec):
         c = None
         a_np = rng.standard_normal((m, n)).astype(np.float32)
         b_np = np.tril(rng.standard_normal((n, n))).astype(np.float32)
+    elif op == "syrk":  # syrk_tile(c (n, n), a (n, k)): b = a, the lower triangle
+        m = n = 200
+        c_np, a_np = (rng.standard_normal(s).astype(np.float32) for s in ((n, n), (n, k)))
+        b_np = a_np
+        c = torch.from_numpy(c_np).to(dtype)
     else:
         c_np, a_np = (rng.standard_normal(s).astype(np.float32) for s in ((m, n), (m, k)))
         b_np = rng.standard_normal((n, k)).astype(np.float32)
@@ -208,9 +232,11 @@ def test_body_model_matches_plain_and_jax(op, dtype, prec):
     a, b = torch.from_numpy(a_np).to(dtype), torch.from_numpy(b_np).to(dtype)
     prod = _body_model(a, b, tile_op_planes(op, dtype, prec))
     got = prod.to(dtype) if op == "trsm" else tiles._minus(c, prod)
+    if op == "syrk":
+        got = torch.where(torch.ones(n, n, dtype=torch.bool).tril(), got, c)
     with tprec.override(prec):
-        plain = (tiles.trsm_tile_plain(b, a) if op == "trsm"
-                 else tiles.gemm_tile_plain(c, a, b))
+        plain = (tiles.trsm_tile_plain(b, a) if op == "trsm" else
+                 tiles.syrk_tile_plain(c, a) if op == "syrk" else tiles.gemm_tile_plain(c, a, b))
     tol = _tol(dtype, c, a, b)
     assert (got.double() - plain.double()).abs().max().item() <= tol
     if prec == "default" and dtype == torch.float32:
@@ -218,6 +244,112 @@ def test_body_model_matches_plain_and_jax(op, dtype, prec):
     j = lambda t: jnp.asarray(t.float().numpy(), {torch.float32: jnp.float32,  # noqa: E731
                                                   torch.bfloat16: jnp.bfloat16}[dtype])
     with jprec.override(prec):
-        ref = (JK.trsm_tile(j(b), j(a)) if op == "trsm" else JK.gemm_tile(j(c), j(a), j(b)))
+        ref = (JK.trsm_tile(j(b), j(a)) if op == "trsm" else
+               JK.syrk_tile(j(c), j(a)) if op == "syrk" else JK.gemm_tile(j(c), j(a), j(b)))
     ref = np.asarray(ref.astype(jnp.float32), dtype=np.float64)
     assert np.abs(got.double().numpy() - ref).max() <= tol
+
+
+# ---- syrk's grid: products on the lower tiles, copies above (csrc/tile_body.cuh) -------
+
+SYRK_SIZES = [1, 64, 96, 127, 128, 200, 512, 1000, 1100, 2048]
+# (body, tile edge): the chain bodies' thread maps at both edges, and the tensor-core
+# body's 128 tile, whose epilogue writes whole columns (modelled as every element)
+SYRK_BODIES = [("simt", 128), ("simt", 64), ("dmma", 64), ("wgmma", 128)]
+
+
+def _owners(body, tile):
+    if body == "wgmma":
+        r = torch.arange(tile * tile)
+        return (r // tile)[None], (r % tile)[None]
+    return chain_owners(body, tile)
+
+
+def _syrk_writes(n, body, tile):
+    """(rows, cols, product) of every write of syrk's grid on an (n, n) output:
+    a product block writes c − P where r ≥ c and c elsewhere (its mask), a copy
+    block writes c; both clip to n."""
+    rows, cols = _owners(body, tile)
+    grid = syrk_tile_grid(n, tile)
+    r0 = torch.tensor([g[0] for g in grid])[:, None, None]
+    c0 = torch.tensor([g[1] for g in grid])[:, None, None]
+    copy = torch.tensor([g[2] for g in grid])[:, None, None]
+    r, c = (r0 + rows[None]).reshape(-1), (c0 + cols[None]).reshape(-1)
+    product = (~copy).expand(-1, *rows.shape).reshape(-1)
+    keep = (r < n) & (c < n)
+    return r[keep], c[keep], product[keep] & (r[keep] >= c[keep])
+
+
+@pytest.mark.parametrize("body,tile", SYRK_BODIES)
+@pytest.mark.parametrize("n", SYRK_SIZES)
+def test_syrk_grid_writes_lower_by_products_and_upper_by_copies(n, body, tile):
+    r, c, product = _syrk_writes(n, body, tile)
+    writes = torch.bincount(r * n + c, minlength=n * n).reshape(n, n)
+    products = torch.bincount((r * n + c)[product], minlength=n * n).reshape(n, n)
+    lower = torch.ones(n, n, dtype=torch.bool).tril()
+    assert torch.equal(writes, torch.ones(n, n, dtype=torch.long))  # every element once
+    assert torch.equal(products, lower.long())  # r >= c: by a product, r < c: by a copy
+    grid = syrk_tile_grid(n, tile)
+    g = -(-n // tile)
+    assert len(grid) == g * g  # as many blocks as an n x n gemm: the launch is unchanged
+    assert sum(not cp for _, _, cp in grid) == g * (g + 1) // 2
+    assert all((r0 >= c0) != cp for r0, c0, cp in grid)  # products on or below the diagonal
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("n", SYRK_SIZES)
+def test_syrk_grid_orders_products_as_the_gemm_grid(n, tile):
+    # the product blocks come first, in the rectangular grid's grouped column-by-column
+    # order restricted to the lower tiles; then the copies, column by column
+    grid = syrk_tile_grid(n, tile)
+    g = -(-n // tile)
+    lower = g * (g + 1) // 2
+    want = [(r0, c0) for r0, c0 in chain_tile_grid(n, n, tile) if r0 >= c0]
+    assert [(r0, c0) for r0, c0, _ in grid[:lower]] == want
+    assert not any(cp for *_, cp in grid[:lower]) and all(cp for *_, cp in grid[lower:])
+    upper = [(c0 // tile, r0 // tile) for r0, c0, _ in grid[lower:]]
+    assert upper == sorted(upper)
+    groups = [r0 // tile // CHAIN_GROUP for r0, _, _ in grid[:lower]]
+    assert groups == sorted(groups)
+
+
+@pytest.mark.parametrize("n,k,body,tile", [(200, 72, "simt", 64), (200, 72, "dmma", 64),
+                                           (300, 40, "simt", 128), (96, 1, "wgmma", 128)])
+def test_syrk_assembled_through_the_grid_matches_jax(n, k, body, tile):
+    # syrk_tile's update written block by block through the grid and the thread map,
+    # against the reference's syrk_tile (interpret mode) in fp64; above the diagonal, c's bits
+    rng = np.random.default_rng(n + k)
+    c, a = rng.standard_normal((n, n)), rng.standard_normal((n, k))
+    with jprec.override("highest"):
+        ref = np.asarray(JK.syrk_tile(jnp.asarray(c), jnp.asarray(a)))
+    r, cc, product = _syrk_writes(n, body, tile)
+    ta, tc = torch.from_numpy(a), torch.from_numpy(c)
+    got = torch.full((n, n), float("nan"), dtype=torch.float64)
+    got[r, cc] = tc[r, cc]
+    pr, pc = r[product], cc[product]
+    got[pr, pc] = tc[pr, pc] - (ta[pr] * ta[pc]).sum(1)
+    scale = np.abs(a).sum(1).max() ** 2
+    assert np.abs(got.numpy() - ref).max() <= 1e-12 * scale
+    assert np.array_equal(np.triu(got.numpy(), 1), np.triu(c, 1))
+
+
+@pytest.mark.parametrize("n,aligned,want", [
+    (512, True, 64), (2048, True, 64), (2048, False, 128), (4096, True, 128),
+    (2816, True, 64), (2944, True, 128),  # 22·23/2 = 253 < 264 <= 276 = 23·24/2
+])
+def test_syrk_tile_edge_counts_the_lower_tiles(n, aligned, want):
+    # simt: 128 where the 128 grid's product blocks (lower tiles only) fill 132 SMs at once
+    assert chain_tile_edge(n, n, "simt", sms=132, aligned=aligned, op="syrk") == want
+    assert chain_tile_edge(n, n, "dmma", sms=132, aligned=aligned, op="syrk") == 64
+
+
+@pytest.mark.parametrize("n,k", [(200, 72), (96, 0), (130, 257)])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_syrk_split_scratch_is_a_alone(n, k, planes):
+    # syrk splits A once: A's planes, no B rows, k padded as for the pair
+    a = torch.from_numpy(_panel(n, k, seed=n + k, special=False))
+    got = split_pair_plain(a, None, planes)
+    rows, kpad = tiles._pair_shape(n, 0, k, planes)
+    assert got.shape == (rows, kpad) and rows == planes * _pad(n, 128)
+    pair = split_pair_plain(a, a, planes)
+    assert torch.equal(got.view(torch.int16), pair[:rows].view(torch.int16))
