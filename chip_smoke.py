@@ -185,15 +185,28 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     ``FWD_TOL`` (1e-4, max norm) of an fp64 ``cholesky_solve`` on the same
     factor, which a solve at a lower precision would miss; the driver with
     ``--mode inplace --solve refined --nrhs 64`` at N=16384 (``SOLVE PASS``,
-    exit code 0); and one fp64 ``posv_refined`` at N=8192 under 1e-10.
+    exit code 0, A regenerated in fp64 by the native host generator); and
+    one fp64 ``posv_refined`` at N=8192 under 1e-10.
 34. the packed serving path through the driver: ``--mode packed --solve
     inverse`` (``potri_packed`` in place on the packed factor, then
-    ``solve_inverse_packed``) and ``--solve potrs`` (``potrs_packed``) at
+    ``solve_inverse_packed``), ``--solve potrs`` (``potrs_packed``) and
+    ``--solve refined`` (``posv_refined_streamed``: ``potrs_packed``
+    corrections, fp64 residuals streamed from the native host generator) at
     N=32768, nb=4096 (fp32, the packed kernel #2 on its trailing update),
-    nrhs = 64 right-hand sides of ones: the driver's times, the streamed
-    solve residual (``residual_posv_streamed``, A regenerated from its seed)
-    with ``SOLVE PASS`` under N·2e-6, and the peak device memory of each
-    call beside the packed triangle's bytes.
+    nrhs = 64 right-hand sides of ones: the driver's times, the solve
+    residual (``residual_posv_streamed``, A regenerated from its seed) with
+    ``SOLVE PASS`` under N·2e-6 (1e-10 refined, with its iterations), and the
+    peak device memory of each call beside the packed triangle's bytes.
+35. the out-of-core path through ``python -m dla_tpu_torch.cli.oocore_driver``
+    at the JAX package's record size: N=131072 fp32, panel 4096, nb=512, the
+    device path, a ``DirectPanelStore`` (a 33 GiB O_DIRECT file under
+    ``$TMPDIR``) with its RAM cache, the streaming Freivalds gate (2 probes)
+    under N·2e-7; the host's memory, disk and cores first, and N cut to
+    98304 where they cannot hold the file and its cache (below that the phase
+    fails); the wall time, GFLOP/s, every ``stats`` field, the peak device
+    memory and the Freivalds value; then fp64 at N=16384 on a flat RAM store
+    under 1e-10, and a kill-and-resume at N=16384 (a crash after panel 2, a
+    resume in a fresh store) that must give an uninterrupted run's bits.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -217,6 +230,8 @@ import contextlib
 import io
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -269,6 +284,9 @@ N_HEADLINE, NB_HEADLINE = 61440, 1024
 # the dense solve and serving path on the main path's factor, and fp64 refinement
 NRHS_SOLVE, N_REFINED64 = 64, 8192
 N_PACKED_SOLVE, NB_PACKED_SOLVE = 32768, 4096  # phase 34: the packed serving path
+# phase 35: out of core at the JAX package's record size (README.md:86), cut to N_OOC_CUT where
+# the host cannot hold the panel file and its cache; fp64 and the kill-and-resume at N_OOC64
+N_OOC, N_OOC_CUT, W_OOC, NB_OOC, N_OOC64 = 131072, 98304, 4096, 512, 16384
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -2067,6 +2085,8 @@ def phase_solve(dev, tag):
                              "inplace", "--solve", "refined", "--nrhs", str(nrhs),
                              "--repeats", "1"])
     require("SOLVE PASS" in out, "the driver's refined solve did not pass")
+    require("A regenerated in fp64 by the native host generator" in out,
+            "the driver's refined solve did not take A from the native host generator")
     n64 = N_REFINED64
     a = T.plgsy(n64, seed=51, dtype=torch.float64, device=dev)
     b = torch.randn(n64, nrhs, generator=g, device=dev, dtype=torch.float64)
@@ -2090,7 +2110,7 @@ def phase_packed_serving(tag):
 
     n, nb = N_PACKED_SOLVE, NB_PACKED_SOLVE
     tri = packed_len(n, nb) * 4
-    for solve in ("inverse", "potrs"):
+    for solve in ("inverse", "potrs", "refined"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         out = phase_driver(tag, ["--n", str(n), "--nb", str(nb), "--dtype", "s", "--mode",
@@ -2101,10 +2121,151 @@ def phase_packed_serving(tag):
               f"memory {peak / 2**30:.3f} GiB, the packed triangle {tri / 2**30:.3f} GiB "
               f"({peak / tri:.2f}x) {tag}", flush=True)
         require("SOLVE PASS" in out, f"the driver's packed --solve {solve} did not pass")
+        if solve == "refined":
+            its = re.search(r"refined solve: (\d+) iterations, (\S+) ms", out)
+            res = re.search(r"^\|\|B - A X\|\|_inf / \(\|\|A\|\|_inf \|\|X\|\|_inf\) = (\S+)$",
+                            out, re.M)
+            require(its is not None and res is not None and float(res.group(1)) < 1e-10,
+                    "the packed refined solve's lines are missing or above 1e-10")
+            print(f"packed serving N={n} nb={nb} --solve refined nrhs={NRHS_SOLVE}: "
+                  f"{its.group(1)} iterations, {its.group(2)} ms, ||B - A X||_inf / (||A||_inf "
+                  f"||X||_inf) = {res.group(1)} (gate 1e-10; potrs_packed corrections on the "
+                  f"card, fp64 residuals streamed from the native host generator) {tag}",
+                  flush=True)
     torch.cuda.empty_cache()
 
 
-LAST_PHASE = 34
+# ---- 35. the out-of-core path ------------------------------------------------------------
+def host_room(path: str) -> tuple[int, int]:
+    """(host memory available, free disk under ``path``) in bytes."""
+    with open("/proc/meminfo") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    return mem["MemAvailable"], shutil.disk_usage(path).free
+
+
+def oocore_need(n: int, w: int) -> tuple[int, int]:
+    """Host memory and disk the fp32 panel-store run at N=n needs: on disk the
+    triangle of panels and one scratch panel; in memory the write-through cache of the
+    triangle, the pinned readback panel, the staging pool (up to five panels), the fp64
+    work panel of the streaming Freivalds check (two panels' bytes) and 4 GiB for the
+    rest of the process."""
+    tri, panel = n * (n + w) // 2 * 4, n * w * 4
+    return tri + 8 * panel + (4 << 30), tri + panel
+
+
+def oocore_run(tag, argv):
+    """``python -m dla_tpu_torch.cli.oocore_driver`` in this process; its output."""
+    from dla_tpu_torch.cli import oocore_driver
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = oocore_driver.main([str(a) for a in argv])
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"oocore| {line}")
+    print(f"oocore driver numbers above: {tag}", flush=True)
+    require(rc == 0 and re.search(r"^PASS ", out, re.M) is not None,
+            f"the out-of-core driver returned {rc} without PASS")
+    return out
+
+
+def oocore_report(out: str, n: int, peak: int, tag: str) -> None:
+    """One line: wall time, GFLOP/s, every stats field, peak device memory, the
+    Freivalds value against its gate."""
+    ms = float(re.search(r"^Elapsed: (\S+) ms$", out, re.M).group(1))
+    stats = json.loads(re.search(r"^\[oocore\] stats: (.*)$", out, re.M).group(1))
+    fv = re.search(r"^freivalds .* = (\S+) \((\S+)s\)$", out, re.M)
+    gate = re.search(r"^PASS \(gate (\S+)\)$", out, re.M).group(1)
+    print(f"out-of-core N={n}: factorization {ms / 1e3:.3f} s, "
+          f"{n ** 3 / 3 / (ms / 1e3) / 1e9:.1f} GFLOP/s, stats {json.dumps(stats)}, "
+          f"h2d {stats['bytes_in'] / 2**30:.1f} GiB, peak device memory "
+          f"{peak / 2**30:.3f} GiB, freivalds {fv.group(1)} (gate {gate}, {fv.group(2)} s) "
+          f"{tag}", flush=True)
+
+
+class Crash(Exception):
+    pass
+
+
+def phase_oocore(tag):
+    """The driver at the JAX package's record size, fp32 out of core on a panel store
+    with its RAM cache; fp64 on a flat RAM store under 1e-10; a kill-and-resume."""
+    import tempfile
+
+    import numpy as np
+
+    from dla_tpu_torch.algos.oocore import potrf_outofcore
+    from dla_tpu_torch.runtime.staging import DirectPanelStore
+
+    with tempfile.TemporaryDirectory(prefix="dla_oocore_") as tmp:
+        ram, disk = host_room(tmp)
+        n = N_OOC
+        need = oocore_need(n, W_OOC)
+        print(f"out-of-core host: {ram / 2**30:.1f} GiB memory available, "
+              f"{disk / 2**30:.1f} GiB free disk under {tmp}, {os.cpu_count()} cores; N={n} "
+              f"needs {need[0] / 2**30:.1f} GiB memory, {need[1] / 2**30:.1f} GiB disk {tag}",
+              flush=True)
+        if ram < need[0] or disk < need[1]:
+            n = N_OOC_CUT
+            need = oocore_need(n, W_OOC)
+            print(f"out-of-core CUT: N={N_OOC} does not fit this host; N={n}", flush=True)
+            require(ram >= need[0] and disk >= need[1],
+                    f"the out-of-core phase needs {need[0]} B of memory and {need[1]} B of disk "
+                    f"even at N={n}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = oocore_run(tag, ["--n", n, "--panel", W_OOC, "--nb", NB_OOC, "--store", "panel",
+                               "--matrix", os.path.join(tmp, "a.bin"), "--ram-cache",
+                               "--probes", "2"])
+        oocore_report(out, n, torch.cuda.max_memory_allocated(), tag)
+
+    n = N_OOC64
+    torch.cuda.reset_peak_memory_stats()
+    out = oocore_run(tag, ["--n", n, "--panel", W_OOC, "--nb", NB_OOC, "--dtype", "float64",
+                           "--probes", "2"])
+    require("PASS (gate 1e-10)" in out, "the fp64 out-of-core run did not pass 1e-10")
+    oocore_report(out, n, torch.cuda.max_memory_allocated(), tag)
+
+    # kill and resume: crash after panel 2, resume in a fresh store, same bits
+    def factor_of(st):
+        out = np.zeros((n, n), np.float32)
+        for j in range(st.npan):
+            b = st.pack(j * W_OOC, j * W_OOC, n - j * W_OOC, W_OOC)
+            out[j * W_OOC :, j * W_OOC : (j + 1) * W_OOC] = b
+            st.release(b)
+        return np.tril(out)
+
+    def crash_after_two(j, npan):
+        if j == 1:
+            raise Crash
+
+    with tempfile.TemporaryDirectory(prefix="dla_oocore_") as tmp:
+        whole_path, path = os.path.join(tmp, "whole.bin"), os.path.join(tmp, "resumed.bin")
+        prog = os.path.join(tmp, "progress.json")
+        with DirectPanelStore(n, np.float32, path=whole_path, panel=W_OOC) as st:
+            st.fill_plgsy(seed=51)
+            potrf_outofcore(st, panel=W_OOC, nb=NB_OOC)
+            whole = factor_of(st)
+        with DirectPanelStore(n, np.float32, path=path, panel=W_OOC) as st:
+            st.fill_plgsy(seed=51)
+            try:
+                potrf_outofcore(st, panel=W_OOC, nb=NB_OOC, progress_path=prog,
+                                on_panel=crash_after_two)
+                require(False, "the crash after panel 2 did not happen")
+            except Crash:
+                pass
+        with DirectPanelStore(n, np.float32, path=path, panel=W_OOC, ram_cache=True) as st:
+            stats = potrf_outofcore(st, panel=W_OOC, nb=NB_OOC, progress_path=prog)
+            resumed = factor_of(st)
+    same = bool(np.array_equal(resumed, whole))
+    print(f"out-of-core kill-and-resume N={n} fp32: crashed after panel 2 of {n // W_OOC}, "
+          f"resumed {stats['panels']} panels in a fresh store, the same bits as an "
+          f"uninterrupted run: {same} {tag}", flush=True)
+    require(stats["panels"] == n // W_OOC - 2 and same,
+            "the resumed out-of-core factor is not the uninterrupted run's")
+
+
+LAST_PHASE = 35
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -2238,6 +2399,8 @@ def main(argv=None) -> int:
         phase_solve(dev, tag)
     if 34 in sel:
         phase_packed_serving(tag)
+    if 35 in sel:
+        phase_oocore(tag)
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

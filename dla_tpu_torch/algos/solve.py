@@ -15,9 +15,9 @@ ill-conditioned for the factor's precision: ≤ 1e-10 solve residuals from fp32
 factors. The H100 has native fp64, so the refinement's residual runs on the
 card in both :func:`posv_refined` and :func:`posv_refined_host` (which keeps
 the JAX package's name: there the residual ran on the host, since its TPU
-degrades fp64). Every solve reads only tril(L). The streamed refinement
-(``posv_refined_streamed``), which regenerates A on the host, is a later
-slice (``ROADMAP.md``).
+degrades fp64). Every solve reads only tril(L). :func:`posv_refined_streamed`
+serves N where A is never materialized anywhere: its fp64 residuals stream A
+from the native host generator panel by panel.
 """
 
 from __future__ import annotations
@@ -171,3 +171,91 @@ def posv_refined_host(a_host, b_host, *, nb: int = 2048, iters: int = 12, tol: f
         if err < tol:
             break
     return (x[:, 0] if vec else x), err, used
+
+
+def posv_refined_streamed(l, b_host, *, seed: int = 51, bump: float | None = None,
+                          panel: int = 4096, iters: int = 16, tol: float = 1e-11,
+                          on_iter=None, solver=None, n: int | None = None):
+    """:func:`posv_refined_host` for A = plgsy(n, seed, bump) where A is
+    never materialized, on the card or the host: the fp64 residual
+    ``r = b − A·x`` streams A from the native generator (``dla_plgsy_f64``,
+    the card generator's bits) panel by panel through ONE pooled fp64
+    buffer, using symmetry so that only the lower panels are generated. Per
+    refinement iteration the host does O(N²) fp64 generate+FMA work; the
+    correction solves run where ``l`` lies, against the low-precision factor
+    (fp32 or bf16: ``potrs`` solves a bf16 factor in fp32).
+
+    Args:
+      l: factor of the plgsy(seed, bump) matrix (lower triangle meaningful),
+        any storage dtype, on the device the solves run on.
+      b_host: (n,) or (n, nrhs) float64 right-hand side (array or tensor).
+      solver: optional correction solve ``(r_f32) -> d`` replacing the
+        default ``potrs(l, r)`` — e.g. a packed-factor solve
+        (``potrs_packed``), whose buffer shape hides n (pass ``n`` too).
+      n: matrix dimension when it cannot be read off ``l.shape`` (packed
+        factors).
+
+    Returns (x as a float64 numpy array shaped as ``b_host``, backward error
+    ``||b − A·x||_inf / (||A||_inf·||x||_inf)``, iterations used) — the
+    reference's solve gate is err ≤ 1e-10 (BASELINE config 3).
+    """
+    from dla_tpu_torch.runtime.staging import _aligned_empty, lib as _native
+
+    if n is None:
+        n = l.shape[-1]
+    if n % panel:
+        raise ValueError(f"n={n} must be a multiple of panel={panel}")
+    if bump is None:
+        bump = float(n)
+    gen = _native().dla_plgsy_f64
+    work = _aligned_empty(n * panel * 8).view(np.float64)
+
+    b_np = b_host.detach().cpu().numpy() if torch.is_tensor(b_host) else b_host
+    vec = np.ndim(b_np) == 1
+    b64 = np.asarray(b_np, np.float64).reshape(n, -1)
+
+    def stream_a(apply):
+        """apply(k0, a_panel) for each lower panel (rows k0.., cols
+        k0..k0+panel) of the fp64 generator output."""
+        for k0 in range(0, n, panel):
+            h = n - k0
+            a = work[: h * panel].reshape(h, panel)
+            gen(a.ctypes.data, panel, seed & 0xFFFFFFFF, k0, k0, h, panel, bump)
+            apply(k0, a)
+
+    # ||A||_inf via streaming row sums (symmetric contributions)
+    rowsum = np.zeros(n)
+
+    def _norm(k0, a):
+        rowsum[k0:] += np.abs(a).sum(axis=1)
+        rowsum[k0 : k0 + panel] += np.abs(a[panel:]).sum(axis=0)
+
+    stream_a(_norm)
+    norm_a = rowsum.max()
+
+    def matvec(x):
+        y = np.zeros_like(x)
+
+        def _mv(k0, a):
+            y[k0:] += a @ x[k0 : k0 + panel]
+            y[k0 : k0 + panel] += a[panel:].T @ x[k0 + panel :]
+
+        stream_a(_mv)
+        return y
+
+    if solver is None:
+        solver = lambda r32: potrs(l, r32)  # noqa: E731
+    x = np.zeros_like(b64)
+    r = b64.copy()
+    err, used = np.inf, 0
+    for i in range(iters):
+        r32 = torch.from_numpy(r.astype(np.float32)).to(l.device)
+        x += solver(r32).double().cpu().numpy()
+        r = b64 - matvec(x)  # host fp64, streamed from the generator
+        used = i + 1
+        err = np.abs(r).max() / (norm_a * max(np.abs(x).max(), 1e-300))
+        if on_iter:
+            on_iter(i, err)
+        if err < tol:
+            break
+    return (x[:, 0] if vec else x), float(err), used

@@ -61,15 +61,21 @@ picks ``posv_refined`` (an fp32 ``potrf_blocked`` factor, eight fp64
 refinement steps), as the reference picks by ``jax_enable_x64``; both run
 their fp64 residuals on the chosen device.
 
-``--mode packed --solve potrs|inverse`` solves from the packed factor, as the
-reference driver's packed branch (``dla_tpu/cli/potrf_driver.py:861-900``):
-``potrs_packed``, or ``potri_packed`` (in place on the factor) then
-``solve_inverse_packed``, each timed; the residual is
-``residual_posv_streamed``, A streamed from its seed (the packed mode's input
-is always the generator: the reference's ``residual_posv`` branch serves
-inputs this driver does not take), under 1e-10 for fp64, else N·2e-6.
-``--mode packed --solve refined`` exits 2: ``posv_refined_streamed`` needs
-the native host generator (``ROADMAP.md`` Queue A item 8).
+``posv_refined_host`` takes tril(A) regenerated in fp64 on the host by the
+native generator (``HostTileStore.fill_plgsy``, the card generator's bits),
+as the reference does (``dla_tpu/cli/potrf_driver.py:905-915``), rather than
+pulled off the card.
+
+``--mode packed --solve potrs|inverse|refined`` solves from the packed
+factor, as the reference driver's packed branch
+(``dla_tpu/cli/potrf_driver.py:828-900``): ``potrs_packed``, or
+``potri_packed`` (in place on the factor) then ``solve_inverse_packed``, each
+timed, their residual ``residual_posv_streamed`` with A streamed from its
+seed (the packed mode's input is always the generator: the reference's
+``residual_posv`` branch serves inputs this driver does not take), under
+1e-10 for fp64, else N·2e-6; or ``posv_refined_streamed``, correction solves
+by ``potrs_packed`` on the card and fp64 residuals streamed from the native
+host generator (A is materialized nowhere), under 1e-10.
 
 Only the factorization is timed, between two ``torch.cuda.synchronize()``
 calls; the input is regenerated from its seed before each repeat, untimed
@@ -152,9 +158,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--solve", choices=["none", "potrs", "refined", "inverse"], default="none",
                     help="dense and packed modes: also solve A·X=B: plain POTRS, "
-                         "mixed-precision iterative refinement (fp32 factor, fp64 residuals; "
-                         "dense modes only), or the explicit inverse (POTRI, then one product "
-                         "per block of right-hand sides)")
+                         "mixed-precision iterative refinement (fp32 factor, fp64 residuals), "
+                         "or the explicit inverse (POTRI, then one product per block of "
+                         "right-hand sides)")
     ap.add_argument("--nrhs", type=int, default=1, help="right-hand sides for --solve")
     ap.add_argument("--x64", action="store_true",
                     help="--solve refined through posv_refined (the reference's "
@@ -213,11 +219,6 @@ def main(argv=None) -> int:
     if args.solve != "none" and df64:
         print("[dla-potrf] --solve with the df64 modes: use --solve refined on the fp32 modes "
               "(the same 1e-10 contract)", file=sys.stderr)
-        return 2
-    if args.solve == "refined" and cfg.mode == "packed":
-        print("[dla-potrf] --solve refined with --mode packed is not ported yet: "
-              "posv_refined_streamed needs the native host generator (ROADMAP.md A8)",
-              file=sys.stderr)
         return 2
     # the pure packed-df64 path: exactly-fp32 generation on the device
     # (lo = 0), no fp64 square anywhere
@@ -354,17 +355,17 @@ def main(argv=None) -> int:
             print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
         rc = _verdict(res, args.gate, cfg)
     if args.solve != "none":
-        rc = max(rc, _solve(args, cfg, fresh_a(), l, device, sync))
+        rc = max(rc, _solve(args, cfg, fresh_a(), l, bump, device, sync))
     return rc
 
 
-def _solve(args, cfg, a, l, device, sync) -> int:
+def _solve(args, cfg, a, l, bump: float, device, sync) -> int:
     """The reference driver's dense ``--solve`` branches
     (``dla_tpu/cli/potrf_driver.py:901-961``) on the generated A and its
     factor L (only tril(L) is read): print the solve residual and
-    ``SOLVE PASS``/``SOLVE FAIL``; the exit code. Its ``HostTileStore``
-    regeneration of A (``:909-915``) is not ported: the refined solve takes
-    tril(A) in fp64."""
+    ``SOLVE PASS``/``SOLVE FAIL``; the exit code. The refined solve takes
+    tril(A) in fp64 from the native host generator (``:905-915``)."""
+    import numpy as np
     import torch
 
     from dla_tpu_torch.algos import posv_refined, posv_refined_host, potri, potrs, solve_inverse
@@ -373,7 +374,14 @@ def _solve(args, cfg, a, l, device, sync) -> int:
     x64 = args.x64 or cfg.dtype == "float64"
     n = cfg.n
     if args.solve == "refined" and not x64:
-        a64 = torch.tril(a).to(torch.float64)
+        from dla_tpu_torch.runtime.staging import HostTileStore
+
+        # The dense modes' input is always plgsy, lower: regenerated in fp64 on
+        # the host, no N² pull off the card. A user's matrix (A5: --input,
+        # --gen, --uplo) will take tril(A) instead, as the reference does.
+        with HostTileStore(n, np.float64) as st:
+            st.fill_plgsy(seed=cfg.seed, bump=bump)
+            a64 = torch.from_numpy(np.tril(st.array))
         b64 = torch.ones((n, args.nrhs), dtype=torch.float64, device=device)
         kwp = {}
         if cfg.mode in ("blocked", "shrink"):
@@ -383,7 +391,7 @@ def _solve(args, cfg, a, l, device, sync) -> int:
         sync()
         print(f"[dla-potrf] refined solve: {used} iterations, "
               f"{(time.perf_counter() - t0) * 1e3:.1f} ms (fp32 factor, fp64 residuals, on "
-              f"{device.type})")
+              f"{device.type}; A regenerated in fp64 by the native host generator)")
         sgate = args.gate if args.gate is not None else 1e-10
     else:
         b = torch.ones((n, args.nrhs), dtype=l.dtype, device=device)
@@ -399,14 +407,18 @@ def _solve(args, cfg, a, l, device, sync) -> int:
 
 
 def _solve_packed(args, cfg, lp, bump: float, device, sync) -> int:
-    """The reference driver's packed ``--solve potrs|inverse``
-    (``dla_tpu/cli/potrf_driver.py:861-900``) from the packed factor ``lp``
+    """The reference driver's packed ``--solve potrs|inverse|refined``
+    (``dla_tpu/cli/potrf_driver.py:828-900``) from the packed factor ``lp``
     (overwritten by ``inverse``): ``--nrhs`` right-hand sides of ones, the
-    solve timed, the streamed residual and ``SOLVE PASS``/``SOLVE FAIL``;
-    the exit code."""
+    solve timed, its residual and ``SOLVE PASS``/``SOLVE FAIL``; the exit
+    code. ``refined`` is ``posv_refined_streamed`` with ``potrs_packed`` as
+    its correction solve: A is materialized nowhere, its fp64 residuals
+    stream A from the native host generator."""
+    import numpy as np
     import torch
 
     from dla_tpu_torch.algos import (
+        posv_refined_streamed,
         potri_packed,
         potrs_packed,
         residual_posv_streamed,
@@ -414,6 +426,15 @@ def _solve_packed(args, cfg, lp, bump: float, device, sync) -> int:
     )
 
     n, nb = cfg.n, cfg.nb
+    if args.solve == "refined":
+        t0 = time.perf_counter()
+        _, serr, used = posv_refined_streamed(
+            lp, np.ones((n, args.nrhs)), seed=cfg.seed, bump=bump, n=n, panel=min(4096, nb),
+            solver=lambda r: potrs_packed(lp, r, n, nb))
+        print(f"[dla-potrf] refined solve: {used} iterations, "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms (packed low-precision factor on "
+              f"{device.type}, fp64 residuals streamed on the host, nrhs={args.nrhs})")
+        return _solve_verdict(serr, args.gate if args.gate is not None else 1e-10)
     ct = torch.float32 if lp.dtype == torch.bfloat16 else lp.dtype
     b = torch.ones((n, args.nrhs), dtype=ct, device=device)
     sync()

@@ -2006,3 +2006,106 @@ def test_ring_plane_factors_card_match_cpu(cuda):
         lx = potrf_column_cyclic_ring(from_dense_cols(a, nb, mesh), nb, mesh)
         ls.append(torch.tril(to_dense_cols(lx, nb, mesh)).cpu())
     assert (ls[0] - ls[1]).abs().max().item() <= 1e-12 * ls[1].abs().max().item()
+
+
+# ---- the out-of-core path (algos/oocore.py) and its native host runtime ----------------
+def test_native_runtime_bits_on_this_host(cuda):
+    """The native library is built with -march=native on the host that runs it: here,
+    too, it must give the card generator's and the card probe's bits."""
+    from dla_tpu_torch.runtime import staging as S
+    from dla_tpu_torch.validate.residual import _probe_vec
+
+    n = 300
+    for dtype, tdt in ((np.float32, torch.float32), (np.float64, torch.float64)):
+        with S.HostTileStore(n, dtype) as st:
+            st.fill_plgsy(seed=51)
+            card = T.plgsy(n, seed=51, dtype=tdt, device="cuda").cpu().numpy()
+            np.testing.assert_array_equal(st.array, card)
+    for p in range(2):
+        seed = 0xC0FFEE ^ p
+        np.testing.assert_array_equal(S.probe_x(4099, seed),
+                                      _probe_vec(4099, seed, "cuda").double().cpu().numpy())
+
+
+def _factor_of(store):
+    n, w = store.n, store.panel
+    out = np.zeros((n, n), store.dtype)
+    for j in range(store.npan):
+        b = store.pack(j * w, j * w, n - j * w, w)
+        out[j * w :, j * w : (j + 1) * w] = b
+        store.release(b)
+    return np.tril(out)
+
+
+def test_oocore_device_path_against_host_path(cuda):
+    """N=8192 fp32 on a flat store: the card's factor and the host path's (OpenBLAS)
+    both under the fp32 gate N·2e-7, and within it of each other."""
+    from dla_tpu_torch.algos.oocore import potrf_outofcore
+    from dla_tpu_torch.runtime.staging import HostTileStore
+
+    n, panel, nb = 8192, 1024, 256
+    gate = n * 2e-7
+    with HostTileStore(n, np.float32) as a, HostTileStore(n, np.float32) as dev, \
+            HostTileStore(n, np.float32) as host:
+        a.fill_plgsy(seed=51)
+        dev.array[:] = a.array
+        host.array[:] = a.array
+        stats = potrf_outofcore(dev, panel=panel, nb=nb)
+        potrf_outofcore(host, panel=panel, nb=nb, host_blas=True)
+        res_dev, res_host = a.freivalds_residual(dev), a.freivalds_residual(host)
+        ld, lh = np.tril(dev.array), np.tril(host.array)
+    assert stats["panels"] == n // panel
+    assert res_dev < gate and res_host < gate, (res_dev, res_host)
+    assert np.abs(ld.astype(np.float64) - lh).max() <= gate * np.abs(lh).max()
+
+
+def test_oocore_20_panels_through_a_small_pool(cuda, tmp_path):
+    """20 panels through a DirectPanelStore, whose pool of aligned buffers stays far
+    smaller than the 210 streamed panels: a buffer refilled or released before its
+    copy to the card finished would corrupt the factor. The prefetching run must give
+    the bits of a run without prefetch, pass the fp64 gate and match cuSOLVER's factor
+    of the dense matrix; no pool buffer stays pinned or out of the pool."""
+    from dla_tpu_torch.algos.oocore import potrf_outofcore
+    from dla_tpu_torch.runtime.staging import DirectPanelStore, freivalds_streaming
+
+    n, panel = 20 * 512, 512
+    ls = []
+    for prefetch in (True, False):
+        with DirectPanelStore(n, np.float64, path=str(tmp_path / f"p{prefetch}.bin"),
+                              panel=panel, ram_cache=True) as st:
+            st.fill_plgsy(seed=51)
+            stats = potrf_outofcore(st, panel=panel, nb=128, prefetch=prefetch)
+            assert stats["panels"] == 20 and not st._out
+            assert len(st._free) < 8
+            for raw in st._free:  # every buffer unpinned again
+                cr = torch.cuda.cudart()
+                torch.cuda.check_error(cr.cudaHostRegister(raw.ctypes.data, raw.nbytes, 0))
+                torch.cuda.check_error(cr.cudaHostUnregister(raw.ctypes.data))
+            assert freivalds_streaming(st, seed=51, probes=2) < 1e-10
+            ls.append(_factor_of(st))
+    np.testing.assert_array_equal(ls[0], ls[1])
+    ref = torch.linalg.cholesky(T.plgsy(n, seed=51, dtype=torch.float64, device="cuda"))
+    ref = ref.cpu().numpy()
+    assert np.abs(ls[0] - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def test_oocore_panel_store_fp32_bucket_on_card(cuda, tmp_path):
+    """fp32 through the panel store with height_bucket: padded rows inert, the fp32
+    gate passes."""
+    from dla_tpu_torch.algos.oocore import potrf_outofcore
+    from dla_tpu_torch.runtime.staging import DirectPanelStore, freivalds_streaming
+
+    n, panel = 8192, 1024
+    with DirectPanelStore(n, np.float32, path=str(tmp_path / "p.bin"), panel=panel,
+                          ram_cache=True) as st:
+        st.fill_plgsy(seed=51)
+        potrf_outofcore(st, panel=panel, nb=512, height_bucket=3072)
+        assert freivalds_streaming(st, seed=51, probes=2) < n * 2e-7
+
+
+def test_posv_refined_streamed_packed_on_card(cuda):
+    n, nb = 4096, 1024
+    lp = P.potrf_packed(P.plgsy_packed(n, nb, seed=51), n, nb)
+    x, err, used = TA.posv_refined_streamed(lp, np.ones((n, 4)), seed=51, n=n, panel=nb,
+                                            solver=lambda r: P.potrs_packed(lp, r, n, nb))
+    assert err < 1e-10 and x.shape == (n, 4) and used <= 6

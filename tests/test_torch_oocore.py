@@ -1,0 +1,506 @@
+"""dla_tpu_torch's out-of-core factorization (``algos/oocore.py``), its
+streamed refinement (``algos/solve.py:posv_refined_streamed``) and its driver
+(``cli/oocore_driver.py``), held against the JAX package on the CPU.
+
+The same store contents (the native seeded generator, whose bits
+``tests/test_torch_runtime.py`` checks) go through
+``dla_tpu.algos.oocore.potrf_outofcore`` (JAX on the CPU, x64) and the
+port's, on a flat ``HostTileStore`` and on a ``DirectPanelStore``, with and
+without ``height_bucket``.
+
+Tolerances:
+- the device path (torch here, with ``device="cpu"``) against JAX's device
+  path, max|ΔL| / max|L| over the lower triangle: ≤ 1e-12 in fp64 and
+  ≤ 2e-5 in fp32 (the same algorithm through two BLAS libraries, which sum
+  in other orders, on matrices with condition number ≈ 3);
+- the host path (``host_blas=True``) against JAX's host path: the same bits
+  (the same OpenBLAS calls in the same order, numpy's bundled library);
+- a resumed factor (after a crash between panels, or a torn writeback)
+  against an uninterrupted run of the same path: the same bits;
+- ``posv_refined_streamed``: backward error under the reference's 1e-10
+  in both packages, and x within 1e-9 of JAX's.
+
+The Freivalds gates this path uses (``freivalds_streaming`` and
+``HostTileStore.freivalds_residual``) must rise with a known relative
+perturbation of tril(L) (1e-7 … 1e-3), in the port and in JAX.
+"""
+
+import json
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dla_tpu.algos as JA
+from dla_tpu.algos import oocore as J
+from dla_tpu.algos import packed as JP
+from dla_tpu.runtime import staging as JS
+from dla_tpu_torch.algos import oocore as T
+from dla_tpu_torch.algos import packed as TP
+from dla_tpu_torch.algos import posv_refined_streamed, potrf_blocked
+from dla_tpu_torch.cli import oocore_driver, potrf_driver
+from dla_tpu_torch.ops import plgsy
+from dla_tpu_torch.runtime import staging as TS
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
+TOL = {np.float64: 1e-12, np.float32: 2e-5}
+DTYPES = [np.float64, np.float32]
+
+
+def _lower(store) -> np.ndarray:
+    """tril of the factor held by either package's store, as a dense array."""
+    if hasattr(store, "npan"):
+        n, w = store.n, store.panel
+        out = np.zeros((n, n), store.dtype)
+        for j in range(store.npan):
+            b = store.pack(j * w, j * w, n - j * w, w)
+            out[j * w :, j * w : (j + 1) * w] = b
+            store.release(b)
+        return np.tril(out)
+    return np.tril(store.array)
+
+
+def _rel(got, ref):
+    return float(np.abs(got.astype(np.float64) - ref).max() / np.abs(ref).max())
+
+
+def _stores(kind, n, dtype, tmp_path, panel, ram_cache=False):
+    """The same seeded matrix in a JAX store and a port store."""
+    if kind == "flat":
+        a, b = JS.HostTileStore(n, dtype), TS.HostTileStore(n, dtype)
+    else:
+        a = JS.DirectPanelStore(n, dtype, path=str(tmp_path / "jax.bin"), panel=panel,
+                                direct=False, ram_cache=ram_cache)
+        b = TS.DirectPanelStore(n, dtype, path=str(tmp_path / "port.bin"), panel=panel,
+                                direct=False, ram_cache=ram_cache)
+    a.fill_plgsy(seed=51)
+    b.fill_plgsy(seed=51)
+    return a, b
+
+
+class TestDevicePath:
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("kind,n,panel,nb,bucket,prefetch", [
+        ("flat", 256, 64, 32, None, True),
+        ("flat", 256, 64, 48, None, False),  # nb not dividing the panel
+        ("panel", 384, 128, 32, None, True),
+        ("panel", 384, 128, 64, 256, True),  # the last panel padded 128 → 256 rows
+        ("panel", 384, 128, 64, 256, False),
+    ])
+    def test_matches_jax(self, tmp_path, dtype, kind, n, panel, nb, bucket, prefetch):
+        a, b = _stores(kind, n, dtype, tmp_path, panel, ram_cache=bucket is not None)
+        with a, b:
+            J.potrf_outofcore(a, panel=panel, nb=nb, height_bucket=bucket, prefetch=prefetch)
+            stats = T.potrf_outofcore(b, panel=panel, nb=nb, height_bucket=bucket,
+                                      prefetch=prefetch, device="cpu")
+            ref, got = _lower(a).astype(np.float64), _lower(b)
+        assert got.dtype == dtype
+        assert _rel(got, ref) <= TOL[dtype]
+        assert stats["panels"] == n // panel
+        assert set(stats) == {"pack_s", "h2d_wait_s", "sync_s", "writeback_s", "bytes_in",
+                              "bytes_out", "wall_s", "panels"}
+        item = np.dtype(dtype).itemsize
+        heights = [n - j * panel for j in range(n // panel)]
+        if bucket:
+            heights = [min(n, -(-h // bucket) * bucket) for h in heights]
+        assert stats["bytes_in"] == sum((j + 1) * h * panel * item for j, h in enumerate(heights))
+        assert stats["bytes_out"] == n * (n + panel) // 2 * item
+
+    def test_freivalds_gate_end_to_end(self):
+        n = 256
+        with TS.HostTileStore(n, np.float64) as st, TS.HostTileStore(n, np.float64) as orig:
+            st.fill_plgsy(seed=51)
+            orig.array[:] = np.tril(st.array)
+            T.potrf_outofcore(st, panel=64, nb=32, device="cpu")
+            assert orig.freivalds_residual(st) < 1e-10
+
+    def test_non_spd_gives_nan_not_silence(self):
+        n = 128
+        with TS.HostTileStore(n, np.float64) as st:
+            st.fill_plgsy(seed=51, bump=-1.0)
+            T.potrf_outofcore(st, panel=32, nb=16, device="cpu")
+            assert np.isnan(np.tril(st.array)).any()
+
+
+class TestHostPath:
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("kind,n,panel,nb,prefetch", [
+        ("flat", 256, 64, 32, True), ("flat", 256, 64, 32, False),
+        ("panel", 384, 128, 48, True),
+    ])
+    def test_bits_of_jax_host_path(self, tmp_path, dtype, kind, n, panel, nb, prefetch):
+        a, b = _stores(kind, n, dtype, tmp_path, panel)
+        with a, b:
+            J.potrf_outofcore(a, panel=panel, nb=nb, host_blas=True, prefetch=prefetch)
+            stats = T.potrf_outofcore(b, panel=panel, nb=nb, host_blas=True,
+                                      prefetch=prefetch)
+            np.testing.assert_array_equal(_lower(b), _lower(a))
+            if kind == "flat":  # the upper triangle too: the same calls, in place
+                np.testing.assert_array_equal(b.array, a.array)
+        assert stats["panels"] == n // panel
+
+
+class Crash(Exception):
+    pass
+
+
+def _uninterrupted(kind, tmp_path, n, panel, nb, dtype=np.float64, **kw):
+    if kind == "flat":
+        st = TS.HostTileStore(n, dtype)
+    else:
+        st = TS.DirectPanelStore(n, dtype, path=str(tmp_path / "whole.bin"), panel=panel,
+                                 direct=False)
+    with st:
+        st.fill_plgsy(seed=51)
+        T.potrf_outofcore(st, panel=panel, nb=nb, **kw)
+        return _lower(st)
+
+
+class TestResume:
+    @pytest.mark.parametrize("host_blas", [False, True])
+    @pytest.mark.parametrize("kind", ["flat", "panel"])
+    def test_kill_and_resume_same_bits(self, tmp_path, kind, host_blas):
+        """Factor two panels, crash, resume in a fresh store object (a fresh
+        process's view) from the sidecar: the factor's bits are an
+        uninterrupted run's."""
+        n, panel, nb = 128, 32, 16
+        kw = {"host_blas": True} if host_blas else {"device": "cpu"}
+        mat, prog = str(tmp_path / "mat.bin"), str(tmp_path / "progress.json")
+
+        def store():
+            if kind == "flat":
+                return TS.HostTileStore(n, np.float64, path=mat)
+            return TS.DirectPanelStore(n, np.float64, path=mat, panel=panel, direct=False)
+
+        def crash_after_two(j, npan):
+            if j == 1:
+                raise Crash
+
+        with store() as st:
+            st.fill_plgsy(seed=51)
+            with pytest.raises(Crash):
+                T.potrf_outofcore(st, panel=panel, nb=nb, progress_path=prog,
+                                  on_panel=crash_after_two, **kw)
+        with store() as st2:
+            stats = T.potrf_outofcore(st2, panel=panel, nb=nb, progress_path=prog, **kw)
+            got = _lower(st2)
+        assert stats["panels"] == n // panel - 2
+        np.testing.assert_array_equal(got, _uninterrupted(kind, tmp_path, n, panel, nb, **kw))
+
+    @pytest.mark.parametrize("kind", ["flat", "panel"])
+    def test_torn_writeback_recovers_same_bits(self, tmp_path, kind):
+        """Crash DURING the store writeback of a factored panel (after the
+        scratch stage, mid-unpack): the store holds a torn panel; resume
+        replays the commit from the durable scratch copy."""
+        n, panel, nb = 128, 32, 16
+        mat, prog = str(tmp_path / "mat.bin"), str(tmp_path / "progress.json")
+
+        def store():
+            if kind == "flat":
+                return TS.HostTileStore(n, np.float64, path=mat)
+            return TS.DirectPanelStore(n, np.float64, path=mat, panel=panel, direct=False)
+
+        with store() as st:
+            st.fill_plgsy(seed=51)
+            real_unpack, calls = st.unpack, []
+
+            def torn_unpack(i0, j0, src):
+                calls.append(i0)
+                if len(calls) == 2:  # panel j=1: tear the write, then die
+                    real_unpack(i0, j0, np.full_like(src, np.nan))
+                    raise Crash
+                return real_unpack(i0, j0, src)
+
+            st.unpack = torn_unpack
+            with pytest.raises(Crash):
+                T.potrf_outofcore(st, panel=panel, nb=nb, progress_path=prog, device="cpu")
+        with store() as st2:
+            assert np.isnan(_lower(st2)[panel:, panel : 2 * panel]).any()  # the tear is there
+            T.potrf_outofcore(st2, panel=panel, nb=nb, progress_path=prog, device="cpu")
+            got = _lower(st2)
+        np.testing.assert_array_equal(
+            got, _uninterrupted(kind, tmp_path, n, panel, nb, device="cpu"))
+
+    def test_sidecar_of_another_problem_is_ignored(self, tmp_path):
+        n, panel = 128, 32
+        prog = tmp_path / "progress.json"
+        prog.write_text('{"n": 64, "panel": 32, "done": [0, 1]}')
+        with TS.HostTileStore(n, np.float64) as st:
+            st.fill_plgsy(seed=51)
+            stats = T.potrf_outofcore(st, panel=panel, nb=16, progress_path=str(prog),
+                                      device="cpu")
+        assert stats["panels"] == n // panel
+
+
+class TestRejections:
+    def test_host_blas_rejects_mesh_and_bucket(self):
+        with TS.HostTileStore(64, np.float64) as st:
+            with pytest.raises(ValueError, match="host_blas"):
+                T.potrf_outofcore(st, panel=32, nb=16, host_blas=True, height_bucket=64)
+            with pytest.raises(ValueError, match="host_blas"):
+                T.potrf_outofcore(st, panel=32, nb=16, host_blas=True, mesh=object())
+
+    def test_mesh_names_a9(self):
+        with TS.HostTileStore(64, np.float64) as st:
+            with pytest.raises(NotImplementedError, match="A9"):
+                T.potrf_outofcore(st, panel=32, nb=16, mesh=object(), device="cpu")
+
+    def test_bucket_needs_a_panel_store(self):
+        with TS.HostTileStore(64, np.float64) as st:
+            with pytest.raises(ValueError, match="DirectPanelStore"):
+                T.potrf_outofcore(st, panel=32, nb=16, height_bucket=64, device="cpu")
+
+    def test_panel_must_divide_n(self):
+        with TS.HostTileStore(96, np.float64) as st:
+            with pytest.raises(ValueError, match="multiple of panel"):
+                T.potrf_outofcore(st, panel=64, nb=16, device="cpu")
+
+    def test_the_card_by_default_and_no_fallback(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with TS.HostTileStore(64, np.float64) as st:
+            st.fill_plgsy(seed=51)
+            before = st.array.copy()
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                T.potrf_outofcore(st, panel=32, nb=16)
+            np.testing.assert_array_equal(st.array, before)  # nothing ran elsewhere
+
+
+def _perturbed(l, delta, seed=0):
+    r = np.random.default_rng(seed).uniform(-1.0, 1.0, l.shape)
+    return np.tril(l * (1.0 + delta * r)).astype(l.dtype)
+
+
+class TestFreivaldsSeesTheFactor:
+    DELTAS = [1e-7, 1e-6, 1e-5, 1e-4, 1e-3]
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_gates_rise_with_the_perturbation(self, tmp_path, dtype):
+        """A factor perturbed by a relative δ has residual ≈ 1.5·δ: each gate
+        must grow with δ and read within [δ/2, 5δ] once δ is above its own
+        floor (the unperturbed factor's residual), in the port and in JAX."""
+        n, w = 512, 128
+        with TS.DirectPanelStore(n, dtype, path=str(tmp_path / "p.bin"), panel=w,
+                                 direct=False) as st:
+            st.fill_plgsy(seed=51)
+            T.potrf_outofcore(st, panel=w, nb=64, device="cpu")
+            l = _lower(st)
+        with TS.HostTileStore(n, dtype) as a:
+            a.fill_plgsy(seed=51)
+            orig = a.array.copy()
+        gates = {
+            "port streaming": (TS.DirectPanelStore, TS.freivalds_streaming, "port.bin"),
+            "jax streaming": (JS.DirectPanelStore, JS.freivalds_streaming, "jax.bin"),
+        }
+        for name, (store_cls, gate, fname) in gates.items():
+            with store_cls(n, dtype, path=str(tmp_path / fname), panel=w, direct=False) as ps:
+                got = []
+                for delta in [0.0] + self.DELTAS:
+                    lp = _perturbed(l, delta)
+                    for j in range(n // w):
+                        ps.unpack(j * w, j * w, np.ascontiguousarray(lp[j * w :, j * w : (j + 1) * w]))
+                    got.append(gate(ps, seed=51, probes=2))
+            self._check(name, got)
+        for name, cls in (("port dense", TS.HostTileStore), ("jax dense", JS.HostTileStore)):
+            with cls(n, dtype) as sa, cls(n, dtype) as sl:
+                sa.array[:] = orig
+                got = []
+                for delta in [0.0] + self.DELTAS:
+                    sl.array[:] = _perturbed(l, delta)
+                    got.append(sa.freivalds_residual(sl, probes=2))
+            self._check(name, got)
+
+    def _check(self, name, got):
+        floor, rest = got[0], got[1:]
+        assert all(b > a for a, b in zip(got, got[1:])), (name, got)
+        for delta, r in zip(self.DELTAS, rest):
+            if delta >= 10 * floor:
+                assert delta / 2 <= r <= 5 * delta, (name, delta, r)
+
+
+class TestNanFactorFails:
+    def test_native_gate_fails_a_nan_factor(self):
+        """The port's native Freivalds probe returns NaN for a NaN factor, so
+        the driver prints FAIL. The JAX package's copy skips NaN rows in its
+        max and reads 0 for an all-NaN factor: a defect of the reference,
+        not ported."""
+        n = 64
+        vals = {}
+        for name, cls in (("port", TS.HostTileStore), ("jax", JS.HostTileStore)):
+            with cls(n, np.float64) as a, cls(n, np.float64) as l:
+                a.fill_plgsy(seed=1)
+                l.array[:] = np.linalg.cholesky(np.tril(a.array) + np.tril(a.array, -1).T)
+                good = a.freivalds_residual(l)
+                l.array[5:, :] = np.nan
+                vals[name] = (good, a.freivalds_residual(l))
+        assert vals["port"][0] < 1e-14 and np.isnan(vals["port"][1])
+        assert vals["jax"][0] < 1e-14 and vals["jax"][1] < 1e-14
+
+    def test_streaming_gate_fails_a_nan_factor(self, tmp_path):
+        n, w = 128, 32
+        with TS.DirectPanelStore(n, np.float64, path=str(tmp_path / "p.bin"), panel=w,
+                                 direct=False) as st:
+            st.fill_plgsy(seed=51)
+            st.unpack(w, w, np.full((n - w, w), np.nan))
+            assert np.isnan(TS.freivalds_streaming(st, seed=51, probes=2))
+
+
+class TestPosvRefinedStreamed:
+    @pytest.mark.parametrize("nrhs", [1, 3])
+    def test_dense_factor_matches_jax(self, nrhs):
+        n, panel = 512, 128
+        b = np.random.default_rng(nrhs).standard_normal((n, nrhs) if nrhs > 1 else n)
+        l = potrf_blocked(plgsy(n, seed=51, device="cpu"), nb=128)
+        x, err, used = posv_refined_streamed(l, b, seed=51, panel=panel)
+        lj = JA.potrf_blocked(jnp.asarray(np.asarray(_jax_native_plgsy(n))), nb=128)
+        xj, errj, usedj = JA.posv_refined_streamed(lj, b, seed=51, panel=panel)
+        assert err < 1e-10 and errj < 1e-10
+        assert x.shape == b.shape and x.dtype == np.float64
+        assert np.abs(x - xj).max() <= 1e-9 * np.abs(xj).max()
+        assert abs(used - usedj) <= 1
+
+    def test_packed_factor_matches_jax(self):
+        n, nb = 512, 128
+        lp = TP.potrf_packed(TP.plgsy_packed(n, nb, seed=51, device="cpu"), n, nb)
+        b = np.ones((n, 2))
+        its = []
+        x, err, used = posv_refined_streamed(lp, b, seed=51, n=n, panel=nb, on_iter=lambda i, e:
+                                             its.append(e),
+                                             solver=lambda r: TP.potrs_packed(lp, r, n, nb))
+        lpj = JP.potrf_packed(JP.plgsy_packed(n, nb, seed=51), n, nb)
+        xj, errj, _ = JA.posv_refined_streamed(
+            lpj, b, seed=51, n=n, panel=nb, solver=lambda r: JP.potrs_packed(lpj, r, n, nb))
+        assert err < 1e-10 and errj < 1e-10
+        assert len(its) == used and its[-1] == err
+        assert np.abs(x - xj).max() <= 1e-9 * np.abs(xj).max()
+
+    def test_rejects_panel_not_dividing_n(self):
+        with pytest.raises(ValueError, match="multiple of panel"):
+            posv_refined_streamed(torch.eye(96), np.ones(96), panel=64)
+
+
+def _jax_native_plgsy(n):
+    """plgsy(n, seed=51) in fp32 from the JAX package's native generator."""
+    with JS.HostTileStore(n, np.float32) as st:
+        st.fill_plgsy(seed=51)
+        return st.array.copy()
+
+
+FREIVALDS_LINE = r"^freivalds \|\|\(A - LL\^T\)x\|\| / \(\|\|A\|\| \|\|x\|\|\) = (\S+) "
+
+
+def _drive(capsys, *argv):
+    rc = oocore_driver.main([str(a) for a in argv])
+    return rc, capsys.readouterr()
+
+
+class TestDriver:
+    # the panel store's O_DIRECT file needs rows of a multiple of 4096 bytes: 512 fp64
+    @pytest.mark.parametrize("extra,n,panel,dtype,gate", [
+        ([], 512, 128, "float32", "0.0001024"),
+        (["--no-prefetch"], 512, 128, "float64", "1e-10"),
+        (["--host-blas"], 512, 128, "float32", "0.0001024"),
+        (["--store", "panel", "--ram-cache", "--bucket", "1536"], 2048, 512, "float64", "1e-10"),
+        (["--store", "panel", "--probes", "0"], 2048, 512, "float64", None),
+    ])
+    def test_lines_and_exit_code(self, tmp_path, capsys, extra, n, panel, dtype, gate):
+        if "panel" in extra:
+            extra = extra + ["--matrix", tmp_path / "m.bin"]
+        rc, cap = _drive(capsys, "--n", n, "--panel", panel, "--nb", 128, "--dtype", dtype,
+                         "--device", "cpu", *extra)
+        out = cap.out
+        assert rc == 0, out + cap.err
+        assert re.search(rf"^\[oocore\] N={n} panel={panel} NB=128 dtype={dtype}", out, re.M)
+        assert re.search(r"^Elapsed: \S+ ms$", out, re.M)
+        assert re.search(r"^Performance: \S+ Gflop/s$", out, re.M)
+        assert "[oocore] staging: in " in out and "[oocore] panel 4/4 done" in out
+        stats = json.loads(re.search(r"^\[oocore\] stats: (.*)$", out, re.M).group(1))
+        assert stats["panels"] == 4 and stats["bytes_out"] > 0
+        if gate is None:
+            assert "freivalds" not in out and "PASS" not in out
+        else:
+            res = re.search(FREIVALDS_LINE, out, re.M)
+            assert res and float(res.group(1)) < float(gate)
+            assert f"PASS (gate {gate})" in out
+
+    def test_resume_quotes_this_process_flops(self, tmp_path, capsys):
+        n, panel = 2048, 512
+        mat, prog = tmp_path / "m.bin", tmp_path / "p.json"
+
+        def crash_after_two(j, npan):
+            if j == 1:
+                raise Crash
+
+        with TS.DirectPanelStore(n, np.float64, path=str(mat), panel=panel) as st:
+            st.fill_plgsy(seed=51)
+            with pytest.raises(Crash):
+                T.potrf_outofcore(st, panel=panel, nb=128, progress_path=str(prog),
+                                  on_panel=crash_after_two, device="cpu")
+        rc, cap = _drive(capsys, "--n", n, "--panel", panel, "--nb", 128, "--dtype", "float64",
+                         "--device", "cpu", "--store", "panel", "--matrix", mat,
+                         "--progress", prog)
+        assert rc == 0, cap.out + cap.err
+        assert "generating" not in cap.out  # a resume regenerates nothing
+        assert "(resumed: 2/4 panels" in cap.out and "PASS (gate 1e-10)" in cap.out
+
+    def test_mesh_exits_2_naming_a9(self, capsys):
+        rc, cap = _drive(capsys, "--n", 256, "--panel", 64, "--p", 2, "--q", 2, "--device",
+                         "cpu")
+        assert rc == 2 and "A9" in cap.err
+
+    def test_no_card_exits_2(self, capsys, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        rc, cap = _drive(capsys, "--n", 256, "--panel", 64)
+        assert rc == 2 and "no CUDA device" in cap.err
+
+    @pytest.mark.parametrize("argv", [["--host-blas", "--bucket", "64"], ["--store", "panel"]])
+    def test_usage_errors_exit_2(self, capsys, argv):
+        with pytest.raises(SystemExit) as e:
+            oocore_driver.main(["--n", "256", "--panel", "64", "--device", "cpu", *argv])
+        assert e.value.code == 2
+
+    def test_failed_gate_exits_1(self, capsys, monkeypatch):
+        """A non-SPD input (negative diagonal bump): NaN factor, FAIL, exit 1."""
+        real = TS.HostTileStore.fill_plgsy
+        monkeypatch.setattr(TS.HostTileStore, "fill_plgsy",
+                            lambda self, seed=51, bump=None: real(self, seed=seed, bump=-1.0))
+        rc, cap = _drive(capsys, "--n", 256, "--panel", 64, "--nb", 32, "--dtype", "float64",
+                         "--device", "cpu")
+        assert rc == 1 and "FAIL (gate 1e-10)" in cap.out
+
+
+SOLVE_LINE = r"^\|\|B - A X\|\|_inf / \(\|\|A\|\|_inf \|\|X\|\|_inf\) = (\S+)$"
+
+
+class TestPotrfDriverRefined:
+    @pytest.mark.parametrize("mode,dtype", [("packed", "s"), ("packed", "h"),
+                                            ("inplace", "s")])
+    def test_refined_solve_passes(self, capsys, mode, dtype):
+        rc = potrf_driver.main(["--n", "256", "--nb", "64", "--dtype", dtype, "--device", "cpu",
+                                "--mode", mode, "--solve", "refined", "--nrhs", "2"])
+        out = capsys.readouterr().out
+        assert rc == 0, out
+        res = re.search(SOLVE_LINE, out, re.M)
+        assert res and float(res.group(1)) < 1e-10
+        assert "SOLVE PASS (residual < 1e-10)" in out
+        assert re.search(r"refined solve: \d+ iterations", out)
+        assert ("streamed on the host" in out) == (mode == "packed")
+
+    def test_dense_refined_reads_the_host_generator(self, capsys, monkeypatch):
+        """The dense refined solve takes A from the native host generator, not
+        from the card's copy of A."""
+        seen = []
+        real = TS.HostTileStore.fill_plgsy
+
+        def spy(self, **kw):
+            seen.append((self.n, self.dtype, kw))
+            return real(self, **kw)
+
+        monkeypatch.setattr(TS.HostTileStore, "fill_plgsy", spy)
+        rc = potrf_driver.main(["--n", "256", "--nb", "64", "--dtype", "s", "--device", "cpu",
+                                "--solve", "refined", "--seed", "9"])
+        out = capsys.readouterr().out
+        assert rc == 0 and "SOLVE PASS" in out
+        assert "A regenerated in fp64 by the native host generator" in out
+        assert seen == [(256, np.float64, {"seed": 9, "bump": 256.0})]

@@ -323,10 +323,14 @@ class TestDriverSolve:
 
     @pytest.mark.parametrize("mode", ["packed", "df64", "df64-packed"])
     def test_unported_solve_modes_exit_2(self, capsys, mode):
-        # the packed mode solves by potrs and inverse (tests/test_torch_packed_serving.py);
-        # its refined solve waits for the native host generator
+        # the df64 modes take no --solve; the packed mode solves by potrs, inverse
+        # (tests/test_torch_packed_serving.py) and, since the native host generator was
+        # ported, refined, which exited 2 here before: it now passes the 1e-10 gate
         solve = "refined" if mode == "packed" else "potrs"
         rc = potrf_driver.main(["--n", "128", "--nb", "32", "--dtype", "s", "--device", "cpu",
                                 "--mode", mode, "--solve", solve])
-        err = capsys.readouterr().err
-        assert rc == 2 and "--solve" in err
+        cap = capsys.readouterr()
+        if mode == "packed":
+            assert rc == 0 and "SOLVE PASS (residual < 1e-10)" in cap.out, cap.out + cap.err
+        else:
+            assert rc == 2 and "--solve" in cap.err
