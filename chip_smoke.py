@@ -206,7 +206,19 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     fails); the wall time, GFLOP/s, every ``stats`` field, the peak device
     memory and the Freivalds value; then fp64 at N=16384 on a flat RAM store
     under 1e-10, and a kill-and-resume at N=16384 (a crash after panel 2, a
-    resume in a fresh store) that must give an uninterrupted run's bits.
+    resume in a fresh store) that must give an uninterrupted run's bits;
+36. the block-cyclic plane on member meshes on the card (no hand kernel: its
+    products are cuBLAS, its factor and solves cuSOLVER): the session,
+    ``python -m dla_tpu_torch.cli.session --N 32768 --B 512 --p 2 --q 4
+    --dtype d --solve 64`` (64 tile steps, the unrolled program, fp64, PASS
+    under 1e-10); ``potrf_block_cyclic`` at N=32768, nb=256 on 2×4 (128 steps,
+    the super-stepped program) against the unrolled program on the same
+    input within rtol = atol = 1e-11, and its residual under 1e-10; the
+    driver's ``--mode distributed`` at N=16384, nb=512 on 2×2 (fp32); and the
+    out-of-core driver with ``--p 2 --q 2`` at N=24576 fp32 on a flat RAM
+    store (its host Freivalds gate, not the factorization, sets its time).
+    Each with its time, GFLOP/s at (1/3)·N³/t, gate value and peak
+    device memory.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -287,6 +299,11 @@ N_PACKED_SOLVE, NB_PACKED_SOLVE = 32768, 4096  # phase 34: the packed serving pa
 # phase 35: out of core at the JAX package's record size (README.md:86), cut to N_OOC_CUT where
 # the host cannot hold the panel file and its cache; fp64 and the kill-and-resume at N_OOC64
 N_OOC, N_OOC_CUT, W_OOC, NB_OOC, N_OOC64 = 131072, 98304, 4096, 512, 16384
+# phase 36: the block-cyclic plane (the JAX package's only distributed workload is fp64 tiles,
+# README.md:130-132): the session at N_BC on a P_BC x Q_BC member mesh, the super-stepped program at
+# NB_BC_SUPER, the driver's --mode distributed and the out-of-core driver on a 2x2 mesh
+N_BC, NB_BC, P_BC, Q_BC, NRHS_BC, NB_BC_SUPER = 32768, 512, 2, 4, 64, 256
+N_BC_DRIVER, NB_BC_DRIVER, N_BC_OOC = 16384, 512, 24576
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -2265,7 +2282,119 @@ def phase_oocore(tag):
             "the resumed out-of-core factor is not the uninterrupted run's")
 
 
-LAST_PHASE = 35
+# ---- 36. the block-cyclic plane on member meshes ------------------------------------------
+def peak_gib() -> str:
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+
+
+def fresh_peak() -> None:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def number(out: str, pattern: str) -> float:
+    """The number a line of ``out`` gives after ``pattern`` (a regex)."""
+    m = re.search(pattern + r" *(\S+)", out, re.M)
+    require(m is not None, f"no line matching {pattern!r}")
+    return float(m.group(1).rstrip(","))
+
+
+def phase_session(tag):
+    """The session CLI in this process, its wave lines counted, not printed;
+    first a small session, unprinted, so that the timed factorization does
+    not carry the libraries' first-call set-up when phase 36 runs alone."""
+    from dla_tpu_torch.cli import session
+
+    n, nb = N_BC, NB_BC
+    argv = ["--B", str(nb), "--p", str(P_BC), "--q", str(Q_BC), "--dtype", "d",
+            "--solve", str(NRHS_BC)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        require(session.main(["--N", str(nb * P_BC * Q_BC)] + argv) == 0,
+                "the warm-up session failed")
+    fresh_peak()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = session.main(["--N", str(n)] + argv)
+    out = buf.getvalue()
+    waves = 0
+    for line in out.splitlines():
+        if line.startswith("[CLIENT] wave k="):
+            waves += 1
+        else:
+            print(f"session| {line}")
+    ms = number(out, r"^Elapsed:")
+    res = number(out, r"^\|\|A - LL\^T\|\|_inf / \|\|A\|\|_inf =")
+    sres = number(out, r"^\|\|B - A X\|\|_inf / \(\|\|A\|\|_inf \|\|X\|\|_inf\) =")
+    solve_ms = number(out, r"^\[CLIENT\] solve elapsed:")
+    print(f"block-cyclic session N={n} nb={nb} {P_BC}x{Q_BC} fp64 ({waves} wave lines): "
+          f"factorization {ms:.1f} ms, {n ** 3 / 3 / (ms / 1e3) / 1e9:.1f} GFLOP/s, residual "
+          f"{res:.3e} (gate 1e-10), potrs nrhs={NRHS_BC} {solve_ms:.1f} ms, residual {sres:.3e} "
+          f"(gate 1e-10), peak device memory {peak_gib()} (A alone "
+          f"{n * n * 8 / 2**30:.3f} GiB) {tag}", flush=True)
+    require(rc == 0 and "[CLIENT] session complete: PASS" in out and waves == n // nb,
+            f"the session returned {rc} without PASS")
+    require(res < 1e-10 and sres < 1e-10, "the session's residuals are not below 1e-10")
+
+
+def phase_block_cyclic(dev, tag):
+    """potrf_block_cyclic at N_BC, nb=NB_BC_SUPER (auto: the super-stepped
+    program) against the unrolled program on the same input."""
+    from dla_tpu_torch import parallel as TP
+    from dla_tpu_torch.ops import plgsy
+    from dla_tpu_torch.validate import residual_potrf
+
+    n, nb = N_BC, NB_BC_SUPER
+    lay = TP.BlockCyclicLayout(n, nb, P_BC, Q_BC)
+    mesh = TP.make_mesh(P_BC, Q_BC, device=dev)
+    fresh_peak()
+    ls = {}
+    for name, kw in (("super-stepped", {}), ("unrolled", {"unroll": True})):
+        x = TP.generate_spd_block_cyclic(lay, mesh, dtype=torch.float64)
+        _, dt = timed_call(lambda: TP.potrf_block_cyclic(x, lay, mesh, **kw))
+        ls[name] = TP.to_dense(x, lay).tril_()
+        del x
+        print(f"block-cyclic {name} N={n} nb={nb} {P_BC}x{Q_BC} fp64 ({lay.ntiles} steps"
+              f"{'' if kw else f', super_steps {-(-lay.ntiles // 32)}'}): {dt * 1e3:.1f} ms, "
+              f"{n ** 3 / 3 / dt / 1e9:.1f} GFLOP/s {tag}", flush=True)
+    a, b = ls["super-stepped"], ls["unrolled"]
+    excess = max(((a[r0 : r0 + 4096] - b[r0 : r0 + 4096]).abs()
+                  - 1e-11 * b[r0 : r0 + 4096].abs()).max().item() for r0 in range(0, n, 4096))
+    dmax = max((a[r0 : r0 + 4096] - b[r0 : r0 + 4096]).abs().max().item()
+               for r0 in range(0, n, 4096))
+    del b
+    res = float(residual_potrf(plgsy(n, dtype=torch.float64, device=dev), a,
+                               assume_symmetric=True, assume_tril=True, row_chunk=min(n, 4096)))
+    print(f"block-cyclic N={n} nb={nb}: super-stepped against unrolled max|dL| {dmax:.3e}, "
+          f"max(|dL| - 1e-11|L|) {excess:.3e} (limit 1e-11); residual {res:.3e} (gate 1e-10); "
+          f"peak device memory {peak_gib()} {tag}", flush=True)
+    require(excess <= 1e-11, "the super-stepped factor is off the unrolled one")
+    require(res < 1e-10, "the super-stepped factor's residual is not below 1e-10")
+    del a, ls
+    torch.cuda.empty_cache()
+
+
+def phase_distributed_drivers(tag):
+    """The driver's --mode distributed, then the out-of-core driver on a 2x2 mesh."""
+    fresh_peak()
+    n, nb = N_BC_DRIVER, NB_BC_DRIVER
+    out = phase_driver(tag, ["--n", str(n), "--nb", str(nb), "--dtype", "s", "--mode",
+                             "distributed", "--p", "2", "--q", "2", "--repeats", "2"])
+    ms = number(out, r"^Elapsed:")
+    res = number(out, r"^(?:\|\|A - LL\^T\|\|_inf / \|\|A\|\|_inf|freivalds .*) =")
+    print(f"driver --mode distributed N={n} nb={nb} 2x2 fp32: median {ms:.1f} ms, "
+          f"{n ** 3 / 3 / (ms / 1e3) / 1e9:.1f} GFLOP/s, gate value {res:.3e} (gate "
+          f"{n * 2e-7:g}), peak device memory {peak_gib()} {tag}", flush=True)
+    fresh_peak()
+    n = N_BC_OOC
+    out = oocore_run(tag, ["--n", n, "--panel", W_OOC, "--nb", NB_OOC, "--p", 2, "--q", 2,
+                           "--probes", 2])
+    require("[oocore] distributed: panels sharded over a 2x2 mesh" in out,
+            "the out-of-core driver did not take the mesh")
+    oocore_report(out, n, torch.cuda.max_memory_allocated(), tag)
+    torch.cuda.empty_cache()
+
+
+LAST_PHASE = 36
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -2401,6 +2530,10 @@ def main(argv=None) -> int:
         phase_packed_serving(tag)
     if 35 in sel:
         phase_oocore(tag)
+    if 36 in sel:
+        phase_session(tag)
+        phase_block_cyclic(dev, tag)
+        phase_distributed_drivers(tag)
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

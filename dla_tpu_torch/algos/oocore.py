@@ -34,6 +34,15 @@ SURVEY §5.7). The design:
 
 ``host_blas=True`` runs the same panel algorithm in place on the host with
 direct OpenBLAS calls, as the JAX package's host path does, with its bits.
+
+``mesh=`` is the distributed configuration (the JAX package's BASELINE config
+5 at multi-chip scale): each streamed panel is split by rows over the
+``mesh.size`` members, and every update GEMM and every step of the panel
+factor runs per member on its own rows. The rows a step needs from other
+members (the top ``w`` rows of a k panel, the diagonal block and the solved
+rows that the in-panel update reads) are gathered through
+:mod:`~dla_tpu_torch.parallel.member_comm`, as JAX's partitioner all-gathers
+them. The members share one device, so their rows are views of one slot.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch
 
 from dla_tpu_torch.algos.potrf import _cholesky
 from dla_tpu_torch.ops import gemm, trsm
+from dla_tpu_torch.parallel import member_comm as comm
 from dla_tpu_torch.runtime.staging import HostTileStore
 
 
@@ -65,36 +75,70 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def _factor_panel(panel: torch.Tensor, nb: int) -> torch.Tensor:
-    """Blocked right-looking factor of a tall panel (m, w), m ≥ w, in place
-    (the JAX package's ``_jitted("factor")``). fp64 solves the blocks below
-    each diagonal block by true substitution; the other dtypes by an nb×nb
-    triangular inverse and one GEMM (its explicit inverse amplifies error by
-    ~κ(L_kk), fine for the fp32 residual class). The strict upper triangle of
-    the top w×w square outside the nb×nb diagonal blocks keeps what it held,
-    as in the JAX package: only tril is meaningful. The device path needs no
-    row chunking: the JAX package's ``_ROW_CHUNK`` works around its XLA CPU
-    backend's TLB behaviour on multi-GiB GEMMs, which cuBLAS does not share."""
-    m, w = panel.shape
+def _rows(slabs: list, h: int, r0: int, r1: int, cols: slice) -> torch.Tensor:
+    """Rows [r0, r1), columns ``cols``, of a panel split by rows over members
+    of h rows each: a view where one member holds them all, else the
+    members' pieces gathered."""
+    parts = [slabs[m][max(r0 - m * h, 0) : min(r1 - m * h, h), cols]
+             for m in range(r0 // h, min(len(slabs), -(-r1 // h)))]
+    return parts[0] if len(parts) == 1 else comm.all_gather_tiled(parts)
+
+
+def _own_rows(slabs: list, h: int, r0: int):
+    """(member, its first local row) of every member holding rows ≥ r0."""
+    return [(m, max(r0 - m * h, 0)) for m in range(len(slabs)) if (m + 1) * h > r0]
+
+
+def _update(slabs: list, lk: torch.Tensor, w: int) -> list:
+    """Left-looking accumulation against the streamed panel ``lk`` (split by
+    rows as ``slabs``): each member's rows −= its rows of Lk · Lk[:w]ᵀ."""
+    h = slabs[0].shape[0]
+    lks = list(lk.split(h))
+    top = _rows(lks, h, 0, w, slice(None))
+    return [gemm(-1.0, lm, top, 1.0, pm, transb=True) for lm, pm in zip(lks, slabs)]
+
+
+def _factor_panel(slabs: list, nb: int) -> None:
+    """Blocked right-looking factor of a tall panel (m, w), m ≥ w, split by
+    rows over members (``slabs``, h rows each), in place (the JAX package's
+    ``_jitted("factor")``). fp64 solves the blocks below each diagonal block
+    by true substitution; the other dtypes by an nb×nb triangular inverse and
+    one GEMM (its explicit inverse amplifies error by ~κ(L_kk), fine for the
+    fp32 residual class). The strict upper triangle of the top w×w square
+    outside the nb×nb diagonal blocks keeps what it held, as in the JAX
+    package: only tril is meaningful. The device path needs no row chunking:
+    the JAX package's ``_ROW_CHUNK`` works around its XLA CPU backend's TLB
+    behaviour on multi-GiB GEMMs, which cuBLAS does not share."""
+    h, w = slabs[0].shape
+    m = h * len(slabs)
     for off in range(0, w, nb):
         bw = min(nb, w - off)
-        lkk = torch.tril(_cholesky(panel[off : off + bw, off : off + bw]))
-        panel[off : off + bw, off : off + bw] = lkk
+        cols = slice(off, off + bw)
+        lkk = torch.tril(_cholesky(_rows(slabs, h, off, off + bw, cols)))
+        for mm, lo in _own_rows(slabs, h, off):
+            hi = min(off + bw - mm * h, h)
+            if hi > lo:
+                slabs[mm][lo:hi, cols] = lkk[mm * h + lo - off : mm * h + hi - off]
         if off + bw >= m:
             break
-        bbelow = panel[off + bw :, off : off + bw]
-        if panel.dtype == torch.float64:
-            below = trsm(1.0, lkk, bbelow, side="R", uplo="L", transa=True)
-        else:
-            eye = torch.eye(bw, dtype=panel.dtype, device=panel.device)
+        inv = None
+        if slabs[0].dtype != torch.float64:
+            eye = torch.eye(bw, dtype=slabs[0].dtype, device=slabs[0].device)
             inv = trsm(1.0, lkk, eye, side="L", uplo="L", transa=False)
-            below = gemm(1.0, bbelow, inv, 0.0, torch.zeros_like(bbelow), transb=True)
-        panel[off + bw :, off : off + bw] = below
+        mine = _own_rows(slabs, h, off + bw)
+        for mm, lo in mine:
+            bbelow = slabs[mm][lo:, cols]
+            if inv is None:
+                below = trsm(1.0, lkk, bbelow, side="R", uplo="L", transa=True)
+            else:
+                below = gemm(1.0, bbelow, inv, 0.0, torch.zeros_like(bbelow), transb=True)
+            slabs[mm][lo:, cols] = below
         if off + bw < w:
-            rest = panel[off + bw :, off + bw : w]
-            panel[off + bw :, off + bw : w] = gemm(-1.0, below, below[: w - off - bw], 1.0,
-                                                    rest, transb=True)
-    return panel
+            top = _rows(slabs, h, off + bw, w, cols)
+            for mm, lo in mine:
+                rest = slabs[mm][lo:, off + bw : w]
+                slabs[mm][lo:, off + bw : w] = gemm(-1.0, slabs[mm][lo:, cols], top, 1.0, rest,
+                                                    transb=True)
 
 
 class _Sidecar:
@@ -429,10 +473,15 @@ def potrf_outofcore(
       host_blas: execute the panel algorithm fully in place with direct
         OpenBLAS calls on the host (no device) — the JAX package's host path,
         with its bits. Excludes ``mesh`` and ``height_bucket``.
-      mesh: the distributed out-of-core configuration; not ported
-        (``NotImplementedError``, ROADMAP A9).
+      mesh: the distributed out-of-core configuration: a member mesh
+        (``parallel.make_mesh`` or ``make_flat_mesh``) over whose
+        ``mesh.size`` members every streamed panel is split by rows; the
+        update GEMMs and the panel factor run per member. Requires ``panel``
+        to be a multiple of ``mesh.size``; excludes ``host_blas`` and
+        ``height_bucket``.
       device: where the panels are updated and factored: the card unless
-        ``device="cpu"`` is given. A missing card raises; nothing falls back.
+        ``device="cpu"`` is given (with ``mesh``: the members' device). A
+        missing card raises; nothing falls back.
 
     Returns:
       staging stats: bytes/seconds for pack (host gather), h2d wait, compute
@@ -449,9 +498,9 @@ def potrf_outofcore(
             on_panel=on_panel, prefetch=prefetch,
         )
     if mesh is not None:
-        raise NotImplementedError(
-            "the distributed out-of-core path (panels sharded over a mesh) is not "
-            "ported: it needs the member mesh of ROADMAP A9")
+        if device is not None and torch.device(device) != mesh.devices[0]:
+            raise ValueError(f"device={device} but the mesh's members lie on {mesh.devices[0]}")
+        device = mesh.devices[0]
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("potrf_outofcore: no CUDA device is available; pass device='cpu' "
@@ -461,6 +510,13 @@ def potrf_outofcore(
     if n % panel:
         raise ValueError(f"n={n} must be a multiple of panel={panel}")
     npan = n // panel
+    members = 1
+    if mesh is not None:
+        members = mesh.size
+        if panel % members:
+            raise ValueError(f"panel={panel} must be a multiple of mesh.size={members}")
+        if height_bucket is not None:
+            raise ValueError("height_bucket is a single-device optimization")
     if height_bucket is not None and not hasattr(store, "commit_scratch"):
         raise ValueError(
             "height_bucket requires a panel store whose pack() supports "
@@ -496,7 +552,7 @@ def potrf_outofcore(
                 ph = n - j0
                 if height_bucket is not None:
                     ph = min(n, -(-ph // height_bucket) * height_bucket)
-                pj = fetch(0, j0, j0, ph)
+                slabs = list(fetch(0, j0, j0, ph).split(ph // members))
                 stager.ready(0)
                 nxt = pool.submit(fetch, 1, j0, 0, ph) if pool and j > 0 else None
                 for k in range(j):
@@ -510,18 +566,21 @@ def potrf_outofcore(
                         nxt = None
                     stager.ready(s)
                     # left-looking accumulation: panel -= Lk · Lk[:w]ᵀ
-                    pj = gemm(-1.0, lk, lk[:panel], 1.0, pj, transb=True)
+                    slabs = _update(slabs, lk, panel)
                     stager.done_reading(s)
-                pj = _factor_panel(pj, nb)
+                _factor_panel(slabs, nb)
                 t0 = time.perf_counter()
                 if cuda:
                     torch.cuda.current_stream(device).synchronize()
                 stats["sync_s"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
                 if cuda:
-                    wb[:ph].copy_(pj)  # d2h, returns when done
+                    h = ph // members
+                    for m, sl in enumerate(slabs):  # d2h, returns when done
+                        wb[m * h : (m + 1) * h].copy_(sl)
                     host_pj = wb.numpy()[: n - j0]  # drop bucketed pad rows
                 else:
+                    pj = slabs[0] if members == 1 else torch.cat(slabs)
                     host_pj = pj[: n - j0].numpy()
                 stager.done_reading(0)
                 if side:
@@ -532,7 +591,7 @@ def potrf_outofcore(
                 stats["writeback_s"] += time.perf_counter() - t0
                 stats["bytes_out"] += host_pj.nbytes
                 stats["panels"] += 1
-                del pj, host_pj
+                del slabs, host_pj
                 if on_panel:
                     on_panel(j, npan)
         finally:

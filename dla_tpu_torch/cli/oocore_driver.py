@@ -7,8 +7,9 @@ matrix lives in host DRAM, a disk memmap, or a panel-blocked O_DIRECT file,
 and column panels stream through the card. Resume-able: re-running with the
 same ``--matrix`` and ``--progress`` paths picks up at the first unfinished
 panel. The flags are the reference's, with ``--platform`` become
-``--device``; ``--p``·``--q`` > 1 (the distributed out-of-core path) exits 2
-naming ROADMAP A9. It prints the reference's lines: ``[oocore] …``,
+``--device``; ``--p``·``--q`` > 1 is the distributed out-of-core path: every
+streamed panel split by rows over a P×Q member mesh on the device
+(``potrf_outofcore(mesh=...)``). It prints the reference's lines: ``[oocore] …``,
 ``Elapsed``, ``Performance`` ((1/3)·N³/t, or the flops this process ran when
 it resumed), the staging stats (and all of them as one JSON object on an
 ``[oocore] stats:`` line), the Freivalds value and ``PASS``/``FAIL`` against
@@ -19,6 +20,7 @@ Usage:
     python -m dla_tpu_torch.cli.oocore_driver --n 131072 --panel 4096 --nb 512 \
         --store panel --matrix /scratch/a.bin --ram-cache
     python -m dla_tpu_torch.cli.oocore_driver --n 1024 --panel 256 --nb 64 --device cpu
+    python -m dla_tpu_torch.cli.oocore_driver --n 32768 --panel 4096 --nb 512 --p 2 --q 2
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "OpenBLAS calls on the host (no device)")
     ap.add_argument("--p", type=int, default=1, help="mesh rows (PxQ device grid)")
     ap.add_argument("--q", type=int, default=1, help="mesh cols — p*q>1 is the "
-                    "distributed out-of-core path, not ported (ROADMAP A9)")
+                    "distributed out-of-core path (panels split by rows over the members)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the panels are updated and factored")
     return ap
@@ -74,12 +76,8 @@ def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
 
-    if args.host_blas and args.bucket:
-        ap.error("--host-blas excludes --bucket (single-host, in-place)")
-    if args.p * args.q > 1:
-        print("[oocore] --p/--q > 1, the distributed out-of-core path, is not ported: it "
-              "needs the member mesh of ROADMAP A9", file=sys.stderr)
-        return 2
+    if args.host_blas and (args.bucket or args.p * args.q > 1):
+        ap.error("--host-blas excludes --bucket and --p/--q (single-host, in-place)")
 
     import numpy as np
     import torch
@@ -136,6 +134,14 @@ def _run(args, store, panel_store: bool, dtype) -> int:
         store.fill_plgsy(seed=args.seed)
         print(f"[oocore] generated in {time.perf_counter() - gen0:.1f}s", flush=True)
 
+    mesh = None
+    if not args.host_blas and args.p * args.q > 1:
+        from dla_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.p, args.q, device=args.device)
+        print(f"[oocore] distributed: panels sharded over a {args.p}x{args.q} mesh",
+              flush=True)
+
     t0 = time.perf_counter()
     stats = potrf_outofcore(
         store,
@@ -145,7 +151,8 @@ def _run(args, store, panel_store: bool, dtype) -> int:
         prefetch=not args.no_prefetch,
         height_bucket=args.bucket,
         host_blas=args.host_blas,
-        device=args.device,
+        mesh=mesh,
+        device=None if mesh is not None else args.device,
         on_panel=lambda j, np_: print(
             f"[oocore] panel {j + 1}/{np_} done @ {time.perf_counter() - t0:.1f}s",
             flush=True,

@@ -1,6 +1,6 @@
-"""Single-run POTRF driver — the single-device ``--mode blocked|masked|
-shrink|inplace``, ``--mode packed`` and ``--mode df64|df64-packed`` subset of
-``dla_tpu/cli/potrf_driver.py`` on PyTorch.
+"""Single-run POTRF driver — the ``--mode blocked|masked|shrink|inplace``,
+``--mode packed``, ``--mode df64|df64-packed`` and ``--mode distributed``
+subset of ``dla_tpu/cli/potrf_driver.py`` on PyTorch.
 
 It keeps the reference's text contract (``v6_test.c:54-87``), which a sweep
 harness greps:
@@ -22,6 +22,12 @@ harness greps:
 the reference driver wires them (``potrf_driver.py:533-539``): blocked and
 shrink take ``--panel``, ``--trailing`` and ``--diag``, shrink also
 ``--kb``; masked takes none of them.
+
+``--mode distributed --p P --q Q`` factors on a P×Q member mesh on the
+device (``parallel/potrf_dist.py:potrf_block_cyclic``), as the reference
+(``potrf_driver.py:339-356``): tril(A) is sharded block-cyclically before
+each repeat, untimed; the timed factorization includes assembling the dense
+tril(L), which the dense modes' gates then check.
 
 ``--mode df64`` is the emulated-fp64 factorization (``algos/potrf_df64.py``):
 the dtype is forced to float64 and the gate to 1e-10. A is generated in fp64
@@ -93,6 +99,8 @@ Usage:
     python -m dla_tpu_torch.cli.potrf_driver --n 24576 --nb 1024 --mode df64 --trailing pallas
     python -m dla_tpu_torch.cli.potrf_driver --n 40960 --nb 1024 --mode df64-packed
     python -m dla_tpu_torch.cli.potrf_driver --n 512 --nb 128 --dtype d --device cpu
+    python -m dla_tpu_torch.cli.potrf_driver --n 16384 --nb 512 --dtype s --mode distributed \
+        --p 2 --q 2
     python -m dla_tpu_torch.cli.potrf_driver --n 16384 --nb 1024 --dtype s --mode inplace \
         --solve refined --nrhs 64
     python -m dla_tpu_torch.cli.potrf_driver --n 32768 --nb 4096 --dtype s --mode packed \
@@ -118,12 +126,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default=None,
                     help="d|float64, s|float32, h|bfloat16 (storage)")
     ap.add_argument("--mode", choices=["blocked", "masked", "shrink", "inplace", "packed",
-                                       "df64", "df64-packed"], default="inplace",
+                                       "df64", "df64-packed", "distributed"], default="inplace",
                     help="factorization formulation: blocked, masked or shrinking "
                          "dense (potrf's modes), the dense in-place buffer, "
-                         "triangle-only packed storage (NB = slab width), or emulated "
+                         "triangle-only packed storage (NB = slab width), emulated "
                          "fp64 on a (hi, lo) fp32 pair, dense (df64) or packed "
-                         "(df64-packed)")
+                         "(df64-packed), or block-cyclic on a P×Q member mesh "
+                         "(distributed)")
+    ap.add_argument("--p", type=int, default=None, help="mesh rows (distributed)")
+    ap.add_argument("--q", type=int, default=None, help="mesh cols (distributed)")
     ap.add_argument("--panel", choices=["xla", "pallas", "invgemm", "blocktrsm"],
                     default="xla", help="blocked and shrink modes' panel: a triangular "
                     "solve (xla), the panel_factor CUDA kernel (pallas), or, shrink "
@@ -205,7 +216,7 @@ def main(argv=None) -> int:
 
     cfg = RunConfig.layered(
         n=args.n, nb=args.nb, dtype=args.dtype, bump=args.bump, seed=args.seed,
-        mode=args.mode, check=False if args.no_check else None,
+        mode=args.mode, check=False if args.no_check else None, p=args.p, q=args.q,
     )
     df64_packed = cfg.mode == "df64-packed"
     df64 = cfg.mode == "df64" or df64_packed
@@ -238,6 +249,12 @@ def main(argv=None) -> int:
                                                            and args.trailing == "pallas")):
         kw["kb"] = args.kb
     packed = cfg.mode == "packed"
+    distributed = cfg.mode == "distributed"
+    if distributed:
+        from dla_tpu_torch import parallel
+
+        layout = parallel.BlockCyclicLayout(n=cfg.n, nb=cfg.nb, p=cfg.p, q=cfg.q)
+        mesh = parallel.make_mesh(cfg.p, cfg.q, device=device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[dla-potrf] N={cfg.n} NB={cfg.nb} dtype={cfg.dtype} mode={cfg.mode} "
           f"seed={cfg.seed} device={name}", flush=True)
@@ -260,9 +277,14 @@ def main(argv=None) -> int:
         # generated in fp64 where it is factored, then split
         return to_df64(plgsy(cfg.n, bump=bump, seed=cfg.seed, dtype=dtype, device=device))
 
+    def dense_a():
+        return plgsy(cfg.n, bump=bump, seed=cfg.seed, dtype=dtype, device=device)
+
     def fresh_a():
         gkw = dict(bump=bump, seed=cfg.seed, dtype=dtype, device=device)
-        if packed:
+        if distributed:
+            a = parallel.from_dense(dense_a().tril_(), layout, mesh)
+        elif packed:
             a = plgsy_packed(cfg.n, cfg.nb, **gkw)
         elif df64_pure:
             a = plgsy_packed(cfg.n, cfg.nb, **dict(gkw, dtype=torch.float32))
@@ -272,11 +294,14 @@ def main(argv=None) -> int:
         elif df64:
             a = dense_pair()
         else:
-            a = plgsy(cfg.n, **gkw)
+            a = dense_a()
         sync()
         return a
 
     def factor(a):
+        if distributed:
+            lx = parallel.potrf_block_cyclic(a, layout, mesh)
+            return parallel.to_dense(lx, layout).tril_()
         if packed:
             return potrf_packed(a, cfg.n, cfg.nb, trailing=args.trailing, **kw)
         if df64_packed:
@@ -350,12 +375,12 @@ def main(argv=None) -> int:
             print(f"freivalds ||(A - LL^T)x|| / (||A|| ||x||) = {res:.2e}")
         else:
             l = torch.tril(l)
-            res = float(residual_potrf(fresh_a(), l, assume_symmetric=True,
+            res = float(residual_potrf(dense_a(), l, assume_symmetric=True,
                                        assume_tril=True, row_chunk=chunk))
             print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
         rc = _verdict(res, args.gate, cfg)
     if args.solve != "none":
-        rc = max(rc, _solve(args, cfg, fresh_a(), l, bump, device, sync))
+        rc = max(rc, _solve(args, cfg, dense_a(), l, bump, device, sync))
     return rc
 
 

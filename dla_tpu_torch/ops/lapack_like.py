@@ -72,14 +72,25 @@ def plgsy_tile(
     top-left element is global (i0, j0); ``bump`` is added on the global
     diagonal. The values are computed in fp32 and then cast, so an fp64
     matrix holds fp32-exact values plus the bump."""
-    rows = (i0 + torch.arange(mb, dtype=torch.int64, device=device))[:, None]
-    cols = (j0 + torch.arange(nb, dtype=torch.int64, device=device))[None, :]
+    rows = i0 + torch.arange(mb, dtype=torch.int64, device=device)
+    cols = j0 + torch.arange(nb, dtype=torch.int64, device=device)
+    return plgsy_at(seed, rows, cols, bump=bump, dtype=dtype)
+
+
+def plgsy_at(seed: int, rows: torch.Tensor, cols: torch.Tensor, *, bump: float = 0.0,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The elements of the global seeded symmetric matrix at global rows
+    ``rows`` × columns ``cols`` (two int64 index vectors, on the device the
+    result is built on), ``bump`` on the global diagonal: what
+    :func:`plgsy_tile` computes for any set of rows and columns, with its
+    bits (a block-cyclic member's tiles are not contiguous globally)."""
+    rows, cols = rows[:, None], cols[None, :]
     vals = _pair_uniform(int(seed), rows, cols).to(dtype)
     if bump:
         vals = vals + torch.where(
             rows == cols,
-            torch.tensor(bump, dtype=dtype, device=device),
-            torch.tensor(0, dtype=dtype, device=device),
+            torch.tensor(bump, dtype=dtype, device=rows.device),
+            torch.tensor(0, dtype=dtype, device=rows.device),
         )
     return vals
 

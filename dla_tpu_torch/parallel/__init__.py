@@ -1,7 +1,19 @@
-"""The flat-mesh ring planes — counterpart of ``dla_tpu/parallel``, on a mesh
-of D members that share one device (the block-cyclic, solve and serving
-planes are still to come). Names as in the JAX package's ``__init__``."""
+"""The distributed planes — counterpart of ``dla_tpu/parallel`` — on meshes
+whose members share one device: the block-cyclic factorization, its solve
+and serving planes on a p×q :class:`MemberMesh`, and the ring planes on a
+flat :class:`FlatMesh`. Names as in the JAX package's ``__init__``; its TPU
+projections (``CHIPS``, ``crossover_n``, ``project``, ``single_chip_rate``,
+``project_serving``) are not ported.
+"""
 
+from dla_tpu_torch.parallel.block_cyclic import (  # noqa: F401
+    BlockCyclicLayout,
+    MemberMesh,
+    from_dense,
+    generate_spd_block_cyclic,
+    make_mesh,
+    to_dense,
+)
 from dla_tpu_torch.parallel.column_cyclic import (  # noqa: F401
     FlatMesh,
     from_dense_cols,
@@ -20,3 +32,15 @@ from dla_tpu_torch.parallel.packed_cyclic import (  # noqa: F401
     resident_elems,
     unpack_cols_packed,
 )
+from dla_tpu_torch.parallel.potrf_dist import (  # noqa: F401
+    flop_accounting,
+    flop_accounting_super,
+    potrf_block_cyclic,
+)
+from dla_tpu_torch.parallel.serving import (  # noqa: F401
+    make_serving_mesh,
+    serving_comm_elems,
+    sharded_apply,
+    solve_inverse_sharded,
+)
+from dla_tpu_torch.parallel.solve_dist import potrs_block_cyclic  # noqa: F401

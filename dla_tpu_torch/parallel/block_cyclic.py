@@ -1,0 +1,220 @@
+"""2D block-cyclic distribution of a tiled matrix over a p×q member mesh —
+counterpart of ``dla_tpu/parallel/block_cyclic.py``.
+
+Tile (i, j) of the nt×nt tile grid is owned by member (i mod p, j mod q). The
+JAX package stores the matrix in a cyclic-permuted element order (global tile
+row i at stored tile row ``(i mod p)·ltr + i // p``, the same for columns), so
+that the cyclic layout becomes a blocked sharding ``P('r', 'c')``; each
+device's local shard is a plain (ltr·nb, ltc·nb) matrix whose tile (li, lj) is
+global tile (li·p + r, lj·q + c).
+
+Here the p·q members share one device, as the ring planes' :class:`FlatMesh`
+members do, and a sharded matrix is a list of p·q tensors, member (r, c) at
+index r·q + c: exactly the block JAX's ``layout.sharding(mesh)`` puts on
+device (r, c), so assembling the list in mesh order gives JAX's stored array.
+The permutation is never materialized as an index: a dense (n, n) matrix
+viewed as (ltr, p, nb, ltc, q, nb) has member (r, c)'s tiles at ``[:, r, :,
+:, c, :]``, so :func:`from_dense` and :func:`to_dense` are one strided copy
+per member, on the tensor's own device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dla_tpu_torch.ops.lapack_like import _SLAB_ELEMS, plgsy_at
+from dla_tpu_torch.parallel.column_cyclic import _member_device, _one_device, _tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class MemberMesh:
+    """A 2-D ('r', 'c') mesh of p×q members — the PxQ process grid — member
+    (r, c) at ``devices[r·q + c]``. It sits beside :class:`FlatMesh` (the ring
+    planes' 1-D mesh, which they require) rather than generalizing it. All
+    members lie on one device; a mesh whose members span several raises
+    ``NotImplementedError``."""
+
+    devices: tuple[torch.device, ...]
+    shape: tuple[int, int]
+    axis_names: tuple[str, ...] = ("r", "c")
+
+    def __post_init__(self):
+        p, q = self.shape
+        if p <= 0 or q <= 0 or len(self.devices) != p * q:
+            raise ValueError(f"a {p}x{q} mesh needs {p * q} members, got {len(self.devices)}")
+        _one_device(self.devices)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+
+def squarest(ndev: int) -> tuple[int, int]:
+    """The squarest p×q grid of ndev members, p ≤ q."""
+    p = int(np.sqrt(ndev))
+    while ndev % p:
+        p -= 1
+    return p, ndev // p
+
+
+def make_mesh(p: int, q: int, *, device="cuda") -> MemberMesh:
+    """A p×q member mesh with axes ('r', 'c'), all members on the card unless
+    the caller names another device (``device="cpu"``)."""
+    return MemberMesh((_member_device(device),) * (p * q), (p, q))
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCyclicLayout:
+    """Static geometry of a block-cyclic distributed N×N matrix."""
+
+    n: int  # global matrix dim
+    nb: int  # tile size
+    p: int  # mesh rows
+    q: int  # mesh cols
+
+    def __post_init__(self):
+        if self.n % self.nb:
+            raise ValueError(f"n={self.n} must be a multiple of nb={self.nb}")
+        if self.ntiles % self.p or self.ntiles % self.q:
+            raise ValueError(
+                f"tile grid {self.ntiles} must be divisible by mesh "
+                f"({self.p}x{self.q}); pad n or choose a different nb"
+            )
+
+    @property
+    def ntiles(self) -> int:
+        return self.n // self.nb
+
+    @property
+    def ltr(self) -> int:
+        """Local tile rows per member."""
+        return self.ntiles // self.p
+
+    @property
+    def ltc(self) -> int:
+        """Local tile cols per member."""
+        return self.ntiles // self.q
+
+    @property
+    def local_shape(self) -> tuple[int, int]:
+        return (self.ltr * self.nb, self.ltc * self.nb)
+
+    # -- the cyclic→blocked element permutation ------------------------------
+
+    def perm(self, axis_tiles_per_dev: int, procs: int) -> np.ndarray:
+        """Element permutation for one axis: perm[stored] = global index."""
+        nb = self.nb
+        idx = np.arange(self.n)
+        tile = idx // nb
+        within = idx % nb
+        # stored tile order: all tiles owned by proc 0 (in global order),
+        # then proc 1, ... ; stored_tile = (tile % procs) * per + tile // procs
+        stored_tile = (tile % procs) * axis_tiles_per_dev + tile // procs
+        stored = stored_tile * nb + within
+        perm = np.empty(self.n, np.int64)
+        perm[stored] = idx
+        return perm
+
+    @property
+    def row_perm(self) -> np.ndarray:
+        return self.perm(self.ltr, self.p)
+
+    @property
+    def col_perm(self) -> np.ndarray:
+        return self.perm(self.ltc, self.q)
+
+
+def _members(layout: BlockCyclicLayout):
+    """(index, r, c) of every member, in mesh order."""
+    return [(r * layout.q + c, r, c) for r in range(layout.p) for c in range(layout.q)]
+
+
+def _tiles(a: torch.Tensor, layout: BlockCyclicLayout) -> torch.Tensor:
+    """A dense (n, n) matrix as (ltr, p, nb, ltc, q, nb): member (r, c)'s
+    tiles are ``[:, r, :, :, c, :]``."""
+    lay = layout
+    return a.view(lay.ltr, lay.p, lay.nb, lay.ltc, lay.q, lay.nb)
+
+
+def _check_shards(shards, layout: BlockCyclicLayout, mesh: MemberMesh | None = None) -> list:
+    """The shard list, checked against the layout (and the mesh's shape)."""
+    x = list(shards)
+    if mesh is not None and tuple(mesh.shape) != (layout.p, layout.q):
+        raise ValueError(f"mesh {mesh.shape} does not match the layout's {layout.p}x{layout.q}")
+    if len(x) != layout.p * layout.q or any(tuple(s.shape) != layout.local_shape for s in x):
+        raise ValueError(f"need {layout.p * layout.q} shards of shape {layout.local_shape}; "
+                         f"got {[tuple(s.shape) for s in x]}")
+    return x
+
+
+def from_dense(a, layout: BlockCyclicLayout, mesh: MemberMesh) -> list[torch.Tensor]:
+    """Dense (n, n) matrix (tensor or numpy) → one (ltr·nb, ltc·nb) tensor per
+    member, each a copy on its member's device. A tensor is read on its own
+    device (a card tensor makes no trip through the host)."""
+    a = _tensor(a).contiguous()
+    if tuple(a.shape) != (layout.n, layout.n):
+        raise ValueError(f"need an ({layout.n}, {layout.n}) matrix, got {tuple(a.shape)}")
+    t = _tiles(a, layout)
+    view = (layout.ltr, layout.nb, layout.ltc, layout.nb)
+    out = []
+    for m, r, c in _members(layout):
+        s = torch.empty(layout.local_shape, dtype=a.dtype, device=mesh.devices[m])
+        s.view(view).copy_(t[:, r, :, :, c, :])
+        out.append(s)
+    return out
+
+
+def to_dense(shards, layout: BlockCyclicLayout) -> torch.Tensor:
+    """Inverse of :func:`from_dense`: the dense matrix, on the members' device
+    (the JAX function gathers it to the host)."""
+    x = _check_shards(shards, layout)
+    out = torch.empty((layout.n, layout.n), dtype=x[0].dtype, device=x[0].device)
+    t = _tiles(out, layout)
+    view = (layout.ltr, layout.nb, layout.ltc, layout.nb)
+    for m, r, c in _members(layout):
+        t[:, r, :, :, c, :].copy_(x[m].view(view))
+    return out
+
+
+def _global_index(local_tiles: int, procs: int, proc: int, nb: int, device) -> torch.Tensor:
+    """Global element indices of one member's local rows (or columns)."""
+    tiles = torch.arange(local_tiles, dtype=torch.int64, device=device) * procs + proc
+    return (tiles[:, None] * nb + torch.arange(nb, dtype=torch.int64, device=device)).reshape(-1)
+
+
+def generate_spd_block_cyclic(
+    layout: BlockCyclicLayout,
+    mesh: MemberMesh,
+    *,
+    seed: int = 51,
+    bump: float | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> list[torch.Tensor]:
+    """Distributed seeded SPD generation: every member materializes only its
+    own tiles through the tile-local deterministic generator
+    (``ops.lapack_like.plgsy_at``, the body of ``plgsy_tile``), in row slabs —
+    the replacement for the reference client building the full N×N in RAM
+    and uploading tile blobs one by one (``client_distrib.cpp:402-432``). The
+    assembled matrix is ``plgsy``'s, bit for bit."""
+    if bump is None:
+        bump = float(layout.n)
+    nb, ltr, ltc, p, q = layout.nb, layout.ltr, layout.ltc, layout.p, layout.q
+    slab = max(1, _SLAB_ELEMS // (ltc * nb))
+    out = []
+    for m, r, c in _members(layout):
+        dev = mesh.devices[m]
+        rows = _global_index(ltr, p, r, nb, dev)
+        cols = _global_index(ltc, q, c, nb, dev)
+        x = torch.empty(layout.local_shape, dtype=dtype, device=dev)
+        for r0 in range(0, ltr * nb, slab):
+            x[r0 : r0 + slab] = plgsy_at(seed, rows[r0 : r0 + slab], cols, bump=bump,
+                                         dtype=dtype)
+        out.append(x)
+    return out

@@ -48,23 +48,34 @@ class FlatMesh:
     axis_names: tuple[str, ...] = ("d",)
 
     def __post_init__(self):
-        if not self.devices:
-            raise ValueError("a mesh needs at least one member")
-        if len(set(self.devices)) > 1:
-            raise NotImplementedError(_MULTI_CARD)
+        _one_device(self.devices)
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
 
+def _one_device(devices) -> None:
+    """A mesh's members must lie on one device (for now)."""
+    if not devices:
+        raise ValueError("a mesh needs at least one member")
+    if len(set(devices)) > 1:
+        raise NotImplementedError(_MULTI_CARD)
+
+
+def _member_device(device) -> torch.device:
+    """``device`` as the members' device: a bare "cuda" is the current card
+    (raises without one)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def make_flat_mesh(ndev: int, *, device="cuda") -> FlatMesh:
     """A flat mesh of ``ndev`` members, all on the card unless the caller
     names another device (``device="cpu"``)."""
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())  # raises without a card
-    return FlatMesh((d,) * ndev)
+    return FlatMesh((_member_device(device),) * ndev)
 
 
 def _tensor(a) -> torch.Tensor:

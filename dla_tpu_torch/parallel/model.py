@@ -1,11 +1,14 @@
-"""Accounting of the packed column-cyclic plane — the framework-neutral half
-of ``dla_tpu/parallel/model.py`` (``:531-619``), copied.
+"""Accounting of the distributed planes — the framework-neutral half of
+``dla_tpu/parallel/model.py`` (``:208``, ``:365``, ``:531-619``), copied.
 
-The JAX module also projects rates onto TPU meshes (``ChipSpec``, every
-``project_*``); those are TPU figures and are not ported. What stays is the
-exact count of the work and of the ring traffic of
-:func:`~dla_tpu_torch.parallel.packed_cyclic.potrf_packed_cyclic`, which the
-tests pin to the real program's ``ring_broadcast`` calls.
+The JAX module also projects rates onto TPU meshes (``ChipSpec``, ``CHIPS``,
+``project``, ``crossover_n``, ``single_chip_rate``, every ``project_*``);
+those are TPU figures and are not ported. What stays is the exact count of
+the work and of the traffic: the packed column-cyclic plane's ring
+broadcasts (which the tests pin to the real program's ``ring_broadcast``
+calls), the block-cyclic plane's per-step panel broadcast
+(:func:`step_comm_elems`) and the out-of-core loop's volumes
+(:func:`oocore_volumes`).
 """
 
 from __future__ import annotations
@@ -69,3 +72,30 @@ def packed_resident_bytes(n: int, nb: int, ndev: int,
     nt = n // nb
     ltc = nt // ndev
     return sum((nt - lj * ndev) * nb for lj in range(ltc)) * nb * itemsize
+
+
+def step_comm_elems(layout, k: int) -> int:
+    """Panel-broadcast volume of step k in elements — mirrors
+    ``flop_accounting``'s aggregate ``(ltr-w0)·nb²·(q+p)`` term (a copy of
+    ``dla_tpu/parallel/model.py:208``)."""
+    w0 = (k + 1) // layout.p
+    return (layout.ltr - w0) * layout.nb * layout.nb * (layout.q + layout.p)
+
+
+def oocore_volumes(n: int, panel: int, itemsize: int = 4) -> dict:
+    """Exact stream/compute/writeback volumes of the left-looking
+    out-of-core loop (a copy of ``dla_tpu/parallel/model.py:365``).
+
+    stream = the k-panel updates (h·jB per panel) **plus the panel's own
+    one-time read** (h·B)."""
+    nt = -(-n // panel)
+    stream_elems = sum(
+        (n - j * panel) * (j * panel + panel) for j in range(nt)
+    )
+    wb_elems = sum((n - j * panel) * panel for j in range(nt))
+    return {
+        "n": n, "panel": panel, "npanels": nt,
+        "stream_bytes": stream_elems * itemsize,
+        "writeback_bytes": wb_elems * itemsize,
+        "flops": n**3 / 3,
+    }

@@ -1,0 +1,73 @@
+"""Distributed POTRS on the block-cyclic layout — counterpart of
+``dla_tpu/parallel/solve_dist.py``: the full-solve path after
+:func:`~dla_tpu_torch.parallel.potrf_dist.potrf_block_cyclic`.
+
+Given the factor L as block-cyclic shards and a replicated right-hand-side
+block B (n × nrhs), A·X = B is solved by forward then backward substitution
+over tile rows:
+
+- the diagonal tile comes from its one owner (a masked ``psum`` in JAX);
+- forward, each off-diagonal update ``B_i −= L_ik · Y_k`` is computed by the
+  single owner of tile (i, k) (mesh column k mod q). JAX sums them into the
+  replicated right-hand side with one ``psum`` over the mesh; every row has
+  one owner, so that sum adds zeros only and the owner's rows are
+  subtracted here directly, with the same bits;
+- backward, ``Σ_{i>k} L_ikᵀ · X_i`` adds the parts of the p members of mesh
+  column k mod q: a ``psum`` of several nonzero parts, added here in member
+  order (:func:`~dla_tpu_torch.parallel.member_comm.psum`), perhaps in
+  another order than XLA's.
+
+The right-hand side stays replicated on every member: on one device, one
+tensor. Only tril of the factor tiles is read.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dla_tpu_torch.parallel import member_comm as comm
+from dla_tpu_torch.parallel.block_cyclic import BlockCyclicLayout, MemberMesh, _check_shards
+from dla_tpu_torch.parallel.column_cyclic import _tensor
+
+
+def potrs_block_cyclic(lx, b, layout: BlockCyclicLayout, mesh: MemberMesh) -> torch.Tensor:
+    """Solve A·X = B given the block-cyclic factor ``lx`` (a list of shards);
+    ``b`` is an (n, nrhs) tensor or numpy array, replicated. Returns the
+    replicated solution X on the members' device, in the factor's dtype."""
+    lx = _check_shards(lx, layout, mesh)
+    nb, p, q, ltr, nt = layout.nb, layout.p, layout.q, layout.ltr, layout.ntiles
+    y = _tensor(b).to(device=mesh.device, dtype=lx[0].dtype, copy=True)
+    if y.ndim != 2 or y.shape[0] != layout.n:
+        raise ValueError(f"b must be ({layout.n}, nrhs), got {tuple(y.shape)}")
+    nrhs = y.shape[1]
+    yt = y.view(ltr, p, nb, nrhs)  # global tile row li·p + r at [li, r]
+
+    def diag(k):
+        lik, ljk = k // p, k // q
+        owner = lx[(k % p) * q + k % q]
+        return comm.from_owner(owner[lik * nb : (lik + 1) * nb, ljk * nb : (ljk + 1) * nb])
+
+    def strips(k):
+        """(r, first local tile row below k, L rows below tile row k) of mesh
+        column k mod q's members, the owners of tile column k."""
+        ljk = k // q
+        for r in range(p):
+            li0 = max(0, (k - r) // p + 1)
+            if li0 < ltr:
+                yield r, li0, lx[r * q + k % q][li0 * nb :, ljk * nb : (ljk + 1) * nb]
+
+    # ---- forward: L Y = B --------------------------------------------------
+    for k in range(nt):
+        rows = slice(k * nb, (k + 1) * nb)
+        yk = torch.linalg.solve_triangular(diag(k), y[rows], upper=False, left=True)
+        y[rows] = yk
+        for r, li0, strip in strips(k):
+            yt[li0:, r] -= (strip @ yk).view(-1, nb, nrhs)
+
+    # ---- backward: Lᵀ X = Y ------------------------------------------------
+    for k in reversed(range(nt)):
+        rows = slice(k * nb, (k + 1) * nb)
+        parts = [strip.mT @ yt[li0:, r].reshape(-1, nrhs) for r, li0, strip in strips(k)]
+        s = comm.psum(parts) if parts else torch.zeros_like(y[rows])
+        y[rows] = torch.linalg.solve_triangular(diag(k).mT, y[rows] - s, upper=True, left=True)
+    return y

@@ -2109,3 +2109,83 @@ def test_posv_refined_streamed_packed_on_card(cuda):
     x, err, used = TA.posv_refined_streamed(lp, np.ones((n, 4)), seed=51, n=n, panel=nb,
                                             solver=lambda r: P.potrs_packed(lp, r, n, nb))
     assert err < 1e-10 and x.shape == (n, 4) and used <= 6
+
+
+# ---- the block-cyclic plane on a member mesh on the card (parallel/potrf_dist.py) -------------
+def _block_cyclic_factor(mesh, lay, **kw):
+    from dla_tpu_torch import parallel as TP
+
+    x = TP.generate_spd_block_cyclic(lay, mesh, seed=51, dtype=torch.float64)
+    return torch.tril(TP.to_dense(TP.potrf_block_cyclic(x, lay, mesh, **kw), lay)).cpu()
+
+
+def test_block_cyclic_generation_card_same_bits_as_cpu(cuda):
+    from dla_tpu_torch import parallel as TP
+
+    lay = TP.BlockCyclicLayout(1024, 64, 2, 4)
+    for dtype in (torch.float64, torch.float32):
+        card = TP.generate_spd_block_cyclic(lay, TP.make_mesh(2, 4), dtype=dtype)
+        cpu = TP.generate_spd_block_cyclic(lay, TP.make_mesh(2, 4, device="cpu"), dtype=dtype)
+        assert all(c.device.type == "cuda" for c in card)
+        assert all(torch.equal(c.cpu(), h) for c, h in zip(card, cpu))
+        assert torch.equal(TP.to_dense(card, lay).cpu(), T.plgsy(1024, dtype=dtype, device="cpu"))
+
+
+@pytest.mark.parametrize("p,q", [(2, 4), (4, 2), (1, 1)])
+def test_block_cyclic_factor_card_matches_cpu(cuda, p, q):
+    """The member-mesh factor on the card against the same call on the CPU:
+    fp64 within rtol = atol = 1e-11; the solve too, and under 1e-10."""
+    from dla_tpu_torch import parallel as TP
+
+    n, nb = 1024, 64
+    lay = TP.BlockCyclicLayout(n, nb, p, q)
+    card, cpu = TP.make_mesh(p, q), TP.make_mesh(p, q, device="cpu")
+    lg, lc = _block_cyclic_factor(card, lay), _block_cyclic_factor(cpu, lay)
+    torch.testing.assert_close(lg, lc, rtol=1e-11, atol=1e-11)
+    b = torch.ones(n, 3, dtype=torch.float64)
+    xs = [TP.potrs_block_cyclic(TP.from_dense(l, lay, m), b, lay, m).cpu()
+          for l, m in ((lg, card), (lc, cpu))]
+    torch.testing.assert_close(xs[0], xs[1], rtol=1e-10, atol=1e-12)
+    a = T.plgsy(n, dtype=torch.float64, device="cpu")
+    assert float(T.residual_potrf(a, lg)) < 1e-10
+    from dla_tpu_torch.validate import residual_posv
+
+    assert float(residual_posv(a, b, xs[0])) < 1e-10
+
+
+def test_block_cyclic_super_steps_match_unrolled_on_card(cuda):
+    from dla_tpu_torch import parallel as TP
+
+    lay = TP.BlockCyclicLayout(2048, 32, 2, 4)  # 64 steps
+    mesh = TP.make_mesh(2, 4)
+    unrolled = _block_cyclic_factor(mesh, lay, unroll=True)
+    for ss in (2, 7, 64):
+        torch.testing.assert_close(_block_cyclic_factor(mesh, lay, unroll=False, super_steps=ss),
+                                   unrolled, rtol=1e-11, atol=1e-11)
+
+
+def test_session_and_distributed_driver_on_card(cuda, capsys):
+    from dla_tpu_torch.cli import potrf_driver, session
+
+    assert session.main(["--N", "2048", "--B", "128", "--p", "2", "--q", "4", "--dtype", "d",
+                         "--solve", "8"]) == 0
+    assert "backend=cuda" in capsys.readouterr().out
+    assert potrf_driver.main(["--n", "4096", "--nb", "256", "--dtype", "s", "--mode",
+                              "distributed", "--p", "2", "--q", "2"]) == 0
+
+
+def test_oocore_mesh_on_card_matches_single_device(cuda):
+    """The distributed out-of-core path (panels split over a 2x2 member mesh on
+    the card) against the single-device path: fp64 within 1e-12·max|L|."""
+    from dla_tpu_torch.algos.oocore import potrf_outofcore
+    from dla_tpu_torch.parallel import make_mesh
+    from dla_tpu_torch.runtime.staging import HostTileStore
+
+    n, panel, nb = 4096, 512, 256
+    ls = []
+    for mesh in (make_mesh(2, 2), None):
+        with HostTileStore(n, np.float64) as st:
+            st.fill_plgsy(seed=51)
+            potrf_outofcore(st, panel=panel, nb=nb, mesh=mesh)
+            ls.append(np.tril(st.array))
+    assert np.abs(ls[0] - ls[1]).max() <= 1e-12 * np.abs(ls[1]).max()

@@ -18,7 +18,10 @@ Tolerances:
 - a resumed factor (after a crash between panels, or a torn writeback)
   against an uninterrupted run of the same path: the same bits;
 - ``posv_refined_streamed``: backward error under the reference's 1e-10
-  in both packages, and x within 1e-9 of JAX's.
+  in both packages, and x within 1e-9 of JAX's;
+- the distributed path (``mesh=``, each panel split by rows over the
+  members) against JAX's on the 8 virtual CPU devices of tests/conftest.py,
+  and against the port's path without a mesh: the device path's tolerances.
 
 The Freivalds gates this path uses (``freivalds_streaming`` and
 ``HostTileStore.freivalds_residual``) must rise with a known relative
@@ -34,6 +37,7 @@ import pytest
 import torch
 
 import dla_tpu.algos as JA
+import dla_tpu.parallel as JPAR
 from dla_tpu.algos import oocore as J
 from dla_tpu.algos import packed as JP
 from dla_tpu.runtime import staging as JS
@@ -42,6 +46,7 @@ from dla_tpu_torch.algos import packed as TP
 from dla_tpu_torch.algos import posv_refined_streamed, potrf_blocked
 from dla_tpu_torch.cli import oocore_driver, potrf_driver
 from dla_tpu_torch.ops import plgsy
+from dla_tpu_torch.parallel import make_flat_mesh, make_mesh
 from dla_tpu_torch.runtime import staging as TS
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -122,6 +127,72 @@ class TestDevicePath:
             st.fill_plgsy(seed=51, bump=-1.0)
             T.potrf_outofcore(st, panel=32, nb=16, device="cpu")
             assert np.isnan(np.tril(st.array)).any()
+
+
+class TestMesh:
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("kind,n,panel,nb,p,q", [
+        ("flat", 256, 64, 32, 2, 2),
+        ("flat", 256, 64, 48, 2, 4),  # a diagonal block spans members (8 rows each at the end)
+        ("panel", 384, 128, 32, 1, 4),
+    ])
+    def test_matches_jax_and_the_single_device_path(self, tmp_path, dtype, kind, n, panel, nb,
+                                                    p, q):
+        a, b = _stores(kind, n, dtype, tmp_path, panel)
+        with a, b:
+            J.potrf_outofcore(a, panel=panel, nb=nb, mesh=JPAR.make_mesh(p, q))
+            stats = T.potrf_outofcore(b, panel=panel, nb=nb, mesh=make_mesh(p, q, device="cpu"))
+            ref, got = _lower(a).astype(np.float64), _lower(b)
+        assert got.dtype == dtype and stats["panels"] == n // panel
+        assert _rel(got, ref) <= TOL[dtype]
+        single = _uninterrupted(kind, tmp_path, n, panel, nb, dtype=dtype, device="cpu")
+        assert _rel(got, single.astype(np.float64)) <= TOL[dtype]
+
+    def test_flat_mesh_and_one_member(self):
+        n, panel, nb = 128, 32, 16
+        with TS.HostTileStore(n, np.float64) as st:
+            st.fill_plgsy(seed=51)
+            T.potrf_outofcore(st, panel=panel, nb=nb, mesh=make_flat_mesh(4, device="cpu"))
+            four = _lower(st)
+        with TS.HostTileStore(n, np.float64) as st:
+            st.fill_plgsy(seed=51)
+            T.potrf_outofcore(st, panel=panel, nb=nb, mesh=make_mesh(1, 1, device="cpu"))
+            one = _lower(st)
+        np.testing.assert_array_equal(
+            one, _uninterrupted("flat", None, n, panel, nb, device="cpu"))
+        assert _rel(four, one) <= TOL[np.float64]
+
+    def test_kill_and_resume_same_bits(self, tmp_path):
+        n, panel, nb = 128, 32, 16
+        prog, mesh = str(tmp_path / "progress.json"), make_mesh(2, 2, device="cpu")
+
+        def crash_after_two(j, npan):
+            if j == 1:
+                raise Crash
+
+        with TS.HostTileStore(n, np.float64, path=str(tmp_path / "mat.bin")) as st:
+            st.fill_plgsy(seed=51)
+            with pytest.raises(Crash):
+                T.potrf_outofcore(st, panel=panel, nb=nb, progress_path=prog, mesh=mesh,
+                                  on_panel=crash_after_two)
+        with TS.HostTileStore(n, np.float64, path=str(tmp_path / "mat.bin")) as st:
+            stats = T.potrf_outofcore(st, panel=panel, nb=nb, progress_path=prog, mesh=mesh)
+            got = _lower(st)
+        assert stats["panels"] == n // panel - 2
+        np.testing.assert_array_equal(got, _uninterrupted("flat", tmp_path, n, panel, nb,
+                                                          mesh=mesh))
+
+    def test_refusals(self, tmp_path):
+        mesh = make_mesh(2, 2, device="cpu")
+        with TS.HostTileStore(96, np.float64) as st:
+            with pytest.raises(ValueError, match="multiple of mesh.size"):
+                T.potrf_outofcore(st, panel=48, nb=16, mesh=make_mesh(1, 5, device="cpu"))
+        with TS.DirectPanelStore(128, np.float64, path=str(tmp_path / "p.bin"), panel=32,
+                                 direct=False) as st:
+            with pytest.raises(ValueError, match="single-device"):
+                T.potrf_outofcore(st, panel=32, nb=16, mesh=mesh, height_bucket=64)
+            with pytest.raises(ValueError, match="members lie on"):
+                T.potrf_outofcore(st, panel=32, nb=16, mesh=mesh, device="meta")
 
 
 class TestHostPath:
@@ -243,9 +314,16 @@ class TestRejections:
                 T.potrf_outofcore(st, panel=32, nb=16, host_blas=True, mesh=object())
 
     def test_mesh_names_a9(self):
+        """A mesh on one device runs (``TestMesh``); one whose members span
+        several devices is what still raises naming ROADMAP A9."""
+        from dla_tpu_torch.parallel import MemberMesh
+
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            MemberMesh((torch.device("cpu"), torch.device("meta")), (1, 2))
         with TS.HostTileStore(64, np.float64) as st:
-            with pytest.raises(NotImplementedError, match="A9"):
-                T.potrf_outofcore(st, panel=32, nb=16, mesh=object(), device="cpu")
+            st.fill_plgsy(seed=51)
+            T.potrf_outofcore(st, panel=32, nb=16, mesh=make_mesh(2, 2, device="cpu"))
+            assert np.isfinite(np.tril(st.array)).all()
 
     def test_bucket_needs_a_panel_store(self):
         with TS.HostTileStore(64, np.float64) as st:
@@ -445,9 +523,18 @@ class TestDriver:
         assert "(resumed: 2/4 panels" in cap.out and "PASS (gate 1e-10)" in cap.out
 
     def test_mesh_exits_2_naming_a9(self, capsys):
-        rc, cap = _drive(capsys, "--n", 256, "--panel", 64, "--p", 2, "--q", 2, "--device",
-                         "cpu")
-        assert rc == 2 and "A9" in cap.err
+        """``--p 2 --q 2``, once refused naming ROADMAP A9, runs the
+        distributed path and passes its gate."""
+        rc, cap = _drive(capsys, "--n", 256, "--panel", 64, "--nb", 32, "--p", 2, "--q", 2,
+                         "--dtype", "float64", "--device", "cpu")
+        assert rc == 0, cap.out + cap.err
+        assert "[oocore] distributed: panels sharded over a 2x2 mesh" in cap.out
+        assert "PASS (gate 1e-10)" in cap.out and "A9" not in cap.out + cap.err
+
+    def test_host_blas_excludes_a_mesh(self, capsys):
+        with pytest.raises(SystemExit) as e:
+            oocore_driver.main(["--n", "256", "--panel", "64", "--host-blas", "--p", "2"])
+        assert e.value.code == 2
 
     def test_no_card_exits_2(self, capsys, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -270,10 +270,16 @@ def test_ring_broadcast_volumes_match_accounting(monkeypatch):
 # ---- the dry run ------------------------------------------------------------------------
 
 def test_dryrun_on_the_cpu(capsys):
+    """All six planes, in the JAX function's order: 1 and 4 on the 2x2
+    member mesh, the ring planes 2, 3, 6 and the serving plane 5 on 1x4."""
     before = TC.ring_broadcast_launches
     assert dryrun.main(["--ndev", "4", "--device", "cpu", "--n", "128", "--nb", "16"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 3 and all(x.startswith("dryrun OK: mesh 1x4 on cpu") for x in lines)
+    assert len(lines) == 6
+    assert [x.split(" (")[0] for x in lines] == [
+        "dryrun OK: mesh 2x2 on cpu", "dryrun OK: mesh 1x4 on cpu", "dryrun OK: mesh 1x4 on cpu",
+        "dryrun OK: mesh 2x2 on cpu", "dryrun OK: mesh 1x4 on cpu", "dryrun OK: mesh 1x4 on cpu"]
+    assert "block-cyclic" in lines[0] and "POTRS" in lines[3] and "serving" in lines[4]
     assert all("(fp64 gate 1e-10)" in x for x in lines)
     assert TC.ring_broadcast_launches == before  # the plain ring on the CPU
 
