@@ -219,6 +219,29 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     store (its host Freivalds gate, not the factorization, sets its time).
     Each with its time, GFLOP/s at (1/3)·N³/t, gate value and peak
     device memory.
+37. the driver's full flag surface, each run's median time, GFLOP/s, gate
+    value, #1 launches and peak device memory on one line: ``--dtype z
+    --mode blocked`` at N=16384, nb=1024 (gate 1e-10), again with
+    ``DLA_TPU_C3M=1`` (the 3M complex product, its time beside the first);
+    ``--dtype c --uplo U --mode shrink``; ``--dtype z --uplo U --mode blocked
+    --solve potrs`` at N=4096 (under 1e-10: the solve reads A through its
+    upper triangle and L = Uᴴ); ``--dtype c --mode packed --nb
+    4096`` with ``--solve potrs`` and ``--solve inverse`` (complex runs take
+    cuBLAS and cuSOLVER: the hand kernels are real-only); then fp32 runs that
+    launch kernel #1: a principal view (``--lm 65536 --ioff 16384 --joff
+    16384 --m 16384``, its peak memory well below the 16 GiB of the 65536²
+    square, which is never built), ``--gen gershgorin``, ``--uplo B --mode
+    shrink --trailing pallas``, ``--input`` of a ``.npy`` (N taken from the
+    file) and its ``--solve refined`` (tril(A) widened to fp64), ``--checked``
+    (PASS) and ``--checked --bump 0.0001`` at N=4096 (exit code 3, ``CHECK
+    FAILED``); the session at ``--dtype z``, N=4096 on 2×2 (PASS, as the JAX
+    package's session); the LAPACK oracle ``--n 4096 --cross-check``; a
+    sweep of the harness, two configurations (N=16384 fp32 ``inplace``, and
+    ``packed --trailing pallas --precision default`` at nb=4096) × 3 repeats
+    into a temporary CSV, every row exit code 0 with a passing ``rel_error``;
+    ``time_fn`` and ``Roofline`` over ``potrf_inplace`` at N=16384 (the peak
+    fraction below 100%) and ``trace()``, a non-empty Chrome trace; and the
+    phase's wall time.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -304,6 +327,10 @@ N_OOC, N_OOC_CUT, W_OOC, NB_OOC, N_OOC64 = 131072, 98304, 4096, 512, 16384
 # NB_BC_SUPER, the driver's --mode distributed and the out-of-core driver on a 2x2 mesh
 N_BC, NB_BC, P_BC, Q_BC, NRHS_BC, NB_BC_SUPER = 32768, 512, 2, 4, 64, 256
 N_BC_DRIVER, NB_BC_DRIVER, N_BC_OOC = 16384, 512, 24576
+# phase 37: the driver's full flag surface (complex, views, generators, --input, --checked),
+# the c/z session, the oracle, the sweep harness and the profiling helpers
+N_FLAGS, NB_FLAGS, NB_FLAGS_PACKED, LM_VIEW, N_CHECK_FAIL = 16384, 1024, 4096, 65536, 4096
+N_SESSION_Z, NB_SESSION_Z = 4096, 256
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -584,8 +611,9 @@ def phase_inplace_check(dev):
 
 
 # ---- 5. and 9. the driver -------------------------------------------------------
-def phase_driver(tag, argv, env=None):
-    """Run the driver in this process with ``env`` added to the environment."""
+def driver_run(tag, argv, env=None) -> tuple[int, str]:
+    """Run the driver in this process with ``env`` added to the environment;
+    print its lines; its exit code and output."""
     from dla_tpu_torch.cli import potrf_driver
 
     buf = io.StringIO()
@@ -593,7 +621,7 @@ def phase_driver(tag, argv, env=None):
     os.environ.update(env or {})
     try:
         with contextlib.redirect_stdout(buf):
-            rc = potrf_driver.main(argv)
+            rc = potrf_driver.main([str(a) for a in argv])
     finally:
         for k, v in saved.items():
             if v is None:
@@ -603,8 +631,15 @@ def phase_driver(tag, argv, env=None):
     for line in buf.getvalue().splitlines():
         print(f"driver| {line}")
     print(f"driver numbers above: {tag}", flush=True)
-    require(rc == 0 and "PASS" in buf.getvalue(), f"driver returned {rc} without PASS")
-    return buf.getvalue()
+    return rc, buf.getvalue()
+
+
+def phase_driver(tag, argv, env=None):
+    """Run the driver in this process with ``env`` added to the environment;
+    it must pass."""
+    rc, out = driver_run(tag, argv, env)
+    require(rc == 0 and "PASS" in out, f"driver returned {rc} without PASS")
+    return out
 
 
 # ---- 6. the packed kernel against its plain version -----------------------------
@@ -2394,7 +2429,182 @@ def phase_distributed_drivers(tag):
     torch.cuda.empty_cache()
 
 
-LAST_PHASE = 36
+# ---- 37. the driver's full flag surface, the session at z, oracle, harness, profiling ------
+GATE_LINE = r"^(?:\|\|A - LL\^T\|\|_inf / \|\|A\|\|_inf|freivalds .*) ="
+SOLVE_LINE = r"^\|\|B - A X\|\|_inf / \(\|\|A\|\|_inf \|\|X\|\|_inf\) ="
+
+
+def flags_run(tag, label, argv, env=None, kernel=False, rc_want=0):
+    """One driver run of phase 37: its time, gate value (and solve residual)
+    and peak device memory on one line; ``kernel``: #1 must have launched."""
+    from dla_tpu_torch.kernels import tiles
+
+    fresh_peak()
+    before = tiles.launches
+    rc, out = driver_run(tag, argv, env)
+    peak = torch.cuda.max_memory_allocated()
+    require(rc == rc_want, f"{label}: the driver returned {rc}, not {rc_want}")
+    if rc_want:
+        return out, peak
+    require("PASS" in out and "FAIL" not in out, f"{label}: no PASS")
+    ms = number(out, r"^Elapsed:")
+    gate = re.search(r"^PASS \(residual < (\S+)\)$", out, re.M).group(1)
+    solve = (f", solve {number(out, SOLVE_LINE):.3e}" if re.search(SOLVE_LINE, out, re.M)
+             else "")
+    n = int(re.findall(r"N=(\d+)", out)[-1])  # a file's N comes in a later line
+    launched = tiles.launches - before
+    refined = re.search(r"refined solve: (\d+) iterations, (\S+) ms", out)
+    if refined:
+        solve += f" ({refined.group(1)} iterations, {refined.group(2)} ms)"
+    print(f"phase 37 {label}: median {ms:.1f} ms, {n ** 3 / 3 / (ms / 1e3) / 1e9:.1f} "
+          f"GFLOP/s, gate value {number(out, GATE_LINE):.3e} (gate {gate}){solve}, #1 "
+          f"launches {launched} (warm-up and timed repeat), peak device memory "
+          f"{peak / 2**30:.3f} GiB {tag}", flush=True)
+    require(launched > 0 or not kernel, f"{label}: kernel #1 was not launched")
+    return out, peak
+
+
+def phase_driver_flags(tag):
+    """The complex runs and the real flags that reach kernel #1."""
+    import numpy as np
+
+    n, nb = N_FLAGS, NB_FLAGS
+    base = ["--n", n, "--nb", nb, "--repeats", 1]
+    out, _ = flags_run(tag, f"--dtype z --mode blocked N={n}",
+                    base + ["--dtype", "z", "--mode", "blocked"])
+    plain_ms = number(out, r"^Elapsed:")
+    out, _ = flags_run(tag, f"--dtype z --mode blocked N={n} DLA_TPU_C3M=1",
+                    base + ["--dtype", "z", "--mode", "blocked"],
+                    env={"DLA_TPU_C3M": "1"})
+    print(f"phase 37 z blocked N={n}: 4M {plain_ms:.1f} ms, 3M "
+          f"{number(out, r'^Elapsed:'):.1f} ms {tag}", flush=True)
+    flags_run(tag, f"--dtype c --uplo U --mode shrink N={n}",
+           base + ["--dtype", "c", "--uplo", "U", "--mode", "shrink"])
+    # the solves through uplo U read A's upper triangle and L = Uᴴ: under 1e-10 at z
+    flags_run(tag, f"--dtype z --uplo U --mode blocked --solve potrs N={N_CHECK_FAIL}",
+           ["--n", N_CHECK_FAIL, "--nb", nb, "--repeats", 1, "--dtype", "z", "--uplo", "U",
+            "--mode", "blocked", "--solve", "potrs", "--nrhs", NRHS_SOLVE])
+    for solve in ("potrs", "inverse"):
+        flags_run(tag, f"--dtype c --mode packed --nb {NB_FLAGS_PACKED} --solve {solve} N={n}",
+               ["--n", n, "--nb", NB_FLAGS_PACKED, "--repeats", 1, "--dtype", "c", "--mode",
+                "packed", "--solve", solve, "--nrhs", NRHS_SOLVE])
+    view = base + ["--dtype", "s", "--mode", "inplace", "--lm", LM_VIEW, "--ioff", n, "--joff", n,
+                   "--m", n]
+    _, peak = flags_run(tag, f"--mode inplace view m={n} of lm={LM_VIEW}", view, kernel=True)
+    # without the gate's fp64 copies of A and L: what generating the view and factoring it hold
+    fresh_peak()
+    rc, _ = driver_run(tag, view + ["--no-check"])
+    bare = torch.cuda.max_memory_allocated()
+    square = LM_VIEW * LM_VIEW * 4
+    print(f"phase 37 view: peak device memory {peak / 2**30:.3f} GiB with the gate, "
+          f"{bare / 2**30:.3f} GiB without it, against {square / 2**30:.1f} GiB for the "
+          f"{LM_VIEW}^2 fp32 square {tag}", flush=True)
+    require(rc == 0 and bare < square / 4,
+            "the view's run held memory on the scale of the whole square")
+    flags_run(tag, f"--gen gershgorin --mode inplace N={n}",
+           base + ["--dtype", "s", "--mode", "inplace", "--gen", "gershgorin"], kernel=True)
+    flags_run(tag, f"--uplo B --mode shrink --trailing pallas N={n}",
+           base + ["--dtype", "s", "--uplo", "B", "--mode", "shrink", "--trailing", "pallas"],
+           kernel=True)
+    tmp = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"chip_smoke_input_{os.getpid()}.npy")
+    from dla_tpu_torch.ops import plgsy
+
+    np.save(tmp, plgsy(n, dtype=torch.float32, device="cuda").cpu().numpy())
+    try:
+        argv = ["--nb", nb, "--repeats", 1, "--dtype", "s", "--mode", "inplace", "--input", tmp]
+        out, _ = flags_run(tag, "--input (.npy, N from the file) --mode inplace", argv)
+        require(f"N={n} adopted from" in out, "N was not taken from the file")
+        out, _ = flags_run(tag, "--input --mode inplace --solve refined",
+                        argv + ["--solve", "refined", "--nrhs", NRHS_SOLVE])
+        require("tril(A) widened to fp64" in out and number(out, SOLVE_LINE) < 1e-10,
+                "the refined solve did not solve the file's tril(A) under 1e-10")
+    finally:
+        os.remove(tmp)
+    flags_run(tag, f"--checked N={n}", base + ["--dtype", "s", "--mode", "inplace", "--checked"])
+    out, _ = flags_run(tag, "--checked --bump 0.0001", ["--n", N_CHECK_FAIL, "--nb", nb, "--dtype",
+                                                     "s", "--checked", "--bump", "0.0001"],
+                    rc_want=3)
+    require("CHECK FAILED: POTRF produced NaNs" in out, "--checked did not say CHECK FAILED")
+    print(f"phase 37 --checked --bump 0.0001 N={N_CHECK_FAIL}: exit code 3, "
+          f"{next(ln for ln in out.splitlines() if 'CHECK FAILED' in ln)} {tag}", flush=True)
+
+
+def phase_tools(dev, tag):
+    """The session at z, the oracle, a two-config sweep, the profiling helpers."""
+    import tempfile
+
+    from dla_tpu_torch.bench.harness import SweepConfig, run_sweep
+    from dla_tpu_torch.cli import oracle, session
+
+    n = N_SESSION_Z
+    fresh_peak()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = session.main([str(a) for a in ("--N", n, "--B", NB_SESSION_Z, "--p", 2, "--q", 2,
+                                            "--dtype", "z", "--solve", 16)])
+    out = buf.getvalue()
+    require(rc == 0 and "[CLIENT] session complete: PASS" in out, "the z session failed")
+    print(f"phase 37 session --dtype z N={n} B={NB_SESSION_Z} 2x2: "
+          f"{number(out, r'^Elapsed:'):.1f} ms, "
+          f"residual {number(out, GATE_LINE):.3e}, solve {number(out, SOLVE_LINE):.3e} (gate "
+          f"1e-10, complex128 as float64), peak device "
+          f"memory {peak_gib()} {tag}", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = oracle.main(["--n", str(n), "--cross-check"])
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"oracle| {line}")
+    require(rc == 0 and "CROSS-CHECK PASS" in out, "the oracle's cross-check failed")
+    print(f"oracle numbers above: {tag}", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        csv_path = os.path.join(d, "sweep.csv")
+        t0 = time.perf_counter()
+        rows = run_sweep(SweepConfig(ns=(N_FLAGS,), nbs=(NB_FLAGS,), dtypes=("float32",),
+                                     modes=("inplace",), repeats=3, timeout_s=300),
+                         csv_path, echo=False)
+        rows += run_sweep(SweepConfig(ns=(N_FLAGS,), nbs=(NB_FLAGS_PACKED,), dtypes=("float32",),
+                                      modes=("packed",), trailing="pallas",
+                                      precision="default", repeats=3, timeout_s=300),
+                          csv_path, echo=False)
+        wall = time.perf_counter() - t0
+    for r in rows:
+        print(f"sweep| N={r['N']} NB={r['NB']} {r['mode']} {r['precision']} rep={r['run_idx']}: "
+              f"{r['ms']} ms, {r['gflops']} GFLOP/s, rel_error {r['rel_error']}, exit code "
+              f"{r['exit_code']} {tag}", flush=True)
+    print(f"phase 37 sweep: {len(rows)} rows in {wall:.1f} s (two children) {tag}", flush=True)
+    require(len(rows) == 6 and all(r["exit_code"] == 0 and r["rel_error"] != ""
+                                   and float(r["rel_error"]) < N_FLAGS * 2e-7 for r in rows),
+            "a sweep row failed or lacks a passing rel_error")
+    import dla_tpu_torch.algos as TA
+    from dla_tpu_torch.ops import plgsy
+    from dla_tpu_torch.utils import profiling
+
+    a0 = plgsy(N_FLAGS, dtype=torch.float32, device=dev)
+    buf0 = torch.empty_like(a0)
+    kw = dict(MAIN_KW)
+    med, times = profiling.time_fn(lambda: TA.potrf_inplace(buf0.copy_(a0), **kw), iters=3)
+    roof = profiling.Roofline("float32", precision=kw["precision"])
+    e = roof.record("potrf_inplace", N_FLAGS ** 3 / 3, med)
+    for line in roof.report().splitlines():
+        print(f"roofline| {line}")
+    print(f"phase 37 profiling: time_fn median {med * 1e3:.1f} ms of "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (each with a {N_FLAGS}^2 copy), "
+          f"{e.gflops:.1f} GFLOP/s, {e.peak_fraction:.2%} of the {roof.peak:.0f} GFLOP/s "
+          f"peak at {kw['precision']} {tag}", flush=True)
+    require(0 < e.peak_fraction < 1, "the roofline's peak fraction is not below 100%")
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            TA.potrf_inplace(buf0.copy_(a0), **kw)
+            sync()
+        size = os.path.getsize(os.path.join(d, "trace.json"))
+    print(f"phase 37 trace: trace.json {size} bytes {tag}", flush=True)
+    require(size > 0, "trace() wrote an empty trace")
+    del a0, buf0
+    torch.cuda.empty_cache()
+
+
+LAST_PHASE = 37
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -2534,6 +2744,11 @@ def main(argv=None) -> int:
         phase_session(tag)
         phase_block_cyclic(dev, tag)
         phase_distributed_drivers(tag)
+    if 37 in sel:
+        t37 = time.perf_counter()
+        phase_driver_flags(tag)
+        phase_tools(dev, tag)
+        print(f"phase 37 wall time: {time.perf_counter() - t37:.1f} s {tag}", flush=True)
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

@@ -26,9 +26,12 @@ tile descriptor ``TileLayout`` and the DAG's task counts
 (``dla_tpu_torch.cli.session.dag_counts``); the dense solve and serving path
 after the factor, ``potrs``, ``posv``, ``posv_refined``,
 ``posv_refined_host``, ``potri``, ``solve_inverse`` and ``lauum``, with
-``residual_posv``; and the two entry points, the
-driver (``python -m dla_tpu_torch.cli.potrf_driver``) and the tiered bench
-(``python -m dla_tpu_torch.bench.bench``). The top level exports the names
+``residual_posv``; complex (c/z) inputs on every route but the hand
+kernels' (``plghe``), ``potrf_checked``, out of core and the block-cyclic
+plane on a member mesh; and the entry points: the driver (``python -m
+dla_tpu_torch.cli.potrf_driver``, the JAX driver's flags), the session, the
+out-of-core driver, the LAPACK oracle, the tiered bench (``python -m
+dla_tpu_torch.bench.bench``) and the sweep harness with its plots. The top level exports the names
 the JAX package's top level does; the rest is exported by
 ``dla_tpu_torch.ops``, ``dla_tpu_torch.algos`` and ``dla_tpu_torch.validate``,
 as by the JAX package's subpackages.
@@ -58,12 +61,17 @@ from dla_tpu_torch.algos import (  # noqa: E402
     unpack_tri,
 )
 from dla_tpu_torch.ops import (  # noqa: E402
+    geadd,
     gemm,
+    lacpy,
     lange,
     lauum,
+    plghe,
+    plghe_tile,
     plgsy,
     plgsy_tile,
     potrf_unblocked,
+    spd_gershgorin,
     syrk,
     trsm,
 )
@@ -73,10 +81,14 @@ from dla_tpu_torch.validate import cholesky_invariants, residual_potrf  # noqa: 
 __all__ = [
     "TileLayout",
     "cholesky_invariants",
+    "geadd",
     "gemm",
+    "lacpy",
     "lange",
     "lauum",
     "pack_tri",
+    "plghe",
+    "plghe_tile",
     "plgsy",
     "plgsy_tile",
     "posv",
@@ -92,6 +104,7 @@ __all__ = [
     "residual_potrf",
     "solve_inverse",
     "solve_inverse_packed",
+    "spd_gershgorin",
     "syrk",
     "trsm",
     "unpack_tri",

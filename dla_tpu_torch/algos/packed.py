@@ -22,8 +22,9 @@ packed space (:func:`trtri_packed` → :func:`lauum_packed`, together
 streamed solve residual :func:`residual_posv_streamed`. Like
 :func:`potrf_packed`, the three inverse steps overwrite their input buffer
 column by column and return it (the reference donates the buffer to the same
-effect); the column order keeps that safe. Complex dtypes are not ported
-(``ROADMAP.md`` Queue A item 5).
+effect); the column order keeps that safe. Complex (Hermitian) factors run
+every function here, as in the reference: the products conjugate where it
+does, and only the hand kernel's route (``trailing="pallas"``) is real-only.
 """
 
 from __future__ import annotations
@@ -100,6 +101,11 @@ def _ctype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
+def _real(dtype: torch.dtype) -> torch.dtype:
+    """The real dtype of a compute dtype (the norm's, for complex data)."""
+    return {torch.complex64: torch.float32, torch.complex128: torch.float64}.get(dtype, dtype)
+
+
 def _diag_invs(packed: torch.Tensor, n: int, tb: int) -> list[torch.Tensor]:
     """inv(L[k,k]) for every diagonal block (lower-triangular inverses, read
     from the blocks' lower triangles). Blocks wider than 1024 go through the
@@ -119,12 +125,6 @@ def _diag_invs(packed: torch.Tensor, n: int, tb: int) -> list[torch.Tensor]:
     return out
 
 
-def _real_only(name: str, t: torch.Tensor) -> None:
-    if t.is_complex():
-        raise NotImplementedError(
-            f"{name} on complex dtypes is not ported yet; see ROADMAP.md Queue A5")
-
-
 def trtri_packed(lp: torch.Tensor, n: int, tb: int) -> torch.Tensor:
     """K = L⁻¹ in packed space, **in place**: ``lp`` is overwritten with K and
     returned. Column j of K replaces column j of L only after it is whole,
@@ -132,7 +132,6 @@ def trtri_packed(lp: torch.Tensor, n: int, tb: int) -> torch.Tensor:
     Column-oriented right-looking substitution over contiguous column-slab
     slices, with the diagonal blocks' inverses from :func:`_diag_invs`."""
     _check(n, tb)
-    _real_only("trtri_packed", lp)
     nt = n // tb
     ct = _ctype(lp.dtype)
     dinv = _diag_invs(lp, n, tb)
@@ -154,19 +153,19 @@ def trtri_packed(lp: torch.Tensor, n: int, tb: int) -> torch.Tensor:
 
 
 def lauum_packed(kp: torch.Tensor, n: int, tb: int) -> torch.Tensor:
-    """Lower triangle of KᵀK from packed K (the lauum-of-inverse step of
+    """Lower triangle of KᵀK (KᴴK) from packed K (the lauum-of-inverse step of
     POTRI), **in place**: ``kp`` is overwritten and returned. One
     (tb, (nt−i)·tb)·((nt−i)·tb, tb) product per output tile; column j is
     overwritten only once its slab is done, from columns ≥ j of K."""
     _check(n, tb)
-    _real_only("lauum_packed", kp)
     nt = n // tb
     ct = _ctype(kp.dtype)
+    cj = kp.is_complex()
     for j in range(nt):
         colj = col_slab(kp, j, n, tb).to(ct)
         z = torch.zeros((tb, tb), dtype=ct, device=kp.device)
         blocks = [gemm(1.0, col_slab(kp, i, n, tb).to(ct), colj[(i - j) * tb :], 0.0, z,
-                       transa=True) for i in range(j, nt)]
+                       transa=True, conja=cj) for i in range(j, nt)]
         _set_col(kp, j, torch.cat(blocks), n, tb)
     return kp
 
@@ -184,11 +183,11 @@ def solve_inverse_packed(sp: torch.Tensor, b: torch.Tensor, n: int, tb: int) -> 
     :func:`~dla_tpu_torch.algos.potri.solve_inverse` product's bytes. Per
     block column j: X[j·tb:] += S[:, j]·B_j (the lower triangle, diagonal
     included) and X_j += S[j+1:, j]ᵀ·B[(j+1)·tb:] (the strict upper, by
-    symmetry). ``b`` is (n,) or (n, nrhs); returns a new tensor in the
-    compute dtype."""
+    symmetry; Hermitian for complex). ``b`` is (n,) or (n, nrhs); returns a
+    new tensor in the compute dtype."""
     _check(n, tb)
-    _real_only("solve_inverse_packed", sp)
     nt = n // tb
+    cj = sp.is_complex()
     vec = b.ndim == 1
     ct = _ctype(sp.dtype)
     bb = (b[:, None] if vec else b).to(ct)
@@ -198,7 +197,7 @@ def solve_inverse_packed(sp: torch.Tensor, b: torch.Tensor, n: int, tb: int) -> 
         x[j * tb :] = gemm(1.0, colj, bb[j * tb : (j + 1) * tb], 1.0, x[j * tb :])
         if j + 1 < nt:
             x[j * tb : (j + 1) * tb] = gemm(1.0, colj[tb:], bb[(j + 1) * tb :], 1.0,
-                                            x[j * tb : (j + 1) * tb], transa=True)
+                                            x[j * tb : (j + 1) * tb], transa=True, conja=cj)
     return x[:, 0] if vec else x
 
 
@@ -287,17 +286,21 @@ def potrf_packed(
     meaningful. ``trailing="xla"`` is the reference's per-slab GEMM loop.
 
     bf16 storage computes the panel in fp32; the trailing update reads and
-    writes bf16 with fp32 accumulation. Real dtypes only.
+    writes bf16 with fp32 accumulation. Complex (Hermitian) input takes the
+    ``"xla"`` route, A − L·Lᴴ; the kernel's route raises for it, as the
+    reference does.
     """
     _check(n, tb)
-    if ap.is_complex():
-        raise NotImplementedError(
-            "potrf_packed on complex dtypes is not ported yet; see ROADMAP.md Queue A"
-        )
     if trailing not in ("xla", "pallas"):
         raise ValueError(f"trailing must be 'xla' or 'pallas', got {trailing!r}")
+    if trailing == "pallas" and ap.is_complex():
+        raise ValueError(
+            "trailing='pallas' supports real dtypes only (the kernel "
+            "computes P·Pᵀ, not P·Pᴴ); use the default trailing='xla'"
+        )
     nt = n // tb
     ct = _ctype(ap.dtype)
+    cj = ap.is_complex()
     with _precision.override(precision):
         for k in range(nt):
             colk = col_slab(ap, k, n, tb)
@@ -314,7 +317,7 @@ def potrf_packed(
             for j in range(k + 1, nt):
                 i0 = (j - k - 1) * tb  # lik rows j·tb.. of block column k
                 upd = gemm(-1.0, lik[i0:], lik[i0 : i0 + tb], 1.0,
-                           col_slab(ap, j, n, tb).to(ct), transb=True)
+                           col_slab(ap, j, n, tb).to(ct), transb=True, conjb=cj)
                 _set_col(ap, j, upd, n, tb)
     return ap
 
@@ -322,9 +325,10 @@ def potrf_packed(
 def trmm_packed(
     lp: torch.Tensor, b: torch.Tensor, n: int, tb: int, *, trans: bool = False
 ) -> torch.Tensor:
-    """Y = L·B (or Lᵀ·B) from the packed factor — one GEMM per block column
-    (the packed ``dtrmm`` of the matrix-free gate)."""
+    """Y = L·B (or Lᵀ·B, Lᴴ·B for complex) from the packed factor — one GEMM
+    per block column (the packed ``dtrmm`` of the matrix-free gate)."""
     _check(n, tb)
+    cj = lp.is_complex()
     vec = b.ndim == 1
     bb = b[:, None] if vec else b
     ct = _ctype(lp.dtype)
@@ -336,7 +340,7 @@ def trmm_packed(
             y[j * tb :] = gemm(1.0, colj, bb[j * tb : (j + 1) * tb], 1.0, y[j * tb :])
         else:
             y[j * tb : (j + 1) * tb] = gemm(1.0, colj, bb[j * tb :], 0.0,
-                                           y[j * tb : (j + 1) * tb], transa=True)
+                                           y[j * tb : (j + 1) * tb], transa=True, conja=cj)
     return y[:, 0] if vec else y
 
 
@@ -392,7 +396,7 @@ def freivalds_packed(
     x = torch.randn((n, nprobe), generator=g, dtype=ct).to(lp.device)
     ax = spd_matvec_streamed(x, n, seed=seed, bump=bump, cb=cb)
     y = trmm_packed(lp, trmm_packed(lp, x, n, tb, trans=True), n, tb)
-    na = torch.zeros((n,), dtype=ct, device=lp.device)
+    na = torch.zeros((n,), dtype=_real(ct), device=lp.device)
     for _, strip in _strips(n, cb, seed, bump, ct, lp.device):
         na += strip.abs().sum(dim=1)
     denom = na.max() * x.abs().max()
@@ -408,13 +412,12 @@ def residual_posv_streamed(
     row sums accumulated over (n, cb) strips generated on x's device: the
     solve path's check when A cannot sit beside the packed state (the
     contract of ``validate.residual_posv``), in x's compute dtype."""
-    _real_only("residual_posv_streamed", x)
     if bump is None:
         bump = float(n)
     cb = min(cb, n)
     ct = _ctype(x.dtype)
     ax = spd_matvec_streamed(x, n, seed=seed, bump=bump, cb=cb)
-    na = torch.zeros((n,), dtype=ct, device=x.device)
+    na = torch.zeros((n,), dtype=_real(ct), device=x.device)
     for _, strip in _strips(n, cb, seed, bump, ct, x.device):
         na += strip.abs().sum(dim=1)
     denom = na.max() * x.abs().max()

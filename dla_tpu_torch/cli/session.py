@@ -18,8 +18,9 @@ Parameter-surface parity with the reference's DAG client
 
 The matrix is generated tile-locally on its members, the factorization timed
 (``Elapsed``, ``Performance`` at (1/3)·N³/t), the residual
-``||A − L·Lᵀ||_inf / ||A||_inf`` gated at 1e-10 in fp64 and max(1e-10,
-N·2e-7) otherwise, and ``--solve NRHS`` solves A·X = 1 through
+``||A − L·Lᵀ||_inf / ||A||_inf`` gated at 1e-10 in fp64 and complex128 (as
+the driver's gate; the reference's session gates complex128 at N·2e-7) and
+max(1e-10, N·2e-7) otherwise, and ``--solve NRHS`` solves A·X = 1 through
 :func:`~dla_tpu_torch.parallel.potrs_block_cyclic` under the same gate. The
 exit code is 0 on PASS and 1 on FAIL.
 
@@ -111,9 +112,6 @@ def main(argv=None) -> int:
         p=args.p,
         q=args.q,
     )
-    if cfg.dtype not in ("float64", "float32", "bfloat16"):
-        print(f"[CLIENT] dtype {cfg.dtype} is not ported yet (ROADMAP A5)", file=sys.stderr)
-        return 2
     from dla_tpu_torch.parallel.block_cyclic import squarest
 
     ncards = 1 if cpu else torch.cuda.device_count()
@@ -198,7 +196,7 @@ def main(argv=None) -> int:
     chunk = 4096 if cfg.n >= 16384 and cfg.n % 4096 == 0 else None
     res = float(residual_potrf(a, l, assume_symmetric=True, assume_tril=True, row_chunk=chunk))
     print(f"||A - LL^T||_inf / ||A||_inf = {res:.2e}")
-    gate = 1e-10 if dtype == torch.float64 else max(1e-10, cfg.n * 2e-7)
+    gate = 1e-10 if dtype in (torch.float64, torch.complex128) else max(1e-10, cfg.n * 2e-7)
     ok = res < gate  # False for NaN
     del l
 

@@ -11,10 +11,18 @@ Accumulation is pinned as in the reference: fp32 for bf16/fp16 operands,
 the operand type otherwise. The fp32 product follows the precision tier
 (:mod:`dla_tpu_torch.utils.precision`): ``default`` rounds the operands to
 bf16 and accumulates in fp32; ``high`` and ``highest`` are IEEE fp32.
-The opt-in 3M complex GEMM of the reference (``blas.py:48``) is not ported.
+
+Complex (c/z) products are IEEE at every tier: the tiers' bf16 rounding
+applies to real fp32 operands only. That is the JAX package's arithmetic on
+the CPU, which runs every complex dot in full precision whatever the tier.
+``DLA_TPU_C3M=1`` routes the trailing-update form A·Bᵀ/A·Bᴴ through three
+real products instead of four (:func:`_gemm3m_nt`, off by default, as in the
+reference); its real products are IEEE too.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -38,12 +46,48 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
     return torch.matmul(a.to(acc), b.to(acc))
 
 
+def _c3m_enabled() -> bool:
+    """The 3M complex product is opt-in (``DLA_TPU_C3M=1``), as in the
+    reference (``dla_tpu/ops/blas.py:36``)."""
+    return os.environ.get("DLA_TPU_C3M", "0") == "1"
+
+
+def _gemm3m_nt(a: torch.Tensor, b: torch.Tensor, conjb: bool) -> torch.Tensor:
+    """Complex A·Bᵀ (or A·Bᴴ) by Karatsuba's three real products instead of
+    the four of a complex product (``dla_tpu/ops/blas.py:48``):
+
+      T1 = Xa·Xbᵀ, T2 = Ya·Ybᵀ
+      A·Bᴴ: T3 = (Xa+Ya)·(Xb−Yb)ᵀ → re = T1+T2, im = T3 − T1 + T2
+      A·Bᵀ: T3 = (Xa+Ya)·(Xb+Yb)ᵀ → re = T1−T2, im = T3 − T1 − T2
+
+    The 3M error is bounded against the norm of the whole product, not per
+    component; every c/z gate here is norm-relative. The real products are
+    IEEE fp32 (fp64 for complex128) at every tier."""
+    racc = torch.float64 if a.dtype == torch.complex128 else torch.float32
+    xa, ya = a.real.to(racc), a.imag.to(racc)
+    xb, yb = b.real.to(racc), b.imag.to(racc)
+    t1 = xa @ xb.mT
+    t2 = ya @ yb.mT
+    if conjb:
+        t3 = (xa + ya) @ (xb - yb).mT
+        re, im = t1 + t2, t3 - t1 + t2
+    else:
+        t3 = (xa + ya) @ (xb + yb).mT
+        re, im = t1 - t2, t3 - t1 - t2
+    return torch.complex(re, im)
+
+
 def gemm(alpha, a, b, beta, c, *, transa: bool = False, transb: bool = False,
          conja: bool = False, conjb: bool = False) -> torch.Tensor:
     """C ← alpha·op(A)·op(B) + beta·C, returned as a new tensor of C's type.
     ``conja``/``conjb`` conjugate the operand (with trans: the Hermitian
-    ``A·Aᴴ`` updates of c/z POTRF)."""
+    ``A·Aᴴ`` updates of c/z POTRF). Complex ``A·Bᵀ/ᴴ`` (the trailing-update
+    form) goes through :func:`_gemm3m_nt` when ``DLA_TPU_C3M=1``."""
     acc = _acc_dtype(c.dtype)
+    if (a.is_complex() and b.is_complex() and not transa and not conja and transb
+            and _c3m_enabled()):
+        prod = _gemm3m_nt(a, b, conjb).to(acc)
+        return (alpha * prod + beta * c.to(acc)).to(c.dtype)
     prod = _matmul(_op(a, transa, conja), _op(b, transb, conjb), acc)
     return (alpha * prod + beta * c.to(acc)).to(c.dtype)
 

@@ -4,8 +4,14 @@
   seed)`` (``v6_test.c:46``): the seeded, tile-local deterministic symmetric
   generator. It matches the JAX package bit for bit, so both packages factor
   the same matrix from the same seed.
+- ``plghe_tile`` / ``plghe`` ↔ ``CHAMELEON_zplghe_Tile``: the Hermitian
+  analogue for the c/z dtypes, also bit for bit with the JAX package.
+- ``spd_gershgorin`` ↔ the distributed client's SPD recipe
+  (``client_distrib.cpp:224-264``): ``plgsy`` plus strict row dominance.
 - ``lange`` ↔ ``CHAMELEON_dlange_Tile`` (``v6_test.c:72,84``).
+- ``lacpy`` ↔ ``CHAMELEON_dlacpy_Tile`` (``v6_test.c:49-51``).
 - ``lauum`` ↔ ``CHAMELEON_dlauum_Tile`` (``v6_test.c:76-78``).
+- ``geadd`` ↔ ``CHAMELEON_dgeadd_Tile`` (``v6_test.c:80-82``).
 - ``potrf_unblocked``: the rank-1 column loop behind
   ``diag_factor="unblocked"``.
 - ``trtri_lower``: the inverse of a lower-triangular tile by forward
@@ -30,6 +36,7 @@ _M2 = 0xC2B2AE35
 _C1 = 0x9E3779B9  # golden-ratio increment (splitmix)
 _C2 = 0x7F4A7C15
 _MASK = 0xFFFFFFFF
+_SEED_IM = 0xA5A5A5A5  # plghe's imaginary part: the seed XOR this
 
 # plgsy generates in row slabs of about this many elements, so the int64
 # hash temporaries stay small next to the matrix itself
@@ -108,14 +115,91 @@ def plgsy(
     which makes it SPD by diagonal dominance). Generated in row slabs."""
     if bump is None:
         bump = float(n)
-    out = torch.empty((n, n), dtype=dtype, device=device)
-    slab = max(1, _SLAB_ELEMS // max(n, 1))
-    for r0 in range(0, n, slab):
-        rows = min(slab, n - r0)
-        out[r0 : r0 + rows] = plgsy_tile(
-            seed, r0, 0, rows, n, bump=bump, dtype=dtype, device=device
-        )
+    return tile_in_slabs(plgsy_tile, seed, 0, 0, n, n, bump=bump, dtype=dtype, device=device)
+
+
+def tile_in_slabs(gen, seed: int, i0: int, j0: int, mb: int, nb: int, **kw) -> torch.Tensor:
+    """``gen(seed, i0, j0, mb, nb, **kw)`` (``plgsy_tile`` or ``plghe_tile``),
+    its bits, generated in row slabs of about ``_SLAB_ELEMS`` elements, so the
+    int64 hash temporaries stay small beside the tile itself."""
+    out = torch.empty((mb, nb), dtype=kw["dtype"], device=kw["device"])
+    slab = max(1, _SLAB_ELEMS // max(nb, 1))
+    for r0 in range(0, mb, slab):
+        rows = min(slab, mb - r0)
+        out[r0 : r0 + rows] = gen(seed, i0 + r0, j0, rows, nb, **kw)
     return out
+
+
+def plghe_tile(
+    seed: int,
+    i0: int,
+    j0: int,
+    mb: int,
+    nb: int,
+    *,
+    bump: float = 0.0,
+    dtype: torch.dtype = torch.complex64,
+    device="cuda",
+) -> torch.Tensor:
+    """Hermitian analogue of :func:`plgsy_tile` for the c/z dtypes: the real
+    part is :func:`plgsy_tile`'s pair value, the imaginary part the pair value
+    of the seed ``seed ^ 0xA5A5A5A5`` times sign(j − i) (antisymmetric, zero
+    on the diagonal), so the global matrix is exactly Hermitian and any tile
+    can be generated alone. ``bump`` is added to the real diagonal."""
+    rdtype = torch.float64 if dtype == torch.complex128 else torch.float32
+    rows = (i0 + torch.arange(mb, dtype=torch.int64, device=device))[:, None]
+    cols = (j0 + torch.arange(nb, dtype=torch.int64, device=device))[None, :]
+    re = _pair_uniform(int(seed), rows, cols).to(rdtype)
+    im = _pair_uniform(int(seed) ^ _SEED_IM, rows, cols).to(rdtype)
+    if bump:
+        re = re + torch.where(rows == cols, torch.tensor(bump, dtype=rdtype, device=device),
+                              torch.tensor(0, dtype=rdtype, device=device))
+    # + 0.0: a zero imaginary part is +0, as the reference's re + 1j·(sign·im)
+    return torch.complex(re, torch.sign(cols - rows).to(rdtype) * im + 0.0).to(dtype)
+
+
+def plghe(
+    n: int,
+    *,
+    bump: float | None = None,
+    seed: int = 51,
+    dtype: torch.dtype = torch.complex64,
+    device="cuda",
+) -> torch.Tensor:
+    """Full n×n seeded Hermitian positive-definite matrix (diagonal bump n by
+    default: HPD by diagonal dominance), ↔ ``CHAMELEON_zplghe_Tile``.
+    Generated in row slabs, as :func:`plgsy`."""
+    if bump is None:
+        bump = float(n)
+    return tile_in_slabs(plghe_tile, seed, 0, 0, n, n, bump=bump, dtype=dtype, device=device)
+
+
+def spd_gershgorin(
+    n: int,
+    *,
+    seed: int = 12345,
+    bump: float = 100.0,
+    eps: float = 1e-8,
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+) -> torch.Tensor:
+    """SPD generator of the distributed client's recipe
+    (``client_distrib.cpp:224-264``): the seeded symmetric matrix with
+    ``bump`` on the diagonal, then each diagonal element raised to at least
+    its row's off-diagonal absolute sum plus ``eps`` (strict diagonal
+    dominance, by Gershgorin). The row sums are torch's, so a diagonal
+    element may differ from the JAX package's in its last bits; the
+    off-diagonal elements are :func:`plgsy_tile`'s bits."""
+    a = plgsy(n, bump=bump, seed=seed, dtype=dtype, device=device)  # plgsy_tile's bits
+    diag = torch.diagonal(a)
+    offdiag = torch.abs(a).sum(dim=1) - torch.abs(diag)
+    need = offdiag + torch.tensor(eps, dtype=offdiag.dtype, device=a.device)
+    if a.is_complex():  # the matrix is real: compare real parts
+        newdiag = torch.maximum(diag.real, need).to(a.dtype)
+    else:
+        newdiag = torch.maximum(diag, need)
+    a.diagonal().copy_(newdiag)
+    return a
 
 
 def lange(norm: str, a: torch.Tensor) -> torch.Tensor:
@@ -135,6 +219,19 @@ def lange(norm: str, a: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown norm {norm!r}")
 
 
+def lacpy(uplo: str, a: torch.Tensor) -> torch.Tensor:
+    """Copy all, the lower or the upper part of ``a`` (``dlacpy``); the
+    complement is zero (tile semantics)."""
+    u = uplo.upper()
+    if u in ("A", "G", "UPPERLOWER"):
+        return a
+    if u in ("L", "LOWER"):
+        return torch.tril(a)
+    if u in ("U", "UPPER"):
+        return torch.triu(a)
+    raise ValueError(f"unknown uplo {uplo!r}")
+
+
 def lauum(uplo: str, a: torch.Tensor) -> torch.Tensor:
     """``dlauum`` with LAPACK semantics (``dla_tpu/ops/lapack_like.py:210``):
     lower → Lᵀ·L, upper → U·Uᵀ, from the relevant triangle of ``a`` only; the
@@ -147,6 +244,13 @@ def lauum(uplo: str, a: torch.Tensor) -> torch.Tensor:
         r = torch.triu(a)
         return r @ r.mT
     raise ValueError(f"unknown uplo {uplo!r}")
+
+
+def geadd(alpha, a: torch.Tensor, beta, b: torch.Tensor, *, trans: bool = False) -> torch.Tensor:
+    """``dgeadd``: alpha·op(A) + beta·B (``v6_test.c:80-82`` uses alpha = −1,
+    beta = +1 for the residual subtraction)."""
+    op_a = a.mT if trans else a
+    return alpha * op_a + beta * b
 
 
 def trtri_lower(l: torch.Tensor) -> torch.Tensor:

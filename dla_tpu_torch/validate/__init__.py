@@ -1,4 +1,5 @@
-"""Residual gates and invariants."""
+"""Residual gates and invariants (``potrf_checked`` lives in
+:mod:`dla_tpu_torch.validate.checked`, as in the JAX package)."""
 
 from dla_tpu_torch.validate.residual import (
     PASS_THRESHOLD,

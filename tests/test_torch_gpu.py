@@ -2189,3 +2189,107 @@ def test_oocore_mesh_on_card_matches_single_device(cuda):
             potrf_outofcore(st, panel=panel, nb=nb, mesh=mesh)
             ls.append(np.tril(st.array))
     assert np.abs(ls[0] - ls[1]).max() <= 1e-12 * np.abs(ls[1]).max()
+
+
+# ---- complex dtypes, the checked factor, the sweep harness ------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_plghe_same_bits_on_card(cuda, dtype):
+    for i0, j0 in [(0, 0), (131072, 17)]:
+        got = T.plghe_tile(51, i0, j0, 96, 80, bump=5.0, dtype=dtype, device=cuda).cpu()
+        assert torch.equal(got, T.plghe_tile(51, i0, j0, 96, 80, bump=5.0, dtype=dtype,
+                                             device="cpu"))
+        assert got.view(torch.float32 if dtype == torch.complex64 else torch.float64).equal(
+            T.plghe_tile(51, i0, j0, 96, 80, bump=5.0, dtype=dtype, device="cpu").view(
+                torch.float32 if dtype == torch.complex64 else torch.float64))  # signed zeros
+    assert torch.equal(T.plghe(300, seed=7, dtype=dtype, device=cuda).cpu(),
+                       T.plghe(300, seed=7, dtype=dtype, device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("mode,kw", [("blocked", {}), ("shrink", {"panel": "blocktrsm"}),
+                                     ("masked", {}), ("blocked", {"diag_factor": "twolevel"})])
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_complex_potrf_card_matches_cpu(cuda, dtype, mode, kw, uplo):
+    """c/z factors on the card (cuSOLVER/cuBLAS routes) against the CPU's:
+    complex128 within 1e-12, complex64 within 1e-5 of max|L|."""
+    a = T.plghe(512, seed=3, dtype=dtype, device="cpu")
+    if uplo == "U":
+        a = torch.tril(a).conj().mT.contiguous()
+    ref = T.potrf(a, nb=128, mode=mode, uplo=uplo, **kw)
+    got = T.potrf(a.to(cuda), nb=128, mode=mode, uplo=uplo, **kw).cpu()
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_packed_serving_card_matches_cpu(cuda, dtype):
+    n, tb = 512, 128
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    ap = P.pack_tri(T.plghe(n, seed=4, dtype=dtype, device="cpu"), tb)
+    ref_l = P.potrf_packed(ap.clone(), n, tb)
+    got_l = P.potrf_packed(ap.to(cuda), n, tb)
+    assert (got_l.cpu() - ref_l).abs().max().item() <= tol * ref_l.abs().max().item()
+    b = torch.ones((n, 3), dtype=dtype)
+    for name in ("potrs_packed", "solve_inverse_packed"):
+        if name == "potrs_packed":
+            ref, got = P.potrs_packed(ref_l, b, n, tb), P.potrs_packed(got_l, b.to(cuda), n, tb)
+        else:
+            ref = P.solve_inverse_packed(P.potri_packed(ref_l.clone(), n, tb), b, n, tb)
+            got = P.solve_inverse_packed(P.potri_packed(got_l.clone(), n, tb), b.to(cuda), n, tb)
+        assert (got.cpu() - ref).abs().max().item() <= 10 * tol * ref.abs().max().item(), name
+    with pytest.raises(ValueError, match="real dtypes only"):
+        P.potrf_packed(ap.to(cuda), n, tb, trailing="pallas")
+
+
+def test_complex_kernel_routes_raise_on_card(cuda):
+    a = T.plghe(256, dtype=torch.complex64, device=cuda)
+    with pytest.raises(TypeError, match="real"):
+        T.potrf(a, nb=64, mode="blocked", trailing="pallas")
+    with pytest.raises(TypeError, match="real"):
+        T.potrf(a, nb=64, mode="inplace")
+
+
+def test_potrf_checked_nan_input_on_card(cuda):
+    from dla_tpu_torch.validate.checked import MESSAGES, potrf_checked
+
+    a = T.plgsy(512, dtype=torch.float32, device=cuda)
+    err, l = potrf_checked(a, nb=128)
+    assert err.get() is None and l.device.type == "cuda"
+    a[7, 3] = a[3, 7] = float("nan")
+    err, _ = potrf_checked(a, nb=128)
+    assert err.get() == f"{MESSAGES[0]} (`check` failed)"
+    with pytest.raises(RuntimeError, match="NaNs"):
+        err.throw()
+    err, _ = potrf_checked(T.plgsy(512, bump=1e-4, device=cuda), nb=128)
+    assert err.get() is not None
+
+
+def test_driver_new_flags_on_card(cuda, capsys, tmp_path):
+    from dla_tpu_torch.cli import potrf_driver
+
+    a = np.asarray(T.plgsy(512, dtype=torch.float64, device="cpu"))
+    np.save(tmp_path / "a.npy", a)
+    for argv, rc in ((["--n", "512", "--nb", "128", "--dtype", "z", "--uplo", "U", "--mode",
+                       "blocked"], 0),
+                     (["--n", "512", "--nb", "128", "--lm", "2048", "--ioff", "512", "--joff",
+                       "512", "--m", "512"], 0),
+                     (["--nb", "128", "--input", str(tmp_path / "a.npy"), "--solve",
+                       "refined"], 0),
+                     (["--n", "512", "--nb", "128", "--checked", "--bump", "0.0001"], 3)):
+        assert potrf_driver.main(argv) == rc, capsys.readouterr().out
+    assert "CHECK FAILED" in capsys.readouterr().out
+
+
+def test_harness_one_row_sweep_on_card(cuda, tmp_path):
+    import csv
+
+    from dla_tpu_torch.bench.harness import SweepConfig, run_sweep
+
+    rows = run_sweep(SweepConfig(ns=(2048,), nbs=(512,), dtypes=("float32",),
+                                 modes=("inplace",), repeats=1, timeout_s=600),
+                     str(tmp_path / "s.csv"), echo=False)
+    assert len(rows) == 1 and rows[0]["exit_code"] == 0 and rows[0]["device"] == "cuda"
+    with open(tmp_path / "s.csv") as f:
+        (row,) = list(csv.DictReader(f))
+    assert float(row["rel_error"]) < 2048 * 2e-7 and float(row["gflops"]) > 0

@@ -210,7 +210,8 @@ class TestUtils:
 
 
 class TestGeneratorDevice:
-    @pytest.mark.parametrize("gen", ["plgsy", "plgsy_tile", "plgsy_packed", "to_df64"])
+    @pytest.mark.parametrize("gen", ["plgsy", "plgsy_tile", "plgsy_packed", "to_df64", "plghe",
+                                     "plghe_tile", "spd_gershgorin"])
     def test_default_is_the_card(self, gen):
         """The generators build on the card unless the caller names another
         device: on a machine with no card the default call raises rather
@@ -224,6 +225,9 @@ class TestGeneratorDevice:
             "plgsy_tile": lambda **kw: T.plgsy_tile(51, 0, 0, 8, 8, **kw),
             "plgsy_packed": lambda **kw: TA.plgsy_packed(64, 32, **kw),
             "to_df64": lambda **kw: to_df64(np.eye(8), **kw)[0],
+            "plghe": lambda **kw: T.plghe(16, **kw),
+            "plghe_tile": lambda **kw: T.plghe_tile(51, 0, 0, 8, 8, **kw),
+            "spd_gershgorin": lambda **kw: T.spd_gershgorin(16, **kw),
         }[gen]
         assert call(device="cpu").device.type == "cpu"
         if torch.cuda.is_available():
@@ -275,9 +279,8 @@ def _top_level_names(init: Path) -> set[str]:
 
 
 class TestTopLevelExports:
-    # names of dla_tpu's top level that the port does not have yet; later
-    # slices shrink this set
-    MISSING = {"geadd", "lacpy", "plghe", "plghe_tile", "spd_gershgorin"}
+    # names of dla_tpu's top level that the port does not have yet: none
+    MISSING = set()
 
     def test_port_exports_only_reference_names(self):
         ref = _top_level_names(REPO / "dla_tpu" / "__init__.py")

@@ -261,9 +261,12 @@ class TestPotrfPacked:
         assert float(P.freivalds_packed(lp, n, w)) < n**0.5 * 2e-4
 
     def test_complex_and_bad_options_raise(self):
+        # complex factors on the torch route (the identity is its own factor);
+        # the kernel's route raises for it, with the reference's message
         a = torch.eye(128, dtype=torch.complex128)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.potrf_packed(P.pack_tri(a, 64), 128, 64)
+        assert torch.equal(P.unpack_tri(P.potrf_packed(P.pack_tri(a, 64), 128, 64), 128, 64), a)
+        with pytest.raises(ValueError, match="real dtypes only"):
+            P.potrf_packed(P.pack_tri(a, 64), 128, 64, trailing="pallas")
         with pytest.raises(ValueError, match="trailing"):
             P.potrf_packed(P.pack_tri(torch.eye(128), 64), 128, 64, trailing="cuda")
         with pytest.raises(ValueError):
@@ -309,6 +312,39 @@ class TestMatrixFree:
         bad[100, 10] += 1.0  # as tests/test_packed.py corrupts the factor
         assert float(P.freivalds_packed(bad, n, tb)) > 1e-8
         assert float(P.freivalds_packed(bad, n, tb, key=1)) > 1e-8
+
+
+class TestFreivaldsPackedSeesTheFactor:
+    """Watch-list item 9 for the packed gate: ``freivalds_packed`` must rise
+    with a known relative perturbation δ of the packed tril(L), in the port
+    and in JAX. The probes differ (``torch.Generator`` against
+    ``jax.random``), so each package is held to the same bounds on its own:
+    never below its unperturbed value (the floor), and within [δ/10, 10δ]
+    once δ is ten times the floor, rising with δ."""
+
+    DELTAS = [1e-7, 1e-6, 1e-5, 1e-4, 1e-3]
+
+    @pytest.mark.parametrize("dtype", [np.float64, np.float32])
+    def test_rises_with_the_perturbation(self, dtype):
+        n, tb = 256, 64
+        a = np.asarray(J.plgsy_packed(n, tb, dtype=jnp.float64))
+        l = np.asarray(J.unpack_tri(J.potrf_packed(jnp.asarray(a), n, tb), n, tb))
+        r = np.random.default_rng(9).uniform(-1.0, 1.0, l.shape)
+        gates = {
+            "port": lambda lp: float(P.freivalds_packed(_t(lp), n, tb)),
+            "jax": lambda lp: float(J.freivalds_packed(jnp.asarray(lp), n, tb)),
+        }
+        for name, gate in gates.items():
+            got = [gate(np.asarray(J.pack_tri(jnp.asarray(np.tril(l * (1.0 + d * r))
+                                                          .astype(dtype)), tb)))
+                   for d in [0.0] + self.DELTAS]
+            floor, seen = got[0], []
+            for delta, v in zip(self.DELTAS, got[1:]):
+                assert v >= floor * (1 - 1e-3), (name, delta, v, floor)
+                if delta >= 10 * floor:
+                    assert delta / 10 <= v <= 10 * delta, (name, delta, v)
+                    seen.append(v)
+            assert len(seen) >= 2 and seen == sorted(seen), (name, got)
 
 
 @pytest.mark.parametrize("dtype,extra,gate", [

@@ -58,8 +58,10 @@ def _packed_factor(n, tb, seed, dtype):
 
 
 def _rel(got, ref):
-    return np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64)).max() / max(
-        np.abs(np.asarray(ref, np.float64)).max(), 1e-300)
+    got, ref = np.asarray(got), np.asarray(ref)
+    wide = np.complex128 if np.iscomplexobj(got) or np.iscomplexobj(ref) else np.float64
+    return np.abs(got.astype(wide) - ref.astype(wide)).max() / max(
+        np.abs(ref.astype(wide)).max(), 1e-300)
 
 
 class TestInverse:
@@ -86,16 +88,36 @@ class TestInverse:
         want = np.tril(np.linalg.inv(a))
         assert _rel(T.unpack_tri(sp, n, tb).numpy(), want) <= 1e-12
 
+    @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
     @pytest.mark.parametrize("name", ["trtri_packed", "lauum_packed", "potri_packed",
                                       "solve_inverse_packed", "residual_posv_streamed"])
-    def test_complex_raises(self, name):
-        z = torch.zeros((P.packed_rows(64, 32), 32), dtype=torch.complex64)
-        args = {"solve_inverse_packed": (z, torch.zeros(64, dtype=torch.complex64), 64, 32),
-                "residual_posv_streamed": (torch.zeros(64, dtype=torch.complex64),
-                                           torch.zeros(64, dtype=torch.complex64), 64)
-                }.get(name, (z, 64, 32))
-        with pytest.raises(NotImplementedError, match="A5"):
-            getattr(P, name)(*args)
+    def test_complex_raises(self, name, dtype):
+        """Complex (Hermitian) packed serving, held to JAX's on the same
+        input: the factor of plghe(64), tb=32 (the serving functions raised
+        for complex before they were ported). Tolerance relative to the
+        largest entry of JAX's result: 1e-12 for complex128, 1e-5 for
+        complex64."""
+        n, tb = 64, 32
+        a = np.asarray(jax_lapack.plghe(n, seed=3, dtype=jnp.complex128))
+        lp = np.asarray(J.pack_tri(jnp.asarray(np.linalg.cholesky(a).astype(dtype)), tb))
+        rng = np.random.default_rng(4)
+        b = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(dtype)
+        if name == "lauum_packed":
+            lp = np.asarray(J.trtri_packed(jnp.asarray(lp), n, tb))
+        if name == "solve_inverse_packed":
+            sp = np.asarray(J.potri_packed(jnp.asarray(lp), n, tb))
+            ref = np.asarray(J.solve_inverse_packed(jnp.asarray(sp), jnp.asarray(b), n, tb))
+            got = P.solve_inverse_packed(_t(sp), _t(b), n, tb).numpy()
+        elif name == "residual_posv_streamed":
+            ref = complex(J.residual_posv_streamed(jnp.asarray(b), jnp.asarray(b), n, cb=32))
+            assert ref.imag == 0
+            ref = ref.real
+            got = float(P.residual_posv_streamed(_t(b), _t(b), n, cb=32))
+        else:
+            ref = np.asarray(getattr(J, name)(jnp.asarray(lp), n, tb))
+            got = getattr(P, name)(_t(lp.copy()), n, tb).numpy()
+        assert np.asarray(got).dtype == np.asarray(ref).dtype
+        assert _rel(got, ref) <= (1e-12 if dtype == np.complex128 else 1e-5)
 
 
 class TestSolveInverse:
