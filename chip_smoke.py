@@ -198,11 +198,12 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     ``SOLVE PASS`` under N·2e-6 (1e-10 refined, with its iterations), and the
     peak device memory of each call beside the packed triangle's bytes.
 35. the out-of-core path through ``python -m dla_tpu_torch.cli.oocore_driver``
-    at the JAX package's record size: N=131072 fp32, panel 4096, nb=512, the
-    device path, a ``DirectPanelStore`` (a 33 GiB O_DIRECT file under
+    at N=49152 fp32 (3/8 of the JAX package's record size, N=131072, which
+    took a third of this script's time), panel 4096, nb=512, the
+    device path, a ``DirectPanelStore`` (an O_DIRECT file under
     ``$TMPDIR``) with its RAM cache, the streaming Freivalds gate (2 probes)
     under N·2e-7; the host's memory, disk and cores first, and N cut to
-    98304 where they cannot hold the file and its cache (below that the phase
+    36864 where they cannot hold the file and its cache (below that the phase
     fails); the wall time, GFLOP/s, every ``stats`` field, the peak device
     memory and the Freivalds value; then fp64 at N=16384 on a flat RAM store
     under 1e-10, and a kill-and-resume at N=16384 (a crash after panel 2, a
@@ -241,7 +242,19 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     into a temporary CSV, every row exit code 0 with a passing ``rel_error``;
     ``time_fn`` and ``Roofline`` over ``potrf_inplace`` at N=16384 (the peak
     fraction below 100%) and ``trace()``, a non-empty Chrome trace; and the
-    phase's wall time.
+    phase's wall time;
+38. the five distributed planes across a process boundary:
+    ``python -m dla_tpu_torch.parallel.multihost`` as 2 processes × 4
+    members that share this card over ``torch.distributed`` with gloo
+    (NCCL refuses two processes on one card), fp64: the block plane at
+    N=32768, nb=512 on 2×4, then ``potrs`` (2×4) and the three ring planes
+    (D=8) at N=16384, nb=512. Per plane: each process's factorization time
+    and rate, its boundary broadcasts (count, bytes and seconds, the device
+    synchronized around each), its #11 launches (2·nt − 1 in each process on
+    each ring plane) and peak device memory; process 0's gate under 1e-10;
+    the same plane in one process on 8 members, its time and the largest
+    difference between the two results. A process that fails or outlives
+    its timeout fails the phase.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -319,9 +332,10 @@ N_HEADLINE, NB_HEADLINE = 61440, 1024
 # the dense solve and serving path on the main path's factor, and fp64 refinement
 NRHS_SOLVE, N_REFINED64 = 64, 8192
 N_PACKED_SOLVE, NB_PACKED_SOLVE = 32768, 4096  # phase 34: the packed serving path
-# phase 35: out of core at the JAX package's record size (README.md:86), cut to N_OOC_CUT where
-# the host cannot hold the panel file and its cache; fp64 and the kill-and-resume at N_OOC64
-N_OOC, N_OOC_CUT, W_OOC, NB_OOC, N_OOC64 = 131072, 98304, 4096, 512, 16384
+# phase 35: out of core at 3/8 of the JAX package's record size (README.md:86: N=131072, a third
+# of this script's time), cut to N_OOC_CUT where the host cannot hold the panel file and its cache;
+# fp64 and the kill-and-resume at N_OOC64
+N_OOC, N_OOC_CUT, W_OOC, NB_OOC, N_OOC64 = 49152, 36864, 4096, 512, 16384
 # phase 36: the block-cyclic plane (the JAX package's only distributed workload is fp64 tiles,
 # README.md:130-132): the session at N_BC on a P_BC x Q_BC member mesh, the super-stepped program at
 # NB_BC_SUPER, the driver's --mode distributed and the out-of-core driver on a 2x2 mesh
@@ -331,6 +345,9 @@ N_BC_DRIVER, NB_BC_DRIVER, N_BC_OOC = 16384, 512, 24576
 # the c/z session, the oracle, the sweep harness and the profiling helpers
 N_FLAGS, NB_FLAGS, NB_FLAGS_PACKED, LM_VIEW, N_CHECK_FAIL = 16384, 1024, 4096, 65536, 4096
 N_SESSION_Z, NB_SESSION_Z = 4096, 256
+# phase 38: the five planes of dla_tpu/parallel/multihost.py across 2 processes x 4 members on
+# this card: the block plane at the session's size, potrs and the ring planes at N_MH (D=8)
+N_MH_BLOCK, N_MH, NB_MH, MH_PROCS, MH_MEMBERS, MH_TIMEOUT = 32768, 16384, 512, 2, 4, 300
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -2604,7 +2621,109 @@ def phase_tools(dev, tag):
     torch.cuda.empty_cache()
 
 
-LAST_PHASE = 37
+# ---- 38. the distributed planes across a process boundary ---------------------------------
+def mh_run(tag, planes: str, n: int, nb: int) -> list[str]:
+    """The multihost demo as MH_PROCS processes of MH_MEMBERS members on this card
+    (gloo), each plane compared with one process on process 0; each process's
+    output, printed with its process index. Fails unless every process exits 0
+    within MH_TIMEOUT seconds."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(MH_PROCS), "--local-devices",
+            str(MH_MEMBERS), "--n", str(n), "--nb", str(nb), "--p", "2", "--q", "4",
+            "--plane", planes, "--device", "cuda", "--backend", "gloo", "--timeout",
+            str(MH_TIMEOUT), "--compare"]
+    procs = [subprocess.Popen([sys.executable, "-m", "dla_tpu_torch.parallel.multihost",
+                               "--pid", str(pid)] + argv, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for pid in range(MH_PROCS)]
+    deadline, outs, rcs = time.monotonic() + MH_TIMEOUT, [], []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+                rcs.append(p.returncode)
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+                outs.append("")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for pid, out in enumerate(outs):
+        for line in out.splitlines():
+            if "socket.cpp" not in line:  # c10d's warnings about the client's host name
+                print(f"mh{pid}| {line}")
+    print(f"multihost numbers above: {tag}", flush=True)
+    require(rcs == [0] * MH_PROCS, f"multihost processes exited {rcs} (None: killed at the "
+            f"{MH_TIMEOUT} s timeout)")
+    return outs
+
+
+MH_LINE = (r"^\[mh {pid}\] plane {plane}: N=\d+ NB=\d+ over \d+ members, factor (\S+) ms, "
+           r"\S+ GFLOP/s(?:, solve \(nrhs=3\) (\S+) ms)?; boundary (\d+) broadcasts, (\S+) MB, "
+           r"(\S+) ms \((\S+)% of the plane\); ring_broadcast launches (\d+); assembly "
+           r"(\d+) broadcasts, (\S+) MB, (\S+) ms; peak device memory (\S+) GiB$")
+
+
+def mh_report(tag, outs: list[str], plane: str, n: int, nb: int) -> None:
+    """One line for a plane: each process's time, boundary share, #11 launches and
+    peak memory; the gate; one process's time and the largest difference."""
+    ranks = []
+    for pid, out in enumerate(outs):
+        m = re.search(MH_LINE.format(pid=pid, plane=re.escape(plane)), out, re.M)
+        require(m is not None, f"multihost process {pid} printed no line for plane {plane}")
+        ranks.append(m.groups())
+    gate = re.search(r"^\[mh 0\] .* = (\S+) (PASS|FAIL)$",
+                     outs[0].split(f"[mh 0] plane {plane}:")[1], re.M)
+    one = re.search(rf"^\[mh 0\] plane {re.escape(plane)} in one process on \d+ members: factor "
+                    r"(\S+) ms(?:, solve (\S+) ms)?; max \|difference\| (\S+), the same bits: "
+                    r"(True|False)$", outs[0], re.M)
+    require(gate is not None and one is not None, f"multihost plane {plane}: no gate or one-"
+            "process line")
+    factor = max(float(r[0]) for r in ranks)
+    ring = [int(r[6]) for r in ranks]
+    solve = "" if ranks[0][1] is None else (
+        f", solve {max(float(r[1]) for r in ranks):.3f} ms (one process {one.group(2)} ms)")
+    print(f"multihost {plane} N={n} NB={nb} fp64, {MH_PROCS} processes x {MH_MEMBERS} members "
+          f"on one card (gloo): factor {factor:.3f} ms, {n ** 3 / 3 / (factor / 1e3) / 1e9:.1f} "
+          f"GFLOP/s{solve}; one process {float(one.group(1)):.3f} ms "
+          f"({factor / float(one.group(1)):.2f}x); boundary per process "
+          + ", ".join(f"{r[2]} broadcasts {float(r[3]):.1f} MB {float(r[4]):.1f} ms ({r[5]}%)"
+                      for r in ranks)
+          + f"; #11 launches per process {ring}; assembly (the replicate step) per process "
+          + ", ".join(f"{float(r[8]):.1f} MB {float(r[9]):.1f} ms" for r in ranks)
+          + f"; peak device memory per process {[float(r[10]) for r in ranks]} GiB; gate {gate.group(1)} (1e-10); max |difference| "
+          f"from one process {one.group(3)}, the same bits: {one.group(4)} {tag}", flush=True)
+    require(gate.group(2) == "PASS" and float(gate.group(1)) < 1e-10,
+            f"multihost plane {plane}: gate {gate.group(1)} not below 1e-10")
+    if plane in ("column", "packed", "packed-df64"):
+        want = 2 * (n // nb) - 1
+        require(ring == [want] * MH_PROCS, f"multihost plane {plane}: #11 launches {ring} per "
+                f"process, expected {want} in each")
+
+
+def phase_multihost(tag):
+    """The five planes across MH_PROCS processes on this card against one process."""
+    torch.cuda.empty_cache()
+    t38 = time.perf_counter()
+    outs = mh_run(tag, "block", N_MH_BLOCK, NB_MH)
+    require(f"[mh 0] {MH_PROCS} processes, {MH_PROCS * MH_MEMBERS} global members "
+            f"({MH_MEMBERS} local) on cuda" in outs[0], "multihost: no header line")
+    mh_report(tag, outs, "block", N_MH_BLOCK, NB_MH)
+    planes = ("potrs", "column", "packed", "packed-df64")
+    outs = mh_run(tag, ",".join(planes), N_MH, NB_MH)
+    for plane in planes:
+        mh_report(tag, outs, plane, N_MH, NB_MH)
+    print(f"phase 38 wall time: {time.perf_counter() - t38:.1f} s {tag}", flush=True)
+
+
+LAST_PHASE = 38
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -2749,6 +2868,8 @@ def main(argv=None) -> int:
         phase_driver_flags(tag)
         phase_tools(dev, tag)
         print(f"phase 37 wall time: {time.perf_counter() - t37:.1f} s {tag}", flush=True)
+    if 38 in sel:
+        phase_multihost(tag)
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

@@ -498,6 +498,9 @@ def potrf_outofcore(
             on_panel=on_panel, prefetch=prefetch,
         )
     if mesh is not None:
+        if getattr(mesh, "spans_processes", False):
+            raise NotImplementedError("potrf_outofcore: a mesh across processes is not "
+                                      "supported; the streamed panels live on one host")
         if device is not None and torch.device(device) != mesh.devices[0]:
             raise ValueError(f"device={device} but the mesh's members lie on {mesh.devices[0]}")
         device = mesh.devices[0]

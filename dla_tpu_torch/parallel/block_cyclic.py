@@ -12,6 +12,10 @@ Here the p·q members share one device, as the ring planes' :class:`FlatMesh`
 members do, and a sharded matrix is a list of p·q tensors, member (r, c) at
 index r·q + c: exactly the block JAX's ``layout.sharding(mesh)`` puts on
 device (r, c), so assembling the list in mesh order gives JAX's stored array.
+A mesh made while a process group of several processes is up spans them
+(:mod:`~dla_tpu_torch.parallel.member_comm`): a process's list holds its own
+members' tensors and None for the others, and :func:`to_dense` brings the
+others' over first (JAX's replicate step).
 The permutation is never materialized as an index: a dense (n, n) matrix
 viewed as (ltr, p, nb, ltc, q, nb) has member (r, c)'s tiles at ``[:, r, :,
 :, c, :]``, so :func:`from_dense` and :func:`to_dense` are one strided copy
@@ -26,26 +30,31 @@ import numpy as np
 import torch
 
 from dla_tpu_torch.ops.lapack_like import _SLAB_ELEMS, plgsy_at
+from dla_tpu_torch.parallel import member_comm as comm
 from dla_tpu_torch.parallel.column_cyclic import _member_device, _one_device, _tensor
 
 
 @dataclasses.dataclass(frozen=True)
-class MemberMesh:
+class MemberMesh(comm.ProcessSpan):
     """A 2-D ('r', 'c') mesh of p×q members — the PxQ process grid — member
-    (r, c) at ``devices[r·q + c]``. It sits beside :class:`FlatMesh` (the ring
-    planes' 1-D mesh, which they require) rather than generalizing it. All
-    members lie on one device; a mesh whose members span several raises
-    ``NotImplementedError``."""
+    (r, c) at ``devices[r·q + c]``, split evenly over ``processes``
+    processes, of which this is ``process``. It sits beside
+    :class:`FlatMesh` (the ring planes' 1-D mesh, which they require) rather
+    than generalizing it. A process's members lie on one device; a mesh
+    whose members span several raises ``NotImplementedError``."""
 
     devices: tuple[torch.device, ...]
     shape: tuple[int, int]
     axis_names: tuple[str, ...] = ("r", "c")
+    processes: int = 1
+    process: int = 0
 
     def __post_init__(self):
         p, q = self.shape
         if p <= 0 or q <= 0 or len(self.devices) != p * q:
             raise ValueError(f"a {p}x{q} mesh needs {p * q} members, got {len(self.devices)}")
         _one_device(self.devices)
+        self._check_span()
 
     @property
     def size(self) -> int:
@@ -66,8 +75,11 @@ def squarest(ndev: int) -> tuple[int, int]:
 
 def make_mesh(p: int, q: int, *, device="cuda") -> MemberMesh:
     """A p×q member mesh with axes ('r', 'c'), all members on the card unless
-    the caller names another device (``device="cpu"``)."""
-    return MemberMesh((_member_device(device),) * (p * q), (p, q))
+    the caller names another device (``device="cpu"``); across the processes
+    of the process group where one is up, as ``jax.devices()`` spans them."""
+    processes, process = comm.process_span()
+    return MemberMesh((_member_device(device),) * (p * q), (p, q), processes=processes,
+                      process=process)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,9 +143,13 @@ class BlockCyclicLayout:
         return self.perm(self.ltc, self.q)
 
 
-def _members(layout: BlockCyclicLayout):
-    """(index, r, c) of every member, in mesh order."""
-    return [(r * layout.q + c, r, c) for r in range(layout.p) for c in range(layout.q)]
+def _members(layout: BlockCyclicLayout, mesh: MemberMesh | None = None):
+    """(index, r, c) of every member of this process (of ``mesh``, else of
+    the enclosing ``member_comm.over``; of every member where neither is
+    given), in mesh order."""
+    mesh = comm.active() if mesh is None else mesh
+    return [(r * layout.q + c, r, c) for r in range(layout.p) for c in range(layout.q)
+            if mesh is None or mesh.is_local(r * layout.q + c)]
 
 
 def _tiles(a: torch.Tensor, layout: BlockCyclicLayout) -> torch.Tensor:
@@ -144,42 +160,50 @@ def _tiles(a: torch.Tensor, layout: BlockCyclicLayout) -> torch.Tensor:
 
 
 def _check_shards(shards, layout: BlockCyclicLayout, mesh: MemberMesh | None = None) -> list:
-    """The shard list, checked against the layout (and the mesh's shape)."""
+    """The shard list, checked against the layout (and the mesh's shape);
+    on a mesh across processes, only this process's shards."""
     x = list(shards)
     if mesh is not None and tuple(mesh.shape) != (layout.p, layout.q):
         raise ValueError(f"mesh {mesh.shape} does not match the layout's {layout.p}x{layout.q}")
-    if len(x) != layout.p * layout.q or any(tuple(s.shape) != layout.local_shape for s in x):
+    mine = [x[m] for m, _, _ in _members(layout, mesh)] if len(x) == layout.p * layout.q else []
+    if not mine or any(s is None or tuple(s.shape) != layout.local_shape for s in mine):
         raise ValueError(f"need {layout.p * layout.q} shards of shape {layout.local_shape}; "
-                         f"got {[tuple(s.shape) for s in x]}")
+                         f"got {[None if s is None else tuple(s.shape) for s in x]}")
     return x
 
 
 def from_dense(a, layout: BlockCyclicLayout, mesh: MemberMesh) -> list[torch.Tensor]:
     """Dense (n, n) matrix (tensor or numpy) → one (ltr·nb, ltc·nb) tensor per
-    member, each a copy on its member's device. A tensor is read on its own
-    device (a card tensor makes no trip through the host)."""
+    member, each a copy on its member's device (None for another process's
+    member). A tensor is read on its own device (a card tensor makes no trip
+    through the host)."""
     a = _tensor(a).contiguous()
     if tuple(a.shape) != (layout.n, layout.n):
         raise ValueError(f"need an ({layout.n}, {layout.n}) matrix, got {tuple(a.shape)}")
     t = _tiles(a, layout)
     view = (layout.ltr, layout.nb, layout.ltc, layout.nb)
-    out = []
-    for m, r, c in _members(layout):
+    out = [None] * (layout.p * layout.q)
+    for m, r, c in _members(layout, mesh):
         s = torch.empty(layout.local_shape, dtype=a.dtype, device=mesh.devices[m])
         s.view(view).copy_(t[:, r, :, :, c, :])
-        out.append(s)
+        out[m] = s
     return out
 
 
-def to_dense(shards, layout: BlockCyclicLayout) -> torch.Tensor:
+def to_dense(shards, layout: BlockCyclicLayout, mesh: MemberMesh | None = None) -> torch.Tensor:
     """Inverse of :func:`from_dense`: the dense matrix, on the members' device
-    (the JAX function gathers it to the host)."""
-    x = _check_shards(shards, layout)
-    out = torch.empty((layout.n, layout.n), dtype=x[0].dtype, device=x[0].device)
+    (the JAX function gathers it to the host). On a ``mesh`` across
+    processes, every process's shards reach every process first, by
+    broadcast in member order, and each gets the whole matrix."""
+    x = _check_shards(shards, layout, mesh)
+    ref = x[_members(layout, mesh)[0][0]]
+    out = torch.empty((layout.n, layout.n), dtype=ref.dtype, device=ref.device)
     t = _tiles(out, layout)
     view = (layout.ltr, layout.nb, layout.ltc, layout.nb)
-    for m, r, c in _members(layout):
-        t[:, r, :, :, c, :].copy_(x[m].view(view))
+    for m in range(layout.p * layout.q):
+        r, c = divmod(m, layout.q)
+        t[:, r, :, :, c, :].copy_(comm.share(x[m], m, layout.local_shape, ref.dtype, mesh)
+                                  .view(view))
     return out
 
 
@@ -202,13 +226,14 @@ def generate_spd_block_cyclic(
     (``ops.lapack_like.plgsy_at``, the body of ``plgsy_tile``), in row slabs —
     the replacement for the reference client building the full N×N in RAM
     and uploading tile blobs one by one (``client_distrib.cpp:402-432``). The
-    assembled matrix is ``plgsy``'s, bit for bit."""
+    assembled matrix is ``plgsy``'s, bit for bit. On a mesh across processes
+    a process makes its own members' shards only (None for the others)."""
     if bump is None:
         bump = float(layout.n)
     nb, ltr, ltc, p, q = layout.nb, layout.ltr, layout.ltc, layout.p, layout.q
     slab = max(1, _SLAB_ELEMS // (ltc * nb))
-    out = []
-    for m, r, c in _members(layout):
+    out = [None] * (p * q)
+    for m, r, c in _members(layout, mesh):
         dev = mesh.devices[m]
         rows = _global_index(ltr, p, r, nb, dev)
         cols = _global_index(ltc, q, c, nb, dev)
@@ -216,5 +241,5 @@ def generate_spd_block_cyclic(
         for r0 in range(0, ltr * nb, slab):
             x[r0 : r0 + slab] = plgsy_at(seed, rows[r0 : r0 + slab], cols, bump=bump,
                                          dtype=dtype)
-        out.append(x)
+        out[m] = x
     return out

@@ -9,6 +9,13 @@ P(None, "d"))`` puts on device d, so ``torch.cat(shards, dim=1)`` is JAX's
 global array. Data crosses between members only through
 :func:`~dla_tpu_torch.kernels.collectives.ring_broadcast`.
 
+A mesh made while a process group of several processes is up spans them
+(:mod:`~dla_tpu_torch.parallel.member_comm`): a process holds its own
+members' shards (None for the others) and runs only their programs, and the
+ring broadcast has two levels with the same bits: the owner's block crosses
+to every other process by one ``torch.distributed`` broadcast, then #11 runs
+among each process's members, rooted at the member in the owner's position.
+
 Algorithm (right-looking, lower triangle only), tile column j owned by member
 j mod D. The controller runs each member's program in turn on one stream:
 
@@ -34,25 +41,35 @@ import torch
 
 from dla_tpu_torch.algos.potrf import _cholesky
 from dla_tpu_torch.kernels.collectives import ring_broadcast
+from dla_tpu_torch.parallel import member_comm as comm
 
 _MULTI_CARD = ("a mesh whose members span several devices is not supported yet "
                "(ROADMAP A9: members on several cards, peer pointers)")
 
 
 @dataclass(frozen=True)
-class FlatMesh:
-    """A 1-D ('d',) mesh of ``len(devices)`` members. All members lie on one
-    device; a mesh whose members span several raises ``NotImplementedError``."""
+class FlatMesh(comm.ProcessSpan):
+    """A 1-D ('d',) mesh of ``len(devices)`` members, split evenly over
+    ``processes`` processes, of which this is ``process``. A process's
+    members lie on one device; a mesh whose members span several raises
+    ``NotImplementedError``."""
 
     devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...] = ("d",)
+    processes: int = 1
+    process: int = 0
 
     def __post_init__(self):
         _one_device(self.devices)
+        self._check_span()
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
 
 
 def _one_device(devices) -> None:
@@ -74,8 +91,10 @@ def _member_device(device) -> torch.device:
 
 def make_flat_mesh(ndev: int, *, device="cuda") -> FlatMesh:
     """A flat mesh of ``ndev`` members, all on the card unless the caller
-    names another device (``device="cpu"``)."""
-    return FlatMesh((_member_device(device),) * ndev)
+    names another device (``device="cpu"``); across the processes of the
+    process group where one is up, as ``jax.devices()`` spans them."""
+    processes, process = comm.process_span()
+    return FlatMesh((_member_device(device),) * ndev, processes=processes, process=process)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -98,19 +117,29 @@ def _col_perm(n: int, nb: int, ndev: int) -> np.ndarray:
 def from_dense_cols(a, nb: int, mesh: FlatMesh) -> list[torch.Tensor]:
     """Permute and shard a dense (n, n) matrix (tensor or numpy)
     column-cyclically over the flat mesh: one (n, n/D) tensor per member, rows
-    whole on every member."""
+    whole on every member (None for another process's member)."""
     a = _tensor(a)
     perm = torch.as_tensor(_col_perm(a.shape[1], nb, mesh.size), device=a.device)
     w = a.shape[1] // mesh.size
     full = a[:, perm]
     return [full[:, d * w : (d + 1) * w].to(mesh.devices[d], copy=True).contiguous()
-            for d in range(mesh.size)]
+            if mesh.is_local(d) else None for d in range(mesh.size)]
+
+
+def _gathered(shards, mesh) -> list[torch.Tensor]:
+    """Every member's shard on this process (JAX's replicate step): across
+    processes, each other process's shards arrive by broadcast, in member
+    order."""
+    x = list(shards)
+    ref = x[mesh.local_members()[0]]
+    return [comm.share(x[d], d, ref.shape, ref.dtype, mesh) for d in range(mesh.size)]
 
 
 def to_dense_cols(shards, nb: int, mesh: FlatMesh) -> torch.Tensor:
     """Inverse of :func:`from_dense_cols`: the dense matrix, on the members'
-    device (the JAX function gathers it to the host)."""
-    x = torch.cat(list(shards), dim=1)
+    device (the JAX function gathers it to the host); across processes, on
+    every process."""
+    x = torch.cat(_gathered(shards, mesh), dim=1)
     perm = _col_perm(x.shape[1], nb, mesh.size)
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size)
@@ -134,13 +163,33 @@ def _dot_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b.mT
 
 
-def _broadcast_from(owner: int, block: torch.Tensor, ndev: int) -> list[torch.Tensor]:
+def _broadcast_from(owner: int, block, mesh: FlatMesh, shape, dtype) -> list:
     """Ring-broadcast the owner's block: every other member hands the ring a
     block of its own, whose contents the ring ignores. Every plane broadcasts
     through here (through this module's ``ring_broadcast``, which a test or a
-    timing run may replace)."""
-    return ring_broadcast([block if d == owner else torch.empty_like(block)
-                           for d in range(ndev)], owner)
+    timing run may replace). Across processes ``block`` is None on every
+    process but the owner's: the block crosses to each process first
+    (:func:`~dla_tpu_torch.parallel.member_comm.share`), then the ring runs
+    among the process's members from the one in the owner's position; the
+    list holds None for other processes' members."""
+    blk = comm.share(block, owner, shape, dtype, mesh)
+    root = owner % mesh.per_process
+    outs = ring_broadcast([blk if i == root else torch.empty_like(blk)
+                           for i in range(mesh.per_process)], root)
+    full = [None] * mesh.size
+    for d, out in zip(mesh.local_members(), outs):
+        full[d] = out
+    return full
+
+
+def _local_shards(x: list, mesh, want: tuple, what: str) -> torch.Tensor:
+    """Checks this process's shards of ``x`` (D entries, ``want``-shaped);
+    returns the first."""
+    local = [x[d] for d in mesh.local_members()] if len(x) == mesh.size else []
+    if not local or any(s is None or tuple(s.shape) != want for s in local):
+        raise ValueError(f"need {mesh.size} {what} of shape {want}; got "
+                         f"{[None if s is None else tuple(s.shape) for s in x]}")
+    return local[0]
 
 
 def _check(n: int, nb: int, mesh, name: str) -> int:
@@ -161,28 +210,31 @@ def potrf_column_cyclic_ring(shards, nb: int, mesh: FlatMesh) -> list[torch.Tens
     :func:`from_dense_cols`) with ring panel broadcasts. Requires nt = n/nb to
     be a multiple of the mesh size. **Factors in place**: the returned list
     holds the input shards, updated (JAX returns new arrays in the same
-    layout). Only the lower triangle is meaningful."""
+    layout; across processes, this process's shards and None for the
+    others). Only the lower triangle is meaningful."""
     x = list(shards)
-    n = x[0].shape[0]
+    first = next((s for s in x if s is not None), None)
+    n = 0 if first is None else first.shape[0]
     nt = _check(n, nb, mesh, "potrf_column_cyclic_ring")
     ndev = mesh.size
-    if len(x) != ndev or any(s.shape != (n, n // ndev) for s in x):
-        raise ValueError(f"need {ndev} shards of shape {(n, n // ndev)}; got "
-                         f"{[tuple(s.shape) for s in x]}")
+    dtype = _local_shards(x, mesh, (n, n // ndev), "shards").dtype
     ltc = nt // ndev
     for k in range(nt):
         kc, ljk = k % ndev, k // ndev
         row0, row1 = k * nb, (k + 1) * nb
         cols = slice(ljk * nb, (ljk + 1) * nb)
-        own = x[kc]
-        lkk, solved = _solve_panel(own[row0:row1, cols], own[row1:, cols])
-        own[row0:row1, cols] = lkk
-        _broadcast_from(kc, lkk, ndev)  # every member receives L_kk
+        own = x[kc] if mesh.is_local(kc) else None
+        lkk = solved = None
+        if own is not None:
+            lkk, solved = _solve_panel(own[row0:row1, cols], own[row1:, cols])
+            own[row0:row1, cols] = lkk
+        _broadcast_from(kc, lkk, mesh, (nb, nb), dtype)  # every member receives L_kk
         if k == nt - 1:
             break
-        panel = _broadcast_from(kc, solved, ndev)
-        own[row1:, cols] = solved
-        for c in range(ndev):  # each member's trailing update over its own shard
+        panel = _broadcast_from(kc, solved, mesh, (n - row1, nb), dtype)
+        if own is not None:
+            own[row1:, cols] = solved
+        for c in mesh.local_members():  # each member's trailing update over its own shard
             for lj in range((k + 1) // ndev, ltc):
                 gcol = lj * ndev + c
                 rs = max(k + 1, lj * ndev) * nb

@@ -50,12 +50,14 @@ class Plane(NamedTuple):
     dense: Callable[[object], torch.Tensor]
 
 
-def plane(kind: str, n: int, nb: int, mesh, **df64_kw) -> Plane:
+def plane(kind: str, n: int, nb: int, mesh, seed: int | None = None, **df64_kw) -> Plane:
+    """The ring plane ``kind`` on ``mesh``, its matrix ``plgsy`` of ``seed``
+    (by default the dry run's)."""
     from dla_tpu_torch import parallel as TP
     from dla_tpu_torch.ops import plgsy
     from dla_tpu_torch.ops.df64 import to_df64
 
-    seed = PLANES[kind][1]
+    seed = PLANES[kind][1] if seed is None else seed
 
     def matrix():
         return plgsy(n, seed=seed, dtype=torch.float64, device=mesh.devices[0])

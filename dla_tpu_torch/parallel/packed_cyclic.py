@@ -11,7 +11,10 @@ global row gcol·nb); the bottom d·nb padding rows are zero and stay zero. A
 sharded triangle is a list of D (R, nb) tensors, member d's the block JAX's
 ``NamedSharding(mesh, P("d", None))`` puts on device d, so
 ``torch.cat(shards, dim=0)`` is JAX's global array. Per-member resident memory
-is ≈ n²/(2·D).
+is ≈ n²/(2·D). On a mesh across processes a process holds its own members'
+shards (None for the others), runs their programs only, and the broadcasts
+cross the boundary as in
+:func:`~dla_tpu_torch.parallel.column_cyclic.potrf_column_cyclic_ring`.
 
 Per step k, the controller running each member's program in turn on one
 stream:
@@ -46,6 +49,8 @@ from dla_tpu_torch.parallel.column_cyclic import (
     _broadcast_from,
     _check,
     _dot_nt,
+    _gathered,
+    _local_shards,
     _solve_panel,
     _tensor,
 )
@@ -64,13 +69,16 @@ def pack_cols_packed(a, nb: int, mesh: FlatMesh) -> list[torch.Tensor]:
     """Shard a dense (n, n) SPD matrix's lower triangle (tensor or numpy)
     column-cyclically in packed form: one ``(R, nb)`` tensor per member,
     stacking its owned tile columns' below-diagonal rows, zero-padded to the
-    lj-envelope heights."""
+    lj-envelope heights (None for another process's member)."""
     a = _tensor(a)
     n = a.shape[0]
     ndev = mesh.size
     nt, ltc, hs, off = _geometry(n, nb, ndev)
     shards = []
     for d in range(ndev):
+        if not mesh.is_local(d):
+            shards.append(None)
+            continue
         shard = torch.zeros((int(off[-1]), nb), dtype=a.dtype, device=mesh.devices[d])
         for lj in range(ltc):
             gcol = lj * ndev + d
@@ -82,10 +90,11 @@ def pack_cols_packed(a, nb: int, mesh: FlatMesh) -> list[torch.Tensor]:
 
 def unpack_cols_packed(shards, n: int, nb: int, mesh: FlatMesh) -> torch.Tensor:
     """Inverse of :func:`pack_cols_packed` → the dense lower triangle, on the
-    members' device (the JAX function gathers it to the host)."""
+    members' device (the JAX function gathers it to the host); across
+    processes, on every process."""
     ndev = mesh.size
     nt, ltc, hs, off = _geometry(n, nb, ndev)
-    shards = list(shards)
+    shards = _gathered(shards, mesh)
     out = torch.zeros((n, n), dtype=shards[0].dtype, device=shards[0].device)
     for d in range(ndev):
         for lj in range(ltc):
@@ -96,15 +105,14 @@ def unpack_cols_packed(shards, n: int, nb: int, mesh: FlatMesh) -> torch.Tensor:
 
 
 def _check_packed(n: int, nb: int, mesh, name: str, *planes) -> tuple:
+    """(nt, geometry, dtype) once this process's shards of every plane have
+    the packed shape."""
     nt = _check(n, nb, mesh, name)
     geo = _geometry(n, nb, mesh.size)
     want = (int(geo[3][-1]), nb)
-    for plane in planes:
-        if len(plane) != mesh.size or any(tuple(s.shape) != want for s in plane):
-            raise ValueError(
-                f"packed shards {[tuple(s.shape) for s in plane]} != {mesh.size} x {want}"
-                " — build them with pack_cols_packed")
-    return nt, geo
+    firsts = [_local_shards(plane, mesh, want, "packed shards (pack_cols_packed)")
+              for plane in planes]
+    return nt, geo, firsts[0].dtype
 
 
 def _live_slabs(k: int, c: int, nb: int, ndev: int, ltc: int):
@@ -123,19 +131,22 @@ def potrf_packed_cyclic(shards, n: int, nb: int, mesh: FlatMesh) -> list[torch.T
     to be a multiple of the mesh size. **Factors in place**: returns the input
     shards, updated, in the same packed layout."""
     x = list(shards)
-    nt, (_, ltc, hs, off) = _check_packed(n, nb, mesh, "potrf_packed_cyclic", x)
+    nt, (_, ltc, hs, off), dtype = _check_packed(n, nb, mesh, "potrf_packed_cyclic", x)
     ndev = mesh.size
     for k in range(nt):
         kc, ljk = k % ndev, k // ndev
-        own, top = x[kc], int(off[ljk])
-        lkk, solved = _solve_panel(own[top : top + nb], own[top + nb : top + hs[ljk]])
-        own[top : top + nb] = lkk
-        _broadcast_from(kc, lkk, ndev)
+        own, top = (x[kc] if mesh.is_local(kc) else None), int(off[ljk])
+        lkk = solved = None
+        if own is not None:
+            lkk, solved = _solve_panel(own[top : top + nb], own[top + nb : top + hs[ljk]])
+            own[top : top + nb] = lkk
+        _broadcast_from(kc, lkk, mesh, (nb, nb), dtype)
         if k == nt - 1:
             break
-        panel = _broadcast_from(kc, solved, ndev)
-        own[top + nb : top + hs[ljk]] = solved
-        for c in range(ndev):
+        panel = _broadcast_from(kc, solved, mesh, (hs[ljk] - nb, nb), dtype)
+        if own is not None:
+            own[top + nb : top + hs[ljk]] = solved
+        for c in mesh.local_members():
             for lj, op, h in _live_slabs(k, c, nb, ndev, ltc):
                 x[c][off[lj] : off[lj] + h] -= _dot_nt(panel[c][op : op + h],
                                                        panel[c][op : op + nb])
@@ -167,29 +178,35 @@ def potrf_packed_cyclic_df64(
     :func:`potrf_packed_cyclic`. **Factors in place**: returns the input
     shard lists, updated. Meets the 1e-10 gate."""
     xh, xl = list(xh), list(xl)
-    nt, (_, ltc, hs, off) = _check_packed(n, nb, mesh, "potrf_packed_cyclic_df64", xh, xl)
+    nt, (_, ltc, hs, off), dtype = _check_packed(n, nb, mesh, "potrf_packed_cyclic_df64",
+                                                 xh, xl)
     ndev = mesh.size
     gemm_kw = dict(s=s, w=w, precise_deg=precise_deg)
     for k in range(nt):
         kc, ljk = k % ndev, k // ndev
         top, ph = int(off[ljk]), hs[ljk] - nb
-        oh, ol = xh[kc], xl[kc]
-        lkk_h, lkk_l = _factor_diag_df64(oh[top : top + nb], ol[top : top + nb], refine=refine,
-                                         gemm_kw=gemm_kw)
-        oh[top : top + nb] = lkk_h
-        ol[top : top + nb] = lkk_l
-        dpair = torch.cat([lkk_h, lkk_l], dim=0)
-        _broadcast_from(kc, dpair, ndev)
+        own = mesh.is_local(kc)
+        dpair = ppair = None
+        if own:
+            oh, ol = xh[kc], xl[kc]
+            lkk_h, lkk_l = _factor_diag_df64(oh[top : top + nb], ol[top : top + nb],
+                                             refine=refine, gemm_kw=gemm_kw)
+            oh[top : top + nb] = lkk_h
+            ol[top : top + nb] = lkk_l
+            dpair = torch.cat([lkk_h, lkk_l], dim=0)
+        _broadcast_from(kc, dpair, mesh, (2 * nb, nb), dtype)
         if k == nt - 1:
             break
-        sol_h, sol_l = _panel_solve_df64(lkk_h, lkk_l, oh[top + nb : top + hs[ljk]],
-                                         ol[top + nb : top + hs[ljk]], refine=refine,
-                                         gemm_kw=gemm_kw)
-        ppair = torch.cat([sol_h, sol_l], dim=0)
-        pairs = _broadcast_from(kc, ppair, ndev)
-        oh[top + nb : top + hs[ljk]] = sol_h
-        ol[top + nb : top + hs[ljk]] = sol_l
-        for c in range(ndev):
+        if own:
+            sol_h, sol_l = _panel_solve_df64(lkk_h, lkk_l, oh[top + nb : top + hs[ljk]],
+                                             ol[top + nb : top + hs[ljk]], refine=refine,
+                                             gemm_kw=gemm_kw)
+            ppair = torch.cat([sol_h, sol_l], dim=0)
+        pairs = _broadcast_from(kc, ppair, mesh, (2 * ph, nb), dtype)
+        if own:
+            oh[top + nb : top + hs[ljk]] = sol_h
+            ol[top + nb : top + hs[ljk]] = sol_l
+        for c in mesh.local_members():
             pan_h, pan_l = pairs[c][:ph], pairs[c][ph:]
             sx = slice_rows(pan_h, pan_l, s=s, w=w)[0] if slice_reuse else None
             for lj, op, h in _live_slabs(k, c, nb, ndev, ltc):

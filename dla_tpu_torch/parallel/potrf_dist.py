@@ -22,10 +22,16 @@ program's order (one step of lookahead). Per panel step k:
    skipped: x − 0 is x. Only a NaN in the panel could tell the two apart
    (0·NaN), and then both factors hold NaN.
 
-The collectives go through :mod:`~dla_tpu_torch.parallel.member_comm`. The
-products are ``torch.matmul``, accumulated in fp32 for bf16/fp16 storage and
-cast once before the subtraction (JAX's ``preferred_element_type``); the
-factor and solves are ``torch.linalg`` calls. Lower triangle only: tiles
+The collectives go through :mod:`~dla_tpu_torch.parallel.member_comm`. On a
+mesh across processes a process runs only its own members' programs and
+holds None for the others' shards: the diagonal tile and each of the p
+solved strips reach every process by a broadcast from its owner's process,
+and every process factors the diagonal tile from the same bits. The helpers
+keep the JAX local programs' (x, layout) arguments and reach the mesh
+through ``member_comm.over``. The products are ``torch.matmul``, accumulated
+in fp32 for bf16/fp16 storage and cast once before the subtraction (JAX's
+``preferred_element_type``); the factor and solves are ``torch.linalg``
+calls. Lower triangle only: tiles
 above the staircase hold garbage afterwards, as in JAX. The matrix is
 factored **in place**.
 """
@@ -52,22 +58,33 @@ def _below(k: int, r: int, p: int, w0: int) -> int:
     return max(w0, (k - r) // p + 1) - w0
 
 
-def _panel(lkk: torch.Tensor, cols, k: int, w0: int, nb: int, last: bool):
+def _dtype(x) -> torch.dtype:
+    return next(s for s in x if s is not None).dtype
+
+
+def _diag(x, m: int, rows: slice, cols: slice, nb: int, dtype) -> torch.Tensor:
+    """tril(chol) of member m's diagonal tile, which every member receives."""
+    tile = None if x[m] is None else x[m][rows, cols]
+    return torch.tril(_cholesky(comm.from_owner(tile, m, (nb, nb), dtype)))
+
+
+def _panel(lkk: torch.Tensor, cols, owners, k: int, w0: int, nb: int, last: bool, shape):
     """Solve mesh column k mod q's window columns ``cols`` (one per mesh row
-    r, each from local tile row ``w0``) below tile row k; return the stacked
+    r, each ``shape`` from local tile row ``w0``; None where member
+    ``owners[r]`` is another process's) below tile row k; return the stacked
     panel of step k (p, window rows, nb): each mesh row's owner's solved
     rows, zero at or above tile row k. None at the last step."""
     p = len(cols)
     tops = [_below(k, r, p, w0) * nb for r in range(p)]
     for col, top in zip(cols, tops):
-        if col.shape[0]:
+        if col is not None and col.shape[0]:
             solved = torch.linalg.solve_triangular(lkk.mT, col, upper=True, left=False)
             col[top:] = solved[top:]
     if last:
         return None
     rows = []
-    for col, top in zip(cols, tops):
-        blk = comm.from_owner(col)
+    for col, top, m in zip(cols, tops, owners):
+        blk = comm.from_owner(col, m, shape, lkk.dtype)
         blk[:top] = 0
         rows.append(blk)
     return comm.all_gather(rows)
@@ -81,12 +98,14 @@ def _panel_phase(x, layout: BlockCyclicLayout, k: int):
     kr, kc, lik, ljk = k % p, k % q, k // p, k // q
     w0 = (k + 1) // p
     cols = slice(ljk * nb, (ljk + 1) * nb)
-    owner = x[kr * q + kc]
-    lkk = torch.tril(_cholesky(comm.from_owner(owner[lik * nb : (lik + 1) * nb, cols])))
-    panel = _panel(lkk, [x[r * q + kc][w0 * nb :, cols] for r in range(p)], k, w0, nb,
-                   k == layout.ntiles - 1)
+    rows = slice(lik * nb, (lik + 1) * nb)
+    lkk = _diag(x, kr * q + kc, rows, cols, nb, _dtype(x))
+    owners = [r * q + kc for r in range(p)]
+    panel = _panel(lkk, [None if x[m] is None else x[m][w0 * nb :, cols] for m in owners],
+                   owners, k, w0, nb, k == layout.ntiles - 1, ((layout.ltr - w0) * nb, nb))
     # the diagonal tile row may sit above the window start: L_kk on its owner
-    owner[lik * nb : (lik + 1) * nb, cols] = lkk
+    if x[kr * q + kc] is not None:
+        x[kr * q + kc][rows, cols] = lkk
     return panel
 
 
@@ -142,15 +161,19 @@ def _fori_window(sub, layout: BlockCyclicLayout, k0: int, k1: int, li0: int, lj0
     the static staircase start ``max(li0, (gj·q)//p)``, the rows at or above
     tile row k masked to zero in the A operand."""
     nb, p, q = layout.nb, layout.p, layout.q
-    wr, wc = sub[0].shape
+    wr, wc = next(s for s in sub if s is not None).shape
+    dtype = _dtype(sub)
     for k in range(k0, k1):
         kr, kc = k % p, k % q
         lik, ljk = k // p - li0, k // q - lj0  # window-local tile coordinates
         cols = slice(ljk * nb, (ljk + 1) * nb)
-        own = sub[kr * q + kc]
-        lkk = torch.tril(_cholesky(comm.from_owner(own[lik * nb : (lik + 1) * nb, cols])))
-        panel = _panel(lkk, [sub[r * q + kc][:, cols] for r in range(p)], k, li0, nb, False)
-        own[lik * nb : (lik + 1) * nb, cols] = lkk
+        rows = slice(lik * nb, (lik + 1) * nb)
+        lkk = _diag(sub, kr * q + kc, rows, cols, nb, dtype)
+        owners = [r * q + kc for r in range(p)]
+        panel = _panel(lkk, [None if sub[m] is None else sub[m][:, cols] for m in owners],
+                       owners, k, li0, nb, False, (wr, nb))
+        if sub[kr * q + kc] is not None:
+            sub[kr * q + kc][rows, cols] = lkk
         for m, r, c in _members(layout):
             for lj in range(wc // nb):
                 lj_abs = lj + lj0
@@ -170,7 +193,7 @@ def _potrf_super(x, layout: BlockCyclicLayout, super_steps: int) -> None:
     nb, p, q, nt = layout.nb, layout.p, layout.q, layout.ntiles
     for s0 in range(0, nt, super_steps):
         li0, lj0 = s0 // p, s0 // q
-        sub = [xm[li0 * nb :, lj0 * nb :] for xm in x]
+        sub = [None if xm is None else xm[li0 * nb :, lj0 * nb :] for xm in x]
         _fori_window(sub, layout, s0, min(nt, s0 + super_steps), li0, lj0)
 
 
@@ -191,16 +214,19 @@ def potrf_block_cyclic(
     ``unroll=None`` picks the unrolled program (the true flop count, static
     shrinking windows) for ≤ 64 tile steps and the super-stepped program
     beyond (windows cut every ``super_steps`` panels, by default sized so
-    that there are ≤ 32 segments), as JAX does."""
+    that there are ≤ 32 segments), as JAX does. On a mesh across processes
+    each process factors its own members' shards (the list holds None for
+    the others), with the bits of the one-process program."""
     x = _check_shards(shards, layout, mesh)
     if unroll is None:
         unroll = layout.ntiles <= 64
     if super_steps is None:
         super_steps = max(1, -(-layout.ntiles // 32))
-    if unroll:
-        _potrf_unrolled(x, layout)
-    else:
-        _potrf_super(x, layout, super_steps)
+    with comm.over(mesh):
+        if unroll:
+            _potrf_unrolled(x, layout)
+        else:
+            _potrf_super(x, layout, super_steps)
     return x
 
 

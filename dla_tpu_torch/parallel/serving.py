@@ -29,7 +29,10 @@ def make_serving_mesh(p: int, *, device="cuda") -> FlatMesh:
 
 def sharded_apply(mesh: FlatMesh):
     """The apply for ``mesh``: (A⁻¹'s row blocks, one per member; replicated
-    B) → replicated X, each member's product at the precision tier."""
+    B) → replicated X, each member's product at the precision tier. A mesh
+    across processes raises ``NotImplementedError``."""
+    if mesh.spans_processes:
+        raise NotImplementedError("sharded_apply: a mesh across processes is not supported")
 
     def apply(ainv_rows, b: torch.Tensor) -> torch.Tensor:
         rows = list(ainv_rows)

@@ -19,6 +19,12 @@ over tile rows:
 
 The right-hand side stays replicated on every member: on one device, one
 tensor. Only tril of the factor tiles is read.
+
+On a mesh across processes (``member_comm.over``) each process holds the
+whole right-hand side and only its own members' factor shards. The owner of
+each product sends it to every process by broadcast
+(:func:`~dla_tpu_torch.parallel.member_comm.share`) and every process applies
+the same updates in the same order: the bits of one process.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ def potrs_block_cyclic(lx, b, layout: BlockCyclicLayout, mesh: MemberMesh) -> to
     replicated solution X on the members' device, in the factor's dtype."""
     lx = _check_shards(lx, layout, mesh)
     nb, p, q, ltr, nt = layout.nb, layout.p, layout.q, layout.ltr, layout.ntiles
-    y = _tensor(b).to(device=mesh.device, dtype=lx[0].dtype, copy=True)
+    dtype = next(s for s in lx if s is not None).dtype
+    y = _tensor(b).to(device=mesh.device, dtype=dtype, copy=True)
     if y.ndim != 2 or y.shape[0] != layout.n:
         raise ValueError(f"b must be ({layout.n}, nrhs), got {tuple(y.shape)}")
     nrhs = y.shape[1]
@@ -44,30 +51,41 @@ def potrs_block_cyclic(lx, b, layout: BlockCyclicLayout, mesh: MemberMesh) -> to
 
     def diag(k):
         lik, ljk = k // p, k // q
-        owner = lx[(k % p) * q + k % q]
-        return comm.from_owner(owner[lik * nb : (lik + 1) * nb, ljk * nb : (ljk + 1) * nb])
+        m = (k % p) * q + k % q
+        tile = None if lx[m] is None else lx[m][lik * nb : (lik + 1) * nb,
+                                               ljk * nb : (ljk + 1) * nb]
+        return comm.from_owner(tile, m, (nb, nb), dtype)
 
     def strips(k):
-        """(r, first local tile row below k, L rows below tile row k) of mesh
-        column k mod q's members, the owners of tile column k."""
+        """(r, first local tile row below k, owner, L rows below tile row k or
+        None on another process) of mesh column k mod q's members, the owners
+        of tile column k."""
         ljk = k // q
         for r in range(p):
             li0 = max(0, (k - r) // p + 1)
+            m = r * q + k % q
             if li0 < ltr:
-                yield r, li0, lx[r * q + k % q][li0 * nb :, ljk * nb : (ljk + 1) * nb]
+                yield r, li0, m, (None if lx[m] is None
+                                  else lx[m][li0 * nb :, ljk * nb : (ljk + 1) * nb])
 
-    # ---- forward: L Y = B --------------------------------------------------
-    for k in range(nt):
-        rows = slice(k * nb, (k + 1) * nb)
-        yk = torch.linalg.solve_triangular(diag(k), y[rows], upper=False, left=True)
-        y[rows] = yk
-        for r, li0, strip in strips(k):
-            yt[li0:, r] -= (strip @ yk).view(-1, nb, nrhs)
+    with comm.over(mesh):
+        # ---- forward: L Y = B ----------------------------------------------
+        for k in range(nt):
+            rows = slice(k * nb, (k + 1) * nb)
+            yk = torch.linalg.solve_triangular(diag(k), y[rows], upper=False, left=True)
+            y[rows] = yk
+            for r, li0, m, strip in strips(k):
+                upd = comm.share(None if strip is None else strip @ yk, m,
+                                 ((ltr - li0) * nb, nrhs), dtype)
+                yt[li0:, r] -= upd.view(-1, nb, nrhs)
 
-    # ---- backward: Lᵀ X = Y ------------------------------------------------
-    for k in reversed(range(nt)):
-        rows = slice(k * nb, (k + 1) * nb)
-        parts = [strip.mT @ yt[li0:, r].reshape(-1, nrhs) for r, li0, strip in strips(k)]
-        s = comm.psum(parts) if parts else torch.zeros_like(y[rows])
-        y[rows] = torch.linalg.solve_triangular(diag(k).mT, y[rows] - s, upper=True, left=True)
+        # ---- backward: Lᵀ X = Y --------------------------------------------
+        for k in reversed(range(nt)):
+            rows = slice(k * nb, (k + 1) * nb)
+            parts = [comm.share(None if strip is None
+                                else strip.mT @ yt[li0:, r].reshape(-1, nrhs), m, (nb, nrhs),
+                                dtype) for r, li0, m, strip in strips(k)]
+            s = comm.psum(parts) if parts else torch.zeros_like(y[rows])
+            y[rows] = torch.linalg.solve_triangular(diag(k).mT, y[rows] - s, upper=True,
+                                                    left=True)
     return y

@@ -2293,3 +2293,39 @@ def test_harness_one_row_sweep_on_card(cuda, tmp_path):
     with open(tmp_path / "s.csv") as f:
         (row,) = list(csv.DictReader(f))
     assert float(row["rel_error"]) < 2048 * 2e-7 and float(row["gflops"]) > 0
+
+
+def test_multihost_planes_across_two_processes_on_card(cuda, tmp_path):
+    """The demo's five planes as 2 processes × 4 members sharing the card over
+    gloo: every gate passes, each result equals the one-process plane's bits,
+    and each process launches #11 2·nt − 1 times on each ring plane."""
+    import os
+    import re
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", "2", "--n", "256", "--nb", "16",
+            "--plane", "block,potrs,column,packed,packed-df64", "--device", "cuda",
+            "--backend", "gloo", "--timeout", "120", "--compare"]
+    procs = [subprocess.Popen([sys.executable, "-m", "dla_tpu_torch.parallel.multihost",
+                               "--pid", str(pid)] + argv, cwd=Path(__file__).resolve().parents[1],
+                              env=dict(os.environ), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert len(re.findall(r" = \S+ PASS$", outs[0], re.M)) == 5, outs[0]
+    assert len(re.findall(r"the same bits: True$", outs[0], re.M)) == 5, outs[0]
+    for pid, out in enumerate(outs):
+        for plane in ("column", "packed", "packed-df64"):
+            assert re.search(rf"^\[mh {pid}\] plane {plane}: .*ring_broadcast launches "
+                             rf"{2 * (256 // 16) - 1};", out, re.M), out
