@@ -111,8 +111,9 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     bit for bit; ``potrs_packed_df64`` (both engines) and ``potrs_df64`` under
     the reference's 1e-10 posv gate; the three df64 Freivalds gates on one
     factor, and the packed one on the card against the CPU;
-23. the driver with ``--mode df64-packed`` at phase 21's size (its gate there
-    is the blocked df64 residual of the unpacked factor), and with
+23. the driver with ``--mode df64-packed`` at N=16384 (phase 21 runs the path
+    at its full size; the driver's gate is the blocked df64 residual of the
+    unpacked factor, as at N=40960), and with
     ``--df64-split 2`` at N=8192 under a validation budget of one byte, which
     sends it to the packed-native Freivalds gate;
 24. the four task kernels against their plain versions on the card:
@@ -255,6 +256,20 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     the same plane in one process on 8 members, its time and the largest
     difference between the two results. A process that fails or outlives
     its timeout fails the phase.
+39. the finance model (``dla_tpu_torch/models/``, no hand kernel: the JAX
+    package's LSTM and head are XLA ops, the port's torch ops) at the JAX
+    package's CLI defaults: ``python -m dla_tpu_torch.models.cli`` as
+    processes, ``gen-data`` (all four universes, 19 tickers, 1260 days),
+    ``audit``, ``features`` (24 features a ticker, 456 inputs, window 30,
+    horizon 5), ``train`` (hidden 64 32, batch 64, 10 epochs, ≈ 146k
+    parameters) on the card, ``eval``, ``predict --cumret``; each one's wall
+    time, exit code 0, finite losses, the checkpoint, one row per test window
+    in both files. Then card against CPU: from one numpy-made weight tree
+    (``params_from_flax``), 20 Adam steps on the same batches (noise and
+    dropout off), every parameter within 1e-4·max|p| and the predictions
+    within 1e-5, with the card's ms a step and its ``predict`` rows a
+    second; a reloaded checkpoint predicts the same bits on the card, and
+    every parameter and Adam moment lies there.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -321,6 +336,9 @@ N_MODES = 4096  # every potrf mode, card against CPU
 N_PDF64, NB_PDF64, KTB_PDF64 = 40960, 1024, 512
 PDF64_KW = dict(ktb=KTB_PDF64, s=S_DF64)
 N_PDF64_CHECK, N_PDF64_SPLIT = 4096, 8192
+# phase 23's driver run: at N_PDF64 it took 78.7 s of the smoke (its factor and the blocked gate
+# at full size, which phase 21 already measures); its mode and gate are the same at this size
+N_PDF64_DRIVER = 16384
 # the tile-task path: the reference's task DAG at the main path's matrix, one launch per task
 N_TASK, NB_TASK, TASK_PREC = 16384, 512, "high"
 N_TASK64, NB_TASK64 = 4096, 256  # the same path in fp64, under the reference's 1e-10 gate
@@ -348,6 +366,11 @@ N_SESSION_Z, NB_SESSION_Z = 4096, 256
 # phase 38: the five planes of dla_tpu/parallel/multihost.py across 2 processes x 4 members on
 # this card: the block plane at the session's size, potrs and the ring planes at N_MH (D=8)
 N_MH_BLOCK, N_MH, NB_MH, MH_PROCS, MH_MEMBERS, MH_TIMEOUT = 32768, 16384, 512, 2, 4, 300
+# phase 39: the finance model at the JAX package's CLI defaults (dla_tpu/models/cli.py:30-52): all
+# four universes, MODEL_DAYS days, window, horizon, hidden, batch and epochs; then MODEL_STEPS Adam
+# steps on the card against the CPU from one weight tree
+MODEL_DAYS, MODEL_WINDOW, MODEL_HORIZON, MODEL_HIDDEN = 1260, 30, 5, (64, 32)
+MODEL_BATCH, MODEL_EPOCHS, MODEL_STEPS, MODEL_TIMEOUT = 64, 10, 20, 300
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -2723,7 +2746,179 @@ def phase_multihost(tag):
     print(f"phase 38 wall time: {time.perf_counter() - t38:.1f} s {tag}", flush=True)
 
 
-LAST_PHASE = 38
+# ---- 39. the finance model ------------------------------------------------------------------
+def models_run(tag, *argvs) -> list[str]:
+    """Subcommands of ``python -m dla_tpu_torch.models.cli``, each a process of its
+    own, started together; their outputs, printed with each one's wall time. Fails
+    unless every one exits 0 within MODEL_TIMEOUT seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "dla_tpu_torch.models.cli",
+                               *map(str, argv)], cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for argv in argvs]
+    outs, together = [], " (started together)" if len(argvs) > 1 else ""
+    try:
+        for argv, p in zip(argvs, procs):
+            out, err = p.communicate(timeout=max(1.0, t0 + MODEL_TIMEOUT - time.perf_counter()))
+            for line in out.splitlines():
+                print(f"models| {line}")
+            print(f"phase 39 {argv[0]}: exit code {p.returncode}, wall "
+                  f"{time.perf_counter() - t0:.2f} s{together} {tag}", flush=True)
+            require(p.returncode == 0, f"models {argv[0]} exited {p.returncode}: {err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def model_tree(rng, f: int, hidden, outputs: int) -> dict:
+    """A weight tree in the JAX package's names, made with numpy: scaled normal input
+    and head kernels, orthogonal recurrent kernels, small random biases."""
+    import numpy as np
+
+    tree, fan = {}, f
+    for layer, h in enumerate(hidden):
+        cell = {}
+        for g in "ifgo":
+            cell[f"i{g}"] = {"kernel": (rng.standard_normal((fan, h)) / fan ** 0.5)
+                             .astype(np.float32)}
+            cell[f"h{g}"] = {"kernel": np.linalg.qr(rng.standard_normal((h, h)))[0]
+                             .astype(np.float32),
+                             "bias": (0.1 * rng.standard_normal(h)).astype(np.float32)}
+        tree[f"OptimizedLSTMCell_{layer}"] = cell
+        fan = h
+    tree["Dense_0"] = {"kernel": (rng.standard_normal((fan, outputs)) / fan ** 0.5)
+                       .astype(np.float32), "bias": np.zeros(outputs, np.float32)}
+    return tree
+
+
+def phase_models(tag):
+    """The models CLI at full width on the card, then the card against the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from dla_tpu_torch.models.dataset import DataSet
+    from dla_tpu_torch.models.features import FeatureSet
+    from dla_tpu_torch.models.windpuller import WindPuller, params_from_flax
+
+    t39 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        data, feats = os.path.join(d, "data"), os.path.join(d, "f.npz")
+        model, pred, cum = (os.path.join(d, n) for n in ("wp.pkl", "pred.tsv", "cum.tsv"))
+        out, = models_run(tag, ["gen-data", "--out", data, "--days", MODEL_DAYS])
+        require(out.startswith("wrote 19 tickers"), "gen-data did not write 19 tickers")
+        out, _ = models_run(tag, ["audit", "--data", data],
+                            ["features", "--data", data, "--out", feats, "--window",
+                             MODEL_WINDOW, "--horizon", MODEL_HORIZON])
+        require(len(out.splitlines()) == 20 and "common overlap" in out, "audit: not 19 rows")
+        fs = FeatureSet.load(feats)
+        n_test = len(fs.x) - fs.n_train
+        require(fs.x.shape == (MODEL_DAYS - MODEL_WINDOW + 1 - MODEL_HORIZON, MODEL_WINDOW,
+                               19 * 24), f"features: X{fs.x.shape}")
+        out, = models_run(tag, ["train", "--features", feats, "--model", model, "--epochs",
+                                MODEL_EPOCHS, "--batch-size", MODEL_BATCH, "--hidden",
+                                *MODEL_HIDDEN, "--device", DEVICE])
+        epochs = re.findall(r"^epoch \d+/\d+ loss=(\S+) val_loss=(\S+) val_dacc=\S+", out, re.M)
+        require(len(epochs) == MODEL_EPOCHS, f"train printed {len(epochs)} epoch lines")
+        require(np.all(np.isfinite(np.array(epochs, float))), "train: a loss is not finite")
+        require(os.path.getsize(model) > 0, "train wrote no checkpoint")
+        out, _ = models_run(tag, ["eval", "--features", feats, "--model", model, "--device",
+                                  DEVICE],
+                            ["predict", "--features", feats, "--model", model, "--out", pred,
+                             "--cumret", cum, "--device", DEVICE])
+        m = re.search(r"^loss=(\S+) directional_accuracy=(\S+) pearson=(\S+)$", out, re.M)
+        require(m is not None and all(np.isfinite(float(v)) for v in m.groups()),
+                "eval printed no finite metrics")
+        for path in (pred, cum):
+            with open(path) as fh:
+                rows = fh.read().splitlines()
+            require(len(rows) == 1 + n_test, f"{os.path.basename(path)}: {len(rows) - 1} rows "
+                    f"for {n_test} test windows")
+            require(all(np.all(np.isfinite([float(v) for v in r.split("\t")[1:]]))
+                        for r in rows[1:]), f"{os.path.basename(path)}: a value is not finite")
+
+        # the card against the CPU from one weight tree, on the same batches
+        t_cli = time.perf_counter() - t39
+        t, f = fs.x.shape[1:]
+        tree = model_tree(np.random.default_rng(39), f, MODEL_HIDDEN, fs.y.shape[1])
+
+        def build(device):
+            wp = WindPuller(input_shape=(t, f), outputs=fs.y.shape[1], hidden=MODEL_HIDDEN,
+                            noise_std=0.0, dropout=0.0, device=device)
+            wp.net.load_state_dict(params_from_flax(tree))
+            return wp
+
+        xtr, ytr = fs.train()
+        xte, _ = fs.test()
+        ds, batches = DataSet(xtr, ytr, seed=0), []
+        while len(batches) < MODEL_STEPS:
+            batches.extend(ds.epoch(MODEL_BATCH))
+        batches = batches[:MODEL_STEPS]
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            wp = build(device)
+            gen = torch.Generator(device=wp.device)
+            xs = [(wp._tensor(xb), wp._tensor(yb)) for xb, yb in batches]
+            t0 = time.perf_counter()
+            losses = [wp._step(*xs[0], gen)]  # the first step (cuBLAS handles, allocations)
+            sync()
+            t1 = time.perf_counter()
+            losses += [wp._step(xb, yb, gen) for xb, yb in xs[1:]]
+            sync()
+            step_ms = (time.perf_counter() - t1) / (MODEL_STEPS - 1) * 1e3
+            runs[device] = (wp, torch.stack(losses).tolist(), step_ms, (t1 - t0) * 1e3)
+        card, cpu = runs[DEVICE][0], runs["cpu"][0]
+        nparams = sum(p.numel() for p in card.net.parameters())
+        worst = []
+        cpu_state = cpu.net.state_dict()
+        for k, v in card.net.state_dict().items():
+            ref = cpu_state[k]
+            worst.append((float((v.cpu() - ref).abs().max()) / float(ref.abs().max()), k))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs[DEVICE][1], runs["cpu"][1]))
+        pc, pp = card.predict(xte), cpu.predict(xte)
+        pred_err = float(np.abs(pc - pp).max())
+        x_all = fs.x
+        card.predict(x_all)
+        t0 = time.perf_counter()
+        reps = 5
+        for _ in range(reps):
+            card.predict(x_all)
+        rows_s = reps * len(x_all) / (time.perf_counter() - t0)
+        print(f"phase 39 card against CPU: {nparams} parameters, {MODEL_STEPS} Adam steps at "
+              f"batch {MODEL_BATCH} (T={t}, F={f}, hidden {MODEL_HIDDEN}); largest "
+              f"|Δp|/max|p| {max(worst)[0]:.3e} ({max(worst)[1]}; tolerance 1e-4), largest loss "
+              f"difference {loss_rel:.3e} relative, predictions max |Δ| {pred_err:.3e} "
+              f"(tolerance 1e-5); card {runs[DEVICE][2]:.3f} ms a step, CPU "
+              f"{runs['cpu'][2]:.3f} ms a step (steps 2 to {MODEL_STEPS}; the first "
+              f"{runs[DEVICE][3]:.1f} and {runs['cpu'][3]:.1f} ms); predict "
+              f"{rows_s:.0f} rows/s on the card ({len(x_all)} windows, batch 256) {tag}",
+              flush=True)
+        require(max(worst)[0] <= 1e-4, f"card against CPU: {max(worst)[1]} differs by "
+                f"{max(worst)[0]:.3e} of its largest magnitude")
+        require(pred_err <= 1e-5, f"card against CPU: predictions differ by {pred_err:.3e}")
+
+        # a reloaded checkpoint, and where the state lies
+        card.save(model)
+        again = WindPuller.load(model, device=DEVICE)
+        require(np.array_equal(again.predict(xte), pc), "a reloaded checkpoint predicts "
+                "other bits")
+        on = {p.device.type for p in card.net.parameters()}
+        moments = {v.device.type for st in card.opt.state.values()
+                   for k, v in st.items() if k != "step"}
+        print(f"phase 39 reload: the same bits; parameters on {sorted(on)}, Adam moments on "
+              f"{sorted(moments)} ({len(card.opt.state)} tensors each; the step count is "
+              f"torch's host scalar) {tag}", flush=True)
+        require(on == moments == {torch.device(DEVICE).type}, "state off the card")
+        t_cmp = time.perf_counter() - t39 - t_cli
+    print(f"phase 39 wall time: {time.perf_counter() - t39:.1f} s: the CLI's processes "
+          f"{t_cli:.1f} s, card against CPU and the reload {t_cmp:.1f} s {tag}", flush=True)
+
+
+LAST_PHASE = 39
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -2823,8 +3018,9 @@ def main(argv=None) -> int:
     if 22 in sel:
         phase_packed_df64_check(dev)
     if 23 in sel:
-        phase_driver(tag, ["--n", str(N_PDF64), "--nb", str(NB_PDF64), "--mode", "df64-packed",
-                           "--repeats", "1"])
+        out = phase_driver(tag, ["--n", str(N_PDF64_DRIVER), "--nb", str(NB_PDF64), "--mode",
+                                 "df64-packed", "--repeats", "1"])
+        require("||A - LL^T||_inf" in out, "the driver did not take the blocked df64 residual")
         # a budget too small for the unpack: the gate straight off the packed pair
         out = phase_driver(tag, ["--n", str(N_PDF64_SPLIT), "--nb", str(NB_PDF64), "--mode",
                                  "df64-packed", "--df64-split", "2", "--repeats", "1"],
@@ -2870,6 +3066,8 @@ def main(argv=None) -> int:
         print(f"phase 37 wall time: {time.perf_counter() - t37:.1f} s {tag}", flush=True)
     if 38 in sel:
         phase_multihost(tag)
+    if 39 in sel:
+        phase_models(tag)
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

@@ -31,7 +31,9 @@ kernels' (``plghe``), ``potrf_checked``, out of core and the block-cyclic
 plane on a member mesh; and the entry points: the driver (``python -m
 dla_tpu_torch.cli.potrf_driver``, the JAX driver's flags), the session, the
 out-of-core driver, the LAPACK oracle, the tiered bench (``python -m
-dla_tpu_torch.bench.bench``) and the sweep harness with its plots. The top level exports the names
+dla_tpu_torch.bench.bench``) and the sweep harness with its plots; and the
+finance-model package, ``dla_tpu_torch.models`` (its CLI ``python -m
+dla_tpu_torch.models.cli``). The top level exports the names
 the JAX package's top level does; the rest is exported by
 ``dla_tpu_torch.ops``, ``dla_tpu_torch.algos`` and ``dla_tpu_torch.validate``,
 as by the JAX package's subpackages.
