@@ -63,16 +63,23 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
 14. the panel kernels against their plain versions on the card:
     ``panel_factor`` (kernel #4) at m=32768, nb=512 for the fp32 tiers and
     fp64 at m=8192, with NaN above the diagonal, its diagonal block held to
-    the plain version's bits, its diagonal phase timed alone (m = nb) beside
+    the plain version's bits, its product through the block body
+    ``panel.panel_factor_body`` names (``wgmma`` at ``high``/``default``,
+    ``simt`` at ``highest``, ``dmma`` for fp64; the other kernels' body
+    counts unmoved), at ``highest`` and fp64 bit for bit the scalar body's
+    trsm (``tiles.tile_op_reference``, tile 0) of the rows below with
+    ``potrf_tile``'s inverse of the block, the card's time alone beside the
+    calls' back to back, its diagonal phase timed alone (m = nb) beside
     ``cholesky_ex`` + ``solve_triangular`` and its bound, with the launches
     and the largest grid of its schedule; ``panel_apply`` (kernel #3) at
     m=15360, nb=1024, ib=256, tb=1024 (the first panel of phase 17) for the
     fp32 tiers, with the block body that ran (``wgmma`` at ``high`` and
-    ``default``, ``scalar`` at ``highest``; the task kernels' count
-    unmoved) and its launches a call, beside
-    ``torch.linalg.solve_triangular`` at ``highest``; and at the path's last
-    panels (m=3072, 1024), calls back to back beside the same calls queued
-    behind a sleeping kernel, which shows the host's share;
+    ``default``, ``simt`` at ``highest``; the task kernels' count unmoved),
+    at ``highest`` bit for bit its schedule's products replayed through the
+    scalar body on the same inverses, and its launches a call, beside
+    ``torch.linalg.solve_triangular``; and at the path's last panels
+    (m=3072, 1024), calls back to back beside the same calls queued behind a
+    sleeping kernel, which shows the host's share;
 15. the reference's ``highest`` tier at its full size: ``plgsy(32768)`` →
     ``potrf_shrink(nb=8192, panel="blocktrsm", trailing="pallas", tb=1024,
     kb=256, trailing_alias=False, diag_factor="lax", precision="highest",
@@ -80,9 +87,11 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     per factorization, every launch through the ``simt`` body, the residual
     under the fp32 gate, the median beside ``HIGHEST_PATH_BEFORE``;
 16. the ``panel_factor`` path at the same matrix: ``potrf_shrink(nb=512,
-    panel="pallas", trailing="pallas")`` at ``highest``, 64 panel_factor and
-    63 trailing launches per factorization (every one through ``simt``), the
-    median beside ``PANEL_FACTOR_PATH_BEFORE``;
+    panel="pallas", trailing="pallas")`` at ``highest`` and at ``high``, 64
+    panel_factor and 63 trailing launches per factorization, each kernel's
+    through the body of the tier (#4: ``simt``, ``wgmma``; #1 the same), the
+    residual under the fp32 gate at both, the ``highest`` median beside
+    ``PANEL_FACTOR_PATH_BEFORE``;
 17. the ``panel_apply`` path at the main path's configuration:
     ``potrf_inplace(panel="pallas", panel_ib=256)``, 15 panel_apply and 15
     trailing launches per factorization, every panel_apply call through the
@@ -326,11 +335,13 @@ PANEL_APPLY_KW = dict(MAIN_KW, panel="pallas", panel_ib=256)
 # phase 17's path median with #3 as it was before its redesign (64-row strips of
 # scalar FMAs, commit 9e5533b), printed beside this run's for comparison
 PANEL_APPLY_PATH_BEFORE = "59.6 and 59.9 ms in two runs (NVIDIA H100 80GB HBM3, 700.00 W)"
-# the medians of phases 15 and 16 and phase 11's native fp64 time with #1/#2's
-# fp32 highest and fp64 body on scalar 64 x 64 nt_block blocks (commit 49d9d4e)
+# the median of phase 15 and phase 11's native fp64 time with #1/#2's fp32
+# highest and fp64 body on scalar 64 x 64 nt_block blocks (commit 49d9d4e)
 HIGHEST_PATH_BEFORE = "509.3 ms (NVIDIA H100 80GB HBM3, 700.00 W)"
-PANEL_FACTOR_PATH_BEFORE = "680.6 ms (NVIDIA H100 80GB HBM3, 700.00 W)"
 NATIVE_FP64_BEFORE = "394.4 ms, residual 1.205e-15 (NVIDIA H100 80GB HBM3, 700.00 W)"
+# phase 16's highest median with #4's products on scalar 64 x 64 nt_block blocks and #1 on
+# its simt body (commit 640101e)
+PANEL_FACTOR_PATH_BEFORE = "417.7 ms (NVIDIA H100 80GB HBM3, 700.00 W)"
 N_MODES = 4096  # every potrf mode, card against CPU
 # the packed df64 path: the driver's configuration (potrf_driver.py: ktb = min(512, NB))
 N_PDF64, NB_PDF64, KTB_PDF64 = 40960, 1024, 512
@@ -1027,6 +1038,27 @@ def phase_df64_check(dev):
 
 
 # ---- 14. the panel kernels against their plain versions ---------------------------
+def panel_body_counts():
+    """The per-body call counts of #4 and #3 and the task kernels' launch
+    counts per body, all of the library's counts that those share bodies with."""
+    from dla_tpu_torch.kernels import panel, tiles
+
+    return {"panel_factor": panel.panel_factor_body_launches(),
+            "panel_apply": panel.panel_apply_body_launches(),
+            "tile_ops": tiles.tile_body_launches()}
+
+
+def ran_through(kernel, before, body) -> None:
+    """Require that one call of ``kernel`` ("panel_factor" or "panel_apply")
+    since ``before`` (``panel_body_counts``) went through ``body`` and moved
+    no other count."""
+    after = panel_body_counts()
+    rose = {k: v - before[kernel][k] for k, v in after[kernel].items() if v != before[kernel][k]}
+    require(rose == {body: 1}, f"{kernel}: ran through {rose}, expected one call through {body}")
+    require(all(after[k] == before[k] for k in after if k != kernel),
+            f"{kernel} moved the other kernels' body counts")
+
+
 def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
     """Kernel #4 against its plain version. The diagonal block is SPD with
     NaN above its diagonal, which neither version may read. The diagonal
@@ -1034,9 +1066,13 @@ def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
     ``diag_block.cuh`` rounds every element where the plain version does, in
     the same order); the whole output is held to 1e-5·max|L| for fp32
     (fp64: 1e-12), since the products sum the same partial products in
-    another order. The diagonal phase alone (m = nb) is timed beside
-    ``cholesky_ex`` + ``solve_triangular``, the two calls that give L_kk and
-    its inverse, and its bound."""
+    another order. The product runs through ``panel.panel_factor_body``; on
+    the chain bodies (fp32 ``highest``, fp64) the rows below must be, bit for
+    bit, the scalar body's trsm of them with ``potrf_tile``'s inverse of the
+    block (the plain version's bits, as the diagonal phase's). The diagonal
+    phase alone (m = nb) is timed beside ``cholesky_ex`` +
+    ``solve_triangular``, the two calls that give L_kk and its inverse, and
+    its bound."""
     from dla_tpu_torch.kernels import panel, tiles
     from dla_tpu_torch.utils import precision
 
@@ -1045,17 +1081,28 @@ def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
     a[:nb] = a[:nb] @ a[:nb].mT + nb * torch.eye(nb, device=dev, dtype=torch.float64)
     p = a.to(dtype)
     p[:nb] += torch.triu(torch.full((nb, nb), float("nan"), device=dev, dtype=dtype), 1)
+    body = panel.panel_factor_body(dtype, prec)
+    sched = panel.panel_factor_schedule(m, nb, dtype, prec)
     with precision.override(prec):
         ref = panel.panel_factor_plain(p)
-        before = panel.panel_factor_launches
+        before, counts = panel.panel_factor_launches, panel_body_counts()
         out = panel.panel_factor(p)
         sync()
         require(panel.panel_factor_launches == before + 1, "panel_factor: not one launch")
+        ran_through("panel_factor", counts, body)
         require(bool(torch.isfinite(out).all()), "panel_factor read above the diagonal")
         same = torch.equal(bits(out[:nb]), bits(ref[:nb]))
         err = (out.double() - ref.double()).abs().max().item()
         tol = (1e-12 if dtype == torch.float64 else 1e-5) * ref.abs().max().item()
+        scalar_bits = None  # the tensor-core body sums in another order
+        if body != "wgmma":
+            l, linv = tiles.potrf_tile(p[:nb])
+            below = tiles.tile_op_reference("trsm", None, p[nb:], linv, tile=0)
+            scalar_bits = (torch.equal(bits(out[:nb]), bits(l))
+                           and torch.equal(bits(out[nb:]), bits(below)))
+            del l, linv, below
         k_ms = cuda_ms(lambda: panel.panel_factor(p), iters)
+        q_ms = queued_ms(lambda: panel.panel_factor(p), iters)
         a_ms = cuda_ms(lambda: panel.panel_factor(p[:nb]), iters)  # m = nb: the diagonal phase
         p_ms = cuda_ms(lambda: panel.panel_factor_plain(p), 1)
     spd = torch.tril(p[:nb]) + torch.tril(p[:nb], -1).mT
@@ -1068,19 +1115,43 @@ def panel_factor_case(dev, tag, m, nb, dtype, prec, iters):
     # the diagonal phase's 2·nb³/3 rank-1 operations on the non-tensor peak,
     # the 2·(m − nb)·nb² product at the tier; the panel read, the output written
     item = p.element_size()
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None, body=body, queued=q_ms,
                **bound(2 * nb**3 / 3 / PEAK["fp64" if dtype == torch.float64 else "fp32"]
                        + product_s(2 * (m - nb) * nb * nb, dtype, prec), 2 * m * nb * item))
     name = f"m={m} nb={nb} {str(dtype)[6:]}/{prec}"
-    print(f"panel_factor {name}: diagonal block same bits as plain {same}, max_abs_err={err:.3e} "
-          f"(tol {tol:.3e}) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.3f} ms ({row['bound_by']}); diagonal phase alone {a_ms:.4f} ms "
+    chain = "" if scalar_bits is None else f", the scalar body's bits {scalar_bits}"
+    print(f"panel_factor {name}: body {body}, {sched.launches} launches a call; diagonal block "
+          f"same bits as plain {same}{chain}, max_abs_err={err:.3e} (tol {tol:.3e}) kernel "
+          f"{k_ms:.3f} ms (card time alone {q_ms:.3f} ms), plain {p_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}), {row['bound_ms'] / k_ms:.1%} of the "
+          f"bound ({row['bound_ms'] / q_ms:.1%} alone); diagonal phase alone {a_ms:.4f} ms "
           f"({launches} launches, up to {blocks} blocks), cholesky_ex + solve_triangular "
           f"{a_lib:.4f} ms, bound {a_bound['bound_ms']:.5f} ms ({a_bound['bound_by']}) {tag}",
           flush=True)
     require(same, f"panel_factor's diagonal block is not the plain version's bits at {name}")
+    require(scalar_bits is not False, f"panel_factor at {name} is not the scalar body's bits")
     require(err <= tol, f"panel_factor disagrees with the plain version at {name}")
     return row
+
+
+def panel_apply_scalar_bits(out, lkk, b, ib) -> bool:
+    """Whether #3's output at ``highest`` is, bit for bit, its schedule's
+    products replayed one by one through the scalar body
+    (``tiles.tile_op_reference``, tile 0) on the same ib×ib inverses."""
+    from dla_tpu_torch.kernels import panel, tiles
+
+    m, nb = b.shape
+    dinv = panel._diag_inverses(lkk, ib)
+    x = torch.full((m, nb), float("nan"), device=b.device)
+    rhs = None
+    for prod in panel.panel_apply_schedule(m, nb, ib, planes=0).products:
+        j = prod.col
+        if prod.epilogue == "gemm":
+            rhs = tiles.tile_op_reference("gemm", b[:, j : j + ib], x[:, :j], lkk[j : j + ib, :j])
+        else:
+            x[:, j : j + ib] = tiles.tile_op_reference("trsm", None, b[:, :ib] if j == 0 else rhs,
+                                                       dinv[j : j + ib])
+    return torch.equal(bits(out), bits(x))
 
 
 def panel_apply_case(dev, tag, m, nb, ib, tb, prec, iters):
@@ -1090,43 +1161,45 @@ def panel_apply_case(dev, tag, m, nb, ib, tb, prec, iters):
     1e-4 at high and highest (the right-hand sides are summed in another
     order, so their bf16x3 splits differ in the last fp32 bits); 2^-6 at
     default (one bf16 pass: a right-hand side the two sum differently may
-    round to neighbouring bf16 values)."""
-    from dla_tpu_torch.kernels import panel, tiles
+    round to neighbouring bf16 values). At ``highest`` the output must also
+    be the scalar body's bits, product by product."""
+    from dla_tpu_torch.kernels import panel
     from dla_tpu_torch.utils import precision
 
     g = torch.Generator(device=dev).manual_seed(m + nb + ib)
     lkk = torch.tril(torch.randn(nb, nb, generator=g, device=dev)) + nb * torch.eye(nb, device=dev)
     b = torch.randn(m, nb, generator=g, device=dev)
+    body = panel.panel_apply_body(prec)
     with precision.override(prec):
         ref = panel.panel_apply_plain(lkk, b, ib=ib, tb=tb)
-        before = panel.panel_apply_launches
-        bodies, tile_bodies = panel.panel_apply_body_launches(), tiles.tile_body_launches()
+        before, counts = panel.panel_apply_launches, panel_body_counts()
         out = panel.panel_apply(lkk, b, ib=ib, tb=tb)
         sync()
         require(panel.panel_apply_launches == before + 1, "panel_apply: not one launch")
-        rose = [k for k, v in panel.panel_apply_body_launches().items() if v != bodies[k]]
-        body = panel.panel_apply_body(prec)
-        require(rose == [body], f"panel_apply at {prec}: ran through {rose}, expected {body}")
-        require(tiles.tile_body_launches() == tile_bodies,
-                "panel_apply moved the task kernels' launch count")
+        ran_through("panel_apply", counts, body)
         per_call = panel.panel_apply_schedule(m, nb, ib).launches
         err = (out - ref).abs().max().item()
         tol = (2**-6 if prec == "default" else 1e-4) * ref.abs().max().item()
+        scalar_bits = panel_apply_scalar_bits(out, lkk, b, ib) if body != "wgmma" else None
         k_ms = cuda_ms(lambda: panel.panel_apply(lkk, b, ib=ib, tb=tb), iters)
+        q_ms = queued_ms(lambda: panel.panel_apply(lkk, b, ib=ib, tb=tb), iters)
         p_ms = cuda_ms(lambda: panel.panel_apply_plain(lkk, b, ib=ib, tb=tb), iters)
     inv_ms = cuda_ms(lambda: panel._diag_inverses(lkk, ib), iters)  # the wrapper's part
     # the one PyTorch call for X·Lᵀ = B, IEEE fp32 (TF32 is off)
     lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(lkk.mT, b, upper=True, left=False),
                      iters)
-    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, body=body,
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, body=body, queued=q_ms,
                **bound(product_s(m * nb * (nb + ib), torch.float32, prec),
                        4 * (2 * m * nb + nb * nb)))
     name = f"m={m} nb={nb} ib={ib} tb={tb} float32/{prec}"
-    print(f"panel_apply {name}: body {body}, {per_call} launches a call, max_abs_err={err:.3e} "
-          f"(tol {tol:.3e}) kernel {k_ms:.3f} ms (the ib x ib inverses built before it "
-          f"{inv_ms:.3f} ms of that), solve_triangular {lib_ms:.3f} ms (x{lib_ms / k_ms:.2f}), "
-          f"plain {p_ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) {tag}",
-          flush=True)
+    chain = "" if scalar_bits is None else f", the scalar body's bits {scalar_bits}"
+    print(f"panel_apply {name}: body {body}, {per_call} launches a call{chain}, max_abs_err="
+          f"{err:.3e} (tol {tol:.3e}) kernel {k_ms:.3f} ms (the ib x ib inverses built before it "
+          f"{inv_ms:.3f} ms of that; card time alone {q_ms:.3f} ms), solve_triangular "
+          f"{lib_ms:.3f} ms (x{lib_ms / k_ms:.2f}), plain {p_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}), {row['bound_ms'] / k_ms:.1%} of the "
+          f"bound {tag}", flush=True)
+    require(scalar_bits is not False, f"panel_apply at {name} is not the scalar body's bits")
     require(err <= tol, f"panel_apply disagrees with the plain version at {name}")
     return row
 
@@ -1226,13 +1299,13 @@ def dense_residual(name, a, l, n, ms=None):
     return res
 
 
-def simt_launches(name, bodies, launches):
+def simt_launches(name, bodies, launches, body="simt"):
     """Require that the trailing kernels' ``launches`` since ``bodies`` (the
-    counts per body) all went through the ``simt`` body."""
+    counts per body) all went through ``body``."""
     from dla_tpu_torch.kernels import tiles
 
     rose = {b: v - bodies[b] for b, v in tiles.body_launches().items() if v != bodies[b]}
-    require(rose == {"simt": launches}, f"{name}: {launches} #1 launches went through {rose}")
+    require(rose == {body: launches}, f"{name}: {launches} #1 launches went through {rose}")
 
 
 def phase_highest_tier(dev, tag):
@@ -1255,25 +1328,35 @@ def phase_highest_tier(dev, tag):
 
 
 def phase_panel_factor_path(dev, tag):
-    import dla_tpu_torch as T
+    """The path at ``highest`` and at ``high``: #4's calls through the body
+    of the tier (``simt``, ``wgmma``), #1's too; returns #4's launches."""
     import dla_tpu_torch.algos as TA
     from dla_tpu_torch.kernels import panel, tiles
 
     n, nb = N_HIGHEST, NB_PANEL_FACTOR
-    name = f"panel_factor path potrf_shrink N={n} nb={nb} pallas/pallas fp32 highest"
-    bodies = tiles.body_launches()
-    counts, tmed, l, a = timed_path(
-        dev, tag, name, n,
-        lambda a: TA.potrf_shrink(a, nb=nb, panel="pallas", trailing="pallas",
-                                 precision="highest"),
-        {(panel, "panel_factor_launches"): n // nb, (tiles, "launches"): n // nb - 1}, reps=2)
-    simt_launches(name, bodies, counts["launches"])
-    print(f"{name}: median {tmed * 1e3:.1f} ms; with #1 on nt_block: {PANEL_FACTOR_PATH_BEFORE} "
-          f"{tag}", flush=True)
-    dense_residual(name, a, l, n)
-    del a, l
-    torch.cuda.empty_cache()
-    return counts["panel_factor_launches"]
+    launches = 0
+    for prec in ("highest", "high"):
+        name = f"panel_factor path potrf_shrink N={n} nb={nb} pallas/pallas fp32 {prec}"
+        bodies, factor_bodies = tiles.body_launches(), panel.panel_factor_body_launches()
+        counts, tmed, l, a = timed_path(
+            dev, tag, name, n,
+            lambda a, prec=prec: TA.potrf_shrink(a, nb=nb, panel="pallas", trailing="pallas",
+                                                precision=prec),
+            {(panel, "panel_factor_launches"): n // nb, (tiles, "launches"): n // nb - 1}, reps=2)
+        simt_launches(name, bodies, counts["launches"], tiles.trailing_body(torch.float32, prec))
+        body = panel.panel_factor_body(torch.float32, prec)
+        rose = {b: v - factor_bodies[b] for b, v in panel.panel_factor_body_launches().items()
+                if v != factor_bodies[b]}
+        require(rose == {body: counts["panel_factor_launches"]},
+                f"{name}: {counts['panel_factor_launches']} #4 calls went through {rose}")
+        beside = (f"; with #4's products on nt_block: {PANEL_FACTOR_PATH_BEFORE}"
+                  if prec == "highest" else "")
+        print(f"{name}: median {tmed * 1e3:.1f} ms, #4 through {body}{beside} {tag}", flush=True)
+        dense_residual(name, a, l, n)
+        launches += counts["panel_factor_launches"]
+        del a, l
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_panel_apply_path(dev, tag, main_median):
@@ -3105,6 +3188,14 @@ def main(argv=None) -> int:
                                         "library_ms")},
             **{k: got[row][k] for k in ("body", "queued", "big") if k in got[row]},
         })
+    # no library call took the scalar body (tile_kernel): it stays the chain bodies' bit reference
+    from dla_tpu_torch.kernels import panel, tiles
+
+    scalar = {"panel_factor": panel.panel_factor_body_launches()["scalar"],
+              "panel_apply": panel.panel_apply_body_launches()["scalar"],
+              "tile_ops": tiles.tile_body_launches()["scalar"]}
+    print(f"scalar-body launches of the library: {scalar} {tag}", flush=True)
+    require(not any(scalar.values()), f"a library call launched tile_kernel: {scalar}")
     print(json.dumps({"kernels": rows}))
     print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s, phases "
           f"{sorted(sel)} {tag}", flush=True)

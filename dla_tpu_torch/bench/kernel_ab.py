@@ -29,10 +29,12 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   lda, tier, stream)``) at the tile-task path's n=512, on an SPD tile with
   NaN above its diagonal, and
 - ``panel_factor``: ``dla_panel_factor_<dtype>`` (kernel #4) at the
-  ``panel_factor`` path's first panel, m=32768, nb=512; for both, every
-  tier in one call (fp32 ``highest``, ``high``, ``default``, fp64;
-  ``--tier`` and ``--dtype`` unused), and this build's schedule (launches
-  and the largest grid of ``diag_block.cuh``);
+  ``panel_factor`` path's first panel, m=32768, nb=512, each build through
+  its own C signature (one that takes a split scratch gets the one
+  ``panel.panel_factor_schedule`` sizes), with this build's product body;
+  for both, every tier in one call (fp32 ``highest``, ``high``,
+  ``default``, fp64; ``--tier`` and ``--dtype`` unused), and #5 this build's
+  schedule (launches and the largest grid of ``diag_block.cuh``);
 - ``ring``: ``dla_ring_launch`` (kernels #11 and #12, ``ring.cu``) at the
   shapes of ``chip_smoke.py`` phase 29, fp64 on D=4 members: the broadcast
   of the planes' largest panel (15360 × 1024, C=48) and of the factor tile
@@ -58,15 +60,19 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   path's first panel, m=15360, nb=1024, ib=256, every fp32 tier in one call,
   with the body of this build, the largest difference between the builds and
   to the plain version (1e-4 of max|X| at ``high`` and ``highest``, 2^-6 at
-  ``default``), and this build's launches per call.
+  ``default``), and this build's launches per call; the exit code is 1 where
+  a tier leaves its tolerance, or where this build runs a chain body
+  (``highest``) and the two builds' bits differ.
 
 A version whose C entry takes a split scratch (the tensor-core body's) gets
 one, sized by ``tiles.split_planes`` (``panel.panel_apply_schedule`` for
 #3); an older one is called without. Prints
 each launch's time by CUDA events, the largest difference between the two
-outputs (df64, packed_df64, potrf_tile, panel_factor: whether they give the same bits,
-which they must; the exit code is 1 when they do not), and the card's name
-and power limit. Two versions are only comparable inside one such call.
+outputs (df64, packed_df64, potrf_tile: whether they give the same bits,
+which they must; panel_factor: the same bits of the diagonal block and its
+inverse at every tier and of the whole output where this build runs a chain
+body, else the products within 1e-5 of max|out|; the exit code is 1 when
+they do not), and the card's name and power limit. Two versions are only comparable inside one such call.
 
 It needs a CUDA device and ``nvcc`` and fails without them.
 """
@@ -230,17 +236,34 @@ def _trailing_case(entry, dtype, tier_name, stream, n=None, k=0):
     return (c,), launch, f"{name} {str(dtype)[6:]}/{tier_name}", scale
 
 
+def _panel_factor_fn(lib, csrc: Path, sfx: str):
+    """``dla_panel_factor_<sfx>`` of a build through its own C signature, and
+    whether it takes a split scratch (the tensor-core body's); an older one
+    takes none."""
+    fn = getattr(lib, f"dla_panel_factor_{sfx}")
+    scratch = "void* scratch" in (csrc / SOURCE["panel_factor"]).read_text()
+    npointers, nints = (4, 4) if scratch else (3, 3)
+    fn.argtypes = [ctypes.c_void_p] * npointers + [ctypes.c_longlong] * nints + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, scratch
+
+
 def _diag_ab(args, card: str) -> int:
-    """#5 or #4 of two builds at every tier: times and whether the bits agree."""
-    from dla_tpu_torch.kernels import _build, tiles
+    """#5 or #4 of two builds at every tier: times and whether the bits agree.
+    #5 and #4's diagonal block (and inverse) must agree bit for bit at every
+    tier, #4's products where this build runs a chain body (fp32 highest,
+    fp64: the scalar body's bits, as the parent's); elsewhere #4's products
+    within 1e-5 of max|out| of each other."""
+    from dla_tpu_torch.kernels import _build, panel, tiles
 
     dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream
     n = 512
     m = 32768 if args.entry == "panel_factor" else n
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {"other": _build_lib(Path(args.other), Path(tmp) / "other.so", args.entry),
-                "this": _build_lib(_build.CSRC, Path(tmp) / "this.so", args.entry)}
+        dirs = {"other": Path(args.other), "this": _build.CSRC}
+        libs = {v: _build_lib(d, Path(tmp) / f"{v}.so", args.entry) for v, d in dirs.items()}
         if args.entry == "potrf_tile":
             launches, blocks = ctypes.c_int(), ctypes.c_int()
             libs["this"].dla_diag_schedule(ctypes.c_longlong(n), ctypes.byref(launches),
@@ -255,6 +278,12 @@ def _diag_ab(args, card: str) -> int:
             a = a.to(dtype)
             a[:n] += torch.triu(torch.full((n, n), float("nan"), device=dev, dtype=dtype), 1)
             code = tiles._TIER_CODE[tier_name]
+            body = None
+            if args.entry == "panel_factor":
+                sched = panel.panel_factor_schedule(m, n, dtype, tier_name)
+                body = sched.body
+                buf = panel._split_scratch(sched, dev)
+                nbytes = 0 if buf is None else buf.numel() * buf.element_size()
             outs, times = {}, {"other": [], "this": []}
             for version in ["other", "this", "this", "other"] * args.iters:
                 if args.entry == "potrf_tile":
@@ -263,18 +292,23 @@ def _diag_ab(args, card: str) -> int:
                     fn = getattr(libs[version], f"dla_potrf_tile_{sfx}")
                     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
                         ctypes.c_int, ctypes.c_void_p]
-                    ints = (n, n)
+                    fn.restype = ctypes.c_int
+                    call = (lambda fn=fn, out=out: fn(a.data_ptr(), out[0].data_ptr(),
+                                                      out[1].data_ptr(), n, n, code, stream))
                 else:
                     out = (torch.empty(m, n, device=dev, dtype=dtype),
                            torch.empty(n, n, device=dev, dtype=dtype))
-                    fn = getattr(libs[version], f"dla_panel_factor_{sfx}")
-                    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
-                        ctypes.c_int, ctypes.c_void_p]
-                    ints = (m, n, n)
-                fn.restype = ctypes.c_int
+                    fn, scratch = _panel_factor_fn(libs[version], dirs[version], sfx)
+                    ptrs = (a.data_ptr(), out[0].data_ptr(), out[1].data_ptr())
+                    if scratch:
+                        call = (lambda fn=fn, ptrs=ptrs: fn(
+                            *ptrs, None if buf is None else buf.data_ptr(), m, n, n, nbytes, code,
+                            stream))
+                    else:
+                        call = lambda fn=fn, ptrs=ptrs: fn(*ptrs, m, n, n, code, stream)  # noqa: E731
                 t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 t0.record()
-                err = fn(a.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), *ints, code, stream)
+                err = call()
                 t1.record()
                 t1.synchronize()
                 if err:
@@ -282,15 +316,27 @@ def _diag_ab(args, card: str) -> int:
                 times[version].append(t0.elapsed_time(t1))
                 outs[version] = out
             view = torch.int32 if dtype == torch.float32 else torch.int64
-            same = all(torch.equal(x.view(view), y.view(view))
-                       for x, y in zip(outs["other"], outs["this"]))
-            ok = ok and same
+            x, y = outs["other"], outs["this"]
+            same = all(torch.equal(u.view(view), v.view(view)) for u, v in zip(x, y))
+            diag = torch.equal(x[0][:n].view(view), y[0][:n].view(view)) and torch.equal(
+                x[1].view(view), y[1].view(view))
+            if body in (None, "simt", "dmma"):  # #5, or a chain body: every bit
+                good, detail = same, f"same bits {same}"
+            else:
+                diff = (x[0].double() - y[0].double()).abs().max().item()
+                scale = y[0].double().abs().max().item()
+                good = diag and diff <= 1e-5 * scale
+                detail = (f"diagonal block and inverse same bits {diag}; products max |this - "
+                          f"other| {diff:.3e} = {diff / scale:.3e} of max|out| (tol 1e-5)")
+            ok = ok and good
             med = {v: sorted(ts[1:])[len(ts[1:]) // 2] for v, ts in times.items()}
-            print(f"{args.entry} m={m} n={n} {sfx}/{tier_name}: same bits {same}; other median "
+            this_body = "" if body is None else f"this body {body}; "
+            print(f"{args.entry} m={m} n={n} {sfx}/{tier_name}: {this_body}{detail}; other median "
                   f"{med['other']:.4f} ms of {[round(t, 4) for t in times['other']]}, this median "
-                  f"{med['this']:.4f} ms of {[round(t, 4) for t in times['this']]} [{card}]",
-                  flush=True)
-    print(f"{args.entry}: every tier bit-identical: {ok} [{card}]")
+                  f"{med['this']:.4f} ms of {[round(t, 4) for t in times['this']]}, "
+                  f"x{med['other'] / med['this']:.2f} [{card}]", flush=True)
+    print(f"{args.entry}: every tier as required (bits, or the products' tolerance): {ok} "
+          f"[{card}]")
     return 0 if ok else 1
 
 
@@ -613,6 +659,9 @@ def _panel_apply_ab(args, card: str) -> int:
             diff = (outs["this"] - outs["other"]).abs().max().item()
             err = (outs["this"] - ref).abs().max().item()
             good = err <= tol and bool(torch.isfinite(outs["this"]).all())
+            if panel.panel_apply_body(tier_name) != "wgmma":  # a chain body: the scalar body's bits
+                good = good and torch.equal(outs["this"].view(torch.int32),
+                                            outs["other"].view(torch.int32))
             ok = ok and good
             sched = panel.panel_apply_schedule(m, nb, ib,
                                                planes=panel.panel_apply_planes(tier_name))

@@ -6,11 +6,16 @@
 the headers it includes), for example an earlier commit's
 ``dla_tpu_torch/kernels/csrc`` unpacked with ``git archive`` into a directory
 that git ignores. Both versions are compiled with the package's flags and the
-C entry ``dla_panel_factor_<dtype>`` of each is launched on the same panels:
-m=2048 at nb=512, 192 and 64, for the three fp32 tiers and fp64. Prints, per
-case, whether the two outputs (the panel and the inverse scratch) agree bit
-for bit and each version's time by CUDA events, with the card's name and
-power limit. Exit code 0 when every case agrees.
+C entry ``dla_panel_factor_<dtype>`` of each is launched, through its own C
+signature (one that takes a split scratch gets the one
+``panel.panel_factor_schedule`` sizes), on the same panels: m=2048 at nb=512,
+192 and 64, for the three fp32 tiers and fp64. Prints, per case, whether the
+diagonal block and the inverse scratch agree bit for bit, whether the rows
+below do, and each version's time by CUDA events, with the card's name and
+power limit. Exit code 0 when every case's diagonal block and inverse agree,
+and its rows below too where this build runs a chain body (fp32 highest,
+fp64: the scalar body's bits); the tensor-core body (fp32 high, default)
+sums the rows below in another order.
 
 It needs a CUDA device and ``nvcc`` and fails without them.
 """
@@ -28,6 +33,9 @@ import torch
 
 
 def _compile(csrc: Path, out: Path):
+    """Build ``csrc``'s ``panel_factor.cu``: {dtype: (C function, whether it
+    takes a split scratch)}."""
+    from dla_tpu_torch.bench.kernel_ab import _panel_factor_fn
     from dla_tpu_torch.kernels import _build
 
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
@@ -36,14 +44,8 @@ def _compile(csrc: Path, out: Path):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stderr}")
     lib = ctypes.CDLL(str(out))
-    fns = {}
-    for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
-        fn = getattr(lib, f"dla_panel_factor_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int,
-                                                                         ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[dtype] = fn
-    return fns
+    return {dtype: _panel_factor_fn(lib, csrc, suffix)
+            for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64"))}
 
 
 def main(argv=None) -> int:
@@ -53,7 +55,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("panel_factor_bits: no CUDA device", file=sys.stderr)
         return 1
-    from dla_tpu_torch.kernels import _build
+    from dla_tpu_torch.kernels import _build, panel
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -64,31 +66,46 @@ def main(argv=None) -> int:
         builds = {"other": _compile(Path(args.other), Path(tmp) / "other.so"),
                   "this": _compile(_build.CSRC, Path(tmp) / "this.so")}
         for nb in (512, 192, 64):
-            for dtype, tier in ((torch.float32, 0), (torch.float32, 1), (torch.float32, 2),
-                                (torch.float64, 0)):
+            for dtype, tier, tier_name in ((torch.float32, 0, "highest"),
+                                           (torch.float32, 1, "high"),
+                                           (torch.float32, 2, "default"),
+                                           (torch.float64, 0, "highest")):
                 g = torch.Generator(device=dev).manual_seed(nb + tier)
                 a = torch.randn(m // nb * nb, nb, generator=g, device=dev, dtype=torch.float64)
                 a[:nb] = a[:nb] @ a[:nb].mT + nb * torch.eye(nb, device=dev, dtype=torch.float64)
-                panel = a.to(dtype)
+                p = a.to(dtype)
+                rows = p.shape[0]
+                sched = panel.panel_factor_schedule(rows, nb, dtype, tier_name)
+                buf = panel._split_scratch(sched, dev)
+                nbytes = 0 if buf is None else buf.numel() * buf.element_size()
                 outs, ms = {}, {}
                 for name, fns in builds.items():
-                    out, linv = torch.empty_like(panel), torch.empty(nb, nb, device=dev, dtype=dtype)
+                    out, linv = torch.empty_like(p), torch.empty(nb, nb, device=dev, dtype=dtype)
+                    fn, scratch = fns[dtype]
+                    ptrs = (p.data_ptr(), out.data_ptr(), linv.data_ptr())
+                    if scratch:
+                        ptrs += (None if buf is None else buf.data_ptr(),)
+                    ints = (rows, nb, nb) + ((nbytes,) if scratch else ())
                     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                     t0.record()
-                    err = fns[dtype](panel.data_ptr(), out.data_ptr(), linv.data_ptr(),
-                                     panel.shape[0], nb, nb, tier, stream)
+                    err = fn(*ptrs, *ints, tier, stream)
                     t1.record()
                     t1.synchronize()
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err}")
                     outs[name], ms[name] = (out, linv), t0.elapsed_time(t1)
                 view = torch.int32 if dtype == torch.float32 else torch.int64
-                same = all(torch.equal(x.view(view), y.view(view))
-                           for x, y in zip(outs["other"], outs["this"]))
-                ok = ok and same and bool(torch.isfinite(outs["this"][0]).all())
-                print(f"panel_factor m={panel.shape[0]} nb={nb} {str(dtype)[6:]} tier {tier}: same "
-                      f"bits {same}; other {ms['other']:.3f} ms, this {ms['this']:.3f} ms [{card}]")
-    print(f"panel_factor: every case bit-identical: {ok} [{card}]")
+                (x, xi), (y, yi) = outs["other"], outs["this"]
+                diag = (torch.equal(x[:nb].view(view), y[:nb].view(view))
+                        and torch.equal(xi.view(view), yi.view(view)))
+                below = torch.equal(x[nb:].view(view), y[nb:].view(view))
+                need_below = sched.body != "wgmma"
+                ok = ok and diag and (below or not need_below) and bool(torch.isfinite(y).all())
+                print(f"panel_factor m={rows} nb={nb} {str(dtype)[6:]}/{tier_name} (this body "
+                      f"{sched.body}): diagonal block and inverse same bits {diag}, rows below "
+                      f"same bits {below}{'' if need_below else ' (not required)'}; other "
+                      f"{ms['other']:.3f} ms, this {ms['this']:.3f} ms [{card}]")
+    print(f"panel_factor: every case as required: {ok} [{card}]")
     return 0 if ok else 1
 
 

@@ -25,16 +25,18 @@
 // written straight into its columns of out (leading dimension nb). Each
 // product is a grid of output tiles, so the parallelism comes from m and ib
 // together, not from row strips alone. The bodies, by tier (no other route,
-// no retry through the other body):
+// no retry through another body):
 //   fp32 high      tile_tc_kernel, two bf16 planes (bf16x3 on wgmma)
 //   fp32 default   tile_tc_kernel, one plane
-//   fp32 highest   tile_kernel, 64 x 64 blocks of scalar FMAs (IEEE fp32)
+//   fp32 highest   tile_simt_kernel, one IEEE fp32 fma chain per output in
+//                  ascending k from +0 (launch_chain: the scalar body
+//                  tile_kernel's bits, product by product)
 // The tensor-core body's split kernel writes each product's planes into one
 // scratch, sized by the wrapper for the largest product and reused by every
 // product in stream order.
 //
 // Bound. m*nb*(nb + ib) operations against 2*m*nb*4 bytes of B and X: bf16
-// products at high and default, scalar FMAs at highest. Each product adds a
+// products at high and default, fp32 FMA issue at highest. Each product adds a
 // split launch and a main launch (14 at nb = 1024, ib = 256); on the short
 // panels at the end of a factorization a product has few output tiles (16 at
 // m = 1024), so the chain's latency, not its work, sets the time.
@@ -43,9 +45,10 @@
 
 namespace {
 
-// calls of this kernel in this process through each body (dla::kScalarBody,
-// dla::kTensorCoreBody), counted where every product of a call launched
-long long panel_body_launches[2] = {0, 0};
+// calls of this kernel in this process through each body (TileBody of
+// tile_body.cuh: kScalar, which no call takes any more, kWgmma, kSimt),
+// counted where every product of a call launched
+long long panel_body_launches[3] = {0, 0, 0};
 
 template <int EPI>
 int product(int tier, const float* c, long long ldc, const float* a, long long lda,
@@ -53,7 +56,7 @@ int product(int tier, const float* c, long long ldc, const float* a, long long l
             long long k, void* scratch, long long scratch_bytes, cudaStream_t s) {
   switch (tier) {
     case dla::kHighest:
-      return launch_scalar<float, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, s);
+      return launch_chain<float, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, 0, s);
     case dla::kHigh:
       return launch_tc<float, 2, EPI>(c, a, b, out, m, n, k, ldc, lda, ldb, ldo, scratch,
                                       scratch_bytes, s);
@@ -71,7 +74,7 @@ int product(int tier, const float* c, long long ldc, const float* a, long long l
 // (nb x nb, leading dimension ldl), dinv (nb x ib, contiguous), out (m x nb,
 // contiguous), rhs (m x ib scratch; may be null when ib = nb), scratch
 // (scratch_bytes for the tensor-core body's split planes of the largest
-// product; the scalar body reads neither). Every argument is checked before
+// product; the chain body reads neither). Every argument is checked before
 // anything launches. Returns the CUDA error of the first step that failed;
 // 0 means every product launched.
 extern "C" int dla_panel_apply_f32(const void* b, const void* lkk, const void* dinv, void* out,
@@ -108,12 +111,12 @@ extern "C" int dla_panel_apply_f32(const void* b, const void* lkk, const void* d
                                    ib, ib, scratch, scratch_bytes, s);
     if (err != 0) return err;
   }
-  ++panel_body_launches[planes ? dla::kTensorCoreBody : dla::kScalarBody];
+  ++panel_body_launches[planes ? kWgmma : kSimt];
   return 0;
 }
 
 // Calls of dla_panel_apply_f32 in this process through the scalar body
-// (body = 0) or the tensor-core body (1).
+// (body = 0: none), the tensor-core body (1) or the simt chain (2).
 extern "C" long long dla_panel_apply_body_launches(int body) {
-  return panel_body_launches[body != 0];
+  return body >= 0 && body < 3 ? panel_body_launches[body] : 0;
 }

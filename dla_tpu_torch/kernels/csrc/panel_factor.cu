@@ -17,102 +17,113 @@
 //       tiled schedule, ceil(nb / 64) + 1 launches of up to 29 blocks of
 //       64 x 64 tiles, factors and inverts the diagonal block into out's first
 //       nb rows and linv.
-//   (b) solve_kernel, a grid of 64 x 64 output blocks: out[nb:] =
-//       panel[nb:] * linv^T through nt_block (trailing_block.cuh), at the
-//       tier, as the reference's _dot_nt.
+//   (b) one NT product of tile_body.cuh with the trsm epilogue (m > nb only):
+//       out[nb:] = panel[nb:] * linv^T, A the panel's rows below the block at
+//       leading dimension ldp, B = linv, m - nb rows, n = k = nb. Its body
+//       follows the tier as the task kernels' and panel_apply's do (no other
+//       route, no retry through another body):
+//         fp32 high      tile_tc_kernel, two bf16 planes (bf16x3 on wgmma, as
+//                        the reference's _dot_nt)
+//         fp32 default   tile_tc_kernel, one plane
+//         fp32 highest   tile_simt_kernel   one fma chain per output in
+//         fp64           tile_dmma_kernel   ascending k from +0: the scalar
+//                                           body's bits (nt_block)
+//       The tensor-core body's split kernel writes both operands' planes into
+//       a scratch the wrapper allocates (tc_scratch_bytes(planes, m - nb, nb,
+//       nb); kernels/panel.py:panel_factor_schedule sizes it alike).
 // Precision of (a), as _kernel_precision: see diag_block.cuh.
 //
 // Bound. (a) is latency-bound: a chain of nb pivots, 64 of them a stage.
-// (b) is an NT product of 2*(m - nb)*nb^2 operations, bound like the
-// trailing kernels by scalar FMA issue; it fills the card once m - nb is a
-// few thousand rows. (b) on the tensor cores is the next step.
+// (b) is an NT product of 2*(m - nb)*nb^2 operations over m*nb elements read
+// and written: bound by the bf16 tensor cores at high (three passes), by the
+// bytes at default, by fp32 FMA issue at highest and by the fp64 tensor cores
+// for fp64. It fills the card once m - nb is a few thousand rows.
 
 #include "diag_block.cuh"
+#include "tile_body.cuh"
 
 namespace {
 
-using dla::BM;
-using dla::TM;
-using dla::TPB;
+// calls of this kernel in this process through the body of their tier
+// (TileBody: kScalar stays 0, since no call takes that body), counted where
+// every launch of the call succeeded; a call with m = nb launches no product
+// and counts all the same
+long long factor_body_launches[4] = {0, 0, 0, 0};
 
-// (b): out[nb + r][c] = sum_k panel[nb + r][k] * linv[c][k], rows r < rows.
-template <typename T, int TIER>
-__global__ void __launch_bounds__(TPB)
-solve_kernel(const T* __restrict__ panel, long long ldp, const T* __restrict__ linv,
-             T* __restrict__ out, long long rows, long long nb) {
-  using A = typename dla::AccOf<T>::type;
-  const long long row0 = (long long)blockIdx.y * BM;
-  const long long col0 = (long long)blockIdx.x * BM;
-  A acc[TM][TM];
-  A accx[TM][TM];
-  dla::nt_block<T, TIER>(panel + (nb + row0) * ldp, ldp, rows - row0, linv + col0 * nb, nb,
-                         nb - col0, nb, acc, accx);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long r = row0 + ty + 16 * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const long long c = col0 + tx + 16 * j;
-      if (c >= nb) continue;
-      out[(nb + r) * nb + c] = T(TIER == dla::kHigh ? acc[i][j] + accx[i][j] : acc[i][j]);
-    }
+// bf16 planes of each operand that (b) takes on the tensor-core body; 0: a chain body
+template <typename T>
+int planes_of(int tier) {
+  if constexpr (std::is_same_v<T, float>) {
+    return tier == dla::kHigh ? 2 : tier == dla::kDefault ? 1 : 0;
+  } else {
+    return 0;
   }
 }
 
-template <typename T, int TIER>
-int launch(const T* panel, T* out, T* linv, long long m, long long nb, long long ldp,
-           cudaStream_t s) {
-  const int err = dla::launch_diag<T>(TIER, panel, ldp, out, linv, nb, s);  // (a)
-  if (err != 0) return err;
-  const long long rows = m - nb;
-  if (rows > 0) {
-    const long long gy = (rows + BM - 1) / BM;
-    if (gy > 65535) return (int)cudaErrorInvalidConfiguration;
-    const dim3 grid((unsigned)((nb + BM - 1) / BM), (unsigned)gy);
-    solve_kernel<T, TIER><<<grid, TPB, 0, s>>>(panel, ldp, linv, out, rows, nb);
+// (b): out = a * linv^T over rows x nb (a at leading dimension lda, linv and
+// out at nb), on the body of the planes: the tensor-core body at 2 or 1, else
+// the chain body of T
+template <typename T>
+int product(int planes, const T* a, long long lda, const T* linv, T* out, long long rows,
+            long long nb, void* scratch, long long scratch_bytes, cudaStream_t s) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (planes == 2)
+      return launch_tc<T, 2, kTrsm>(nullptr, a, linv, out, rows, nb, nb, 0, lda, nb, nb, scratch,
+                                    scratch_bytes, s);
+    if (planes == 1)
+      return launch_tc<T, 1, kTrsm>(nullptr, a, linv, out, rows, nb, nb, 0, lda, nb, nb, scratch,
+                                    scratch_bytes, s);
   }
-  return (int)cudaGetLastError();
+  (void)planes, (void)scratch, (void)scratch_bytes;
+  return launch_chain<T, kTrsm>(nullptr, a, linv, out, rows, nb, nb, 0, lda, nb, nb, 0, s);
 }
 
 template <typename T>
-int run(const void* panel, void* out, void* linv, long long m, long long nb, long long ldp,
-        int tier, void* stream) {
-  if (nb <= 0 || nb > dla::kMaxNb || m % nb || ldp < nb) return (int)cudaErrorInvalidValue;
+int run(const void* panel, void* out, void* linv, void* scratch, long long m, long long nb,
+        long long ldp, long long scratch_bytes, int tier, void* stream) {
+  if (nb <= 0 || nb > dla::kMaxNb || m <= 0 || m % nb || ldp < nb || tier < dla::kHighest ||
+      tier > dla::kDefault)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = m - nb;
+  const int planes = planes_of<T>(tier);
+  if (planes && rows > 0 && scratch_bytes < tc_scratch_bytes(planes, rows, nb, nb))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const T* p = (const T*)panel;
   T* o = (T*)out;
   T* x = (T*)linv;
-  if constexpr (std::is_same_v<T, float>) {
-    switch (tier) {
-      case dla::kHighest:
-        return launch<T, dla::kHighest>(p, o, x, m, nb, ldp, s);
-      case dla::kHigh:
-        return launch<T, dla::kHigh>(p, o, x, m, nb, ldp, s);
-      case dla::kDefault:
-        return launch<T, dla::kDefault>(p, o, x, m, nb, ldp, s);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    (void)tier;  // fp64 has one tier
-    return launch<T, dla::kHighest>(p, o, x, m, nb, ldp, s);
-  }
+  const TileBody body = planes ? kWgmma : std::is_same_v<T, float> ? kSimt : kDmma;
+  int err = dla::launch_diag<T>(tier, p, ldp, o, x, nb, s);  // (a)
+  if (err == 0 && rows > 0)  // (b)
+    err = product<T>(planes, p + nb * ldp, ldp, x, o + nb * nb, rows, nb, scratch, scratch_bytes,
+                     s);
+  if (err == 0) ++factor_body_launches[body];
+  return err;
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes: panel (m x nb, leading dimension ldp),
-// out (m x nb, contiguous), linv (nb x nb scratch). Returns the first CUDA
-// error of the launches; 0 means all launched.
-extern "C" int dla_panel_factor_f32(const void* panel, void* out, void* linv, long long m,
-                                    long long nb, long long ldp, int tier, void* stream) {
-  return run<float>(panel, out, linv, m, nb, ldp, tier, stream);
+// out (m x nb, contiguous), linv (nb x nb scratch), scratch (scratch_bytes
+// for the tensor-core body's split planes at fp32 high and default; the
+// chain bodies read none). Every argument is checked before anything
+// launches. Returns the first CUDA error of the launches; 0 means all
+// launched. fp64 has one tier: any valid tier code runs it.
+extern "C" int dla_panel_factor_f32(const void* panel, void* out, void* linv, void* scratch,
+                                    long long m, long long nb, long long ldp,
+                                    long long scratch_bytes, int tier, void* stream) {
+  return run<float>(panel, out, linv, scratch, m, nb, ldp, scratch_bytes, tier, stream);
 }
 
-extern "C" int dla_panel_factor_f64(const void* panel, void* out, void* linv, long long m,
-                                    long long nb, long long ldp, int tier, void* stream) {
-  return run<double>(panel, out, linv, m, nb, ldp, tier, stream);
+extern "C" int dla_panel_factor_f64(const void* panel, void* out, void* linv, void* scratch,
+                                    long long m, long long nb, long long ldp,
+                                    long long scratch_bytes, int tier, void* stream) {
+  return run<double>(panel, out, linv, scratch, m, nb, ldp, scratch_bytes, tier, stream);
+}
+
+// Calls of dla_panel_factor_<f32|f64> in this process through the body of
+// their tier: 0 the scalar body (none), 1 the tensor-core body, 2 the simt
+// chain, 3 the dmma chain.
+extern "C" long long dla_panel_factor_body_launches(int body) {
+  return body >= 0 && body < 4 ? factor_body_launches[body] : 0;
 }

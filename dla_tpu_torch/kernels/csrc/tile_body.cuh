@@ -1,7 +1,8 @@
 // One NT product A * B^T into an output with its own leading dimension, on
 // four block bodies, with three epilogues: the products of the task kernels
-// trsm_tile, syrk_tile and gemm_tile (tile_ops.cu) and of the panel solve
-// panel_apply (panel_apply.cu), which include this header.
+// trsm_tile, syrk_tile and gemm_tile (tile_ops.cu), of the panel solve
+// panel_apply (panel_apply.cu) and of the panel factor's panel (phase (b) of
+// panel_factor.cu), which include this header.
 //
 // What it computes. A is (m, k), B is (n, k), both row-major with their own
 // leading dimensions; out (m, n) has leading dimension ldo:
@@ -36,8 +37,12 @@
 //   blocks, the 64 grid 64); the dmma body takes 64 (its 128-tile main loop
 //   serves the trailing kernels only).
 // - tile_kernel (launch_scalar), one 64 x 64 nt_block (trailing_block.cuh)
-//   per block of a 2-D grid, scalar FMAs at highest (IEEE fp32, fp64): the
-//   panel solve at highest, and the task kernels' test-only reference entry.
+//   per block of a 2-D grid, scalar FMAs at highest (IEEE fp32, fp64): only
+//   the test-only entries dla_tile_op_scalar_<f32|f64> (tile_ops.cu), the bit
+//   reference of the chain bodies. No library path launches it.
+//
+// Each including source counts its launches per body with TileBody's
+// indices (kScalar stays 0).
 //
 // syrk's grid. The tensor-core and chain bodies launch as many blocks for
 // syrk as for an n x n gemm, g^2 on a g x g grid of output tiles, but only
@@ -58,6 +63,9 @@
 namespace {
 
 enum Epilogue { kTrsm = 0, kSyrk = 1, kGemm = 2 };
+
+// the bodies, by the index of the per-body launch counts
+enum TileBody { kScalar = 0, kWgmma = 1, kSimt = 2, kDmma = 3 };
 
 // the product in the storage type: bf16 storage rounds it, fp32 and fp64 keep it
 template <typename T, typename A>
@@ -82,9 +90,7 @@ tile_kernel(const T* __restrict__ c, long long ldc, const T* __restrict__ a, lon
   const long long row0 = (long long)blockIdx.y * BM;
   const long long col0 = (long long)blockIdx.x * BM;
   A acc[TM][TM];
-  A accx[TM][TM];  // nt_block's cross terms of high: zeros at highest
-  dla::nt_block<T, dla::kHighest>(a + row0 * lda, lda, m - row0, b + col0 * ldb, ldb, n - col0,
-                                  k, acc, accx);
+  dla::nt_block<T>(a + row0 * lda, lda, m - row0, b + col0 * ldb, ldb, n - col0, k, acc);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll

@@ -35,10 +35,10 @@
 // any of the three ops for the card tests to hold them to, and
 // dla_tile_op_chain_f32 the simt body at a given tile edge, for
 // measurements. The launches through each body are counted apart from
-// panel_apply.cu's, which runs the same bodies; the two test-only entries
-// count nothing, and no launch of the library takes the scalar body (its
-// count stays 0; kept at index 0 so that the indices are those of earlier
-// builds).
+// panel_apply.cu's and panel_factor.cu's, which run the same bodies; the two
+// test-only entries count nothing, and no launch of the library takes the
+// scalar body (its count stays 0; kept at index 0 so that the indices are
+// those of earlier builds).
 //
 // Bound. A 512-tile call moves 3 MB and does 0.27 GFLOP: a few microseconds
 // of card time, so at the DAG's tile size a call is bound by its launches
@@ -50,9 +50,6 @@
 #include "tile_body.cuh"
 
 namespace {
-
-// the bodies the three task kernels launch through
-enum TileBody { kScalar = 0, kWgmma = 1, kSimt = 2, kDmma = 3 };
 
 // launches of the three task kernels in this process through each body,
 // counted where a launch succeeds

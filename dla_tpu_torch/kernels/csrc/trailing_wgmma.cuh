@@ -480,9 +480,4 @@ int launch(const T* p, long long w, long long nb, long long ldp, long long tb, A
 }
 
 }  // namespace tc
-
-// The block bodies of the task kernels and the panel solve (tile_ops.cu,
-// panel_apply.cu), which count their launches per body with these indices.
-enum Body { kScalarBody = 0, kTensorCoreBody = 1 };
-
 }  // namespace dla

@@ -3,7 +3,10 @@
 - :func:`panel_factor` (``:270``; body ``:256``, ``_factor_lower`` ``:97``,
   ``_invert_lower`` ``:129``): one column panel of a Cholesky step, the
   diagonal block factored and inverted, every block below it solved by a
-  product with the inverse. CUDA kernel ``csrc/panel_factor.cu``.
+  product with the inverse. CUDA kernel ``csrc/panel_factor.cu``: the
+  diagonal phase of ``csrc/diag_block.cuh``, then the product on a block
+  body of the task kernels (``csrc/tile_body.cuh``), as
+  :func:`panel_factor_schedule` lists.
 - :func:`panel_apply` (``:429``; body ``:417``): the panel solve X·Lᵀ = B
   as a blocked TRSM over ib-wide column blocks, with the ib×ib diagonal
   inverses built outside the kernel. CUDA kernel ``csrc/panel_apply.cu``:
@@ -26,10 +29,19 @@ the CPU ignores the precision argument, so at ``default`` the reference's
 interpret-mode value is a pure fp32 one; the plain versions here keep the
 TPU's semantics.
 
+The products' block bodies, by tier, the same table as the task kernels'
+(``tiles.tile_op_body``): the tensor-core body ``wgmma`` at fp32 ``high``
+(two bf16 planes) and ``default`` (one); the fp32 FMA chain ``simt`` at
+``highest``; the fp64 chain on the fp64 tensor cores ``dmma`` for fp64
+(:func:`panel_factor` only: :func:`panel_apply` takes fp32). The two chain
+bodies sum one fma chain per output in ascending k, the bits of the scalar
+body ``tile_kernel`` (``tiles.tile_op_reference(..., tile=0)``), which no
+library path launches.
+
 ``panel_factor_launches`` and ``panel_apply_launches`` count each kernel's
-launches (and nothing else): a call of :func:`panel_apply` counts one, though
-its C call launches a kernel or two per product; the C side counts its calls
-per body (:func:`panel_apply_body_launches`).
+launches (and nothing else): a call counts one, though its C call launches
+several kernels; the C side counts its calls per body
+(:func:`panel_factor_body_launches`, :func:`panel_apply_body_launches`).
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch
 from dla_tpu_torch.kernels import _build
 from dla_tpu_torch.kernels.tiles import (
     _TIER_CODE,
+    TILE_BODIES,
     _dot_nt_plain,
     _factor_lower_plain,
     _invert_lower_plain,
@@ -50,6 +63,7 @@ from dla_tpu_torch.kernels.tiles import (
     _row_major,
     _same_device,
     split_planes,
+    trailing_body,
 )
 from dla_tpu_torch.utils.precision import tier
 
@@ -103,6 +117,63 @@ def _kernel(name: str, dtype: torch.dtype, npointers: int, nints: int):
     return fn
 
 
+#: the diagonal phase's tile edge (``kDB`` of ``csrc/diag_block.cuh``): it
+#: launches one stage a tile column, and one more
+DIAG_TILE = 64
+
+
+class PanelFactorSchedule(NamedTuple):
+    """What one call of :func:`panel_factor` launches on the card: the block
+    body of its tier, which its product runs and its call counts through (a
+    call with m = nb has no product), the kernel launches (⌈nb/64⌉ + 1 of the
+    diagonal phase, then a split and a main kernel on the tensor-core body or
+    one kernel on a chain body), and the shape (rows, kpad) of the bf16 split
+    scratch (None on a chain body or without a product)."""
+
+    body: str
+    launches: int
+    scratch: tuple[int, int] | None
+
+
+def panel_factor_body(dtype: torch.dtype, tier_name: str) -> str:
+    """Which block body #4's product out[nb:] = panel[nb:]·inv(L_kk)ᵀ runs:
+    ``"wgmma"`` at fp32 ``high``/``default``, ``"simt"`` at fp32 ``highest``,
+    ``"dmma"`` for fp64 (``tiles.tile_op_body``'s table). ``run`` of
+    ``csrc/panel_factor.cu`` dispatches on the same table."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"panel_factor takes float32/float64; got {dtype}")
+    return trailing_body(dtype, tier_name)
+
+
+def panel_factor_schedule(m: int, nb: int, dtype: torch.dtype,
+                          tier_name: str) -> PanelFactorSchedule:
+    """The launches of :func:`panel_factor` on an (m, nb) panel at the tier:
+    the diagonal phase (⌈nb/64⌉ + 1 stages), then, where m > nb, the product
+    of the m − nb rows below the block with inv(L_kk) (n = k = nb) through
+    :func:`panel_factor_body`, whose split scratch on the tensor-core body
+    holds both operands' planes (``tc_scratch_bytes(planes, m − nb, nb, nb)``
+    of ``csrc/tile_body.cuh``, which the C call checks)."""
+    body = panel_factor_body(dtype, tier_name)
+    diag = -(-nb // DIAG_TILE) + 1
+    if m <= nb:
+        return PanelFactorSchedule(body, diag, None)
+    planes = split_planes(dtype, tier_name)
+    scratch = _pair_shape(m - nb, nb, nb, planes) if planes else None
+    return PanelFactorSchedule(body, diag + (2 if planes else 1), scratch)
+
+
+def panel_factor_body_launches() -> dict[str, int]:
+    """Calls of #4's kernel in this process through the block body of their
+    tier (:func:`panel_factor_body`), as the C side counts them (once a call,
+    where all of its launches succeeded, also at m = nb, which has no
+    product): ``{"scalar": 0, "wgmma": n, "simt": n, "dmma": n}`` (no call
+    takes the scalar body); apart from the task kernels' and #3's counts.
+    Needs the kernel library."""
+    fn = _build.load().dla_panel_factor_body_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return {body: fn(i) for i, body in enumerate(TILE_BODIES)}
+
+
 def panel_factor(panel: torch.Tensor) -> torch.Tensor:
     """Factor a column panel [[A_kk], [A_ik…]] of shape (m, nb), m a multiple
     of nb: block 0 becomes tril(L_kk), every other block A_ik·inv(L_kk)ᵀ.
@@ -110,10 +181,11 @@ def panel_factor(panel: torch.Tensor) -> torch.Tensor:
     is returned. Real float32/float64; nb ≤ 512 (the reference's VMEM
     budget, kept so both packages take the same shapes).
 
-    On the card one C call launches on the current stream: the tiled
-    schedule of ``potrf_tile`` factors and inverts L_kk (⌈nb/64⌉ + 1 launches,
-    the inverse in a scratch tensor), then a grid of 64×64 blocks forms the
-    products.
+    On the card one C call launches on the current stream what
+    :func:`panel_factor_schedule` lists: the tiled schedule of ``potrf_tile``
+    factors and inverts L_kk (the inverse in a scratch tensor), then one
+    product forms the rows below on the tier's block body (at fp32
+    ``high``/``default`` with a split scratch allocated here).
     """
     global panel_factor_launches
     if _same_device("panel_factor", panel):
@@ -121,13 +193,19 @@ def panel_factor(panel: torch.Tensor) -> torch.Tensor:
     _check_panel_factor(panel)
     _row_major("panel_factor", panel)
     m, nb = panel.shape
+    t = tier()
+    sched = panel_factor_schedule(m, nb, panel.dtype, t)
     out = torch.empty((m, nb), dtype=panel.dtype, device=panel.device)
     linv = torch.empty((nb, nb), dtype=panel.dtype, device=panel.device)
-    fn = _kernel("panel_factor", panel.dtype, 3, 3)
+    scratch = _split_scratch(sched, panel.device)
+    nbytes = 0 if scratch is None else scratch.numel() * scratch.element_size()
+    # panel, out, linv, scratch; m, nb, the panel's leading dimension, the scratch's bytes
+    fn = _kernel("panel_factor", panel.dtype, 4, 4)
     with torch.cuda.device(panel.device):
         stream = torch.cuda.current_stream(panel.device).cuda_stream
-        err = fn(panel.data_ptr(), out.data_ptr(), linv.data_ptr(), m, nb, panel.stride(0),
-                 _TIER_CODE[tier()], stream)
+        err = fn(panel.data_ptr(), out.data_ptr(), linv.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), m, nb, panel.stride(0), nbytes,
+                 _TIER_CODE[t], stream)
     if err != 0:
         raise RuntimeError(f"panel_factor kernel launch failed: CUDA error {err}")
     panel_factor_launches += 1
@@ -200,9 +278,9 @@ class PanelProduct(NamedTuple):
 class PanelApplySchedule(NamedTuple):
     """What one call of :func:`panel_apply` launches on the card: its
     products in order, the shape (rows, kpad) of the bf16 split scratch that
-    the largest of them needs (None on the scalar body), and the kernel
+    the largest of them needs (None on the chain body), and the kernel
     launches (a split and a main kernel per product on the tensor-core body,
-    one kernel per product on the scalar body)."""
+    one kernel per product on the chain body)."""
 
     products: tuple[PanelProduct, ...]
     scratch: tuple[int, int] | None
@@ -211,25 +289,27 @@ class PanelApplySchedule(NamedTuple):
 
 def panel_apply_planes(tier_name: str) -> int:
     """bf16 planes of each operand that #3's products take on the tensor-core
-    body: fp32 ``high`` 2, ``default`` 1, ``highest`` 0 (the scalar body).
+    body: fp32 ``high`` 2, ``default`` 1, ``highest`` 0 (the ``simt`` chain).
     ``dla_panel_apply_f32`` of ``csrc/panel_apply.cu`` dispatches on the same
     table."""
     return split_planes(torch.float32, tier_name)
 
 
 def panel_apply_body(tier_name: str) -> str:
-    """Which block body #3's products run: ``"wgmma"`` or ``"scalar"``."""
-    return "wgmma" if panel_apply_planes(tier_name) else "scalar"
+    """Which block body #3's products run: ``"wgmma"`` at fp32
+    ``high``/``default``, ``"simt"`` at ``highest``."""
+    return trailing_body(torch.float32, tier_name)
 
 
 def panel_apply_body_launches() -> dict[str, int]:
     """Calls of #3's kernel in this process through each block body, as the
     C side counts them (once a call, where all of its products launched):
-    ``{"scalar": n, "wgmma": n}``; apart from the task kernels' count
-    (``tiles.tile_body_launches``). Needs the kernel library."""
+    ``{"scalar": 0, "wgmma": n, "simt": n}`` (no call takes the scalar
+    body); apart from the task kernels' and #4's counts. Needs the kernel
+    library."""
     fn = _build.load().dla_panel_apply_body_launches
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-    return {"scalar": fn(0), "wgmma": fn(1)}
+    return {body: fn(i) for i, body in enumerate(TILE_BODIES[:3])}
 
 
 def panel_apply_schedule(m: int, nb: int, ib: int, *, planes: int | None = None
@@ -251,9 +331,10 @@ def panel_apply_schedule(m: int, nb: int, ib: int, *, planes: int | None = None
     return PanelApplySchedule(tuple(products), scratch, (2 if planes else 1) * len(products))
 
 
-def _split_scratch(sched: PanelApplySchedule, device: torch.device) -> torch.Tensor | None:
-    """Uninitialised split scratch of the schedule (each product's split
-    kernel writes its part); None on the scalar body."""
+def _split_scratch(sched: PanelApplySchedule | PanelFactorSchedule,
+                   device: torch.device) -> torch.Tensor | None:
+    """Uninitialised split scratch of #3's or #4's schedule (each product's
+    split kernel writes its part); None on a chain body."""
     if sched.scratch is None:
         return None
     return torch.empty(sched.scratch, dtype=torch.bfloat16, device=device)
@@ -273,7 +354,8 @@ def panel_apply(lkk: torch.Tensor, b: torch.Tensor, *, ib: int = 512,
     :func:`panel_apply_schedule` on the current stream, each a grid of
     output tiles over all m rows: at fp32 ``high``/``default`` on the
     tensor-core body of the task kernels (``csrc/tile_body.cuh``, a split
-    scratch reused by every product), at ``highest`` on their scalar body.
+    scratch reused by every product), at ``highest`` on their ``simt``
+    chain.
     The right-hand side of each block lies in an (m, ib) scratch tensor.
     """
     global panel_apply_launches

@@ -328,8 +328,9 @@ def tile_op_body(op: str, dtype: torch.dtype, tier_name: str) -> str:
     return trailing_body(dtype, tier_name)
 
 
-#: the bodies of ``csrc/tile_ops.cu``, by the index its launch count takes
-#: (no launch of the library takes ``"scalar"`` any more: its count stays 0)
+#: the block bodies of ``csrc/tile_body.cuh`` (``TileBody``), by the index
+#: that the per-body launch counts of the task kernels and of the panel
+#: kernels take (no launch of the library takes ``"scalar"``: its counts stay 0)
 TILE_BODIES = ("scalar", "wgmma", "simt", "dmma")
 
 

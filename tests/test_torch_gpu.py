@@ -32,8 +32,10 @@ its lower tiles only, copy blocks above); their split scratch, body counts,
 views, short k, refusals, syrk's upper triangle (C's bits) and, on the chain
 bodies, the scalar body's bits at both tile edges are tested below.
 The panel solve #3 ``panel_apply`` runs a chain of those products (the
-tensor-core body at fp32 ``high``/``default``, the scalar one at
-``highest``), with its own count of calls per body.
+tensor-core body at fp32 ``high``/``default``, the ``simt`` chain at
+``highest``) and the panel factor #4 ``panel_factor`` one (the same table,
+``dmma`` for fp64), each with its own count of calls per body; on the chain
+bodies both give, product by product, the scalar body's bits.
 """
 
 import numpy as np
@@ -1115,7 +1117,7 @@ def test_panel_apply_of_a_view_leaves_it_unwritten(cuda, prec):
 
 
 @pytest.mark.parametrize("prec,body", [("high", "wgmma"), ("default", "wgmma"),
-                                       ("highest", "scalar")])
+                                       ("highest", "simt")])
 def test_panel_apply_body_that_ran(cuda, prec, body):
     # one call counts once, through the tier's body; the task kernels' count stays put
     from dla_tpu_torch.kernels import panel
@@ -1149,6 +1151,132 @@ def test_panel_apply_refused_launch_raises(cuda, monkeypatch):
         panel.panel_apply(lkk, b, ib=128)
     torch.cuda.synchronize()
     assert (panel.panel_apply_launches, panel.panel_apply_body_launches()) == before
+
+
+def _panel_factor_input(cuda, m, nb, dtype, ld=None):
+    """An (m, nb) panel, SPD diagonal block with NaN above its diagonal, as a
+    view of the first nb columns of an (m, ld) matrix (ld None: contiguous)."""
+    g = torch.Generator(device=cuda).manual_seed(m + nb)
+    a = torch.randn(m, ld or nb, generator=g, device=cuda, dtype=torch.float64)
+    x = a[:nb, :nb].clone()
+    a[:nb, :nb] = x @ x.mT + nb * torch.eye(nb, device=cuda, dtype=torch.float64)
+    a = a.to(dtype)
+    a[:nb, :nb] += torch.triu(torch.full((nb, nb), float("nan"), device=cuda, dtype=dtype), 1)
+    return a[:, :nb]
+
+
+def _factor_counts():
+    from dla_tpu_torch.kernels import panel
+
+    return (panel.panel_factor_body_launches(), panel.panel_apply_body_launches(),
+            tiles.tile_body_launches(), tiles.body_launches())
+
+
+PANEL_FACTOR_TIERS = [(torch.float32, "highest"), (torch.float32, "high"),
+                      (torch.float32, "default"), (torch.float64, "high")]
+PANEL_FACTOR_CHAIN_CASES = [  # (m, nb, ld): the path's nb, nb off 64, a view of a wide matrix
+    (2048, 512, None), (150, 50, None), (320, 64, None), (1536, 512, 4096), (288, 96, 97),
+]
+
+
+@pytest.mark.parametrize("dtype,prec", CHAIN_TIERS)
+@pytest.mark.parametrize("m,nb,ld", PANEL_FACTOR_CHAIN_CASES)
+def test_panel_factor_chain_same_bits_as_scalar_body(cuda, m, nb, ld, dtype, prec):
+    """At fp32 highest and fp64 out[nb:] is, bit for bit, the scalar body's
+    trsm of p[nb:] with potrf_tile's inverse of the same block (the plain
+    version's bits, as the diagonal phase's), and out[:nb] potrf_tile's L."""
+    from dla_tpu_torch.kernels import panel
+
+    p = _panel_factor_input(cuda, m, nb, dtype, ld)
+    with precision.override(prec):
+        out = panel.panel_factor(p)
+        l, linv = tiles.potrf_tile(p[:nb])
+        ref = tiles.tile_op_reference("trsm", None, p[nb:], linv, tile=0)
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(_bits(out[:nb]), _bits(l))
+    assert torch.equal(_bits(out[nb:]), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype,prec", PANEL_FACTOR_TIERS)
+def test_panel_factor_body_that_ran(cuda, dtype, prec):
+    # one call counts once, through the tier's body, also at m = nb (no product); the task
+    # kernels', #3's and the trailing kernels' counts stay put
+    from dla_tpu_torch.kernels import panel
+
+    body = panel.panel_factor_body(dtype, prec)
+    p = _panel_factor_input(cuda, 1024, 256, dtype)
+    with precision.override(prec):
+        before = _factor_counts()
+        panel.panel_factor(p)
+        torch.cuda.synchronize()
+        after = _factor_counts()
+        assert {x: after[0][x] - before[0][x] for x in after[0]} == {
+            x: int(x == body) for x in tiles.TILE_BODIES}
+        assert after[1:] == before[1:]
+        panel.panel_factor(p[:256])
+        torch.cuda.synchronize()
+        again = _factor_counts()
+        assert again[0][body] == after[0][body] + 1 and again[1:] == after[1:]
+    assert panel.panel_factor_schedule(1024, 256, dtype, prec).body == body
+
+
+@pytest.mark.parametrize("nb", [50, 64, 256, 512])
+def test_panel_factor_schedule_diag_launches_as_the_library(cuda, nb):
+    # the pure-Python schedule's diagonal phase against the C side's (dla_diag_schedule)
+    from dla_tpu_torch.kernels import panel
+
+    for dtype, prec in PANEL_FACTOR_TIERS:
+        sched = panel.panel_factor_schedule(4 * nb, nb, dtype, prec)
+        product = 2 if sched.scratch else 1
+        assert sched.launches - product == tiles.potrf_tile_schedule(nb)[0]
+        assert panel.panel_factor_schedule(nb, nb, dtype, prec).launches == (
+            tiles.potrf_tile_schedule(nb)[0])
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_panel_factor_refused_launch_raises(cuda, monkeypatch, prec):
+    # split scratch one row short: the C call refuses before it launches anything (the
+    # diagonal phase included), the wrapper raises, and no count moves
+    from dla_tpu_torch.kernels import panel
+
+    real = panel._split_scratch
+    monkeypatch.setattr(panel, "_split_scratch", lambda *args: real(*args)[:-1])
+    p = _panel_factor_input(cuda, 1024, 256, torch.float32)
+    before = (panel.panel_factor_launches, _factor_counts())
+    with precision.override(prec), pytest.raises(RuntimeError, match="CUDA error 1"):
+        panel.panel_factor(p)
+    torch.cuda.synchronize()
+    assert (panel.panel_factor_launches, _factor_counts()) == before
+
+
+@pytest.mark.parametrize("m,nb,ib", [(2048, 1024, 256), (3000, 1024, 512), (100, 40, 20),
+                                     (96, 32, 32)])
+def test_panel_apply_highest_same_bits_as_scalar_body(cuda, m, nb, ib):
+    """At highest every product of panel_apply_schedule, replayed through the
+    scalar body (tile_op_reference, tile 0) on the same inverses, gives the
+    kernel's bits: the simt chain keeps them product by product."""
+    from dla_tpu_torch.kernels import panel
+
+    g = torch.Generator(device=cuda).manual_seed(m + nb + ib)
+    lkk = torch.tril(torch.randn(nb, nb, generator=g, device=cuda)) + nb * torch.eye(
+        nb, device=cuda)
+    b = torch.randn(m, nb, generator=g, device=cuda)
+    with precision.override("highest"):
+        out = panel.panel_apply(lkk, b, ib=ib, tb=m)
+        sched = panel.panel_apply_schedule(m, nb, ib)
+    dinv = panel._diag_inverses(lkk, ib)
+    x = torch.full((m, nb), float("nan"), device=cuda)
+    rhs = None
+    for prod in sched.products:
+        j = prod.col
+        if prod.epilogue == "gemm":
+            rhs = tiles.tile_op_reference("gemm", b[:, j : j + ib], x[:, :j], lkk[j : j + ib, :j])
+        else:
+            a = b[:, :ib] if j == 0 else rhs
+            x[:, j : j + ib] = tiles.tile_op_reference("trsm", None, a, dinv[j : j + ib])
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(x))
 
 
 def test_panel_kernels_raise_on_column_major(cuda):

@@ -1,5 +1,8 @@
 """The schedule of kernel #3 ``panel_apply`` (``csrc/panel_apply.cu``) run in
-torch ops, held against the plain version and against JAX's Pallas kernel.
+torch ops, held against the plain version and against JAX's Pallas kernel;
+and the schedule of kernel #4 ``panel_factor`` (``csrc/panel_factor.cu``):
+its body table, launches and split scratch, and its product through the
+same model of the bodies.
 
 On the card one C call launches the products of
 ``panel.panel_apply_schedule``: for each ib-wide column block j a correction
@@ -9,8 +12,8 @@ rhs·inv(L_jj)ᵀ, each product on the task kernels' block bodies
 ``high``/``default`` through ``tiles.split_pair_plain`` and the model of the
 tensor-core body's sums (``_body_model`` of tests/test_torch_tile_split.py:
 fresh fp32 partials every 256 columns of k, promoted into a running sum, the
-cross terms at ``high``), at ``highest`` as IEEE fp32 products (the scalar
-body's FMAs, summed in another order). X starts as NaN, so a product that
+cross terms at ``high``), at ``highest`` as IEEE fp32 products (the ``simt``
+chain's FMAs, summed in another order). X starts as NaN, so a product that
 read a block before it was written would show.
 
 The results are not the plain version's bits: the correction sums over all
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from dla_tpu.kernels.pallas_tiles import panel_apply as jax_panel_apply
+from dla_tpu.kernels.pallas_tiles import panel_factor as jax_panel_factor
 from dla_tpu.utils import precision as jprec
 from dla_tpu_torch.kernels import panel, tiles
 from dla_tpu_torch.kernels.panel import (
@@ -134,7 +138,7 @@ def test_scratch_at_the_paths_first_panel():
 
 
 @pytest.mark.parametrize("prec,planes,body", [("high", 2, "wgmma"), ("default", 1, "wgmma"),
-                                              ("highest", 0, "scalar")])
+                                              ("highest", 0, "simt")])
 def test_body_table(prec, planes, body):
     assert panel_apply_planes(prec) == planes == tiles.split_planes(torch.float32, prec)
     assert panel_apply_body(prec) == body
@@ -153,3 +157,117 @@ def test_cpu_route_builds_no_scratch(monkeypatch):
     lkk, b = torch.from_numpy(lkk_np), torch.from_numpy(b_np)
     with tprec.override("high"):
         assert torch.equal(panel.panel_apply(lkk, b, ib=16), panel_apply_plain(lkk, b, ib=16))
+
+
+# ---- #4 panel_factor: the body table, the schedule, the product's model ------------
+
+FACTOR_BODIES = [  # (dtype, tier, planes, body): the task kernels' table
+    (torch.float32, "high", 2, "wgmma"), (torch.float32, "default", 1, "wgmma"),
+    (torch.float32, "highest", 0, "simt"), (torch.float64, "high", 0, "dmma"),
+    (torch.float64, "default", 0, "dmma"), (torch.float64, "highest", 0, "dmma"),
+]
+
+
+@pytest.mark.parametrize("dtype,prec,planes,body", FACTOR_BODIES)
+def test_panel_factor_body_table(dtype, prec, planes, body):
+    assert panel.panel_factor_body(dtype, prec) == body == tiles.tile_op_body("trsm", dtype, prec)
+    assert tiles.split_planes(dtype, prec) == planes
+    assert panel.panel_factor_schedule(256, 64, dtype, prec).body == body
+
+
+def test_panel_factor_body_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float32/float64"):
+        panel.panel_factor_body(torch.bfloat16, "high")
+
+
+@pytest.mark.parametrize("m,nb", [(32768, 512), (8192, 512), (150, 50), (192, 64), (1024, 512),
+                                  (64, 64), (512, 512), (3 * 100, 100)])
+@pytest.mark.parametrize("dtype,prec,planes,body", FACTOR_BODIES)
+def test_panel_factor_schedule_launches_and_scratch(m, nb, dtype, prec, planes, body):
+    sched = panel.panel_factor_schedule(m, nb, dtype, prec)
+    diag = -(-nb // 64) + 1  # the diagonal phase: one stage a 64-wide tile column, and one more
+    if m == nb:  # no rows below the block: the diagonal phase alone, counted through the body
+        assert sched == (body, diag, None)
+        return
+    assert sched.body == body
+    assert sched.launches == diag + (2 if planes else 1)
+    if not planes:
+        assert sched.scratch is None
+        return
+    # tc_scratch_bytes(planes, m - nb, nb, nb) of csrc/tile_body.cuh: both operands' planes,
+    # rows padded to 128, k to 64 (at least 64), bf16
+    pad = lambda x, q: -(-x // q) * q  # noqa: E731
+    rows, kpad = sched.scratch
+    assert rows == planes * (pad(m - nb, 128) + pad(nb, 128)) and kpad == max(64, pad(nb, 64))
+    assert sched.scratch == tiles._pair_shape(m - nb, nb, nb, planes)
+
+
+def test_panel_factor_scratch_at_the_paths_first_panel():
+    # m=32768, nb=512 at high: 2 x (32256 + 512) rows of 512 bf16, ≈ 67 MB; default one plane
+    sched = panel.panel_factor_schedule(32768, 512, torch.float32, "high")
+    rows, kpad = sched.scratch
+    assert (rows, kpad) == (65536, 512) and rows * kpad * 2 == 67_108_864
+    assert sched.launches == 9 + 2
+    rows, kpad = panel.panel_factor_schedule(32768, 512, torch.float32, "default").scratch
+    assert rows * kpad * 2 == 33_554_432
+
+
+def test_panel_factor_cpu_route_builds_no_scratch(monkeypatch):
+    # on the CPU the wrapper runs the plain version: no schedule, no split scratch, no C call,
+    # and no launch counted
+    def boom(*a, **k):
+        raise AssertionError("the CPU route reached the kernel's set-up")
+
+    for name in ("_split_scratch", "panel_factor_schedule", "_kernel"):
+        monkeypatch.setattr(panel, name, boom)
+    rng = np.random.default_rng(5)
+    g = rng.standard_normal((64, 64))
+    p = torch.from_numpy(np.vstack([g @ g.T + 64 * np.eye(64), rng.standard_normal((128, 64))]))
+    before = panel.panel_factor_launches
+    for prec in ("high", "default", "highest"):
+        with tprec.override(prec):
+            for dtype in (torch.float32, torch.float64):
+                x = p.to(dtype)
+                assert torch.equal(panel.panel_factor(x), panel.panel_factor_plain(x))
+    assert panel.panel_factor_launches == before
+
+
+def _factor_product(p, nb, dtype, prec):
+    """#4's output as the C call forms it: the diagonal block as the plain
+    version (the diagonal phase's bits, held on the card), then out[nb:] =
+    p[nb:]·inv(L_kk)ᵀ through the body of the tier (the tensor-core body's
+    sums at ``high``/``default``, IEEE products on the chain bodies)."""
+    l = tiles._factor_lower_plain(p[:nb])
+    linv = tiles._invert_lower_plain(l)
+    planes = tiles.split_planes(dtype, prec)
+    below = _body_model(p[nb:], linv, planes) if planes else p[nb:] @ linv.mT
+    return torch.cat([l, below.to(dtype)])
+
+
+@pytest.mark.parametrize("m,nb,dtype,prec", [
+    (384, 128, torch.float32, "high"), (640, 320, torch.float32, "high"),  # k=320: 2 promotions
+    (384, 128, torch.float32, "default"), (640, 320, torch.float32, "default"),
+    (150, 50, torch.float32, "high"),  # nb off the 64-column step, m - nb off 128
+    (256, 64, torch.float32, "highest"), (256, 64, torch.float64, "high"),
+])
+def test_panel_factor_product_matches_plain_and_jax(m, nb, dtype, prec):
+    # the card tests' tolerances: 1e-5·max|L| against the plain version (fp64 1e-12), whose
+    # products take the same bf16 operands; against JAX's interpret-mode kernel 2^-6 at
+    # default (XLA on the CPU multiplies in fp32 there)
+    rng = np.random.default_rng(m + nb)
+    g = rng.standard_normal((m, m))
+    p_np = np.tril(g @ g.T + m * np.eye(m))[:, :nb]
+    p_np[:nb] += np.triu(np.full((nb, nb), np.nan), 1)  # never read
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    p = torch.from_numpy(p_np.astype(np_dtype))
+    with tprec.override(prec):
+        got = _factor_product(p, nb, dtype, prec)
+        plain = panel.panel_factor_plain(p)
+    assert torch.isfinite(got).all()
+    scale = plain.abs().max().item()
+    assert (got.double() - plain.double()).abs().max().item() <= (
+        1e-12 if dtype == torch.float64 else 1e-5) * scale
+    with jprec.override(prec):
+        ref = np.asarray(jax_panel_factor(jnp.asarray(p_np.astype(np_dtype))))
+    tol = 1e-12 if dtype == torch.float64 else (2**-6 if prec == "default" else 1e-5)
+    assert np.abs(got.double().numpy() - ref).max() <= tol * scale
