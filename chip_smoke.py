@@ -279,6 +279,15 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     within 1e-5, with the card's ms a step and its ``predict`` rows a
     second; a reloaded checkpoint predicts the same bits on the card, and
     every parameter and Adam moment lies there.
+40. the projection model (``dla_tpu_torch/parallel/model.py``, no kernel of its
+    own): each single-card rate this run measured (the main path, phase 27's
+    bench tiers, phase 15's ``highest`` path, phase 11's f64x path; run
+    alone, the main path measured here) beside ``single_chip_rate(n, "h100",
+    tier)``, each ratio within [1/3, 3] (a wrong unit, tier or base chip, not
+    noise: whole calls have read 2× apart by host); ``CHIPS["h100"].hbm_gib``
+    beside the card's total memory; the headline rows of
+    ``python -m dla_tpu_torch.bench.projections`` (projections, not
+    measurements); the phase's wall time.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -382,6 +391,8 @@ N_MH_BLOCK, N_MH, NB_MH, MH_PROCS, MH_MEMBERS, MH_TIMEOUT = 32768, 16384, 512, 2
 # steps on the card against the CPU from one weight tree
 MODEL_DAYS, MODEL_WINDOW, MODEL_HORIZON, MODEL_HIDDEN = 1260, 30, 5, (64, 32)
 MODEL_BATCH, MODEL_EPOCHS, MODEL_STEPS, MODEL_TIMEOUT = 64, 10, 20, 300
+# phase 40: a measured rate may lie this factor either side of the model's single-card curve
+RATE_BAND = 3.0
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -1007,7 +1018,7 @@ def phase_df64_path(dev, tag):
     require(r64 <= 1e-14, "native fp64 residual above 1e-14")
     del a64, l64
     torch.cuda.empty_cache()
-    return launches
+    return launches, tmed
 
 
 # ---- 12. df64 kernel path against plain path ---------------------------------------
@@ -3001,7 +3012,55 @@ def phase_models(tag):
           f"{t_cli:.1f} s, card against CPU and the reload {t_cmp:.1f} s {tag}", flush=True)
 
 
-LAST_PHASE = 39
+# ---- 40. the projection model beside this run's rates -------------------------------------
+def bench_tier(key: str) -> str:
+    """The model's tier of a bench tier key (``high_inplace`` → ``high``)."""
+    return "bf16" if key.startswith("bf16") else key.split("_")[0]
+
+
+def phase_projection(dev, tag, rates):
+    """``rates``: {(path, n, tier): GFLOP/s measured in this run}."""
+    from dla_tpu_torch.bench import projections
+    from dla_tpu_torch.parallel import model
+
+    t40 = time.perf_counter()
+    if not rates:
+        _, tmed = phase_main_path(dev, tag)
+        rates = {("main path", N_MAIN, "high"): N_MAIN**3 / 3 / tmed / 1e9}
+    for (path, n, tier), gflops in rates.items():
+        proj = model.single_chip_rate(n, "h100", tier)
+        ratio = gflops / proj
+        print(f"projection model: {path} N={n} {tier}: measured {gflops:.1f} GFLOP/s, "
+              f"single_chip_rate {proj:.1f} GFLOP/s, ratio {ratio:.3f} {tag}", flush=True)
+        require(1 / RATE_BAND <= ratio <= RATE_BAND,
+                f"{path} N={n} {tier}: measured/projected {ratio:.3f} outside "
+                f"[1/{RATE_BAND:g}, {RATE_BAND:g}]")
+    spec = model.CHIPS["h100"]
+    total = torch.cuda.mem_get_info(dev)[1] / 2**30
+    print(f"projection model: CHIPS['h100'].hbm_gib {spec.hbm_gib} beside this card's "
+          f"{total:.3f} GiB; tflops {spec.tflops} {tag}", flush=True)
+    for r in projections.crossover_rows():
+        print(f"projection (not a measurement): {r['mesh']} H100 mesh, high, nb={r['nb']}: "
+              f"crossover N={r['crossover_n']}, 50% efficiency from N={r['n_eff50']}, 70% "
+              f"from N={r['n_eff70']}, speedup {r['speedup_at_131072']:.2f} at N=131072",
+              flush=True)
+    for r in projections.packed_rows():
+        print(f"projection (not a measurement): packed {r['tier']} planes={r['planes']} on "
+              f"D={r['ndev']}: crossover N={r['crossover_n']}, mesh holds N={r['mesh_max_n']} "
+              f"at {r['gflops_at_mesh_max']:.0f} GFLOP/s", flush=True)
+    for r in projections.serving_rows():
+        if r["n"] == 16384 and r["p"] == 4:
+            print(f"projection (not a measurement): serving N={r['n']} nrhs={r['nrhs']} on "
+                  f"p={r['p']}: speedup {r['speedup']:.2f}, {r['cols_per_s']:.0f} columns/s",
+                  flush=True)
+    for r in projections.oocore_rows():
+        print(f"projection (not a measurement): out of core N={r['n']} on {r['mesh']}: "
+              f"{r['t_total_s']:.1f} s, {r['bound']}-bound at {r['host_bw_gbps']:.1f} GB/s",
+              flush=True)
+    print(f"phase 40 wall time: {time.perf_counter() - t40:.1f} s {tag}", flush=True)
+
+
+LAST_PHASE = 40
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -3047,10 +3106,12 @@ def main(argv=None) -> int:
 
     got = {}  # what the phases that ran returned: the kernels' rows and launch counts
     main_median = None
+    rates = {}  # (path, n, tier): GFLOP/s, for phase 40
     if 2 in sel:
         got["lower"] = phase_lower_kernel(dev, tag)
     if 3 in sel:
         got["lower_launches"], main_median = phase_main_path(dev, tag)
+        rates[("main path", N_MAIN, "high")] = N_MAIN**3 / 3 / main_median / 1e9
     if 4 in sel:
         phase_inplace_check(dev)
     if 5 in sel:
@@ -3071,7 +3132,8 @@ def main(argv=None) -> int:
     if 10 in sel:
         got["df64"] = phase_df64_kernel(dev, tag)
     if 11 in sel:
-        got["df64_launches"] = phase_df64_path(dev, tag)
+        got["df64_launches"], tmed = phase_df64_path(dev, tag)
+        rates[("f64x path", N_DF64, "f64x")] = N_DF64**3 / 3 / tmed / 1e9
     if 12 in sel:
         phase_df64_check(dev)
     if 13 in sel:
@@ -3081,7 +3143,8 @@ def main(argv=None) -> int:
     if 14 in sel:
         got["pfactor"], got["papply"] = phase_panel_kernels(dev, tag)
     if 15 in sel:
-        phase_highest_tier(dev, tag)
+        tmed = phase_highest_tier(dev, tag)
+        rates[("highest tier", N_HIGHEST, "highest")] = N_HIGHEST**3 / 3 / tmed / 1e9
     if 16 in sel:
         got["pfactor_launches"] = phase_panel_factor_path(dev, tag)
     if 17 in sel:
@@ -3119,7 +3182,8 @@ def main(argv=None) -> int:
     if 26 in sel:
         phase_freivalds_device(dev, tag)
     if 27 in sel:
-        phase_bench(tag, BENCH_TIERS, BENCH_ENV)
+        for line in phase_bench(tag, BENCH_TIERS, BENCH_ENV)[:-1]:
+            rates[(f"bench {line['tier']}", line["n"], bench_tier(line["tier"]))] = line["gflops"]
     if 28 in sel:
         out = phase_driver(tag, ["--n", str(N_HEADLINE), "--nb", str(NB_HEADLINE), "--dtype", "s",
                                  "--mode", "inplace", "--repeats", "1"])
@@ -3151,6 +3215,8 @@ def main(argv=None) -> int:
         phase_multihost(tag)
     if 39 in sel:
         phase_models(tag)
+    if 40 in sel:
+        phase_projection(dev, tag, rates)
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

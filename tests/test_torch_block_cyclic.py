@@ -578,8 +578,8 @@ def test_squarest_grid_as_jax():
 
 
 def test_parallel_exports_the_reference_names():
-    """``parallel``'s names are the JAX package's, less its five TPU
-    projections, plus the port's meshes, its packed accounting and
+    """``parallel``'s names are the JAX package's (its scaling model on H100
+    figures included), plus the port's meshes, its packed accounting and
     ``sharded_apply`` (a function of the JAX package's serving module)."""
     import ast
     from pathlib import Path
@@ -592,7 +592,7 @@ def test_parallel_exports_the_reference_names():
     repo = Path(__file__).resolve().parents[1]
     ref, port = names(repo / "dla_tpu/parallel/__init__.py"), names(
         repo / "dla_tpu_torch/parallel/__init__.py")
-    assert ref - port == {"CHIPS", "crossover_n", "project", "single_chip_rate", "project_serving"}
+    assert ref - port == set()
     assert port - ref == {"FlatMesh", "MemberMesh", "packed_cyclic_accounting",
                           "packed_resident_bytes", "sharded_apply"}
     assert all(hasattr(TP, n) for n in port)
