@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``dla_tpu_torch``) on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port (``dla_tpu_torch``) on one NVIDIA GPU,
+and (phase 41) on the cards of one host.
 
-    python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py                    # every phase (41 where there are 2+ cards)
     python3 chip_smoke.py --phases 24-26,3   # these phases only (and phase 1)
+    python3 chip_smoke.py --phases 41        # members on several cards (needs 2+, built for 4)
 
 Phases, each of which raises on failure (exit code non-zero, no final line):
 
@@ -288,6 +290,32 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     beside the card's total memory; the headline rows of
     ``python -m dla_tpu_torch.bench.projections`` (projections, not
     measurements); the phase's wall time.
+41. members on several cards (ROADMAP A9c; selected by default only where
+    ``torch.cuda.device_count() >= 2``, else a line says it was not; asked
+    for with ``--phases 41`` on one card it fails), D members one per card on
+    up to four cards: #11 across the cards (fp64, 15360 × 1024 and 1024 ×
+    1024, roots 0 and 1, and ``group=2``) and #12 (1024 × 1024, groups D and
+    2), each launch's outputs the plain version's bits, with the kernel's,
+    the plain version's and the library's time (``torch.cuda.comm.broadcast``,
+    NCCL in one process, for #11; ``torch.cuda.comm.gather`` onto each
+    member's card, the peer copies concatenated, for #12), each the mean of
+    back-to-back calls between two waits for every card, and the bound: the
+    bytes the busiest NVLink direction carries over 450 GB/s, or the busiest
+    card's bytes over its memory rate; 20 launches back to back of other cuts
+    and groups, two members a card among them, each the plain version's
+    bits; the P×Q row broadcast across the cards (#12's count set to 0
+    before it); the three ring planes at N=16384, nb=1024, each under 1e-10
+    and the same bits as the plane on one card (#11's count set to 0 before
+    them and read after); the session at N=32768, nb=512, fp64, on the auto
+    grid over the cards (2×2 on four) and on 2×4 (two members a card), both
+    residuals under 1e-10, ``Elapsed``, the rate and each card's peak memory,
+    the factor the same bits as the same mesh's on one card; the driver's
+    ``--mode distributed`` at N=49152, nb=2048, fp32 on 2×2 over the cards,
+    beside the same run on card 0 and ``parallel.model.project``'s figure
+    (a projection); and ``python -m dla_tpu_torch.parallel.multihost
+    --backend nccl`` as one process per card, one member each (``block`` at
+    N=32768, ``potrs`` and the three ring planes at N=16384, nb=512), each
+    plane the one-process bits on process 0; the phase's wall time.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -393,6 +421,12 @@ MODEL_DAYS, MODEL_WINDOW, MODEL_HORIZON, MODEL_HIDDEN = 1260, 30, 5, (64, 32)
 MODEL_BATCH, MODEL_EPOCHS, MODEL_STEPS, MODEL_TIMEOUT = 64, 10, 20, 300
 # phase 40: a measured rate may lie this factor either side of the model's single-card curve
 RATE_BAND = 3.0
+# phase 41: members on several cards; the session (fp64, auto grid, then 2x4) and the driver's
+# --mode distributed (fp32, 2x2) over the cards, each beside the same mesh on card 0
+N_CARDS_SESSION, NB_CARDS_SESSION, NRHS_CARDS = 32768, 512, 64
+N_CARDS_DRIVER, NB_CARDS_DRIVER = 49152, 2048
+CARDS_RING_ITERS = 20
+NVLINK_RATE = 450e9  # bytes/s, one direction of a card's NVLink (the H100 SXM data sheet)
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
 M_RING_TILE = 1024  # the factor tile; the largest panel is N_RING - NB_RING rows
@@ -2739,28 +2773,29 @@ def phase_tools(dev, tag):
 
 
 # ---- 38. the distributed planes across a process boundary ---------------------------------
-def mh_run(tag, planes: str, n: int, nb: int) -> list[str]:
-    """The multihost demo as MH_PROCS processes of MH_MEMBERS members on this card
-    (gloo), each plane compared with one process on process 0; each process's
-    output, printed with its process index. Fails unless every process exits 0
-    within MH_TIMEOUT seconds."""
+def mh_run(tag, planes: str, n: int, nb: int, procs: int = MH_PROCS, members: int = MH_MEMBERS,
+           grid=(2, 4), backend: str = "gloo") -> list[str]:
+    """The multihost demo as ``procs`` processes of ``members`` members (gloo:
+    all on this card; nccl: a card each), each plane compared with one
+    process on process 0; each process's output, printed with its process
+    index. Fails unless every process exits 0 within MH_TIMEOUT seconds."""
     import socket
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     root = os.path.dirname(os.path.abspath(__file__))
-    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(MH_PROCS), "--local-devices",
-            str(MH_MEMBERS), "--n", str(n), "--nb", str(nb), "--p", "2", "--q", "4",
-            "--plane", planes, "--device", "cuda", "--backend", "gloo", "--timeout",
-            str(MH_TIMEOUT), "--compare"]
-    procs = [subprocess.Popen([sys.executable, "-m", "dla_tpu_torch.parallel.multihost",
-                               "--pid", str(pid)] + argv, cwd=root, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for pid in range(MH_PROCS)]
+    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(procs), "--local-devices",
+            str(members), "--n", str(n), "--nb", str(nb), "--p", str(grid[0]), "--q",
+            str(grid[1]), "--plane", planes, "--device", "cuda", "--backend", backend,
+            "--timeout", str(MH_TIMEOUT), "--compare"]
+    procs_ = [subprocess.Popen([sys.executable, "-m", "dla_tpu_torch.parallel.multihost",
+                                "--pid", str(pid)] + argv, cwd=root, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+              for pid in range(procs)]
     deadline, outs, rcs = time.monotonic() + MH_TIMEOUT, [], []
     try:
-        for p in procs:
+        for p in procs_:
             try:
                 outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
                 rcs.append(p.returncode)
@@ -2768,7 +2803,7 @@ def mh_run(tag, planes: str, n: int, nb: int) -> list[str]:
                 rcs.append(None)
                 outs.append("")
     finally:
-        for p in procs:
+        for p in procs_:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
@@ -2777,7 +2812,7 @@ def mh_run(tag, planes: str, n: int, nb: int) -> list[str]:
             if "socket.cpp" not in line:  # c10d's warnings about the client's host name
                 print(f"mh{pid}| {line}")
     print(f"multihost numbers above: {tag}", flush=True)
-    require(rcs == [0] * MH_PROCS, f"multihost processes exited {rcs} (None: killed at the "
+    require(rcs == [0] * procs, f"multihost processes exited {rcs} (None: killed at the "
             f"{MH_TIMEOUT} s timeout)")
     return outs
 
@@ -2788,9 +2823,12 @@ MH_LINE = (r"^\[mh {pid}\] plane {plane}: N=\d+ NB=\d+ over \d+ members, factor 
            r"(\d+) broadcasts, (\S+) MB, (\S+) ms; peak device memory (\S+) GiB$")
 
 
-def mh_report(tag, outs: list[str], plane: str, n: int, nb: int) -> None:
+def mh_report(tag, outs: list[str], plane: str, n: int, nb: int, members: int = MH_MEMBERS,
+              where: str = "on one card (gloo)") -> None:
     """One line for a plane: each process's time, boundary share, #11 launches and
-    peak memory; the gate; one process's time and the largest difference."""
+    peak memory; the gate; one process's time and the largest difference; on a
+    ring plane, 2·nt − 1 #11 launches in each process."""
+    procs = len(outs)
     ranks = []
     for pid, out in enumerate(outs):
         m = re.search(MH_LINE.format(pid=pid, plane=re.escape(plane)), out, re.M)
@@ -2807,8 +2845,8 @@ def mh_report(tag, outs: list[str], plane: str, n: int, nb: int) -> None:
     ring = [int(r[6]) for r in ranks]
     solve = "" if ranks[0][1] is None else (
         f", solve {max(float(r[1]) for r in ranks):.3f} ms (one process {one.group(2)} ms)")
-    print(f"multihost {plane} N={n} NB={nb} fp64, {MH_PROCS} processes x {MH_MEMBERS} members "
-          f"on one card (gloo): factor {factor:.3f} ms, {n ** 3 / 3 / (factor / 1e3) / 1e9:.1f} "
+    print(f"multihost {plane} N={n} NB={nb} fp64, {procs} processes x {members} members "
+          f"{where}: factor {factor:.3f} ms, {n ** 3 / 3 / (factor / 1e3) / 1e9:.1f} "
           f"GFLOP/s{solve}; one process {float(one.group(1)):.3f} ms "
           f"({factor / float(one.group(1)):.2f}x); boundary per process "
           + ", ".join(f"{r[2]} broadcasts {float(r[3]):.1f} MB {float(r[4]):.1f} ms ({r[5]}%)"
@@ -2821,8 +2859,9 @@ def mh_report(tag, outs: list[str], plane: str, n: int, nb: int) -> None:
             f"multihost plane {plane}: gate {gate.group(1)} not below 1e-10")
     if plane in ("column", "packed", "packed-df64"):
         want = 2 * (n // nb) - 1
-        require(ring == [want] * MH_PROCS, f"multihost plane {plane}: #11 launches {ring} per "
+        require(ring == [want] * procs, f"multihost plane {plane}: #11 launches {ring} per "
                 f"process, expected {want} in each")
+    return one.group(4) == "True"
 
 
 def phase_multihost(tag):
@@ -2838,6 +2877,362 @@ def phase_multihost(tag):
     for plane in planes:
         mh_report(tag, outs, plane, N_MH, NB_MH)
     print(f"phase 38 wall time: {time.perf_counter() - t38:.1f} s {tag}", flush=True)
+
+
+# ---- 41. members on several cards ----------------------------------------------------------
+def cards_sync(cards) -> None:
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def cards_ms(fn, cards, iters: int) -> float:
+    """Mean ms of ``fn`` over ``iters`` calls back to back, between two waits
+    for every card, after one warm-up: what a caller pays across the cards."""
+    fn()
+    cards_sync(cards)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    cards_sync(cards)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def queued_cards_ms(fn, cards, iters: int) -> float:
+    """The cards' time of ``fn`` a call: ``iters`` calls queued behind a
+    sleeping kernel on every card (the host's enqueue hidden), the longest of
+    the cards' CUDA-event spans over ``iters``, after one warm-up."""
+    fn()
+    cards_sync(cards)
+    spans = []
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda._sleep(50_000_000)  # ≈ 25 ms at the H100's clock
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        spans.append(start)
+    for _ in range(iters):
+        fn()
+    ms = []
+    for c, start in zip(cards, spans):
+        with torch.cuda.device(c):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return max(ms) / iters
+
+
+def ring_cards_bound(gather: bool, member_card, group: int, root: int, block_bytes: int,
+                     out_bytes: int) -> dict:
+    """The least time of one collective across the cards: the bytes the
+    busiest NVLink direction carries (each card's senders' bytes into members
+    on other cards: V a broadcast hop, (group − 1)·V an all-gather member)
+    over 450 GB/s, or the busiest card's bytes (its root blocks read, its
+    members' outputs written) over its memory rate."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    ndev = len(member_card)
+    per_ring = group if gather or group == 1 else group - 1
+    sent, local = {}, {}
+    for w in range(ndev // group * per_ring):
+        d = C.sender_member(w, gather=gather, group=group, root=root, per_ring=per_ring)
+        if member_card[C.right_of(d, group)] != member_card[d]:
+            sent[member_card[d]] = sent.get(member_card[d], 0) + (
+                (group - 1) * block_bytes if gather else block_bytes)
+    for d in range(ndev):
+        own = block_bytes if (gather or d % group == root) else 0
+        local[member_card[d]] = local.get(member_card[d], 0) + out_bytes + own
+    nvlink_s = max(sent.values(), default=0) / NVLINK_RATE
+    hbm_s = max(local.values()) / HBM_RATE
+    return {"bound_ms": max(nvlink_s, hbm_s) * 1e3, "bound_by": "bytes",
+            "nvlink_ms": nvlink_s * 1e3, "hbm_ms": hbm_s * 1e3}
+
+
+def ring_cards_case(cards, tag, gather: bool, m: int, n: int, iters: int, root: int = 0,
+                    group=None) -> dict:
+    """One collective, one member per card, fp64 at (m, n), against its plain
+    version (bits) and the library's movement of the same bytes, with the
+    NVLink bound."""
+    from torch.cuda import comm as library_comm  # NCCL in one process
+
+    from dla_tpu_torch.kernels import collectives as C
+
+    ndev = len(cards)
+    group = group or ndev
+    xs = [torch.randn(m, n, generator=torch.Generator(device=c).manual_seed(m + n + i),
+                      device=c, dtype=torch.float64) for i, c in enumerate(cards)]
+    if gather:
+        kernel, plain, counter = C.ring_all_gather, C.ring_all_gather_plain, \
+            "ring_all_gather_launches"
+        args, kw = (xs,), {"group": group}
+
+        def library():  # each member's sub-ring gathered onto its card: peer copies, concatenated
+            return [library_comm.gather(xs[d - d % group : d - d % group + group], dim=0,
+                                        destination=cards[d]) for d in range(ndev)]
+    else:
+        for d in range(ndev):  # a non-root block is never read: NaN reaches no output
+            if d % group != root % group:
+                xs[d].fill_(float("nan"))
+        kernel, plain, counter = C.ring_broadcast, C.ring_broadcast_plain, \
+            "ring_broadcast_launches"
+        args, kw = (xs, root), {"group": group}
+
+        def library():  # NCCL's broadcast in one process, one per sub-ring
+            return [library_comm.broadcast(xs[r * group + root % group],
+                                           devices=cards[r * group : (r + 1) * group])
+                    for r in range(ndev // group)]
+    ref = plain(*args, **kw)
+    before = getattr(C, counter)
+    out = kernel(*args, **kw)
+    cards_sync(cards)
+    require(getattr(C, counter) == before + 1, "ring across cards: not one collective counted")
+    require(all(o.device == c for o, c in zip(out, cards)), "ring across cards: an output off "
+            "its member's card")
+    require(all(torch.equal(bits(o), bits(r)) for o, r in zip(out, ref)),
+            f"ring across cards at {m}x{n}: the kernel's bits are not the plain version's")
+    require(not any(bool(o.isnan().any()) for o in out), "ring across cards: NaN in an output")
+    err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+    fns = {"ms": lambda: kernel(*args, **kw), "plain_ms": lambda: plain(*args, **kw),
+           "library_ms": library}
+    row = dict(max_abs_err=err, **{k: cards_ms(fn, cards, iters) for k, fn in fns.items()},
+               queued={k: queued_cards_ms(fn, cards, iters) for k, fn in fns.items()},
+               **ring_cards_bound(gather, cards, group, root % group, m * n * 8,
+                                  (group if gather else 1) * m * n * 8))
+    q = row["queued"]
+    kind = "all_gather" if gather else "broadcast"
+    label = f"group={group}" + ("" if gather else f" root={root}")
+    lib = "torch.cuda.comm.gather" if gather else "torch.cuda.comm.broadcast"
+    print(f"ring_{kind} across {ndev} cards (one member each) {m}x{n} fp64 {label}: bits of the "
+          f"plain version; back to back: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+          f"ms, library {row['library_ms']:.4f} ms ({lib}); queued (the cards' time): kernel "
+          f"{q['ms']:.4f} ms, plain {q['plain_ms']:.4f} ms, library {q['library_ms']:.4f} ms; "
+          f"bound {row['bound_ms']:.5f} ms (NVLink {row['nvlink_ms']:.5f} ms at 450 GB/s a "
+          f"direction, memory {row['hbm_ms']:.5f} ms) {tag}", flush=True)
+    return row
+
+
+def ring_cards_back_to_back(cards, tag) -> None:
+    """20 collectives of other cuts, groups and members a card, enqueued back
+    to back without a wait, each held to its plain version."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    outs, refs = [], []
+    for i in range(CARDS_RING_ITERS):
+        per_card = 1 + i % 2
+        xs = [torch.randn(64 * (1 + i % 3), 16, device=cards[d // per_card],
+                          generator=torch.Generator(device=cards[d // per_card])
+                          .manual_seed(300 + 10 * i + d)) for d in range(per_card * len(cards))]
+        group = (None, 2, len(xs))[i % 3]
+        if i % 4 == 3:
+            outs.append(C.ring_all_gather(xs, group=group))
+            refs.append(C.ring_all_gather_plain(xs, group=group))
+        else:
+            outs.append(C.ring_broadcast(xs, i % len(xs), group=group))
+            refs.append(C.ring_broadcast_plain(xs, i % len(xs), group=group))
+    cards_sync(cards)
+    same = all(torch.equal(bits(o), bits(r)) for out, ref in zip(outs, refs)
+               for o, r in zip(out, ref))
+    print(f"ring across {len(cards)} cards: {CARDS_RING_ITERS} collectives back to back (one and "
+          f"two members a card, groups 2 and all): every output the plain version's bits: "
+          f"{same} {tag}", flush=True)
+    require(same, "ring across cards: a collective back to back is off its plain version")
+
+
+def ring_cards_row_broadcast(cards, tag) -> int:
+    """The P×Q row broadcast (tests/test_parallel.py:219-249) on the flat mesh
+    across the cards: #12's count set to 0 before it and read after it."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    qg = 2
+    xs = [torch.randn(4, 6, device=c, dtype=torch.float64) for c in cards]
+    C.ring_all_gather_launches = 0
+    out = C.ring_all_gather(xs, group=qg)
+    cards_sync(cards)
+    launches = C.ring_all_gather_launches
+    for r in range(len(cards) // qg):
+        want = torch.cat([x.to(cards[0]) for x in xs[r * qg : (r + 1) * qg]])
+        require(all(torch.equal(bits(out[r * qg + c].to(cards[0])), bits(want))
+                    for c in range(qg)), "ring_all_gather across cards: a row of the P×Q grid "
+                "did not gather its own blocks")
+    print(f"ring_all_gather P×Q {len(cards) // qg}x{qg} row broadcast across the cards: every "
+          f"row gathers its own blocks, {launches} launch {tag}", flush=True)
+    return launches
+
+
+def plane_across_cards(cards, tag, phase) -> int:
+    """One ring plane at N_RING with one member per card: a warm-up and
+    RING_REPS timed factorizations, the #11 count set to 0 before them and
+    read after; the residual under 1e-10 and the factor the same bits as
+    the plane's on card 0."""
+    import dla_tpu_torch as T
+    from dla_tpu_torch.kernels import collectives as C
+    from dla_tpu_torch.parallel import dryrun, make_flat_mesh
+
+    name, kind = RING_PLANES[phase]
+    n, nb, d = N_RING, NB_RING, len(cards)
+    per_fact = 2 * (n // nb) - 1
+    dense = {}
+    for where, mesh in (("one card", make_flat_mesh(d, device=cards[0])),
+                        ("across the cards", make_flat_mesh(d, devices=cards))):
+        pl = dryrun.plane(kind, n, nb, mesh)
+        times = []
+        C.ring_broadcast_launches = 0
+        for rep in range(1 + RING_REPS):
+            x = pl.shard(pl.matrix())
+            cards_sync(cards)
+            t0 = time.perf_counter()
+            lx = pl.factor(x)
+            cards_sync(cards)
+            times.append(time.perf_counter() - t0)
+        launches = C.ring_broadcast_launches
+        require(launches == (1 + RING_REPS) * per_fact, f"{name} {where}: {launches} ring "
+                "launches")
+        dense[where] = pl.dense(lx)
+        tmed = statistics.median(times[1:])
+        print(f"ring plane {name} N={n} NB={nb} D={d} {where} ({dryrun.where(mesh)}): median "
+              f"{tmed * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times[1:]]}, "
+              f"{n**3 / 3 / tmed / 1e9:.2f} GFLOP/s, {per_fact} ring launches a factorization "
+              f"{tag}", flush=True)
+        del x, lx
+    l = dense["across the cards"]
+    same = torch.equal(bits(l.to(cards[0])), bits(dense["one card"]))
+    res = float(T.residual_potrf(pl.matrix(), l, assume_symmetric=True))
+    print(f"ring plane {name} across {d} cards: residual {res:.3e} (gate 1e-10), the same bits "
+          f"as on one card: {same} {tag}", flush=True)
+    require(res < 1e-10 and same, f"{name} across the cards: residual {res:.3e} or bits off")
+    del dense, l
+    torch.cuda.empty_cache()
+    return launches
+
+
+def session_across_cards(cards, tag, grid) -> None:
+    """The session over the cards (``grid`` None: the auto grid) at
+    N_CARDS_SESSION fp64 with a solve: both residuals under 1e-10, each
+    card's peak memory, and the factor the same bits as the same mesh's on
+    card 0."""
+    from dla_tpu_torch import parallel as TP
+    from dla_tpu_torch.cli import session
+
+    n, nb = N_CARDS_SESSION, NB_CARDS_SESSION
+    grid_argv = [] if grid is None else ["--p", str(grid[0]), "--q", str(grid[1])]
+    argv = ["--B", str(nb), "--dtype", "d", "--solve", str(NRHS_CARDS)] + grid_argv
+    real_factor, real_gen, kept = TP.potrf_block_cyclic, TP.generate_spd_block_cyclic, {}
+
+    def factor(x, layout, mesh, **kw):
+        kept.update(x=real_factor(x, layout, mesh, **kw), layout=layout, mesh=mesh)
+        return kept["x"]
+
+    def generate(layout, mesh, **kw):
+        kept["gen"] = kw
+        return real_gen(layout, mesh, **kw)
+
+    TP.potrf_block_cyclic, TP.generate_spd_block_cyclic = factor, generate
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):  # the libraries' first calls on each card
+            require(session.main(["--N", str(nb * len(cards) * 2)] + argv) == 0,
+                    "the warm-up session failed")
+        for c in cards:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(c)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = session.main(["--N", str(n)] + argv)
+    finally:
+        TP.potrf_block_cyclic, TP.generate_spd_block_cyclic = real_factor, real_gen
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if not line.startswith("[CLIENT] wave k="):
+            print(f"session| {line}")
+    peaks = [torch.cuda.max_memory_allocated(c) / 2**30 for c in cards]
+    ms = number(out, r"^Elapsed:")
+    res = number(out, r"^\|\|A - LL\^T\|\|_inf / \|\|A\|\|_inf =")
+    sres = number(out, r"^\|\|B - A X\|\|_inf / \(\|\|A\|\|_inf \|\|X\|\|_inf\) =")
+    require(rc == 0 and "[CLIENT] session complete: PASS" in out, f"the session returned {rc}")
+    require(res < 1e-10 and sres < 1e-10, "the session's residuals are not below 1e-10")
+    layout, mesh = kept["layout"], kept["mesh"]
+    spread = TP.to_dense(kept.pop("x"), layout)
+    one = TP.make_mesh(layout.p, layout.q, device=cards[0])
+    x1 = TP.potrf_block_cyclic(TP.generate_spd_block_cyclic(layout, one, **kept["gen"]), layout,
+                               one)
+    same = torch.equal(bits(spread), bits(TP.to_dense(x1, layout)))
+    print(f"session N={n} nb={nb} {layout.p}x{layout.q} fp64 over {len(mesh.cards)} cards "
+          f"({'auto grid' if grid is None else 'asked'}; {mesh.size // len(mesh.cards)} members "
+          f"a card): factorization {ms:.1f} ms, {n ** 3 / 3 / (ms / 1e3) / 1e9:.1f} GFLOP/s, "
+          f"residual {res:.3e}, potrs nrhs={NRHS_CARDS} residual {sres:.3e} (gate 1e-10); peak "
+          f"memory per card {[round(g, 3) for g in peaks]} GiB; the factor the same bits as "
+          f"the {layout.p}x{layout.q} mesh's on one card: {same} {tag}", flush=True)
+    require(same, "the session's factor over the cards is off the one-card mesh's bits")
+    del spread, x1, kept
+    torch.cuda.empty_cache()
+
+
+def driver_across_cards(cards, tag) -> None:
+    """The driver's --mode distributed on 2×2 over the cards, beside the same
+    run on card 0 and the projection model's figure."""
+    from dla_tpu_torch.parallel import BlockCyclicLayout, model
+
+    n, nb = N_CARDS_DRIVER, NB_CARDS_DRIVER
+    rates = {}
+    for where, extra in (("over the cards", []), ("on card 0", ["--device", "cuda:0"])):
+        out = phase_driver(tag, ["--n", str(n), "--nb", str(nb), "--dtype", "s", "--mode",
+                                 "distributed", "--p", "2", "--q", "2", "--repeats", "1"] + extra)
+        ms = number(out, r"^Elapsed:")
+        gate = number(out, GATE_LINE)
+        rates[where] = n ** 3 / 3 / (ms / 1e3) / 1e9
+        print(f"driver --mode distributed N={n} nb={nb} 2x2 fp32 {where}: {ms:.1f} ms, "
+              f"{rates[where]:.1f} GFLOP/s, gate value {gate:.3e} (gate {n * 2e-7:g}) {tag}",
+              flush=True)
+        torch.cuda.empty_cache()
+    proj = model.project(BlockCyclicLayout(n, nb, 2, 2), chip="h100", tier="high")
+    print(f"driver --mode distributed N={n} 2x2: over the cards {rates['over the cards']:.1f} "
+          f"GFLOP/s, {rates['over the cards'] / rates['on card 0']:.2f}x card 0's "
+          f"{rates['on card 0']:.1f}; project(2x2, nb={nb}, high) (a projection, not a "
+          f"measurement): {proj['dist_gflops']:.1f} GFLOP/s on 4 cards, single card "
+          f"{proj['single_gflops']:.1f}, efficiency {proj['efficiency']:.3f} {tag}", flush=True)
+
+
+def multihost_nccl(cards, tag) -> None:
+    """The multihost demo over NCCL, one process per card with one member
+    each; process 0 holds each plane to one process's bits."""
+    procs = len(cards)
+    grid = (2, procs // 2)
+    for planes, n in (("block", N_MH_BLOCK), ("potrs,column,packed,packed-df64", N_MH)):
+        outs = mh_run(tag, planes, n, NB_MH, procs=procs, members=1, grid=grid, backend="nccl")
+        require(f"[mh 0] {procs} processes, {procs} global members (1 local) on cuda:0, backend "
+                "nccl" in outs[0], "multihost over NCCL: no header line")
+        for plane in planes.split(","):
+            same = mh_report(tag, outs, plane, n, NB_MH, members=1,
+                             where=f"one a card ({procs} cards, NCCL)")
+            require(same, f"multihost {plane} over NCCL: not the one-process bits")
+
+
+def phase_several_cards(tag) -> dict:
+    """Phase 41: returns #11/#12's rows (the broadcast of the planes' panel
+    and the 1024² all-gather across the cards) and their launches here."""
+    t41 = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(min(4, torch.cuda.device_count()))]
+    print(f"phase 41: {len(cards)} cards: "
+          + "; ".join(f"{c}: {torch.cuda.get_device_name(c)}" for c in cards), flush=True)
+    big, t = N_RING - NB_RING, M_RING_TILE
+    got = {"ring_bcast": ring_cards_case(cards, tag, False, big, NB_RING, 10, root=1)}
+    for root in (0, 1):
+        ring_cards_case(cards, tag, False, t, NB_RING, 20, root=root)
+    if len(cards) % 2 == 0:
+        ring_cards_case(cards, tag, False, t, NB_RING, 20, root=1, group=2)
+    got["ring_gather"] = ring_cards_case(cards, tag, True, t, NB_RING, 20)
+    if len(cards) % 2 == 0:
+        ring_cards_case(cards, tag, True, t, NB_RING, 20, group=2)
+    ring_cards_back_to_back(cards, tag)
+    got["ring_gather_launches"] = ring_cards_row_broadcast(cards, tag) if len(cards) % 2 == 0 \
+        else 0
+    got["ring_bcast_launches"] = sum(plane_across_cards(cards, tag, ph) for ph in RING_PLANES)
+    session_across_cards(cards, tag, None)
+    if len(cards) == 4:
+        session_across_cards(cards, tag, (2, 4))
+        driver_across_cards(cards, tag)
+        multihost_nccl(cards, tag)
+    print(f"phase 41 wall time: {time.perf_counter() - t41:.1f} s {tag}", flush=True)
+    return got
 
 
 # ---- 39. the finance model ------------------------------------------------------------------
@@ -3060,7 +3455,8 @@ def phase_projection(dev, tag, rates):
     print(f"phase 40 wall time: {time.perf_counter() - t40:.1f} s {tag}", flush=True)
 
 
-LAST_PHASE = 40
+LAST_PHASE = 41
+SEVERAL_CARDS = 41  # the phase that needs two or more cards
 
 
 def parse_phases(spec: str | None) -> set[int]:
@@ -3084,11 +3480,20 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None, metavar="a,b-c",
                     help="run these phases only (default: all); the last line is printed "
                          "when every selected phase passed")
-    sel = parse_phases(ap.parse_args(argv).phases)
+    spec = ap.parse_args(argv).phases
+    sel = parse_phases(spec)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    if SEVERAL_CARDS in sel and torch.cuda.device_count() < 2:
+        msg = (f"phase {SEVERAL_CARDS} (members on several cards) needs two or more cards; "
+               f"this host has {torch.cuda.device_count()}")
+        if spec:
+            print(f"chip_smoke: {msg}", file=sys.stderr)
+            return 1
+        print(f"{msg}: not selected", flush=True)
+        sel.discard(SEVERAL_CARDS)
 
     from dla_tpu_torch.kernels import _build
 
@@ -3217,6 +3622,12 @@ def main(argv=None) -> int:
         phase_models(tag)
     if 40 in sel:
         phase_projection(dev, tag, rates)
+    if SEVERAL_CARDS in sel:
+        cards_got = phase_several_cards(tag)
+        for key in ("ring_bcast", "ring_gather"):  # one row a kernel: phase 29's where it ran
+            got.setdefault(key, cards_got[key])
+        for key in ("ring_bcast_launches", "ring_gather_launches"):
+            got[key] = got.get(key, 0) + cards_got[key]
 
     # a kernel is listed when both its comparison phase and its path phase ran
     rows = []

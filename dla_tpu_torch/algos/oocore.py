@@ -42,7 +42,8 @@ factor runs per member on its own rows. The rows a step needs from other
 members (the top ``w`` rows of a k panel, the diagonal block and the solved
 rows that the in-panel update reads) are gathered through
 :mod:`~dla_tpu_torch.parallel.member_comm`, as JAX's partitioner all-gathers
-them. The members share one device, so their rows are views of one slot.
+them. The members share one device, so their rows are views of one slot; a
+mesh whose members span cards raises ``NotImplementedError`` (ROADMAP A9d).
 """
 
 from __future__ import annotations
@@ -498,6 +499,11 @@ def potrf_outofcore(
             on_panel=on_panel, prefetch=prefetch,
         )
     if mesh is not None:
+        if len(set(mesh.devices)) > 1:
+            raise NotImplementedError(
+                "potrf_outofcore: a mesh whose members span several cards is not supported yet "
+                "(ROADMAP A9d: out of core on a mesh across cards); its members share one "
+                "device, whose panel rows are views of one slot")
         if getattr(mesh, "spans_processes", False):
             raise NotImplementedError("potrf_outofcore: a mesh across processes is not "
                                       "supported; the streamed panels live on one host")

@@ -81,7 +81,7 @@ def main(argv=None) -> int:
     tag = f"[{_card()}]"
     n = args.n
     lay = TP.BlockCyclicLayout(n, args.nb, args.p, args.q)
-    mesh = TP.make_mesh(args.p, args.q)
+    mesh = TP.make_mesh(args.p, args.q, device="cuda")  # one card: its profile
 
     def fresh():
         return TP.generate_spd_block_cyclic(lay, mesh, dtype=torch.float64)

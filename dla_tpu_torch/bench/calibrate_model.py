@@ -4,6 +4,7 @@
     python -m dla_tpu_torch.bench.calibrate_model --only ceilings
     python -m dla_tpu_torch.bench.calibrate_model --only curves --tiers high,default
     python -m dla_tpu_torch.bench.calibrate_model --only serving,frontier
+    python -m dla_tpu_torch.bench.calibrate_model --only nvlink      # a host of 2+ cards
 
 Parts (``--only``, comma-separated; each fits one call of about 20 minutes):
 
@@ -43,6 +44,21 @@ Parts (``--only``, comma-separated; each fits one call of about 20 minutes):
 - ``frontier``: the largest fp32 N (stride 4096) that ``potrf_packed``
   (w=4096, ``default``) factors with its Freivalds gate passed →
   ``PACKED_FILL``.
+- ``nvlink`` (two or more cards, built for four): #11 ``ring_broadcast``
+  across D cards, one fp64 member each, at V = m·1024·8 bytes for m ∈
+  ``NVLINK_ROWS``, with the caller's chunk count C = ``broadcast_chunks(m,
+  D)``, at each cut of ``NVLINK_CUTS`` (blocks per SM, least bytes a block
+  copies between flags), the mean of back-to-back calls between two waits
+  for every card and the cards' time (calls queued behind a sleeping kernel
+  on every card, the longest card's CUDA-event span); per cut, over the
+  cards' times, ``(C + D − 2)·(V/(C·bw) + lat)`` fitted by least
+  squares (linear in 1/bw and lat) over the sizes; the fastest cut's fit →
+  ``link_efficiency`` (bw over the spec's 450 GB/s) and ``latency_us``. Then
+  the block plane's per-step broadcast (the strips of a step delivered to
+  the cards that read them, ``potrf_dist._stacked``) on 2×2 over the cards
+  at N=49152, nb=2048, fp32, at several steps k, against the model's
+  ``step_comm_elems(layout, k)``·4 / (450 GB/s·efficiency) + 2·latency
+  (the cards' time, queued as above).
 
 It prints one JSON line per measurement, then the Python literals for the
 model's modules. It needs a card: without one it exits with code 2.
@@ -68,7 +84,7 @@ import time
 import torch
 
 DEVICE = "cuda"
-PARTS = ("ceilings", "curves", "serving", "oocore", "combo", "frontier")
+PARTS = ("ceilings", "curves", "serving", "oocore", "combo", "frontier", "nvlink")
 TIERS = ("high", "default", "bf16", "f64x")
 # the ladders: (bench tier spec with {n}, the N to run it at)
 CEILING_MS = (8192, 16384)  # gemm_tile's square sizes
@@ -98,6 +114,13 @@ H2D_ROWS = 131072  # the pinned copy: 131072 × 4096 fp32, 2 GiB (bench/oocore_p
 HOST_BOUND, COMBO_BOUND = 0.15, 0.10
 FRONTIER_W = 4096
 ITERS = 3  # timed factorizations a curve point, after one warm-up
+# nvlink: the broadcast's rows (× 1024 fp64 columns), the cuts tried (blocks per SM, least bytes a
+# block copies between two flags), the calls timed a point; the block plane's step layout
+NVLINK_ROWS, NVLINK_N = (128, 512, 1024, 4096, 15360), 1024
+NVLINK_CUTS = ((2, 32 * 1024), (2, 128 * 1024), (1, 128 * 1024), (2, 512 * 1024), (4, 64 * 1024))
+NVLINK_ITERS = 20
+NVLINK_STEP = (49152, 2048, 2, 2)  # n, nb, p, q: the driver's 2x2 run of chip_smoke.py phase 41
+
 
 
 def emit(part: str, **kw) -> dict:
@@ -494,6 +517,132 @@ def part_frontier(card: str, hbm_gib: float) -> dict:
 
 
 # ---- literals --------------------------------------------------------------------------
+# ---- NVLink --------------------------------------------------------------------------------
+def _cards() -> list:
+    return [torch.device("cuda", i) for i in range(min(4, torch.cuda.device_count()))]
+
+
+def _cards_ms(fn, cards, iters: int) -> float:
+    """Mean ms of ``fn`` over ``iters`` back-to-back calls between two waits for
+    every card, after one."""
+    fn()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _queued_cards_ms(fn, cards, iters: int) -> float:
+    """The cards' time of ``fn`` a call: ``iters`` calls queued behind a
+    sleeping kernel on every card, so that the host's enqueue is hidden; the
+    longest of the cards' CUDA-event spans over ``iters``, after one."""
+    fn()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    starts = []
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda._sleep(50_000_000)  # ≈ 25 ms at the H100's clock
+            starts.append(torch.cuda.Event(enable_timing=True))
+            starts[-1].record()
+    for _ in range(iters):
+        fn()
+    spans = []
+    for c, start in zip(cards, starts):
+        with torch.cuda.device(c):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    return max(spans) / iters
+
+
+def fit_ring(points) -> tuple[float, float]:
+    """(bytes/s, seconds) fitting t = (C + D − 2)·(V/(C·bw) + lat) by least
+    squares over ``points`` [(V bytes, C, D, seconds)]: linear in 1/bw, lat."""
+    rows = [((c + d - 2) * v / c, c + d - 2) for v, c, d, _ in points]
+    sxx = sum(a * a for a, _ in rows)
+    sxy = sum(a * b for a, b in rows)
+    syy = sum(b * b for _, b in rows)
+    tx = sum(a * t for (a, _), (*_, t) in zip(rows, points))
+    ty = sum(b * t for (_, b), (*_, t) in zip(rows, points))
+    det = sxx * syy - sxy * sxy
+    inv_bw, lat = (tx * syy - ty * sxy) / det, (sxx * ty - sxy * tx) / det
+    return 1.0 / inv_bw, lat
+
+
+def part_nvlink(card: str) -> dict:
+    from dla_tpu_torch.kernels import collectives as C
+    from dla_tpu_torch.parallel import BlockCyclicLayout, make_mesh, member_comm, model, potrf_dist
+
+    cards = _cards()
+    d = len(cards)
+    if d < 2:
+        raise RuntimeError("the nvlink part needs two or more cards")
+    spec = model.CHIPS["h100"]
+    fits = {}
+    for bps, seg in NVLINK_CUTS:
+        points = []
+        for m in NVLINK_ROWS:
+            xs = [torch.randn(m, NVLINK_N, device=c, dtype=torch.float64) for c in cards]
+            outs = [torch.empty_like(x) for x in xs]
+            chunks = C.broadcast_chunks(m, d)
+
+            def launch():
+                C._launch("ring_broadcast", xs, outs, gather=False, group=d, root=0,
+                          chunks=chunks, cut={"blocks_per_sm": bps, "min_segment": seg})
+            ms = _cards_ms(launch, cards, NVLINK_ITERS)
+            card_ms = _queued_cards_ms(launch, cards, NVLINK_ITERS)
+            ref = C.ring_broadcast_plain(xs, 0, chunks=chunks)
+            same = all(torch.equal(o, r) for o, r in zip(outs, ref))
+            if not same:
+                raise RuntimeError(f"ring_broadcast at cut {bps}/{seg}, m={m}: off the plain bits")
+            v = m * NVLINK_N * 8
+            points.append((v, chunks, d, card_ms / 1e3))
+            emit("nvlink", what="ring_broadcast", cards=d, m=m, bytes=v, chunks=chunks,
+                 blocks_per_sm=bps, min_segment=seg, ms=ms, card_ms=card_ms,
+                 gbps=v / (card_ms / 1e3) / 1e9, card=card)
+            del xs, outs, ref
+        bw, lat = fit_ring(points)
+        fits[(bps, seg)] = (bw, lat, sum(t for *_, t in points))
+        emit("nvlink", what="fit", blocks_per_sm=bps, min_segment=seg, gbps=bw / 1e9,
+             latency_us=lat * 1e6, total_ms=fits[(bps, seg)][2] * 1e3, card=card)
+    (bps, seg), (bw, lat, _) = min(fits.items(), key=lambda kv: kv[1][2])
+    eff = bw / 1e9 / spec.ici_gbps
+    emit("nvlink", what="chosen", blocks_per_sm=bps, min_segment=seg, gbps=bw / 1e9,
+         link_efficiency=eff, latency_us=lat * 1e6, card=card)
+    # the block plane's per-step broadcast against the model's comm term
+    n, nb, p, q = NVLINK_STEP
+    lay = BlockCyclicLayout(n, nb, p, q)
+    mesh = make_mesh(p, q)
+    if len(mesh.cards) > 1:
+        with member_comm.over(mesh):
+            for k in (0, lay.ntiles // 4, lay.ntiles // 2, 3 * lay.ntiles // 4):
+                w0 = (k + 1) // p
+                shape = ((lay.ltr - w0) * nb, nb)
+                owners = [r * q + k % q for r in range(p)]
+                strips = [torch.randn(shape, device=mesh.device_of(m)) for m in owners]
+                uses = potrf_dist._strips_used(lay, k, lambda r, c, k=k: (
+                    (lj, potrf_dist._trail_products(r, c, k, lj, lay))
+                    for lj in range((k + 1) // q, lay.ltc)))
+                ms = _queued_cards_ms(lambda: potrf_dist._stacked(strips, owners, uses),
+                                      mesh.cards, NVLINK_ITERS)
+                elems = model.step_comm_elems(lay, k)
+                want = elems * 4 / (spec.ici_gbps * 1e9 * eff) + 2 * lat
+                crossed = sum(strips[r].numel() * 4 for card_, used in uses.items()
+                              for r in used if mesh.device_of(owners[r]) != card_)
+                emit("nvlink", what="block step broadcast", n=n, nb=nb, p=p, q=q, k=k, ms=ms,
+                     step_comm_elems=elems, crossed_bytes=crossed, model_ms=want * 1e3,
+                     card=card)
+                del strips
+    torch.cuda.empty_cache()
+    return {"link_efficiency": eff, "latency_us": lat * 1e6, "nvlink_cut": (bps, seg)}
+
+
 def literals(got: dict, card: str) -> str:
     src = f"# {card}: python -m dla_tpu_torch.bench.calibrate_model"
     lines = [src]
@@ -516,6 +665,11 @@ def literals(got: dict, card: str) -> str:
         lines.append(repr(got["combo"]))
     if "fill" in got:
         lines.append(f"PACKED_FILL = {got['fill']}  # max N {got['max_n']}")
+    if "link_efficiency" in got:
+        lines.append(f"link_efficiency={got['link_efficiency']:.3f}, "
+                     f"latency_us={got['latency_us']:.2f}")
+        lines.append(f"NVLINK_BLOCKS_PER_SM, NVLINK_MIN_SEGMENT = {got['nvlink_cut'][0]}, "
+                     f"{got['nvlink_cut'][1]}")
     return "\n".join(lines)
 
 
@@ -555,6 +709,8 @@ def main(argv=None) -> int:
     if "frontier" in parts:
         got.update(part_frontier(card, got.get("hbm_gib",
                                                torch.cuda.mem_get_info()[1] / 2**30)))
+    if "nvlink" in parts:
+        got.update(part_nvlink(card))
     print(literals(got, card), flush=True)
     print(f"calibrate_model: {time.perf_counter() - t0:.1f} s, parts {parts}", flush=True)
     return 0

@@ -356,19 +356,20 @@ def _queued_ms(launch, n: int = 10) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def _ring_launcher(lib, slots: bool):
+def _ring_launcher(lib, signature: str):
     """prepare(xs, outs, gather, group, root, chunks) -> launch() -> CUDA
-    error, through the build's own C signature; each build keeps its flags
-    and epoch. A build without comm slots is called as the wrapper calls it
-    (``collectives._call``); one whose hops forward through comm slots gets
-    them, allocated beforehand."""
+    error, through the build's own C signature (``signature``: ``cards``, one
+    launch per card with a sender table and per-member flag rows; ``flat``,
+    one launch over the members of one card; ``slots``, a protocol that
+    forwards through comm slots); each build keeps its flags and epoch. A
+    build of this signature is called as the wrapper calls it
+    (``collectives._call``); the others through their own arguments."""
     from dla_tpu_torch.kernels import collectives as C
 
     dev = torch.device("cuda")
-    flags = C._new_flags(dev)
-    if not slots:
-        fn = C._bind(lib.dla_ring_launch)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if signature == "cards":
+        fn, flags = C._bind(lib.dla_ring_launch), {}
 
         def prepare(xs, outs, gather, group, root, chunks):
             plan = C.ring_plan(gather=gather, ndev=len(xs), group=group, chunks=chunks,
@@ -377,6 +378,32 @@ def _ring_launcher(lib, slots: bool):
             def launch():
                 return C._call(fn, flags, xs, outs, gather=gather, group=group, root=root,
                                plan=plan)
+            launch.plan = plan
+            return launch
+        return prepare
+
+    flags = [torch.zeros(1 << 13, dtype=torch.int64, device=dev), 0]
+    if signature == "flat":
+        fn = lib.dla_ring_launch  # (gather, ndev, group, root, senders, units, xs, outs, flags, ...)
+        fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
+                       + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def prepare(xs, outs, gather, group, root, chunks):
+            ndev = len(xs)
+            plan = C.ring_plan(gather=gather, ndev=ndev, group=group, chunks=chunks,
+                               block_bytes=xs[0].numel() * xs[0].element_size(), sms=sms)
+            ptrs = ctypes.c_void_p * ndev
+            xp, op = ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs))
+
+            def launch():
+                err = fn(int(gather), ndev, group, root, plan.senders, plan.units, xp, op,
+                         flags[0].data_ptr(), flags[0].numel(),
+                         xs[0].numel() * xs[0].element_size(), plan.unit_bytes, plan.stripe,
+                         flags[1], plan.blocks, stream)
+                flags[1] += plan.units
+                return err
             launch.plan = plan
             return launch
         return prepare
@@ -399,7 +426,7 @@ def _ring_launcher(lib, slots: bool):
 
         def launch():
             err = fn(int(gather), ndev, group, root, chunks, steps, xp, op, cp,
-                     flags[0].data_ptr(), C._FLAG_WORDS, chunk_bytes, flags[1], 0, stream)
+                     flags[0].data_ptr(), flags[0].numel(), chunk_bytes, flags[1], 0, stream)
             flags[1] += steps + 1
             return err
         launch.keep = comm
@@ -419,8 +446,10 @@ def _ring_ab(args, card: str) -> int:
         preps = {}
         for version, csrc in (("other", Path(args.other)), ("this", _build.CSRC)):
             lib = _build_lib(csrc, Path(tmp) / f"{version}.so", "ring")
-            slots = "void* const* comms" in (csrc / SOURCE["ring"]).read_text()
-            preps[version] = _ring_launcher(lib, slots)
+            text = (csrc / SOURCE["ring"]).read_text()
+            signature = ("slots" if "void* const* comms" in text
+                         else "cards" if "const int* senders" in text else "flat")
+            preps[version] = _ring_launcher(lib, signature)
         for kind, m, root, group in RING_CASES:
             gather = kind == "gather"
             g = torch.Generator(device=dev).manual_seed(m + n + ndev)

@@ -72,7 +72,7 @@ def main(argv=None) -> int:
         print("ring_planes_probe: no CUDA device", file=sys.stderr)
         return 1
     tag = f"[{_card()}]"
-    mesh = make_flat_mesh(args.ndev)
+    mesh = make_flat_mesh(args.ndev, device="cuda")  # one card: its profile
     for kind, (what, _) in dryrun.PLANES.items():
         profile(f"{kind} plane ({what}) N={args.n} nb={args.nb} D={args.ndev}",
                 dryrun.plane(kind, args.n, args.nb, mesh), tag)

@@ -50,8 +50,10 @@ the reference driver wires them (``potrf_driver.py:533-539``): blocked and
 shrink take ``--panel``, ``--trailing`` and ``--diag``, shrink also
 ``--kb``; masked takes none of them.
 
-``--mode distributed --p P --q Q`` factors on a P×Q member mesh on the
-device (``parallel/potrf_dist.py:potrf_block_cyclic``), as the reference
+``--mode distributed --p P --q Q`` factors on a P×Q member mesh
+(``parallel/potrf_dist.py:potrf_block_cyclic``), its members spread over the
+visible cards (``--device cuda:0`` keeps them on card 0; ``--device cpu``
+on the CPU), the timed region waiting for every card of the mesh, as the reference
 (``potrf_driver.py:339-356``): tril(A) is sharded block-cyclically before
 each repeat, untimed; the timed factorization includes assembling the dense
 tril(L), which the dense modes' gates then check.
@@ -155,6 +157,13 @@ import time
 import numpy as np
 
 
+def _device_arg(text: str) -> str:
+    """``--device``: cpu, cuda or cuda:N."""
+    if text in ("cpu", "cuda") or (text.startswith("cuda:") and text[5:].isdigit()):
+        return text
+    raise argparse.ArgumentTypeError(f"{text!r}: choose cuda, cuda:N or cpu")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="dla-potrf-torch",
@@ -228,7 +237,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "default $DLA_TPU_CONFIG)")
     ap.add_argument("--gate", type=float, default=None,
                     help="PASS threshold (default: dtype-aware)")
-    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--device", type=_device_arg, default="cuda",
+                    help="cuda (default; --mode distributed spreads its members over the "
+                         "visible cards), cuda:N (that card; the mesh's members all on it) "
+                         "or cpu")
     ap.add_argument("--solve", choices=["none", "potrs", "refined", "inverse"], default="none",
                     help="dense and packed modes: also solve A·X=B: plain POTRS, "
                          "mixed-precision iterative refinement (fp32 factor, fp64 residuals), "
@@ -279,7 +291,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("[dla-potrf] --device cuda: no CUDA device is available "
               "(torch.cuda.is_available() is False); use --device cpu",
               file=sys.stderr)
@@ -374,10 +386,15 @@ def main(argv=None) -> int:
         from dla_tpu_torch import parallel
 
         layout = parallel.BlockCyclicLayout(n=cfg.n, nb=cfg.nb, p=cfg.p, q=cfg.q)
-        mesh = parallel.make_mesh(cfg.p, cfg.q, device=device)
+        # --device cuda spreads the members over the visible cards; cuda:N or cpu holds them
+        mesh = parallel.make_mesh(cfg.p, cfg.q, device=None if args.device == "cuda" else device)
+        print(f"[dla-potrf] {cfg.p}x{cfg.q} members on "
+              f"{','.join(str(d) for d in mesh.cards)}", flush=True)
 
-    def sync():
-        if device.type == "cuda":
+    def sync():  # with a mesh, every card of it
+        if distributed:
+            parallel.member_comm.synchronize(mesh.devices)
+        elif device.type == "cuda":
             torch.cuda.synchronize(device)
 
     user_pair = None

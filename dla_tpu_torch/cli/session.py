@@ -24,11 +24,14 @@ max(1e-10, N·2e-7) otherwise, and ``--solve NRHS`` solves A·X = 1 through
 :func:`~dla_tpu_torch.parallel.potrs_block_cyclic` under the same gate. The
 exit code is 0 on PASS and 1 on FAIL.
 
-The session runs on the card; ``--platform cpu`` runs it on the CPU, and
-without a card and without that flag it exits 2. The auto grid (p·q = 1)
-counts the cards as JAX counts devices, so one card gives 1×1; a grid over
-several cards would need members on several devices (ROADMAP A9) and
-raises. ``--x64`` is accepted for parity: fp64 is native here.
+The session runs on the cards; ``--platform cpu`` runs it on the CPU, and
+without a card and without that flag it exits 2. The mesh's members spread
+over the visible cards (the placement rule of
+:mod:`~dla_tpu_torch.parallel.member_comm`: 2×4 on 4 cards puts two members
+on each). The auto grid (p·q = 1) counts the cards as JAX counts devices:
+one card gives 1×1, several the squarest p×q grid over them, one member per
+card. The timed region waits for every card of the mesh before and after.
+``--x64`` is accepted for parity: fp64 is native here.
 """
 
 from __future__ import annotations
@@ -142,9 +145,9 @@ def main(argv=None) -> int:
 
     from dla_tpu_torch.parallel import (
         BlockCyclicLayout,
-        MemberMesh,
         generate_spd_block_cyclic,
         make_mesh,
+        member_comm,
         potrf_block_cyclic,
         to_dense,
     )
@@ -152,15 +155,13 @@ def main(argv=None) -> int:
     from dla_tpu_torch.validate import residual_potrf
 
     layout = BlockCyclicLayout(n=cfg.n, nb=cfg.nb, p=p, q=q)
-    if auto:  # members on several devices
-        mesh = MemberMesh(tuple(torch.device("cuda", i % ncards) for i in range(p * q)), (p, q))
-    else:
-        mesh = make_mesh(p, q, device="cpu" if cpu else "cuda")
+    mesh = make_mesh(p, q, device="cpu" if cpu else None)  # spread over the cards
+    if not cpu:
+        print(f"[CLIENT] members on {','.join(str(d) for d in mesh.cards)}", flush=True)
     dtype = getattr(torch, cfg.dtype)
 
-    def sync():
-        if not cpu:
-            torch.cuda.synchronize(mesh.device)
+    def sync():  # every card of the mesh
+        member_comm.synchronize(mesh.devices)
 
     def generate():
         return generate_spd_block_cyclic(layout, mesh, seed=cfg.seed, dtype=dtype)

@@ -8,10 +8,12 @@ that the cyclic layout becomes a blocked sharding ``P('r', 'c')``; each
 device's local shard is a plain (ltr·nb, ltc·nb) matrix whose tile (li, lj) is
 global tile (li·p + r, lj·q + c).
 
-Here the p·q members share one device, as the ring planes' :class:`FlatMesh`
-members do, and a sharded matrix is a list of p·q tensors, member (r, c) at
-index r·q + c: exactly the block JAX's ``layout.sharding(mesh)`` puts on
-device (r, c), so assembling the list in mesh order gives JAX's stored array.
+Here the p·q members lie on one card or spread over the cards of one host, as
+the ring planes' :class:`FlatMesh` members do (the placement rule of
+:mod:`~dla_tpu_torch.parallel.member_comm`), and a sharded matrix is a list of
+p·q tensors, member (r, c) at index r·q + c on its own device: exactly the
+block JAX's ``layout.sharding(mesh)`` puts on device (r, c), so assembling
+the list in mesh order gives JAX's stored array.
 A mesh made while a process group of several processes is up spans them
 (:mod:`~dla_tpu_torch.parallel.member_comm`): a process's list holds its own
 members' tensors and None for the others, and :func:`to_dense` brings the
@@ -19,7 +21,8 @@ others' over first (JAX's replicate step).
 The permutation is never materialized as an index: a dense (n, n) matrix
 viewed as (ltr, p, nb, ltc, q, nb) has member (r, c)'s tiles at ``[:, r, :,
 :, c, :]``, so :func:`from_dense` and :func:`to_dense` are one strided copy
-per member, on the tensor's own device.
+per member, onto the member's card (:func:`from_dense`) or back onto member
+0's (:func:`to_dense`).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 from dla_tpu_torch.ops.lapack_like import _SLAB_ELEMS, plgsy_at
 from dla_tpu_torch.parallel import member_comm as comm
-from dla_tpu_torch.parallel.column_cyclic import _member_device, _one_device, _tensor
+from dla_tpu_torch.parallel.column_cyclic import _tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +43,7 @@ class MemberMesh(comm.ProcessSpan):
     (r, c) at ``devices[r·q + c]``, split evenly over ``processes``
     processes, of which this is ``process``. It sits beside
     :class:`FlatMesh` (the ring planes' 1-D mesh, which they require) rather
-    than generalizing it. A process's members lie on one device; a mesh
-    whose members span several raises ``NotImplementedError``."""
+    than generalizing it. Its members lie as a :class:`FlatMesh`'s do."""
 
     devices: tuple[torch.device, ...]
     shape: tuple[int, int]
@@ -53,16 +55,11 @@ class MemberMesh(comm.ProcessSpan):
         p, q = self.shape
         if p <= 0 or q <= 0 or len(self.devices) != p * q:
             raise ValueError(f"a {p}x{q} mesh needs {p * q} members, got {len(self.devices)}")
-        _one_device(self.devices)
         self._check_span()
 
     @property
     def size(self) -> int:
         return len(self.devices)
-
-    @property
-    def device(self) -> torch.device:
-        return self.devices[0]
 
 
 def squarest(ndev: int) -> tuple[int, int]:
@@ -73,13 +70,15 @@ def squarest(ndev: int) -> tuple[int, int]:
     return p, ndev // p
 
 
-def make_mesh(p: int, q: int, *, device="cuda") -> MemberMesh:
-    """A p×q member mesh with axes ('r', 'c'), all members on the card unless
-    the caller names another device (``device="cpu"``); across the processes
-    of the process group where one is up, as ``jax.devices()`` spans them."""
+def make_mesh(p: int, q: int, *, devices=None, device=None) -> MemberMesh:
+    """A p×q member mesh with axes ('r', 'c'), member (r, c) on ``devices[r·q
+    + c]`` (JAX's argument), all on ``device``, or by default spread evenly
+    over the visible cards (:func:`~dla_tpu_torch.parallel.member_comm.place`);
+    across the processes of the process group where one is up, as
+    ``jax.devices()`` spans them."""
     processes, process = comm.process_span()
-    return MemberMesh((_member_device(device),) * (p * q), (p, q), processes=processes,
-                      process=process)
+    return MemberMesh(comm.place(p * q, devices, device, processes), (p, q),
+                      processes=processes, process=process)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,10 +190,11 @@ def from_dense(a, layout: BlockCyclicLayout, mesh: MemberMesh) -> list[torch.Ten
 
 
 def to_dense(shards, layout: BlockCyclicLayout, mesh: MemberMesh | None = None) -> torch.Tensor:
-    """Inverse of :func:`from_dense`: the dense matrix, on the members' device
-    (the JAX function gathers it to the host). On a ``mesh`` across
-    processes, every process's shards reach every process first, by
-    broadcast in member order, and each gets the whole matrix."""
+    """Inverse of :func:`from_dense`: the dense matrix, on the first member's
+    device (the JAX function gathers it to the host), each shard copied
+    there from its own card. On a ``mesh`` across processes, every process's
+    shards reach every process first, by broadcast in member order, and each
+    gets the whole matrix."""
     x = _check_shards(shards, layout, mesh)
     ref = x[_members(layout, mesh)[0][0]]
     out = torch.empty((layout.n, layout.n), dtype=ref.dtype, device=ref.device)
@@ -235,11 +235,12 @@ def generate_spd_block_cyclic(
     out = [None] * (p * q)
     for m, r, c in _members(layout, mesh):
         dev = mesh.devices[m]
-        rows = _global_index(ltr, p, r, nb, dev)
-        cols = _global_index(ltc, q, c, nb, dev)
-        x = torch.empty(layout.local_shape, dtype=dtype, device=dev)
-        for r0 in range(0, ltr * nb, slab):
-            x[r0 : r0 + slab] = plgsy_at(seed, rows[r0 : r0 + slab], cols, bump=bump,
-                                         dtype=dtype)
+        with comm.on(dev):
+            rows = _global_index(ltr, p, r, nb, dev)
+            cols = _global_index(ltc, q, c, nb, dev)
+            x = torch.empty(layout.local_shape, dtype=dtype, device=dev)
+            for r0 in range(0, ltr * nb, slab):
+                x[r0 : r0 + slab] = plgsy_at(seed, rows[r0 : r0 + slab], cols, bump=bump,
+                                             dtype=dtype)
         out[m] = x
     return out

@@ -2,12 +2,15 @@
 the panel data plane — counterpart of ``dla_tpu/parallel/column_cyclic.py``.
 
 The mesh is a :class:`FlatMesh` of D members. In the JAX package each member
-is a device of a ``shard_map``; here all members share one device, and each
-holds allocations of its own. A sharded matrix is a list of D tensors, member
-d's on ``mesh.devices[d]``: exactly the block JAX's ``NamedSharding(mesh,
-P(None, "d"))`` puts on device d, so ``torch.cat(shards, dim=1)`` is JAX's
-global array. Data crosses between members only through
-:func:`~dla_tpu_torch.kernels.collectives.ring_broadcast`.
+is a device of a ``shard_map``; here the members lie on one card or spread
+over the cards of one host (:func:`make_flat_mesh`, the placement rule of
+:mod:`~dla_tpu_torch.parallel.member_comm`), and each holds allocations of its
+own. A sharded matrix is a list of D tensors, member d's on
+``mesh.devices[d]``: exactly the block JAX's ``NamedSharding(mesh, P(None,
+"d"))`` puts on device d, so the shards concatenated in member order are
+JAX's global array. Data crosses between members only through
+:func:`~dla_tpu_torch.kernels.collectives.ring_broadcast`, over NVLink where
+they lie on different cards.
 
 A mesh made while a process group of several processes is up spans them
 (:mod:`~dla_tpu_torch.parallel.member_comm`): a process holds its own
@@ -17,7 +20,9 @@ to every other process by one ``torch.distributed`` broadcast, then #11 runs
 among each process's members, rooted at the member in the owner's position.
 
 Algorithm (right-looking, lower triangle only), tile column j owned by member
-j mod D. The controller runs each member's program in turn on one stream:
+j mod D. The controller runs each member's program in turn, on its card's
+current stream, and never waits for a card: each card runs its own members'
+work while the controller moves on, so the cards overlap:
 
 1. the owner solves panel k (the Cholesky factor of the diagonal tile, then
    one triangular solve of the rows below);
@@ -43,16 +48,13 @@ from dla_tpu_torch.algos.potrf import _cholesky
 from dla_tpu_torch.kernels.collectives import ring_broadcast
 from dla_tpu_torch.parallel import member_comm as comm
 
-_MULTI_CARD = ("a mesh whose members span several devices is not supported yet "
-               "(ROADMAP A9: members on several cards, peer pointers)")
-
-
 @dataclass(frozen=True)
 class FlatMesh(comm.ProcessSpan):
-    """A 1-D ('d',) mesh of ``len(devices)`` members, split evenly over
-    ``processes`` processes, of which this is ``process``. A process's
-    members lie on one device; a mesh whose members span several raises
-    ``NotImplementedError``."""
+    """A 1-D ('d',) mesh of ``len(devices)`` members, member d on
+    ``devices[d]``, split evenly over ``processes`` processes, of which this is
+    ``process``. The members lie all on the CPU or all on CUDA cards, one card
+    or several that reach each other's memory (else ``ValueError`` /
+    ``RuntimeError``); ``device`` is member 0's."""
 
     devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...] = ("d",)
@@ -60,41 +62,22 @@ class FlatMesh(comm.ProcessSpan):
     process: int = 0
 
     def __post_init__(self):
-        _one_device(self.devices)
         self._check_span()
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
-    @property
-    def device(self) -> torch.device:
-        return self.devices[0]
 
-
-def _one_device(devices) -> None:
-    """A mesh's members must lie on one device (for now)."""
-    if not devices:
-        raise ValueError("a mesh needs at least one member")
-    if len(set(devices)) > 1:
-        raise NotImplementedError(_MULTI_CARD)
-
-
-def _member_device(device) -> torch.device:
-    """``device`` as the members' device: a bare "cuda" is the current card
-    (raises without one)."""
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
-    return d
-
-
-def make_flat_mesh(ndev: int, *, device="cuda") -> FlatMesh:
-    """A flat mesh of ``ndev`` members, all on the card unless the caller
-    names another device (``device="cpu"``); across the processes of the
-    process group where one is up, as ``jax.devices()`` spans them."""
+def make_flat_mesh(ndev: int, *, devices=None, device=None) -> FlatMesh:
+    """A flat mesh of ``ndev`` members: on ``devices`` (one per member, JAX's
+    argument), all on ``device``, or by default spread evenly over the
+    visible cards (:func:`~dla_tpu_torch.parallel.member_comm.place`); across
+    the processes of the process group where one is up, as ``jax.devices()``
+    spans them."""
     processes, process = comm.process_span()
-    return FlatMesh((_member_device(device),) * ndev, processes=processes, process=process)
+    return FlatMesh(comm.place(ndev, devices, device, processes), processes=processes,
+                    process=process)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -127,16 +110,17 @@ def from_dense_cols(a, nb: int, mesh: FlatMesh) -> list[torch.Tensor]:
 
 
 def _gathered(shards, mesh) -> list[torch.Tensor]:
-    """Every member's shard on this process (JAX's replicate step): across
-    processes, each other process's shards arrive by broadcast, in member
-    order."""
+    """Every member's shard on this process, on its first member's device
+    (JAX's replicate step): across processes, each other process's shards
+    arrive by broadcast, in member order; from other cards by peer copy."""
     x = list(shards)
     ref = x[mesh.local_members()[0]]
-    return [comm.share(x[d], d, ref.shape, ref.dtype, mesh) for d in range(mesh.size)]
+    return [comm.share(x[d], d, ref.shape, ref.dtype, mesh, ref.device)
+            for d in range(mesh.size)]
 
 
 def to_dense_cols(shards, nb: int, mesh: FlatMesh) -> torch.Tensor:
-    """Inverse of :func:`from_dense_cols`: the dense matrix, on the members'
+    """Inverse of :func:`from_dense_cols`: the dense matrix, on member 0's
     device (the JAX function gathers it to the host); across processes, on
     every process."""
     x = torch.cat(_gathered(shards, mesh), dim=1)
@@ -171,11 +155,12 @@ def _broadcast_from(owner: int, block, mesh: FlatMesh, shape, dtype) -> list:
     process but the owner's: the block crosses to each process first
     (:func:`~dla_tpu_torch.parallel.member_comm.share`), then the ring runs
     among the process's members from the one in the owner's position; the
-    list holds None for other processes' members."""
+    list holds None for other processes' members. Each output lies on its
+    member's card."""
     blk = comm.share(block, owner, shape, dtype, mesh)
     root = owner % mesh.per_process
-    outs = ring_broadcast([blk if i == root else torch.empty_like(blk)
-                           for i in range(mesh.per_process)], root)
+    outs = ring_broadcast([blk if i == root else torch.empty_like(blk, device=mesh.device_of(d))
+                           for i, d in enumerate(mesh.local_members())], root)
     full = [None] * mesh.size
     for d, out in zip(mesh.local_members(), outs):
         full[d] = out
@@ -226,8 +211,9 @@ def potrf_column_cyclic_ring(shards, nb: int, mesh: FlatMesh) -> list[torch.Tens
         own = x[kc] if mesh.is_local(kc) else None
         lkk = solved = None
         if own is not None:
-            lkk, solved = _solve_panel(own[row0:row1, cols], own[row1:, cols])
-            own[row0:row1, cols] = lkk
+            with comm.on(own.device):
+                lkk, solved = _solve_panel(own[row0:row1, cols], own[row1:, cols])
+                own[row0:row1, cols] = lkk
         _broadcast_from(kc, lkk, mesh, (nb, nb), dtype)  # every member receives L_kk
         if k == nt - 1:
             break
@@ -235,12 +221,13 @@ def potrf_column_cyclic_ring(shards, nb: int, mesh: FlatMesh) -> list[torch.Tens
         if own is not None:
             own[row1:, cols] = solved
         for c in mesh.local_members():  # each member's trailing update over its own shard
-            for lj in range((k + 1) // ndev, ltc):
-                gcol = lj * ndev + c
-                rs = max(k + 1, lj * ndev) * nb
-                if gcol <= k or rs >= n:
-                    continue
-                off = gcol * nb - row1
-                b = panel[c][off : off + nb]
-                x[c][rs:, lj * nb : (lj + 1) * nb] -= _dot_nt(panel[c][rs - row1 :], b)
+            with comm.on(x[c].device):
+                for lj in range((k + 1) // ndev, ltc):
+                    gcol = lj * ndev + c
+                    rs = max(k + 1, lj * ndev) * nb
+                    if gcol <= k or rs >= n:
+                        continue
+                    off = gcol * nb - row1
+                    b = panel[c][off : off + nb]
+                    x[c][rs:, lj * nb : (lj + 1) * nb] -= _dot_nt(panel[c][rs - row1 :], b)
     return x

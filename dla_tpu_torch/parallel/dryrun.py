@@ -1,7 +1,10 @@
 """The JAX package's multi-device dry run (``__graft_entry__.dryrun_multichip``,
-all six planes) on meshes of members that share one device:
+all six planes) on meshes of members, spread over the visible cards (the
+placement rule of :mod:`~dla_tpu_torch.parallel.member_comm`) or all on one
+device:
 
-    python -m dla_tpu_torch.parallel.dryrun --ndev 4                    # on the card
+    python -m dla_tpu_torch.parallel.dryrun --ndev 4                    # over the cards
+    python -m dla_tpu_torch.parallel.dryrun --ndev 4 --device cuda:0    # on one card
     python -m dla_tpu_torch.parallel.dryrun --ndev 4 --device cpu --n 256 --nb 16
 
 1. the block-cyclic factorization on the squarest p×q member mesh of ndev
@@ -16,7 +19,9 @@ all six planes) on meshes of members that share one device:
 
 Each plane is gated at 1e-10 in fp64 (``residual_potrf``, ``residual_posv``
 for 4 and 5; hi + lo in fp64 for df64) and prints one line, in the JAX
-function's order, with its seeds and sizes. ``--n`` sets the ring planes' N
+function's order, with its seeds, sizes and the cards its members lie on.
+Each plane's input is made on member 0's device and copied onto each
+member's card. ``--n`` sets the ring planes' N
 and plane 1's (JAX's default keeps plane 1 at half the ring planes' N).
 """
 
@@ -40,9 +45,10 @@ PLANES = {
 
 
 class Plane(NamedTuple):
-    """One plane's steps: the fp64 matrix from its seed (on the members'
-    device), the sharded input made from it, the factorization (in place),
-    and the factor as a dense fp64 lower triangle."""
+    """One plane's steps: the fp64 matrix from its seed (on member 0's
+    device), the sharded input made from it (each shard on its member's
+    card), the factorization (in place), and the factor as a dense fp64
+    lower triangle (on member 0's device)."""
 
     matrix: Callable[[], torch.Tensor]
     shard: Callable[[torch.Tensor], object]
@@ -108,13 +114,19 @@ def solve_gate(kind: str, a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> 
     return _below_gate(kind, residual_posv(a, b, x, assume_symmetric=True))
 
 
+def where(mesh) -> str:
+    """The devices that ``mesh``'s members lie on, in member order."""
+    return ",".join(str(d) for d in mesh.cards)
+
+
 def _rhs(n: int, nrhs: int, seed: int, device) -> torch.Tensor:
     return torch.from_numpy(np.random.default_rng(seed).standard_normal((n, nrhs))).to(device)
 
 
 def block_cyclic_planes(n: int, nb: int, ndev: int, device, nrhs: int = 3) -> dict:
     """Planes 1 (factor), 4 (solve from that factor) and 5 (sharded inverse
-    apply); returns {plane: line}."""
+    apply), their members on ``device`` (None: spread over the cards);
+    returns {plane: line}."""
     from dla_tpu_torch import parallel as TP
     from dla_tpu_torch.algos import potrf_blocked, potri
     from dla_tpu_torch.ops import plgsy
@@ -135,14 +147,13 @@ def block_cyclic_planes(n: int, nb: int, ndev: int, device, nrhs: int = 3) -> di
     b5 = _rhs(n5, nrhs, 11, mesh.device)
     x5 = TP.solve_inverse_sharded(potri(potrf_blocked(a5, nb=32)), b5, smesh)
     res5 = solve_gate("serving", a5, b5, x5)
-    where = mesh.device
     return {
-        1: f"dryrun OK: mesh {p}x{q} on {where} (block-cyclic, member copies), N={n}, "
+        1: f"dryrun OK: mesh {p}x{q} on {where(mesh)} (block-cyclic, member copies), N={n}, "
            f"NB={nb}, residual {res1:.2e} (fp64 gate 1e-10)",
-        4: f"dryrun OK: mesh {p}x{q} on {where} (distributed POTRS from the block-cyclic "
+        4: f"dryrun OK: mesh {p}x{q} on {where(mesh)} (distributed POTRS from the block-cyclic "
            f"factor), N={n}, NRHS={nrhs}, residual {res4:.2e} (fp64 gate 1e-10)",
-        5: f"dryrun OK: mesh 1x{ndev} on {where} (row-sharded A^-1 serving apply), N={n5}, "
-           f"NRHS={nrhs}, residual {res5:.2e} (fp64 gate 1e-10)",
+        5: f"dryrun OK: mesh 1x{ndev} on {where(smesh)} (row-sharded A^-1 serving apply), "
+           f"N={n5}, NRHS={nrhs}, residual {res5:.2e} (fp64 gate 1e-10)",
     }
 
 
@@ -154,7 +165,8 @@ def main(argv=None) -> int:
     ap.add_argument("--nb", type=int, default=8)
     ap.add_argument("--n", type=int, default=None,
                     help="N of the ring planes and plane 1 (default 2·nb·ndev and nb·ndev)")
-    ap.add_argument("--device", default="cuda", help="where the members live (default: the card)")
+    ap.add_argument("--device", default=None,
+                    help="one device for every member (default: spread over the cards)")
     args = ap.parse_args(argv)
     d, nb = args.ndev, args.nb
     n = args.n or 2 * nb * d
@@ -162,7 +174,7 @@ def main(argv=None) -> int:
     lines = block_cyclic_planes(args.n or nb * d, nb, d, args.device)
     for plane, (kind, (what, _)) in zip((2, 3, 6), PLANES.items()):
         res = run_plane(kind, n, nb, mesh)
-        lines[plane] = (f"dryrun OK: mesh 1x{d} on {mesh.devices[0]} ({what}, ring_broadcast), "
+        lines[plane] = (f"dryrun OK: mesh 1x{d} on {where(mesh)} ({what}, ring_broadcast), "
                         f"N={n}, NB={nb}, residual {res:.2e} (fp64 gate 1e-10)")
     for plane in sorted(lines):
         print(lines[plane], flush=True)

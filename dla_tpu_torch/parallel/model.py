@@ -82,14 +82,15 @@ BASE_CHIP = "h100"
 # flops — `default` one bf16 plane (wgmma; 16384), `high` bf16x3 (wgmma; 8192),
 # `highest` IEEE fp32 (simt; 16384); hbm_gib is torch.cuda.mem_get_info()'s total
 # (85,017,493,504 bytes). hbm_gbps, ici_gbps: public H100 SXM5 spec.
-# link_efficiency: an assumption — collectives rarely sustain more than about
-# 80% of NVLink's line rate. latency_us: an assumption — one flagged hop of the
-# ring kernel takes ≈ 1 µs on one card (chip_smoke.py phase 29), plus a round
-# trip through the NVSwitch. Neither can be measured on one card.
+# link_efficiency, latency_us: measured by `python -m dla_tpu_torch.bench.calibrate_model
+# --only nvlink` on four NVIDIA H100 80GB HBM3 cards of one host at a 700.00 W power
+# limit (PERF.md, the NVLink fit): ring_broadcast (#11) across the 4 cards, one fp64
+# member each, at 1 MB to 126 MB, the cards' time fitted to (C + D − 2)·(V/(C·bw) + lat):
+# bw 382.6 GB/s = 0.850 of the 450 GB/s spec, lat 2.12 µs.
 CHIPS = {
     "h100": ChipSpec(
         tflops={"default": 432.3, "high": 228.4, "highest": 45.5},
-        ici_gbps=450.0, link_efficiency=0.8, latency_us=3.0, hbm_gib=79.18,
+        ici_gbps=450.0, link_efficiency=0.850, latency_us=2.12, hbm_gib=79.18,
         hbm_gbps=3350.0, ici_links=1,
     ),
 }

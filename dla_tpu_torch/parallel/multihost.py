@@ -9,7 +9,9 @@ joins one ``torch.distributed`` process group (:func:`initialize`); a mesh
 made while the group is up spans its processes, member m on process
 ``m // per_process`` as ``jax.devices()`` lists process 0's devices first.
 Each process runs the same plane functions, unchanged, on its own members
-(all on one device), and a block owned by another process arrives by a
+(all on the one device of that process: ``--backend nccl`` gives process
+``pid`` card ``pid % device_count``, gloo keeps every process on card 0), and
+a block owned by another process arrives by a
 broadcast from the owner's process (:mod:`~dla_tpu_torch.parallel.member_comm`):
 the planes give the bits they give in one process.
 

@@ -16,8 +16,9 @@ shards (None for the others), runs their programs only, and the broadcasts
 cross the boundary as in
 :func:`~dla_tpu_torch.parallel.column_cyclic.potrf_column_cyclic_ring`.
 
-Per step k, the controller running each member's program in turn on one
-stream:
+Per step k, the controller running each member's program in turn on its
+card's current stream (one card, or one member per card over NVLink), never
+waiting for a card:
 
 1. the owner (kc = k mod D) factors its slab's top nb×nb block and solves the
    rows below;
@@ -44,6 +45,7 @@ import torch
 
 from dla_tpu_torch.algos.potrf_df64 import _factor_diag_df64, _panel_solve_df64
 from dla_tpu_torch.ops.df64 import df64_matmul_nt, df_sub, slice_rows
+from dla_tpu_torch.parallel import member_comm as comm
 from dla_tpu_torch.parallel.column_cyclic import (
     FlatMesh,
     _broadcast_from,
@@ -89,8 +91,8 @@ def pack_cols_packed(a, nb: int, mesh: FlatMesh) -> list[torch.Tensor]:
 
 
 def unpack_cols_packed(shards, n: int, nb: int, mesh: FlatMesh) -> torch.Tensor:
-    """Inverse of :func:`pack_cols_packed` → the dense lower triangle, on the
-    members' device (the JAX function gathers it to the host); across
+    """Inverse of :func:`pack_cols_packed` → the dense lower triangle, on
+    member 0's device (the JAX function gathers it to the host); across
     processes, on every process."""
     ndev = mesh.size
     nt, ltc, hs, off = _geometry(n, nb, ndev)
@@ -138,8 +140,9 @@ def potrf_packed_cyclic(shards, n: int, nb: int, mesh: FlatMesh) -> list[torch.T
         own, top = (x[kc] if mesh.is_local(kc) else None), int(off[ljk])
         lkk = solved = None
         if own is not None:
-            lkk, solved = _solve_panel(own[top : top + nb], own[top + nb : top + hs[ljk]])
-            own[top : top + nb] = lkk
+            with comm.on(own.device):
+                lkk, solved = _solve_panel(own[top : top + nb], own[top + nb : top + hs[ljk]])
+                own[top : top + nb] = lkk
         _broadcast_from(kc, lkk, mesh, (nb, nb), dtype)
         if k == nt - 1:
             break
@@ -147,9 +150,10 @@ def potrf_packed_cyclic(shards, n: int, nb: int, mesh: FlatMesh) -> list[torch.T
         if own is not None:
             own[top + nb : top + hs[ljk]] = solved
         for c in mesh.local_members():
-            for lj, op, h in _live_slabs(k, c, nb, ndev, ltc):
-                x[c][off[lj] : off[lj] + h] -= _dot_nt(panel[c][op : op + h],
-                                                       panel[c][op : op + nb])
+            with comm.on(x[c].device):
+                for lj, op, h in _live_slabs(k, c, nb, ndev, ltc):
+                    x[c][off[lj] : off[lj] + h] -= _dot_nt(panel[c][op : op + h],
+                                                           panel[c][op : op + nb])
     return x
 
 
@@ -189,36 +193,41 @@ def potrf_packed_cyclic_df64(
         dpair = ppair = None
         if own:
             oh, ol = xh[kc], xl[kc]
-            lkk_h, lkk_l = _factor_diag_df64(oh[top : top + nb], ol[top : top + nb],
-                                             refine=refine, gemm_kw=gemm_kw)
-            oh[top : top + nb] = lkk_h
-            ol[top : top + nb] = lkk_l
-            dpair = torch.cat([lkk_h, lkk_l], dim=0)
+            with comm.on(oh.device):
+                lkk_h, lkk_l = _factor_diag_df64(oh[top : top + nb], ol[top : top + nb],
+                                                 refine=refine, gemm_kw=gemm_kw)
+                oh[top : top + nb] = lkk_h
+                ol[top : top + nb] = lkk_l
+                dpair = torch.cat([lkk_h, lkk_l], dim=0)
         _broadcast_from(kc, dpair, mesh, (2 * nb, nb), dtype)
         if k == nt - 1:
             break
         if own:
-            sol_h, sol_l = _panel_solve_df64(lkk_h, lkk_l, oh[top + nb : top + hs[ljk]],
-                                             ol[top + nb : top + hs[ljk]], refine=refine,
-                                             gemm_kw=gemm_kw)
-            ppair = torch.cat([sol_h, sol_l], dim=0)
+            with comm.on(oh.device):
+                sol_h, sol_l = _panel_solve_df64(lkk_h, lkk_l, oh[top + nb : top + hs[ljk]],
+                                                 ol[top + nb : top + hs[ljk]], refine=refine,
+                                                 gemm_kw=gemm_kw)
+                ppair = torch.cat([sol_h, sol_l], dim=0)
         pairs = _broadcast_from(kc, ppair, mesh, (2 * ph, nb), dtype)
         if own:
             oh[top + nb : top + hs[ljk]] = sol_h
             ol[top + nb : top + hs[ljk]] = sol_l
         for c in mesh.local_members():
-            pan_h, pan_l = pairs[c][:ph], pairs[c][ph:]
-            sx = slice_rows(pan_h, pan_l, s=s, w=w)[0] if slice_reuse else None
-            for lj, op, h in _live_slabs(k, c, nb, ndev, ltc):
-                if slice_reuse:
-                    uh, ul = df64_matmul_nt(None, None, None, None,
-                                            slices_a=[sl[op : op + h] for sl in sx],
-                                            slices_b=[sl[op : op + nb] for sl in sx], **gemm_kw)
-                else:
-                    uh, ul = df64_matmul_nt(pan_h[op : op + h], pan_l[op : op + h],
-                                            pan_h[op : op + nb], pan_l[op : op + nb], **gemm_kw)
-                rows = slice(int(off[lj]), int(off[lj]) + h)
-                xh[c][rows], xl[c][rows] = df_sub(xh[c][rows], xl[c][rows], uh, ul)
+            with comm.on(xh[c].device):
+                pan_h, pan_l = pairs[c][:ph], pairs[c][ph:]
+                sx = slice_rows(pan_h, pan_l, s=s, w=w)[0] if slice_reuse else None
+                for lj, op, h in _live_slabs(k, c, nb, ndev, ltc):
+                    if slice_reuse:
+                        uh, ul = df64_matmul_nt(None, None, None, None,
+                                                slices_a=[sl[op : op + h] for sl in sx],
+                                                slices_b=[sl[op : op + nb] for sl in sx],
+                                                **gemm_kw)
+                    else:
+                        uh, ul = df64_matmul_nt(pan_h[op : op + h], pan_l[op : op + h],
+                                                pan_h[op : op + nb], pan_l[op : op + nb],
+                                                **gemm_kw)
+                    rows = slice(int(off[lj]), int(off[lj]) + h)
+                    xh[c][rows], xl[c][rows] = df_sub(xh[c][rows], xl[c][rows], uh, ul)
     return xh, xl
 
 

@@ -3,18 +3,23 @@
 
 The reference's distributed Cholesky DAG (``client_distrib.cpp:506-565``:
 POTRF(k,k) → TRSM(i,k) → SYRK/GEMM(i,j,k)). The JAX package runs it as one
-``shard_map`` program per device. Here the members share one device and the
-controller runs each member's program in turn on one stream, in the JAX
-program's order (one step of lookahead). Per panel step k:
+``shard_map`` program per device. Here the members lie on one card or spread
+over the cards of one host, and the controller runs each member's program in
+turn on its card's current stream, in the JAX program's order (one step of
+lookahead), without waiting for any card: the cards overlap. Per panel step
+k:
 
 1. **diag factor**: the owner's nb×nb tile reaches every member (a masked
-   ``psum`` in JAX, a copy from the one owner here) and is factored;
+   ``psum`` in JAX, a copy from the one owner here) and is factored once,
+   on the owner's card; the factor reaches the cards of mesh column k mod q;
 2. **panel solve**: the p members of mesh column k mod q solve their window
    rows of tile column k. In JAX every other member skips it under a
    ``lax.cond``; here it is not run, which leaves the same bits;
 3. **panel broadcast**: each mesh row gets its owner's solved rows below
    tile row k (the A operand; a masked ``psum`` over 'c'), and the p row
-   blocks are stacked (JAX's ``all_gather`` over 'r'; the B operand);
+   blocks are stacked (JAX's ``all_gather`` over 'r'; the B operand), once
+   on each card that holds members, with the strips its members' products
+   read delivered there by peer copy (:func:`_strips_used`);
 4. **trailing update**: per member, per local tile column, one GEMM from
    the static staircase row start, plus the boundary tiles this member's
    staircase needs (``lax.cond`` in JAX, skipped here). A tile column that
@@ -28,7 +33,10 @@ holds None for the others' shards: the diagonal tile and each of the p
 solved strips reach every process by a broadcast from its owner's process,
 and every process factors the diagonal tile from the same bits. The helpers
 keep the JAX local programs' (x, layout) arguments and reach the mesh
-through ``member_comm.over``. The products are ``torch.matmul``, accumulated
+through ``member_comm.over`` (``placed()`` gives each member's card). On a
+mesh across cards every product has the shape it has on one card, on a card
+of the same model, so the factor has the one-card mesh's bits. The
+products are ``torch.matmul``, accumulated
 in fp32 for bf16/fp16 storage and cast once before the subtraction (JAX's
 ``preferred_element_type``); the factor and solves are ``torch.linalg``
 calls. Lower triangle only: tiles
@@ -62,38 +70,86 @@ def _dtype(x) -> torch.dtype:
     return next(s for s in x if s is not None).dtype
 
 
+def _card(m: int) -> torch.device:
+    """Member m's card (on another process's member: this process's card)."""
+    return comm.placed().device_of(m)
+
+
 def _diag(x, m: int, rows: slice, cols: slice, nb: int, dtype) -> torch.Tensor:
-    """tril(chol) of member m's diagonal tile, which every member receives."""
+    """tril(chol) of member m's diagonal tile, which every member receives:
+    factored once, on m's card."""
     tile = None if x[m] is None else x[m][rows, cols]
-    return torch.tril(_cholesky(comm.from_owner(tile, m, (nb, nb), dtype)))
+    with comm.on(_card(m)):
+        return torch.tril(_cholesky(comm.from_owner(tile, m, (nb, nb), dtype)))
 
 
-def _panel(lkk: torch.Tensor, cols, owners, k: int, w0: int, nb: int, last: bool, shape):
+def _deliver(block, src: torch.device, dst: torch.device):
+    """``block``, which lies on card ``src``, on card ``dst``: a peer copy
+    where the two differ."""
+    return block if src == dst else comm.copy_to(block, dst)
+
+
+def _stacked(strips, owners, uses: dict):
+    """The step's stacked panel on each card of ``uses`` ({card: the strips
+    its members read}, each card reading at least one): a strip it reads,
+    by peer copy where its owner lies on another card; an unwritten block in
+    the place of one it never reads."""
+    panels = {}
+    for card, used in uses.items():
+        got = {r: _deliver(strips[r], _card(owners[r]), card) for r in sorted(used)}
+        ref = next(iter(got.values()))
+        panels[card] = comm.all_gather([got[r] if r in got else ref.new_empty(s.shape)
+                                        for r, s in enumerate(strips)])
+    return panels
+
+
+def _panel(lkk: torch.Tensor, cols, owners, k: int, w0: int, nb: int, last: bool, shape,
+           uses: dict):
     """Solve mesh column k mod q's window columns ``cols`` (one per mesh row
     r, each ``shape`` from local tile row ``w0``; None where member
-    ``owners[r]`` is another process's) below tile row k; return the stacked
-    panel of step k (p, window rows, nb): each mesh row's owner's solved
-    rows, zero at or above tile row k. None at the last step."""
+    ``owners[r]`` is another process's) below tile row k, each on its owner's
+    card with ``lkk`` (the factor, made on the card of the diagonal tile's
+    owner ``owners[k mod p]``); return the stacked panel of step k
+    (p, window rows, nb) on each card of ``uses`` (:func:`_stacked`): each
+    mesh row's owner's solved rows, zero at or above tile row k. None at the
+    last step."""
     p = len(cols)
     tops = [_below(k, r, p, w0) * nb for r in range(p)]
-    for col, top in zip(cols, tops):
+    diag_card = _card(owners[k % p])
+    for col, top, m in zip(cols, tops, owners):
         if col is not None and col.shape[0]:
-            solved = torch.linalg.solve_triangular(lkk.mT, col, upper=True, left=False)
-            col[top:] = solved[top:]
+            with comm.on(_card(m)):
+                solved = torch.linalg.solve_triangular(_deliver(lkk, diag_card, _card(m)).mT,
+                                                       col, upper=True, left=False)
+                col[top:] = solved[top:]
     if last:
         return None
-    rows = []
+    strips = []
     for col, top, m in zip(cols, tops, owners):
         blk = comm.from_owner(col, m, shape, lkk.dtype)
         blk[:top] = 0
-        rows.append(blk)
-    return comm.all_gather(rows)
+        strips.append(blk)
+    return _stacked(strips, owners, uses)
+
+
+def _strips_used(layout: BlockCyclicLayout, k: int, columns) -> dict:
+    """{card: the panel strips of step k that its members' products read},
+    for the cards of this process's members that read any: strip r (the A
+    operand) and strip gcol mod p (the B operand) of every product that
+    ``columns(r, c)`` gives member (r, c) as (local tile column, products)
+    pairs."""
+    uses: dict = {}
+    for m, r, c in _members(layout):
+        for lj, products in columns(r, c):
+            if products:
+                uses.setdefault(_card(m), set()).update({r, (lj * layout.q + c) % layout.p})
+    return uses
 
 
 def _panel_phase(x, layout: BlockCyclicLayout, k: int):
     """Step k's diagonal factor, panel solve on mesh column k mod q and L_kk
-    on its owner; returns the stacked panel (p, window rows, nb), or None at
-    the last step."""
+    on its owner; returns the stacked panel (p, window rows, nb) on each card
+    whose members update at step k, or None at the last step."""
     nb, p, q = layout.nb, layout.p, layout.q
     kr, kc, lik, ljk = k % p, k % q, k // p, k // q
     w0 = (k + 1) // p
@@ -101,39 +157,53 @@ def _panel_phase(x, layout: BlockCyclicLayout, k: int):
     rows = slice(lik * nb, (lik + 1) * nb)
     lkk = _diag(x, kr * q + kc, rows, cols, nb, _dtype(x))
     owners = [r * q + kc for r in range(p)]
+    uses = _strips_used(layout, k, lambda r, c: (
+        (lj, _trail_products(r, c, k, lj, layout)) for lj in range((k + 1) // q, layout.ltc)))
     panel = _panel(lkk, [None if x[m] is None else x[m][w0 * nb :, cols] for m in owners],
-                   owners, k, w0, nb, k == layout.ntiles - 1, ((layout.ltr - w0) * nb, nb))
+                   owners, k, w0, nb, k == layout.ntiles - 1, ((layout.ltr - w0) * nb, nb),
+                   uses)
     # the diagonal tile row may sit above the window start: L_kk on its owner
     if x[kr * q + kc] is not None:
         x[kr * q + kc][rows, cols] = lkk
     return panel
 
 
-def _trail_column(xm: torch.Tensor, r: int, c: int, k: int, lj: int, panel: torch.Tensor,
-                  layout: BlockCyclicLayout) -> None:
-    """Step k's exact-staircase update of member (r, c)'s local tile column
-    lj: one tall GEMM from the row every member needs,
-    rs_sure = ceil((lj·q + q−1)/p), and the boundary tiles from
-    rs_min = floor(lj·q/p) that this member's staircase li·p + r ≥ lj·q + c
-    needs."""
-    nb, p, q, ltr = layout.nb, layout.p, layout.q, layout.ltr
+def _trail_products(r: int, c: int, k: int, lj: int, layout: BlockCyclicLayout) -> list:
+    """The products of step k's exact-staircase update of member (r, c)'s
+    local tile column lj, as [first, last) local tile rows: one tall GEMM
+    from the row every member needs, rs_sure = ceil((lj·q + q−1)/p), then the
+    boundary tiles from rs_min = floor(lj·q/p) that this member's staircase
+    li·p + r ≥ lj·q + c needs."""
+    p, q, ltr = layout.p, layout.q, layout.ltr
     w0 = (k + 1) // p
     rs_min = max(w0, (lj * q) // p)
     rs_sure = max(w0, -(-(lj * q + q - 1) // p))
     gcol = lj * q + c
     if rs_min >= ltr or gcol <= k:
+        return []
+    products = [(rs_sure, ltr)] if rs_sure < ltr else []
+    return products + [(li, li + 1) for li in range(rs_min, min(rs_sure, ltr))
+                       if li * p + r >= gcol]
+
+
+def _trail_column(xm: torch.Tensor, r: int, c: int, k: int, lj: int, panels: dict,
+                  layout: BlockCyclicLayout) -> None:
+    """Step k's update of member (r, c)'s local tile column lj
+    (:func:`_trail_products`), with the step's panel on the member's card
+    (``panels``: card -> panel), on that card."""
+    products = _trail_products(r, c, k, lj, layout)
+    if not products:
         return
-    # B operand: the panel tile row of global tile gcol
+    nb, p, q = layout.nb, layout.p, layout.q
+    panel = panels[_card(r * q + c)]
+    w0 = (k + 1) // p
+    gcol = lj * q + c
     m0 = (gcol // p - w0) * nb
-    b = panel[gcol % p, m0 : m0 + nb]
+    b = panel[gcol % p, m0 : m0 + nb]  # B operand: the panel tile row of global tile gcol
     a_op = panel[r]
     cols = slice(lj * nb, (lj + 1) * nb)
-    if rs_sure < ltr:
-        xm[rs_sure * nb :, cols] -= _dot_nt(a_op[(rs_sure - w0) * nb :], b)
-    for li in range(rs_min, min(rs_sure, ltr)):
-        if li * p + r >= gcol:
-            a_tile = a_op[(li - w0) * nb : (li - w0 + 1) * nb]
-            xm[li * nb : (li + 1) * nb, cols] -= _dot_nt(a_tile, b)
+    for l0, l1 in products:
+        xm[l0 * nb : l1 * nb, cols] -= _dot_nt(a_op[(l0 - w0) * nb : (l1 - w0) * nb], b)
 
 
 def _potrf_unrolled(x, layout: BlockCyclicLayout) -> None:
@@ -145,12 +215,28 @@ def _potrf_unrolled(x, layout: BlockCyclicLayout) -> None:
     for k in range(nt - 1):
         lj_next = (k + 1) // q  # local tile column holding global column k+1
         for m, r, c in _members(layout):
-            _trail_column(x[m], r, c, k, lj_next, panel, layout)
+            with comm.on(_card(m)):
+                _trail_column(x[m], r, c, k, lj_next, panel, layout)
         nxt = _panel_phase(x, layout, k + 1)  # lookahead
         for m, r, c in _members(layout):
-            for lj in range(lj_next + 1, ltc):
-                _trail_column(x[m], r, c, k, lj, panel, layout)
+            with comm.on(_card(m)):
+                for lj in range(lj_next + 1, ltc):
+                    _trail_column(x[m], r, c, k, lj, panel, layout)
         panel = nxt
+
+
+def _window_columns(layout: BlockCyclicLayout, k: int, c: int, wr: int, wc: int, li0: int,
+                    lj0: int):
+    """(window tile column, first window row) of member column c's updates
+    at step k of a window from local tile (li0, lj0) with wr rows and wc
+    columns: one GEMM per column from the static staircase start
+    ``max(li0, (gj·q)//p)``."""
+    nb, p, q = layout.nb, layout.p, layout.q
+    for lj in range(wc // nb):
+        lj_abs = lj + lj0
+        row0 = (max(li0, (lj_abs * q) // p) - li0) * nb
+        if row0 < wr and lj_abs * q + c > k:
+            yield lj, row0
 
 
 def _fori_window(sub, layout: BlockCyclicLayout, k0: int, k1: int, li0: int, lj0: int) -> None:
@@ -170,20 +256,20 @@ def _fori_window(sub, layout: BlockCyclicLayout, k0: int, k1: int, li0: int, lj0
         rows = slice(lik * nb, (lik + 1) * nb)
         lkk = _diag(sub, kr * q + kc, rows, cols, nb, dtype)
         owners = [r * q + kc for r in range(p)]
+        uses = _strips_used(layout, k, lambda r, c: (
+            (lj + lj0, [row0]) for lj, row0 in _window_columns(layout, k, c, wr, wc, li0, lj0)))
         panel = _panel(lkk, [None if sub[m] is None else sub[m][:, cols] for m in owners],
-                       owners, k, li0, nb, False, (wr, nb))
+                       owners, k, li0, nb, False, (wr, nb), uses)
         if sub[kr * q + kc] is not None:
             sub[kr * q + kc][rows, cols] = lkk
         for m, r, c in _members(layout):
-            for lj in range(wc // nb):
-                lj_abs = lj + lj0
-                row0 = (max(li0, (lj_abs * q) // p) - li0) * nb
-                gcol = lj_abs * q + c
-                if row0 >= wr or gcol <= k:
-                    continue
-                m0 = (gcol // p - li0) * nb
-                sub[m][row0:, lj * nb : (lj + 1) * nb] -= _dot_nt(panel[r][row0:],
-                                                                  panel[gcol % p, m0 : m0 + nb])
+            pm = panel.get(_card(m))
+            with comm.on(_card(m)):
+                for lj, row0 in _window_columns(layout, k, c, wr, wc, li0, lj0):
+                    gcol = (lj + lj0) * q + c
+                    m0 = (gcol // p - li0) * nb
+                    sub[m][row0:, lj * nb : (lj + 1) * nb] -= _dot_nt(pm[r][row0:],
+                                                                      pm[gcol % p, m0 : m0 + nb])
 
 
 def _potrf_super(x, layout: BlockCyclicLayout, super_steps: int) -> None:

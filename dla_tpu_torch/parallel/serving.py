@@ -26,10 +26,11 @@ from dla_tpu_torch.parallel import model
 from dla_tpu_torch.parallel.column_cyclic import FlatMesh, _tensor, make_flat_mesh
 
 
-def make_serving_mesh(p: int, *, device="cuda") -> FlatMesh:
+def make_serving_mesh(p: int, *, devices=None, device=None) -> FlatMesh:
     """A flat mesh of p members with axis 'd' (serving shards one way, by
-    rows), on the card unless the caller names another device."""
-    return make_flat_mesh(p, device=device)
+    rows), placed as :func:`make_flat_mesh` places them: spread over the
+    cards unless the caller names ``devices`` or one ``device``."""
+    return make_flat_mesh(p, devices=devices, device=device)
 
 
 def sharded_apply(mesh: FlatMesh):
@@ -40,10 +41,17 @@ def sharded_apply(mesh: FlatMesh):
         raise NotImplementedError("sharded_apply: a mesh across processes is not supported")
 
     def apply(ainv_rows, b: torch.Tensor) -> torch.Tensor:
+        """Each member's slab on its own card (B by peer copy), gathered onto
+        B's card (member 0's where B lies on the CPU)."""
         rows = list(ainv_rows)
         if len(rows) != mesh.size:
             raise ValueError(f"need {mesh.size} row blocks, got {len(rows)}")
-        return comm.all_gather_tiled([solve_inverse(a, b) for a in rows])
+        slabs = []
+        for a in rows:
+            with comm.on(a.device):
+                slabs.append(solve_inverse(a, comm.copy_to(b, a.device)))
+        dest = b.device if b.device.type == "cuda" else mesh.device
+        return comm.all_gather_tiled([comm.copy_to(x, dest) for x in slabs])
 
     return apply
 
@@ -51,13 +59,14 @@ def sharded_apply(mesh: FlatMesh):
 def solve_inverse_sharded(ainv, b, mesh: FlatMesh) -> torch.Tensor:
     """X = A⁻¹·B with A⁻¹ (a tensor or numpy array) split by rows over
     ``mesh`` and B (n, nrhs) replicated; returns the replicated answer on the
-    members' device. On one device the row blocks are views of ``ainv``."""
+    caller's card (B's, or member 0's where B lies on the CPU). On A⁻¹'s own
+    device the row blocks are views of ``ainv``."""
     ainv, b = _tensor(ainv), _tensor(b)
     n, p = ainv.shape[-1], mesh.size
     if n % p:
         raise ValueError(f"n={n} not divisible by mesh size {p}")
     rows = [blk.to(mesh.devices[d]) for d, blk in enumerate(ainv.split(n // p))]
-    return sharded_apply(mesh)(rows, b.to(mesh.devices[0]))
+    return sharded_apply(mesh)(rows, b if b.device.type == "cuda" else b.to(mesh.device))
 
 
 def serving_comm_elems(n: int, nrhs: int, p: int) -> int:

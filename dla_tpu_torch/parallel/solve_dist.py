@@ -17,8 +17,10 @@ over tile rows:
   order (:func:`~dla_tpu_torch.parallel.member_comm.psum`), perhaps in
   another order than XLA's.
 
-The right-hand side stays replicated on every member: on one device, one
-tensor. Only tril of the factor tiles is read.
+The right-hand side stays replicated on every member: one tensor on each card
+that holds members, each card applying every update itself, in the same
+order, so every copy has the same bits. A block computed on one card reaches
+the others by peer copy. Only tril of the factor tiles is read.
 
 On a mesh across processes (``member_comm.over``) each process holds the
 whole right-hand side and only its own members' factor shards. The owner of
@@ -34,27 +36,33 @@ import torch
 from dla_tpu_torch.parallel import member_comm as comm
 from dla_tpu_torch.parallel.block_cyclic import BlockCyclicLayout, MemberMesh, _check_shards
 from dla_tpu_torch.parallel.column_cyclic import _tensor
+from dla_tpu_torch.parallel.potrf_dist import _deliver
 
 
 def potrs_block_cyclic(lx, b, layout: BlockCyclicLayout, mesh: MemberMesh) -> torch.Tensor:
     """Solve A·X = B given the block-cyclic factor ``lx`` (a list of shards);
-    ``b`` is an (n, nrhs) tensor or numpy array, replicated. Returns the
-    replicated solution X on the members' device, in the factor's dtype."""
+    ``b`` is an (n, nrhs) tensor or numpy array, replicated onto every card
+    of this process's members. Returns the replicated solution X on member
+    0's device (this process's first member's), in the factor's dtype."""
     lx = _check_shards(lx, layout, mesh)
     nb, p, q, ltr, nt = layout.nb, layout.p, layout.q, layout.ltr, layout.ntiles
     dtype = next(s for s in lx if s is not None).dtype
-    y = _tensor(b).to(device=mesh.device, dtype=dtype, copy=True)
-    if y.ndim != 2 or y.shape[0] != layout.n:
-        raise ValueError(f"b must be ({layout.n}, nrhs), got {tuple(y.shape)}")
-    nrhs = y.shape[1]
-    yt = y.view(ltr, p, nb, nrhs)  # global tile row li·p + r at [li, r]
+    b = _tensor(b)
+    if b.ndim != 2 or b.shape[0] != layout.n:
+        raise ValueError(f"b must be ({layout.n}, nrhs), got {tuple(b.shape)}")
+    nrhs = b.shape[1]
+    b = b.to(dtype=dtype, copy=True)
+    cards = comm.cards_of(mesh.device_of(m) for m in mesh.local_members())
+    ys = {card: _deliver(b, b.device, card) for card in cards}
+    yts = {card: y.view(ltr, p, nb, nrhs) for card, y in ys.items()}  # tile li·p + r at [li, r]
 
     def diag(k):
+        """(the diagonal tile of step k, its owner's card)."""
         lik, ljk = k // p, k // q
         m = (k % p) * q + k % q
         tile = None if lx[m] is None else lx[m][lik * nb : (lik + 1) * nb,
                                                ljk * nb : (ljk + 1) * nb]
-        return comm.from_owner(tile, m, (nb, nb), dtype)
+        return comm.from_owner(tile, m, (nb, nb), dtype), mesh.device_of(m)
 
     def strips(k):
         """(r, first local tile row below k, owner, L rows below tile row k or
@@ -68,24 +76,40 @@ def potrs_block_cyclic(lx, b, layout: BlockCyclicLayout, mesh: MemberMesh) -> to
                 yield r, li0, m, (None if lx[m] is None
                                   else lx[m][li0 * nb :, ljk * nb : (ljk + 1) * nb])
 
+    def owned(m, strip, fn, shape):
+        """``fn`` of the owner's strip on its card, on every process."""
+        part = None
+        if strip is not None:
+            with comm.on(mesh.device_of(m)):
+                part = fn(strip, ys[mesh.device_of(m)])
+        return comm.share(part, m, shape, dtype), mesh.device_of(m)
+
     with comm.over(mesh):
         # ---- forward: L Y = B ----------------------------------------------
         for k in range(nt):
             rows = slice(k * nb, (k + 1) * nb)
-            yk = torch.linalg.solve_triangular(diag(k), y[rows], upper=False, left=True)
-            y[rows] = yk
+            lkk, src = diag(k)
+            for card, y in ys.items():  # every card solves its own copy, in the same order
+                with comm.on(card):
+                    y[rows] = torch.linalg.solve_triangular(_deliver(lkk, src, card), y[rows],
+                                                            upper=False, left=True)
             for r, li0, m, strip in strips(k):
-                upd = comm.share(None if strip is None else strip @ yk, m,
-                                 ((ltr - li0) * nb, nrhs), dtype)
-                yt[li0:, r] -= upd.view(-1, nb, nrhs)
+                upd, src = owned(m, strip, lambda s, y: s @ y[rows], ((ltr - li0) * nb, nrhs))
+                for card, yt in yts.items():
+                    with comm.on(card):
+                        yt[li0:, r] -= _deliver(upd, src, card).view(-1, nb, nrhs)
 
         # ---- backward: Lᵀ X = Y --------------------------------------------
         for k in reversed(range(nt)):
             rows = slice(k * nb, (k + 1) * nb)
-            parts = [comm.share(None if strip is None
-                                else strip.mT @ yt[li0:, r].reshape(-1, nrhs), m, (nb, nrhs),
-                                dtype) for r, li0, m, strip in strips(k)]
-            s = comm.psum(parts) if parts else torch.zeros_like(y[rows])
-            y[rows] = torch.linalg.solve_triangular(diag(k).mT, y[rows] - s, upper=True,
-                                                    left=True)
-    return y
+            parts = [owned(m, strip, lambda s, y: s.mT @ y.view(ltr, p, nb, nrhs)[li0:, r]
+                           .reshape(-1, nrhs), (nb, nrhs))
+                     for r, li0, m, strip in strips(k)]
+            lkk, src = diag(k)
+            for card, y in ys.items():
+                with comm.on(card):
+                    s = (comm.psum([_deliver(t, ts, card) for t, ts in parts]) if parts
+                         else torch.zeros_like(y[rows]))
+                    y[rows] = torch.linalg.solve_triangular(_deliver(lkk, src, card).mT,
+                                                            y[rows] - s, upper=True, left=True)
+    return ys[cards[0]]

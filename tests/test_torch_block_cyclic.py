@@ -26,7 +26,9 @@ What is compared how:
   known relative perturbation of tril(L), in both packages.
 """
 
+import contextlib
 import json
+from collections import Counter
 import re
 
 import jax.numpy as jnp
@@ -48,6 +50,13 @@ from dla_tpu_torch.validate import freivalds_device, residual_posv, residual_pot
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MESHES = [(1, 1), (2, 2), (2, 4), (1, 8), (4, 2)]
+
+
+def _pretend_cards(monkeypatch, count, peer=lambda a, b: True):
+    """``count`` visible cards, pairs reaching each other as ``peer`` says;
+    nothing is allocated on them."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.setattr(member_comm, "_peer_access", peer)
 
 
 def _spd(n, seed):
@@ -92,8 +101,27 @@ class TestMesh:
                 TP.make_mesh(2, 2)
 
     def test_members_across_devices_raise_naming_a9(self):
-        with pytest.raises(NotImplementedError, match="several devices .*ROADMAP A9"):
+        """A CPU + meta mesh raises ``ValueError`` (members lie all on the CPU
+        or all on CUDA cards); members on several cards are ROADMAP A9c's
+        mesh, which constructs (``test_spread_over_the_cards``)."""
+        with pytest.raises(ValueError, match="all on the CPU or all on CUDA cards"):
             TP.MemberMesh((torch.device("cpu"), torch.device("meta")), (1, 2))
+
+    @pytest.mark.parametrize("count", [1, 2, 3, 4])
+    @pytest.mark.parametrize("p,q", [(1, 4), (2, 2), (2, 4)])
+    def test_spread_over_the_cards(self, monkeypatch, p, q, count):
+        """make_mesh over cuda:0..3, constructed on the CPU (nothing
+        allocated): k cards, k the largest divisor of p·q at most the card
+        count, member m = r·q + c on card m // (p·q/k)."""
+        _pretend_cards(monkeypatch, count)
+        mesh = TP.make_mesh(p, q)
+        k = max(d for d in range(1, count + 1) if (p * q) % d == 0)
+        assert mesh.shape == (p, q) and mesh.device == torch.device("cuda", 0)
+        assert [mesh.device_of(m) for m in range(p * q)] == [
+            torch.device("cuda", m // (p * q // k)) for m in range(p * q)]
+        assert mesh.cards == [torch.device("cuda", i) for i in range(k)]
+        one = TP.make_mesh(p, q, device="cuda:1")  # an explicit device keeps them together
+        assert one.devices == (torch.device("cuda", 1),) * (p * q) and one.cards == [one.device]
 
     @pytest.mark.parametrize("devices,shape", [((torch.device("cpu"),) * 3, (2, 2)),
                                                ((), (0, 1))])
@@ -276,6 +304,114 @@ class TestPotrfBlockCyclic:
                               lay, mesh, unroll=True)
         assert [s * (lay.p + lay.q) for s in sizes] == [
             TM.step_comm_elems(lay, k) for k in range(lay.ntiles - 1)]
+
+
+# ---- members on several cards: which blocks cross to which card (ROADMAP A9c) ---------------
+
+ROUTES = [(2, 2, 1), (2, 4, 2), (4, 2, 2), (2, 4, 1)]  # (p, q, members per card)
+
+
+def _spread(monkeypatch, p, q, per_card):
+    """A p×q mesh over p·q/per_card pretended cards, and the copy log: every
+    block ``member_comm.copy_to`` is asked to move and where to (the block
+    stays on the CPU; nothing is allocated on a card)."""
+    _pretend_cards(monkeypatch, p * q // per_card)
+    mesh = TP.make_mesh(p, q)
+    log = []
+
+    def copy_to(block, device):
+        if device is None:  # no move asked for
+            return block
+        log.append((block, device))
+        return block.clone()
+
+    monkeypatch.setattr(member_comm, "copy_to", copy_to)
+    monkeypatch.setattr(member_comm, "on", lambda device: contextlib.nullcontext())
+    return mesh, log
+
+
+def _routes(log) -> list:
+    """[(block, the cards it was sent to)], one entry per block, in order."""
+    dests = {}
+    for block, dev in log:
+        dests.setdefault(id(block), (block, set()))[1].add(dev)
+    return list(dests.values())
+
+
+class TestCopyRouting:
+    """With the members on cuda:i, one step sends each block to exactly the
+    cards whose members use it: what a member reads is derived here from the
+    tiles it owns, not from the program's staircase arithmetic."""
+
+    @pytest.mark.parametrize("p,q,per_card", ROUTES)
+    def test_one_step_of_potrf_block_cyclic(self, monkeypatch, p, q, per_card):
+        n, nb, k = 256, 16, 0
+        lay = TP.BlockCyclicLayout(n, nb, p, q)
+        x = TP.generate_spd_block_cyclic(lay, TP.make_mesh(p, q, device="cpu"),
+                                         dtype=torch.float64)
+        l = torch.linalg.cholesky(TP.to_dense(x, lay))
+        mesh, log = _spread(monkeypatch, p, q, per_card)
+        with member_comm.over(mesh):
+            potrf_dist._panel_phase(x, lay, k)
+        card = mesh.device_of
+        # the factor L_kk: to the cards of mesh column k mod q, the diagonal owner's aside
+        want = {("lkk", card(r * q + k % q)) for r in range(p)} - {("lkk", card(0))}
+        # strip r (mesh row r's solved rows of tile column k, from window row w0, zero at
+        # or above tile row k): to each card of a member updating a tile of its own below
+        # the diagonal whose tile row is ≡ r or whose tile column is ≡ r (mod p)
+        w0, nt = (k + 1) // p, lay.ntiles
+        strips = []
+        for r in range(p):
+            rows = [(li * p + r) for li in range(w0, lay.ltr)]
+            strips.append(torch.cat([l[i * nb : (i + 1) * nb, k * nb : (k + 1) * nb] if i > k
+                                     else torch.zeros(nb, nb, dtype=l.dtype) for i in rows]))
+        for m in range(p * q):
+            r, c = divmod(m, q)
+            tiles = [(i, j) for i in range(r, nt, p) for j in range(c, nt, q) if i >= j > k]
+            for used in ({r} | {j % p for _, j in tiles}) if tiles else ():
+                if card(m) != card(used * q + k % q):
+                    want.add((f"strip {used}", card(m)))
+        got = set()
+        for block, dests in _routes(log):
+            names = ["lkk"] * (block.shape == (nb, nb) and torch.allclose(
+                block, l[:nb, :nb], rtol=1e-12, atol=1e-14)) + [
+                f"strip {r}" for r, s in enumerate(strips)
+                if block.shape == s.shape and torch.allclose(block, s, rtol=1e-12, atol=1e-14)]
+            assert len(names) == 1, f"an unknown block of shape {tuple(block.shape)} crossed"
+            got |= {(names[0], d) for d in dests}
+        assert got == want
+        assert len(log) == len(want)  # each block crosses to each card once
+
+    @pytest.mark.parametrize("p,q,per_card", ROUTES)
+    def test_potrs_block_cyclic(self, monkeypatch, p, q, per_card):
+        """Every block of the solve is read by every card (each holds the
+        replicated right-hand side and applies every update): B goes to
+        every card, each diagonal tile, forward update and backward part to
+        every card but its owner's (the owners counted from the solve's
+        steps); and the answer matches the one-card mesh's bits."""
+        n, nb, nrhs = 64 * p * q // 2, 16, 3
+        lay = TP.BlockCyclicLayout(n, nb, p, q)
+        one = TP.make_mesh(p, q, device="cpu")
+        lx = TP.potrf_block_cyclic(TP.generate_spd_block_cyclic(lay, one, dtype=torch.float64),
+                                   lay, one)
+        b = torch.from_numpy(np.random.default_rng(2).standard_normal((n, nrhs)))
+        ref = TP.potrs_block_cyclic(lx, b, lay, one)
+        mesh, log = _spread(monkeypatch, p, q, per_card)
+        got = TP.potrs_block_cyclic(lx, b, lay, mesh)
+        assert torch.equal(got, ref)
+        cards = set(mesh.cards)
+        nt, ltr = lay.ntiles, lay.ltr
+        owners = []  # the owner of each block crossing
+        for k in range(nt):
+            owners.append((k % p) * q + k % q)
+            owners += [r * q + k % q for r in range(p) if max(0, (k - r) // p + 1) < ltr]
+        for k in reversed(range(nt)):
+            owners += [r * q + k % q for r in range(p) if max(0, (k - r) // p + 1) < ltr]
+            owners.append((k % p) * q + k % q)
+        routes = _routes(log)
+        assert routes[0][0].shape == (n, nrhs) and routes[0][1] == cards  # B, from the CPU
+        assert Counter(frozenset(dests) for _, dests in routes[1:]) == Counter(
+            frozenset(cards - {mesh.device_of(m)}) for m in owners)
 
 
 # ---- the accounting -------------------------------------------------------------------------
@@ -484,12 +620,33 @@ class TestSession:
         assert rc == 2 and "no CUDA device" in cap.err and "session:" not in cap.out
 
     def test_auto_grid_over_several_cards_names_a9(self, capsys, monkeypatch):
+        """With 4 cards and no --p/--q the session builds the squarest grid
+        over them, 2×2 with one member per card (ROADMAP A9c), and reaches
+        the factorization instead of raising: the factorization is patched
+        to record the mesh it is given (generation and the cards' waits
+        too, nothing lies on a card here)."""
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
         monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "card")
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        _pretend_cards(monkeypatch, 4)
+        monkeypatch.setattr(member_comm, "synchronize", lambda devices: None)
+        monkeypatch.setattr(TP, "generate_spd_block_cyclic", lambda layout, mesh, **kw: None)
+        seen = []
+
+        class Reached(Exception):
+            pass
+
+        def factor(x, layout, mesh):
+            seen.append((layout, mesh))
+            raise Reached
+
+        monkeypatch.setattr(TP, "potrf_block_cyclic", factor)
+        with pytest.raises(Reached):
             session.main(["--N", "64", "--B", "16"])
-        assert "mesh=2x2" in capsys.readouterr().out
+        out = capsys.readouterr().out
+        assert "mesh=2x2" in out and "[CLIENT] members on cuda:0,cuda:1,cuda:2,cuda:3" in out
+        (layout, mesh), = seen
+        assert (layout.p, layout.q) == mesh.shape == (2, 2)
+        assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
 
     @pytest.mark.parametrize("dtype", ["z", "c"])
     def test_complex_dtype_names_a5(self, capsys, dtype):

@@ -150,7 +150,7 @@ def test_members_must_agree_and_lie_on_one_device():
     with pytest.raises(ValueError, match="one shape and dtype"):
         TC.ring_broadcast(x, 0)
     x = [torch.zeros(16, 4), torch.zeros(16, 4, device="meta")]
-    with pytest.raises(ValueError, match="all on the CPU or all on one CUDA device"):
+    with pytest.raises(ValueError, match="all on the CPU or all on CUDA cards"):
         TC.ring_all_gather(x)
 
 

@@ -2068,20 +2068,21 @@ def test_ring_raises_when_blocks_cannot_be_resident(cuda):
 
 @pytest.mark.parametrize("gather,group", [(False, 4), (False, 2), (False, 1), (True, 4)])
 def test_ring_launcher_takes_only_the_plans_sender_count(cuda, gather, group):
-    """``ring_plan``'s sender count is the one the launcher takes: one more or
-    one fewer is refused (cudaErrorInvalidValue) without a launch, and the
-    epoch stays; the plan's own count then gives the plain version's bits."""
+    """``ring_plan``'s sender count is the one the launcher takes: one sender
+    more or fewer in each sub-ring is refused (cudaErrorInvalidValue) without a
+    launch, and the epoch stays; the plan's own count then gives the plain
+    version's bits."""
     from dla_tpu_torch.kernels import collectives as C
 
     xs = _ring_members(cuda, 4, 64, 16, torch.float32, seed=6)
     outs = [x.new_empty((group * 64, 16)) if gather else torch.empty_like(x) for x in xs]
     plan = C.ring_plan(gather=gather, ndev=4, group=group, chunks=1 if gather else 4,
                        block_bytes=64 * 16 * 4, sms=C._sms(xs[0].device.index))
-    flags = C._new_flags(xs[0].device)
-    for senders in (plan.senders - 1, plan.senders + 1):
+    flags, epoch, rings = {}, C._epoch[0], 4 // group
+    for senders in (plan.senders - rings, plan.senders + rings):
         err = C._call(C._entry(), flags, xs, outs, gather=gather, group=group, root=0,
                       plan=plan._replace(senders=senders))
-        assert err == 1 and flags[1] == 0
+        assert err == 1 and C._epoch[0] == epoch
     assert C._call(C._entry(), flags, xs, outs, gather=gather, group=group, root=0,
                    plan=plan) == 0
     torch.cuda.synchronize()
@@ -2098,7 +2099,7 @@ def test_ring_raises_on_what_it_does_not_take(cuda):
         C.ring_broadcast(_ring_members(cuda, 129, 16, 4, torch.float32, seed=1), 0)
     with pytest.raises(ValueError, match="contiguous"):
         C.ring_all_gather([torch.zeros(16, 8, device=cuda)[:, :4]] * 4)
-    with pytest.raises(ValueError, match="all on the CPU or all on one CUDA device"):
+    with pytest.raises(ValueError, match="all on the CPU or all on CUDA cards"):
         C.ring_broadcast([torch.zeros(16, 4, device=cuda), torch.zeros(16, 4)], 0)
 
 
@@ -2311,7 +2312,7 @@ def test_oocore_mesh_on_card_matches_single_device(cuda):
 
     n, panel, nb = 4096, 512, 256
     ls = []
-    for mesh in (make_mesh(2, 2), None):
+    for mesh in (make_mesh(2, 2, device=cuda), None):
         with HostTileStore(n, np.float64) as st:
             st.fill_plgsy(seed=51)
             potrf_outofcore(st, panel=panel, nb=nb, mesh=mesh)
@@ -2457,3 +2458,149 @@ def test_multihost_planes_across_two_processes_on_card(cuda, tmp_path):
         for plane in ("column", "packed", "packed-df64"):
             assert re.search(rf"^\[mh {pid}\] plane {plane}: .*ring_broadcast launches "
                              rf"{2 * (256 // 16) - 1};", out, re.M), out
+
+
+# ---- members on several cards (ROADMAP A9c) ---------------------------------------------------
+# Run on a host of two or more cards (four for the 2×2 and D=4 cases):
+#     python -m pytest --noconftest tests/test_torch_gpu.py -q -k several_cards
+
+@pytest.fixture
+def several_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return [torch.device("cuda", i) for i in range(min(4, torch.cuda.device_count()))]
+
+
+RING_ACROSS = [  # (gather, m, n, dtype, root, group, members per card)
+    (False, 1024, 1024, torch.float64, 1, None, 1),
+    (False, 1024, 1024, torch.float64, 0, 2, 1),  # sub-rings across cards
+    (False, 1024, 1024, torch.float64, 1, 2, 2),  # sub-rings within a card
+    (False, 96, 3, torch.float32, 2, None, 2),  # ragged rows, two members a card
+    (False, 48, 5, torch.bfloat16, 3, None, 1),
+    (True, 1024, 1024, torch.float64, 0, None, 1),
+    (True, 1024, 1024, torch.float64, 0, 2, 1),
+    (True, 7, 3, torch.float32, 0, None, 2),
+    (True, 40, 8, torch.bfloat16, 0, 4, 2),
+]
+
+
+def _spread_members(cards, per_card, m, n, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(m, n, generator=g, dtype=torch.float64).to(dtype).to(cards[d // per_card])
+            for d in range(len(cards) * per_card)]
+
+
+@pytest.mark.parametrize("gather,m,n,dtype,root,group,per_card", RING_ACROSS)
+def test_ring_on_several_cards_same_bits_as_plain(several_cards, gather, m, n, dtype, root,
+                                                  group, per_card):
+    """#11/#12 over members spread over the cards (one launch per card,
+    peer pointers over NVLink): each output on its member's card, with the
+    plain version's bits, one launch counted."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    xs = _spread_members(several_cards, per_card, m, n, dtype, seed=m + n + per_card)
+    cpu = [x.cpu() for x in xs]
+    if gather:
+        before = C.ring_all_gather_launches
+        out = C.ring_all_gather(xs, group=group)
+        ref = C.ring_all_gather_plain(cpu, group=group)
+        assert C.ring_all_gather_launches == before + 1
+    else:
+        before = C.ring_broadcast_launches
+        out = C.ring_broadcast(xs, root, group=group)
+        ref = C.ring_broadcast_plain(cpu, root, group=group)
+        assert C.ring_broadcast_launches == before + 1
+    for d, (o, r) in enumerate(zip(out, ref)):
+        assert o.device == xs[d].device
+        assert _same_bits(o.cpu(), r), f"member {d}"
+
+
+def test_ring_on_several_cards_20_launches_back_to_back(several_cards):
+    """Broadcasts and all-gathers of other cuts and groups, enqueued back to
+    back without a wait across the cards, each held to its plain version:
+    no flag that one launch left on any card satisfies a wait of the next."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    outs, refs = [], []
+    for i in range(20):
+        per_card = 1 + i % 2
+        xs = _spread_members(several_cards, per_card, 64 * (1 + i % 3), 16, torch.float32,
+                             seed=200 + i)
+        cpu = [x.cpu() for x in xs]
+        group = (None, 2, len(xs))[i % 3]
+        if i % 4 == 3:
+            outs.append(C.ring_all_gather(xs, group=group))
+            refs.append(C.ring_all_gather_plain(cpu, group=group))
+        else:
+            outs.append(C.ring_broadcast(xs, i % len(xs), group=group))
+            refs.append(C.ring_broadcast_plain(cpu, i % len(xs), group=group))
+    for out, ref in zip(outs, refs):
+        assert all(_same_bits(o.cpu(), r) for o, r in zip(out, ref))
+
+
+def test_several_cards_without_peer_access_raise(several_cards, monkeypatch):
+    """Two cards that cannot reach each other (the check patched to say no):
+    the mesh and the ring raise naming them; nothing falls back to the host
+    or to one card."""
+    from dla_tpu_torch import parallel as TP
+    from dla_tpu_torch.kernels import collectives as C
+
+    no = lambda a, b: {a, b} != {0, 1}  # noqa: E731
+    monkeypatch.setattr(TP.member_comm, "_peer_access", no)
+    monkeypatch.setattr(C, "_peer_access", no)
+    monkeypatch.setattr(C, "_peers", set())
+    with pytest.raises(RuntimeError, match="cards 0 and 1"):
+        TP.make_flat_mesh(len(several_cards))
+    xs = _spread_members(several_cards, 1, 64, 8, torch.float32, seed=3)
+    before = C.ring_broadcast_launches
+    with pytest.raises(RuntimeError, match="card 0 to write card 1"):
+        C.ring_broadcast(xs, 0)
+    assert C.ring_broadcast_launches == before
+
+
+def _block_factor(mesh, lay, **kw):
+    from dla_tpu_torch import parallel as TP
+
+    x = TP.generate_spd_block_cyclic(lay, mesh, seed=51, dtype=torch.float64)
+    lx = TP.potrf_block_cyclic(x, lay, mesh, **kw)
+    assert [s.device for s in lx] == list(mesh.devices)
+    return lx, TP.to_dense(lx, lay).tril_().cpu()
+
+
+@pytest.mark.parametrize("p,q", [(2, 2), (2, 4)])
+def test_block_cyclic_on_several_cards_same_bits_as_one_card(several_cards, p, q):
+    """potrf_block_cyclic (unrolled and super-stepped) and potrs_block_cyclic
+    on a mesh spread over the cards against the same mesh on one card: the
+    same bits (the same products on cards of one model)."""
+    from dla_tpu_torch import parallel as TP
+
+    if len(several_cards) < 4:
+        pytest.skip("needs four cards")
+    n, nb = 2048, 64
+    lay = TP.BlockCyclicLayout(n, nb, p, q)
+    spread, one = TP.make_mesh(p, q), TP.make_mesh(p, q, device="cuda:0")
+    assert spread.cards == several_cards[:4]
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal((n, 5)))
+    for kw in ({"unroll": True}, {"unroll": False, "super_steps": 3}):
+        (lxs, ls), (lx1, l1) = _block_factor(spread, lay, **kw), _block_factor(one, lay, **kw)
+        assert torch.equal(ls, l1), kw
+        assert float(T.residual_potrf(T.plgsy(n, dtype=torch.float64, device="cpu"), ls)) < 1e-10
+    xs_ = TP.potrs_block_cyclic(lxs, b, lay, spread)
+    x1 = TP.potrs_block_cyclic(lx1, b, lay, one)
+    assert xs_.device == torch.device("cuda", 0) and torch.equal(xs_, x1)
+
+
+@pytest.mark.parametrize("kind", ["column", "packed", "df64"])
+def test_ring_planes_on_several_cards_same_bits_as_one_card(several_cards, kind):
+    """The three ring planes with one member per card (D = the cards, up to
+    4) against the same plane on one card: the same bits."""
+    from dla_tpu_torch.parallel import dryrun, make_flat_mesh
+
+    d, nb = len(several_cards), 64
+    n = 4 * nb * d
+    got = []
+    for mesh in (make_flat_mesh(d), make_flat_mesh(d, device="cuda:0")):
+        pl = dryrun.plane(kind, n, nb, mesh)
+        got.append(pl.dense(pl.factor(pl.shard(pl.matrix()))).cpu())
+    assert len(set(make_flat_mesh(d).devices)) == d
+    assert torch.equal(got[0], got[1])

@@ -281,3 +281,20 @@ def test_calibrate_model_fit_recovers_the_law(monkeypatch, calib_cls, project, i
     assert calib.panel_fixed_s == pytest.approx(sum(fixed.values()), rel=1e-9)
     assert calib.pack_gibps == pytest.approx(rate["pack"], rel=1e-9)
     assert calib.writeback_gibps == pytest.approx(rate["wb"], rel=1e-9)
+
+
+@pytest.mark.parametrize("gbps,lat_us", [(360.0, 2.5), (120.0, 9.0)])
+def test_calibrate_model_nvlink_fit_recovers_the_ring_law(gbps, lat_us):
+    """Ring broadcast times made by the model's law (C + D − 2)·(V/(C·bw) +
+    lat), at the nvlink part's sizes and chunk counts, give back bw and lat."""
+    from dla_tpu_torch.bench import calibrate_model as CM
+    from dla_tpu_torch.kernels.collectives import broadcast_chunks
+
+    d = 4
+    points = []
+    for m in CM.NVLINK_ROWS:
+        v, c = m * CM.NVLINK_N * 8, broadcast_chunks(m, d)
+        points.append((v, c, d, (c + d - 2) * (v / (c * gbps * 1e9) + lat_us * 1e-6)))
+    bw, lat = CM.fit_ring(points)
+    assert bw == pytest.approx(gbps * 1e9, rel=1e-9)
+    assert lat == pytest.approx(lat_us * 1e-6, rel=1e-9)

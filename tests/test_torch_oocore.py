@@ -313,13 +313,18 @@ class TestRejections:
             with pytest.raises(ValueError, match="host_blas"):
                 T.potrf_outofcore(st, panel=32, nb=16, host_blas=True, mesh=object())
 
-    def test_mesh_names_a9(self):
+    def test_mesh_names_a9(self, monkeypatch):
         """A mesh on one device runs (``TestMesh``); one whose members span
-        several devices is what still raises naming ROADMAP A9."""
-        from dla_tpu_torch.parallel import MemberMesh
+        several cards (constructed here without allocating on them) is what
+        still raises, naming ROADMAP A9d: the panel is not quietly put on
+        card 0."""
+        from dla_tpu_torch.parallel import MemberMesh, member_comm
 
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            MemberMesh((torch.device("cpu"), torch.device("meta")), (1, 2))
+        monkeypatch.setattr(member_comm, "_peer_access", lambda a, b: True)
+        spread = MemberMesh((torch.device("cuda", 0), torch.device("cuda", 1)), (1, 2))
+        with TS.HostTileStore(64, np.float64) as st:
+            with pytest.raises(NotImplementedError, match="ROADMAP A9d"):
+                T.potrf_outofcore(st, panel=32, nb=16, mesh=spread)
         with TS.HostTileStore(64, np.float64) as st:
             st.fill_plgsy(seed=51)
             T.potrf_outofcore(st, panel=32, nb=16, mesh=make_mesh(2, 2, device="cpu"))

@@ -76,8 +76,55 @@ def test_mesh_defaults_to_the_card():
 
 
 def test_mesh_across_devices_raises():
-    with pytest.raises(NotImplementedError, match="several devices .*ROADMAP A9"):
+    """Members lie all on the CPU or all on CUDA cards: a CPU + meta mesh
+    raises (the device-type rule)."""
+    with pytest.raises(ValueError, match="all on the CPU or all on CUDA cards"):
         TPAR.FlatMesh((torch.device("cpu"), torch.device("meta")))
+
+
+def _pretend_cards(monkeypatch, count, peer=lambda a, b: True):
+    """``count`` visible cards, pairs reaching each other as ``peer`` says;
+    nothing is allocated on them."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.setattr(TPAR.member_comm, "_peer_access", peer)
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+@pytest.mark.parametrize("ndev", [4, 8])
+def test_flat_mesh_spreads_over_the_cards(monkeypatch, ndev, count):
+    """With neither devices= nor device=, k cards, k the largest divisor of
+    the member count at most the card count, member m on card m // (D/k):
+    contiguous in member order."""
+    _pretend_cards(monkeypatch, count)
+    mesh = TPAR.make_flat_mesh(ndev)
+    k = {1: 1, 2: 2, 3: 2, 4: 4}[count]
+    assert mesh.devices == tuple(torch.device("cuda", m // (ndev // k)) for m in range(ndev))
+    assert mesh.device == torch.device("cuda", 0) and mesh.device_of(ndev - 1).index == k - 1
+    assert mesh.cards == [torch.device("cuda", i) for i in range(k)]
+
+
+def test_flat_mesh_devices_and_device(monkeypatch):
+    """JAX's devices= (one per member, in member order), one device= for all,
+    never both."""
+    _pretend_cards(monkeypatch, 4)
+    cards = [f"cuda:{i}" for i in (3, 1, 2, 0)]
+    assert TPAR.make_flat_mesh(4, devices=cards).devices == tuple(map(torch.device, cards))
+    assert TPAR.make_flat_mesh(4, device="cuda:2").devices == (torch.device("cuda", 2),) * 4
+    with pytest.raises(ValueError, match="not both"):
+        TPAR.make_flat_mesh(4, devices=cards, device="cpu")
+    with pytest.raises(ValueError, match="4 members need 4 devices"):
+        TPAR.make_flat_mesh(4, devices=cards[:3])
+    with pytest.raises(ValueError, match="all on the CPU or all on CUDA cards"):
+        TPAR.make_flat_mesh(2, devices=["cpu", "cuda:1"])
+
+
+def test_mesh_without_peer_access_raises_naming_the_pair(monkeypatch):
+    """A spread mesh whose cards 1 and 2 cannot reach each other raises; no
+    staging through the host, no falling back to one card."""
+    _pretend_cards(monkeypatch, 4, peer=lambda a, b: {a, b} != {1, 2})
+    with pytest.raises(RuntimeError, match="cards 1 and 2"):
+        TPAR.make_flat_mesh(4)
+    assert TPAR.make_flat_mesh(2).devices == (torch.device("cuda", 0), torch.device("cuda", 1))
 
 
 def test_planes_need_a_flat_mesh():
