@@ -228,7 +228,7 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     the super-stepped program) against the unrolled program on the same
     input within rtol = atol = 1e-11, and its residual under 1e-10; the
     driver's ``--mode distributed`` at N=16384, nb=512 on 2×2 (fp32); and the
-    out-of-core driver with ``--p 2 --q 2`` at N=24576 fp32 on a flat RAM
+    out-of-core driver with ``--p 2 --q 2`` at N=16384 fp32 on a flat RAM
     store (its host Freivalds gate, not the factorization, sets its time).
     Each with its time, GFLOP/s at (1/3)·N³/t, gate value and peak
     device memory.
@@ -258,15 +258,19 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
 38. the five distributed planes across a process boundary:
     ``python -m dla_tpu_torch.parallel.multihost`` as 2 processes × 4
     members that share this card over ``torch.distributed`` with gloo
-    (NCCL refuses two processes on one card), fp64: the block plane at
-    N=32768, nb=512 on 2×4, then ``potrs`` (2×4) and the three ring planes
-    (D=8) at N=16384, nb=512. Per plane: each process's factorization time
+    (NCCL refuses two processes on one card), fp64, the five planes in one
+    run at N=16384, nb=512: the block plane and ``potrs`` on 2×4, the three
+    ring planes (D=8). Per plane: each process's factorization time
     and rate, its boundary broadcasts (count, bytes and seconds, the device
     synchronized around each), its #11 launches (2·nt − 1 in each process on
     each ring plane) and peak device memory; process 0's gate under 1e-10;
     the same plane in one process on 8 members, its time and the largest
-    difference between the two results. A process that fails or outlives
-    its timeout fails the phase.
+    difference between the two results. Then the serving apply across 2
+    processes × 4 members over gloo (``tests/torch_serving_child.py``:
+    ``solve_inverse_sharded`` of ``potri(plgsy(16384))``, fp32, nrhs=64):
+    each process's ms a query block and boundary share, process 0's
+    residual under N·2e-6, every process's X the bits of one process on 8
+    members. A process that fails or outlives its timeout fails the phase.
 39. the finance model (``dla_tpu_torch/models/``, no hand kernel: the JAX
     package's LSTM and head are XLA ops, the port's torch ops) at the JAX
     package's CLI defaults: ``python -m dla_tpu_torch.models.cli`` as
@@ -313,9 +317,17 @@ Phases, each of which raises on failure (exit code non-zero, no final line):
     ``--mode distributed`` at N=49152, nb=2048, fp32 on 2×2 over the cards,
     beside the same run on card 0 and ``parallel.model.project``'s figure
     (a projection); and ``python -m dla_tpu_torch.parallel.multihost
-    --backend nccl`` as one process per card, one member each (``block`` at
-    N=32768, ``potrs`` and the three ring planes at N=16384, nb=512), each
-    plane the one-process bits on process 0; the phase's wall time.
+    --backend nccl`` as one process per card, one member each (the five
+    planes at N=16384, nb=512, in one run), each plane the one-process bits
+    on process 0; out of core on a 2×2 mesh over the cards (ROADMAP A9d):
+    ``potrf_outofcore`` in fp64 at N=16384 (w=4096, nb=512) in this
+    process, under 1e-10 and the bits of the same mesh on card 0, then the
+    out-of-core driver at N=49152 fp32 (w=4096, nb=512, ``--p 2 --q 2
+    --probes 2``) over the cards and with ``--device cuda:0``, each with its
+    wall time, ``stats`` split, gate and each card's peak memory (the pinned
+    host buffers cached before either run); the serving apply across 4
+    processes × 1 member over NCCL (n=32768 fp32, nrhs=64), every process's
+    X the one-process bits; the phase's wall time, by section.
 
 ``--phases`` only selects: the ``kernels`` line then lists the kernels whose
 comparison phase and path phase both ran, and the last line is printed when
@@ -406,14 +418,14 @@ N_OOC, N_OOC_CUT, W_OOC, NB_OOC, N_OOC64 = 49152, 36864, 4096, 512, 16384
 # README.md:130-132): the session at N_BC on a P_BC x Q_BC member mesh, the super-stepped program at
 # NB_BC_SUPER, the driver's --mode distributed and the out-of-core driver on a 2x2 mesh
 N_BC, NB_BC, P_BC, Q_BC, NRHS_BC, NB_BC_SUPER = 32768, 512, 2, 4, 64, 256
-N_BC_DRIVER, NB_BC_DRIVER, N_BC_OOC = 16384, 512, 24576
+N_BC_DRIVER, NB_BC_DRIVER, N_BC_OOC = 16384, 512, 16384
 # phase 37: the driver's full flag surface (complex, views, generators, --input, --checked),
 # the c/z session, the oracle, the sweep harness and the profiling helpers
 N_FLAGS, NB_FLAGS, NB_FLAGS_PACKED, LM_VIEW, N_CHECK_FAIL = 16384, 1024, 4096, 65536, 4096
 N_SESSION_Z, NB_SESSION_Z = 4096, 256
 # phase 38: the five planes of dla_tpu/parallel/multihost.py across 2 processes x 4 members on
-# this card: the block plane at the session's size, potrs and the ring planes at N_MH (D=8)
-N_MH_BLOCK, N_MH, NB_MH, MH_PROCS, MH_MEMBERS, MH_TIMEOUT = 32768, 16384, 512, 2, 4, 300
+# this card, in one run at N_MH (block and potrs on 2x4, the ring planes D=8)
+N_MH, NB_MH, MH_PROCS, MH_MEMBERS, MH_TIMEOUT = 16384, 512, 2, 4, 300
 # phase 39: the finance model at the JAX package's CLI defaults (dla_tpu/models/cli.py:30-52): all
 # four universes, MODEL_DAYS days, window, horizon, hidden, batch and epochs; then MODEL_STEPS Adam
 # steps on the card against the CPU from one weight tree
@@ -426,6 +438,11 @@ RATE_BAND = 3.0
 N_CARDS_SESSION, NB_CARDS_SESSION, NRHS_CARDS = 32768, 512, 64
 N_CARDS_DRIVER, NB_CARDS_DRIVER = 49152, 2048
 CARDS_RING_ITERS = 20
+# phase 41: out of core on a 2x2 mesh over the cards (fp64 in this process; the driver in fp32)
+N_CARDS_OOC64, N_CARDS_OOC = 16384, 49152
+# serving across processes: phase 41 over NCCL (a process a card, one member each) and phase
+# 38 over gloo on this card (MH_PROCS x MH_MEMBERS); fp32, SERVE_NRHS right-hand sides
+N_CARDS_SERVE, N_MH_SERVE, SERVE_NRHS, SERVE_QUERIES = 32768, 16384, 64, 20
 NVLINK_RATE = 450e9  # bytes/s, one direction of a card's NVLink (the H100 SXM data sheet)
 # the flat-mesh ring planes (__graft_entry__.py:110-200): D members on the card
 N_RING, NB_RING, D_RING, RING_REPS = 16384, 1024, 4, 2
@@ -2773,29 +2790,24 @@ def phase_tools(dev, tag):
 
 
 # ---- 38. the distributed planes across a process boundary ---------------------------------
-def mh_run(tag, planes: str, n: int, nb: int, procs: int = MH_PROCS, members: int = MH_MEMBERS,
-           grid=(2, 4), backend: str = "gloo") -> list[str]:
-    """The multihost demo as ``procs`` processes of ``members`` members (gloo:
-    all on this card; nccl: a card each), each plane compared with one
-    process on process 0; each process's output, printed with its process
-    index. Fails unless every process exits 0 within MH_TIMEOUT seconds."""
+def free_port() -> int:
     import socket
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+        return s.getsockname()[1]
+
+
+def run_processes(prefix: str, what: str, cmds: list) -> list[str]:
+    """One process per command, started together from the repository's root;
+    each one's output, printed with ``prefix`` and its index. Fails unless
+    every process exits 0 within MH_TIMEOUT seconds."""
     root = os.path.dirname(os.path.abspath(__file__))
-    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(procs), "--local-devices",
-            str(members), "--n", str(n), "--nb", str(nb), "--p", str(grid[0]), "--q",
-            str(grid[1]), "--plane", planes, "--device", "cuda", "--backend", backend,
-            "--timeout", str(MH_TIMEOUT), "--compare"]
-    procs_ = [subprocess.Popen([sys.executable, "-m", "dla_tpu_torch.parallel.multihost",
-                                "--pid", str(pid)] + argv, cwd=root, stdout=subprocess.PIPE,
-                               stderr=subprocess.STDOUT, text=True)
-              for pid in range(procs)]
+    procs = [subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
     deadline, outs, rcs = time.monotonic() + MH_TIMEOUT, [], []
     try:
-        for p in procs_:
+        for p in procs:
             try:
                 outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
                 rcs.append(p.returncode)
@@ -2803,17 +2815,33 @@ def mh_run(tag, planes: str, n: int, nb: int, procs: int = MH_PROCS, members: in
                 rcs.append(None)
                 outs.append("")
     finally:
-        for p in procs_:
+        for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
     for pid, out in enumerate(outs):
         for line in out.splitlines():
             if "socket.cpp" not in line:  # c10d's warnings about the client's host name
-                print(f"mh{pid}| {line}")
-    print(f"multihost numbers above: {tag}", flush=True)
-    require(rcs == [0] * procs, f"multihost processes exited {rcs} (None: killed at the "
+                print(f"{prefix}{pid}| {line}")
+    require(rcs == [0] * len(cmds), f"{what} processes exited {rcs} (None: killed at the "
             f"{MH_TIMEOUT} s timeout)")
+    return outs
+
+
+def mh_run(tag, planes: str, n: int, nb: int, procs: int = MH_PROCS, members: int = MH_MEMBERS,
+           grid=(2, 4), backend: str = "gloo") -> list[str]:
+    """The multihost demo as ``procs`` processes of ``members`` members (gloo:
+    all on this card; nccl: a card each), each plane compared with one
+    process on process 0; each process's output, printed with its process
+    index. Fails unless every process exits 0 within MH_TIMEOUT seconds."""
+    argv = ["--coordinator", f"127.0.0.1:{free_port()}", "--nproc", str(procs),
+            "--local-devices", str(members), "--n", str(n), "--nb", str(nb), "--p", str(grid[0]),
+            "--q", str(grid[1]), "--plane", planes, "--device", "cuda", "--backend", backend,
+            "--timeout", str(MH_TIMEOUT), "--compare"]
+    outs = run_processes("mh", "multihost", [
+        [sys.executable, "-m", "dla_tpu_torch.parallel.multihost", "--pid", str(pid)] + argv
+        for pid in range(procs)])
+    print(f"multihost numbers above: {tag}", flush=True)
     return outs
 
 
@@ -2864,18 +2892,70 @@ def mh_report(tag, outs: list[str], plane: str, n: int, nb: int, members: int = 
     return one.group(4) == "True"
 
 
+SERVE_LINE = (r"^\[serve {pid}\] \d+ processes x \d+ members on \S+, backend \w+: n=\d+ nrhs=\d+ "
+              r"\w+: (\S+) ms a query block over \d+; boundary (\d+) broadcasts, (\S+) MB, (\S+) "
+              r"ms a query block \((\S+)%\)$")
+
+
+def serving_run(tag, procs: int, members: int, n: int, backend: str) -> None:
+    """The serving apply across ``procs`` processes of ``members`` members
+    (``tests/torch_serving_child.py``; gloo: all on this card, nccl: a card
+    each), fp32 at n with SERVE_NRHS right-hand sides: each process's ms a
+    query block and boundary share, process 0's residual, every process's X
+    the bits of one process on all the members."""
+    import tempfile
+
+    import numpy as np
+
+    child = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "torch_serving_child.py")
+    with tempfile.TemporaryDirectory(prefix="dla_serve_") as save:
+        argv = ["--coordinator", f"127.0.0.1:{free_port()}", "--nproc", str(procs), "--members",
+                str(members), "--n", str(n), "--nrhs", str(SERVE_NRHS), "--dtype", "float32",
+                "--device", "cuda", "--backend", backend, "--timeout", str(MH_TIMEOUT),
+                "--queries", str(SERVE_QUERIES), "--compare", "--save", save]
+        outs = run_processes("serve", "serving", [
+            [sys.executable, child, "--pid", str(pid)] + argv for pid in range(procs)])
+        xs = [np.load(os.path.join(save, f"x{pid}.npy")) for pid in range(procs)]
+    ranks = []
+    for pid, out in enumerate(outs):
+        m = re.search(SERVE_LINE.format(pid=pid), out, re.M)
+        require(m is not None, f"serving process {pid} printed no line")
+        ranks.append(m.groups())
+    res = re.search(r"^\[serve 0\] \|\|B - AX\|\| / \(\|\|A\|\| \|\|X\|\|\) = (\S+) \(gate (\S+)\) "
+                    r"(PASS|FAIL)$", outs[0], re.M)
+    one = re.search(r"^\[serve 0\] in one process on \d+ members: (\S+) ms a query block; the "
+                    r"same bits: (True|False)$", outs[0], re.M)
+    require(res is not None and one is not None, "serving: no residual or one-process line")
+    alike = all(np.array_equal(x, xs[0]) for x in xs)
+    print(f"serving across {procs} processes x {members} members ({backend}) n={n} "
+          f"nrhs={SERVE_NRHS} fp32: ms a query block per process {[float(r[0]) for r in ranks]}"
+          f" (one process on {procs * members} members {float(one.group(1)):.3f}); boundary per "
+          f"process " + ", ".join(f"{r[1]} broadcasts {float(r[2]):.1f} MB {float(r[3]):.3f} ms "
+                                  f"({r[4]}%)" for r in ranks)
+          + f"; residual {res.group(1)} (gate {res.group(2)}); the one-process bits: "
+          f"{one.group(2)}, every process's X alike: {alike} {tag}", flush=True)
+    require(res.group(3) == "PASS", f"serving: residual {res.group(1)} above {res.group(2)}")
+    require(one.group(2) == "True" and alike, "serving across processes: not the one-process "
+            "bits on every process")
+
+
 def phase_multihost(tag):
-    """The five planes across MH_PROCS processes on this card against one process."""
+    """The five planes across MH_PROCS processes on this card against one
+    process, then the serving apply across them."""
+    from dla_tpu_torch.parallel.multihost import PLANES
+
     torch.cuda.empty_cache()
     t38 = time.perf_counter()
-    outs = mh_run(tag, "block", N_MH_BLOCK, NB_MH)
+    outs = mh_run(tag, ",".join(PLANES), N_MH, NB_MH)
     require(f"[mh 0] {MH_PROCS} processes, {MH_PROCS * MH_MEMBERS} global members "
             f"({MH_MEMBERS} local) on cuda" in outs[0], "multihost: no header line")
-    mh_report(tag, outs, "block", N_MH_BLOCK, NB_MH)
-    planes = ("potrs", "column", "packed", "packed-df64")
-    outs = mh_run(tag, ",".join(planes), N_MH, NB_MH)
-    for plane in planes:
+    for plane in PLANES:
         mh_report(tag, outs, plane, N_MH, NB_MH)
+    t0 = time.perf_counter()
+    serving_run(tag, MH_PROCS, MH_MEMBERS, N_MH_SERVE, "gloo")
+    print(f"serving across {MH_PROCS} processes (gloo) wall time: {time.perf_counter() - t0:.1f} "
+          f"s {tag}", flush=True)
     print(f"phase 38 wall time: {time.perf_counter() - t38:.1f} s {tag}", flush=True)
 
 
@@ -3194,16 +3274,81 @@ def driver_across_cards(cards, tag) -> None:
 def multihost_nccl(cards, tag) -> None:
     """The multihost demo over NCCL, one process per card with one member
     each; process 0 holds each plane to one process's bits."""
+    from dla_tpu_torch.parallel.multihost import PLANES
+
     procs = len(cards)
     grid = (2, procs // 2)
-    for planes, n in (("block", N_MH_BLOCK), ("potrs,column,packed,packed-df64", N_MH)):
-        outs = mh_run(tag, planes, n, NB_MH, procs=procs, members=1, grid=grid, backend="nccl")
-        require(f"[mh 0] {procs} processes, {procs} global members (1 local) on cuda:0, backend "
-                "nccl" in outs[0], "multihost over NCCL: no header line")
-        for plane in planes.split(","):
-            same = mh_report(tag, outs, plane, n, NB_MH, members=1,
-                             where=f"one a card ({procs} cards, NCCL)")
-            require(same, f"multihost {plane} over NCCL: not the one-process bits")
+    outs = mh_run(tag, ",".join(PLANES), N_MH, NB_MH, procs=procs, members=1, grid=grid,
+                  backend="nccl")
+    require(f"[mh 0] {procs} processes, {procs} global members (1 local) on cuda:0, backend "
+            "nccl" in outs[0], "multihost over NCCL: no header line")
+    for plane in PLANES:
+        same = mh_report(tag, outs, plane, N_MH, NB_MH, members=1,
+                         where=f"one a card ({procs} cards, NCCL)")
+        require(same, f"multihost {plane} over NCCL: not the one-process bits")
+
+
+def warm_pinned(n: int, dtype) -> None:
+    """Warm the pinned host cache with the four (n, W_OOC) buffers an
+    out-of-core factorization at N=n takes (three slots and the writeback),
+    so that the runs compared pay no cudaHostAlloc (the first run of a
+    process pays it: ≈ 1.2 s of a 3.1 s factorization at N=49152 fp32)."""
+    warm = [torch.empty((n, W_OOC), dtype=dtype, pin_memory=True) for _ in range(4)]
+    del warm
+
+
+def oocore_across_cards(cards, tag) -> None:
+    """Out of core on a 2×2 mesh over the cards: fp64 at N_CARDS_OOC64 in this
+    process, under 1e-10 and the bits of the same mesh on card 0; then the
+    driver at N_CARDS_OOC fp32 over the cards and on card 0, each with its
+    wall time, stats split, gate and each card's peak memory."""
+    import numpy as np
+
+    from dla_tpu_torch.algos.oocore import potrf_outofcore
+    from dla_tpu_torch.parallel import make_mesh
+    from dla_tpu_torch.runtime.staging import HostTileStore
+
+    n, factors = N_CARDS_OOC64, {}
+    warm_pinned(n, torch.float64)
+    with HostTileStore(n, np.float64) as orig:
+        orig.fill_plgsy(seed=51)
+        for where, mesh in (("over the cards", make_mesh(2, 2)),
+                            ("on card 0", make_mesh(2, 2, device=cards[0]))):
+            with HostTileStore(n, np.float64) as st:
+                st.array[:] = orig.array
+                cards_sync(cards)
+                t0 = time.perf_counter()
+                stats = potrf_outofcore(st, panel=W_OOC, nb=NB_OOC, mesh=mesh)
+                wall = time.perf_counter() - t0
+                res = orig.freivalds_residual(st, probes=2)
+                factors[where] = np.tril(st.array)
+            print(f"out-of-core fp64 N={n} 2x2 {where} ({','.join(map(str, mesh.cards))}): "
+                  f"{wall:.3f} s, {n ** 3 / 3 / wall / 1e9:.1f} GFLOP/s, stats {json.dumps(stats)}"
+                  f", freivalds {res:.3e} (gate 1e-10) {tag}", flush=True)
+            require(res < 1e-10, f"out of core fp64 {where}: freivalds {res:.3e}")
+    same = bool(np.array_equal(factors["over the cards"], factors["on card 0"]))
+    print(f"out-of-core fp64 N={n} 2x2 over the cards: the same bits as on card 0: {same} {tag}",
+          flush=True)
+    require(same, "out of core over the cards is off the one-card mesh's bits")
+    del factors
+
+    n, walls = N_CARDS_OOC, {}
+    warm_pinned(n, torch.float32)
+    for where, device in (("over the cards", "cuda"), ("on card 0", "cuda:0")):
+        out = oocore_run(tag, ["--n", n, "--panel", W_OOC, "--nb", NB_OOC, "--p", 2, "--q", 2,
+                               "--probes", 2, "--device", device])
+        ms = float(re.search(r"^Elapsed: (\S+) ms$", out, re.M).group(1))
+        stats = json.loads(re.search(r"^\[oocore\] stats: (.*)$", out, re.M).group(1))
+        fv = re.search(r"^freivalds .* = (\S+) \((\S+)s\)$", out, re.M)
+        gate = re.search(r"^PASS \(gate (\S+)\)$", out, re.M).group(1)
+        peaks = re.search(r"^\[oocore\] peak device memory: (.*)$", out, re.M).group(1)
+        walls[where] = ms / 1e3
+        print(f"out-of-core driver N={n} fp32 2x2 {where}: factorization {ms / 1e3:.3f} s, "
+              f"{n ** 3 / 3 / (ms / 1e3) / 1e9:.1f} GFLOP/s, stats {json.dumps(stats)}, "
+              f"freivalds {fv.group(1)} (gate {gate}), peak memory {peaks} {tag}", flush=True)
+    print(f"out-of-core driver N={n} 2x2: over the cards {walls['over the cards']:.3f} s, "
+          f"{walls['over the cards'] / walls['on card 0']:.3f}x card 0's "
+          f"{walls['on card 0']:.3f} s {tag}", flush=True)
 
 
 def phase_several_cards(tag) -> dict:
@@ -3213,6 +3358,13 @@ def phase_several_cards(tag) -> dict:
     cards = [torch.device("cuda", i) for i in range(min(4, torch.cuda.device_count()))]
     print(f"phase 41: {len(cards)} cards: "
           + "; ".join(f"{c}: {torch.cuda.get_device_name(c)}" for c in cards), flush=True)
+    seconds, t0 = {}, time.perf_counter()
+
+    def done(section):
+        nonlocal t0
+        seconds[section] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
     big, t = N_RING - NB_RING, M_RING_TILE
     got = {"ring_bcast": ring_cards_case(cards, tag, False, big, NB_RING, 10, root=1)}
     for root in (0, 1):
@@ -3225,13 +3377,24 @@ def phase_several_cards(tag) -> dict:
     ring_cards_back_to_back(cards, tag)
     got["ring_gather_launches"] = ring_cards_row_broadcast(cards, tag) if len(cards) % 2 == 0 \
         else 0
+    done("collectives")
     got["ring_bcast_launches"] = sum(plane_across_cards(cards, tag, ph) for ph in RING_PLANES)
+    done("ring planes")
     session_across_cards(cards, tag, None)
     if len(cards) == 4:
         session_across_cards(cards, tag, (2, 4))
+    done("sessions")
+    if len(cards) == 4:
         driver_across_cards(cards, tag)
+        done("--mode distributed")
         multihost_nccl(cards, tag)
-    print(f"phase 41 wall time: {time.perf_counter() - t41:.1f} s {tag}", flush=True)
+        done("NCCL demo")
+    oocore_across_cards(cards, tag)
+    done("out of core")
+    serving_run(tag, len(cards), 1, N_CARDS_SERVE, "nccl")
+    done("serving")
+    print(f"phase 41 wall time: {time.perf_counter() - t41:.1f} s, by section {seconds} {tag}",
+          flush=True)
     return got
 
 

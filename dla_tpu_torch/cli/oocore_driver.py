@@ -8,12 +8,15 @@ and column panels stream through the card. Resume-able: re-running with the
 same ``--matrix`` and ``--progress`` paths picks up at the first unfinished
 panel. The flags are the reference's, with ``--platform`` become
 ``--device``; ``--p``·``--q`` > 1 is the distributed out-of-core path: every
-streamed panel split by rows over a P×Q member mesh on the device
-(``potrf_outofcore(mesh=...)``). It prints the reference's lines: ``[oocore] …``,
+streamed panel split by rows over a P×Q member mesh
+(``potrf_outofcore(mesh=...)``), spread over the visible cards with ``--device
+cuda``, as the JAX driver's mesh spans ``jax.devices()``, or all on one card
+with ``--device cuda:N``. It prints the reference's lines: ``[oocore] …``,
 ``Elapsed``, ``Performance`` ((1/3)·N³/t, or the flops this process ran when
 it resumed), the staging stats (and all of them as one JSON object on an
-``[oocore] stats:`` line), the Freivalds value and ``PASS``/``FAIL`` against
-1e-10 (fp64) or N·2e-7 (fp32); the exit code is 1 on FAIL.
+``[oocore] stats:`` line), each card's peak memory, the Freivalds value and
+``PASS``/``FAIL`` against 1e-10 (fp64) or N·2e-7 (fp32); the exit code is 1
+on FAIL.
 
 Usage:
     python -m dla_tpu_torch.cli.oocore_driver --n 32768 --panel 4096 --nb 512
@@ -21,6 +24,7 @@ Usage:
         --store panel --matrix /scratch/a.bin --ram-cache
     python -m dla_tpu_torch.cli.oocore_driver --n 1024 --panel 256 --nb 64 --device cpu
     python -m dla_tpu_torch.cli.oocore_driver --n 32768 --panel 4096 --nb 512 --p 2 --q 2
+    python -m dla_tpu_torch.cli.oocore_driver --n 32768 --p 2 --q 2 --device cuda:0
 """
 
 from __future__ import annotations
@@ -67,9 +71,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--p", type=int, default=1, help="mesh rows (PxQ device grid)")
     ap.add_argument("--q", type=int, default=1, help="mesh cols — p*q>1 is the "
                     "distributed out-of-core path (panels split by rows over the members)")
-    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="where the panels are updated and factored")
+    ap.add_argument("--device", type=_device, default="cuda",
+                    help="where the panels are updated and factored: cuda (with --p/--q: "
+                    "the members spread over the visible cards), cuda:N (one card) or cpu")
     return ap
+
+
+def _device(text: str) -> str:
+    """``cuda``, ``cuda:N`` or ``cpu``."""
+    kind, _, index = text.partition(":")
+    if kind not in ("cuda", "cpu") or (index and (kind == "cpu" or not index.isdigit())):
+        raise argparse.ArgumentTypeError(f"{text!r} is not cuda, cuda:N or cpu")
+    return text
 
 
 def main(argv=None) -> int:
@@ -82,7 +95,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    if not args.host_blas and args.device == "cuda" and not torch.cuda.is_available():
+    cuda = args.device.startswith("cuda")
+    if not args.host_blas and cuda and not torch.cuda.is_available():
         print("[oocore] --device cuda: no CUDA device is available "
               "(torch.cuda.is_available() is False); use --device cpu or --host-blas",
               file=sys.stderr)
@@ -98,7 +112,7 @@ def main(argv=None) -> int:
     item = np.dtype(dtype).itemsize
     gib = (n * (n + args.panel) // 2 if panel_store else n * n) * item / 2**30
     where = "host (OpenBLAS)" if args.host_blas else (
-        torch.cuda.get_device_name() if args.device == "cuda" else "cpu")
+        torch.cuda.get_device_name(torch.device(args.device)) if cuda else "cpu")
     print(
         f"[oocore] N={n} panel={args.panel} NB={args.nb} dtype={args.dtype} "
         f"store={args.store}:{args.matrix or 'ram'} ({gib:.1f} GiB) device={where}",
@@ -134,13 +148,23 @@ def _run(args, store, panel_store: bool, dtype) -> int:
         store.fill_plgsy(seed=args.seed)
         print(f"[oocore] generated in {time.perf_counter() - gen0:.1f}s", flush=True)
 
-    mesh = None
+    import torch
+
+    from dla_tpu_torch.parallel import member_comm
+
+    mesh, cards = None, [torch.device(args.device)]
     if not args.host_blas and args.p * args.q > 1:
         from dla_tpu_torch.parallel import make_mesh
 
-        mesh = make_mesh(args.p, args.q, device=args.device)
-        print(f"[oocore] distributed: panels sharded over a {args.p}x{args.q} mesh",
-              flush=True)
+        # a bare "cuda" spreads the members over the visible cards
+        mesh = make_mesh(args.p, args.q, device=None if args.device == "cuda" else args.device)
+        cards = mesh.cards
+        print(f"[oocore] distributed: panels sharded over a {args.p}x{args.q} mesh on "
+              f"{','.join(map(str, cards))}", flush=True)
+    cards = [] if args.host_blas else [member_comm.member_device(c) for c in cards
+                                       if c.type == "cuda"]
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
 
     t0 = time.perf_counter()
     stats = potrf_outofcore(
@@ -194,6 +218,10 @@ def _run(args, store, panel_store: bool, dtype) -> int:
             flush=True,
         )
         print(f"[oocore] stats: {json.dumps(stats)}", flush=True)
+    if cards:
+        print("[oocore] peak device memory: " + ", ".join(
+            f"{c} {torch.cuda.max_memory_allocated(c) / 2**30:.3f} GiB" for c in cards),
+            flush=True)
 
     if not args.probes:
         return 0

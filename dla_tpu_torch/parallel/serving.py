@@ -5,7 +5,8 @@ A⁻¹ (from :func:`dla_tpu_torch.algos.potri`, computed once) is sharded by
 rows over a flat mesh, the (n, nrhs) query block is replicated, each member
 computes its (n/P, nrhs) slab, and the slabs are all-gathered (concatenated
 here) into the replicated answer: one collective of n·nrhs elements per
-query block.
+query block. The mesh may span cards (peer copies) and processes (one
+broadcast per member from its process); every process gets the answer.
 
 :func:`project_serving` models when a mesh of cards pays, in the same style
 as :func:`dla_tpu_torch.parallel.model.project`: compute calibrated by the
@@ -34,39 +35,49 @@ def make_serving_mesh(p: int, *, devices=None, device=None) -> FlatMesh:
 
 
 def sharded_apply(mesh: FlatMesh):
-    """The apply for ``mesh``: (A⁻¹'s row blocks, one per member; replicated
-    B) → replicated X, each member's product at the precision tier. A mesh
-    across processes raises ``NotImplementedError``."""
-    if mesh.spans_processes:
-        raise NotImplementedError("sharded_apply: a mesh across processes is not supported")
+    """The apply for ``mesh``: (A⁻¹'s row blocks, one per member, None for
+    another process's member; replicated B) → replicated X, each member's
+    product at the precision tier, on its own card. The slabs are gathered
+    in member order through :func:`~dla_tpu_torch.parallel.member_comm.share`
+    (across processes: one broadcast from each member's process), so every
+    process returns X, with the bits of one process (JAX's ``shard_map``
+    with ``out_specs=P(None, None)``)."""
 
     def apply(ainv_rows, b: torch.Tensor) -> torch.Tensor:
-        """Each member's slab on its own card (B by peer copy), gathered onto
-        B's card (member 0's where B lies on the CPU)."""
+        """Each local member's slab on its own card (B by peer copy), gathered
+        onto B's card (this process's first member's where B lies on the
+        CPU)."""
         rows = list(ainv_rows)
         if len(rows) != mesh.size:
             raise ValueError(f"need {mesh.size} row blocks, got {len(rows)}")
-        slabs = []
-        for a in rows:
+        slabs = [None] * mesh.size
+        for m in mesh.local_members():
+            a = rows[m]
             with comm.on(a.device):
-                slabs.append(solve_inverse(a, comm.copy_to(b, a.device)))
-        dest = b.device if b.device.type == "cuda" else mesh.device
-        return comm.all_gather_tiled([comm.copy_to(x, dest) for x in slabs])
+                slabs[m] = solve_inverse(a, comm.copy_to(b, a.device))
+        mine = slabs[mesh.local_members()[0]]
+        dest = b.device if b.device.type == "cuda" else mine.device
+        return comm.all_gather_tiled([comm.share(x, m, mine.shape, mine.dtype, mesh, dest)
+                                      for m, x in enumerate(slabs)])
 
     return apply
 
 
 def solve_inverse_sharded(ainv, b, mesh: FlatMesh) -> torch.Tensor:
-    """X = A⁻¹·B with A⁻¹ (a tensor or numpy array) split by rows over
-    ``mesh`` and B (n, nrhs) replicated; returns the replicated answer on the
-    caller's card (B's, or member 0's where B lies on the CPU). On A⁻¹'s own
-    device the row blocks are views of ``ainv``."""
+    """X = A⁻¹·B with A⁻¹ (a tensor or numpy array, the global matrix, the
+    same on every process) split by rows over ``mesh`` and B (n, nrhs)
+    replicated; returns the replicated answer on the caller's card (B's, or
+    this process's first member's where B lies on the CPU). Only this
+    process's members' rows move to their cards; on A⁻¹'s own device the row
+    blocks are views of ``ainv``."""
     ainv, b = _tensor(ainv), _tensor(b)
     n, p = ainv.shape[-1], mesh.size
     if n % p:
         raise ValueError(f"n={n} not divisible by mesh size {p}")
-    rows = [blk.to(mesh.devices[d]) for d, blk in enumerate(ainv.split(n // p))]
-    return sharded_apply(mesh)(rows, b if b.device.type == "cuda" else b.to(mesh.device))
+    rows = [blk.to(mesh.devices[d]) if mesh.is_local(d) else None
+            for d, blk in enumerate(ainv.split(n // p))]
+    dest = mesh.devices[mesh.local_members()[0]]
+    return sharded_apply(mesh)(rows, b if b.device.type == "cuda" else b.to(dest))
 
 
 def serving_comm_elems(n: int, nrhs: int, p: int) -> int:

@@ -2604,3 +2604,124 @@ def test_ring_planes_on_several_cards_same_bits_as_one_card(several_cards, kind)
         got.append(pl.dense(pl.factor(pl.shard(pl.matrix()))).cpu())
     assert len(set(make_flat_mesh(d).devices)) == d
     assert torch.equal(got[0], got[1])
+
+
+def _cudart_register_log(monkeypatch):
+    """Every cudaHostRegister / cudaHostUnregister call (address, flags), passed on."""
+    real = torch.cuda.cudart()
+    log = {"register": [], "unregister": []}
+
+    class Logged:
+        def cudaHostRegister(self, ptr, nbytes, flags):
+            log["register"].append((ptr, flags))
+            return real.cudaHostRegister(ptr, nbytes, flags)
+
+        def cudaHostUnregister(self, ptr):
+            log["unregister"].append(ptr)
+            return real.cudaHostUnregister(ptr)
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+    monkeypatch.setattr(torch.cuda, "cudart", lambda: Logged())
+    return log
+
+
+@pytest.mark.parametrize("kind", ["flat", "panel"])
+def test_oocore_on_several_cards_same_bits_as_card_0(several_cards, tmp_path, monkeypatch, kind):
+    """potrf_outofcore on a 2×2 mesh spread over the cards against the same
+    mesh on card 0, fp64 N=4096: the same bits, under 1e-10, also after a
+    crash after panel 2 and a resume in a fresh store. On the panel store
+    every pool buffer is registered once (portable, for every card) and
+    unregistered once, and none stays out of the pool."""
+    from dla_tpu_torch.algos.oocore import potrf_outofcore
+    from dla_tpu_torch.parallel import make_mesh
+    from dla_tpu_torch.runtime.staging import DirectPanelStore, HostTileStore
+
+    if len(several_cards) < 4:
+        pytest.skip("needs four cards")
+    n, panel, nb = 4096, 512, 256
+    spread, one = make_mesh(2, 2), make_mesh(2, 2, device="cuda:0")
+    assert spread.cards == several_cards[:4]
+
+    def store(name):
+        if kind == "flat":
+            return HostTileStore(n, np.float64, path=str(tmp_path / name))
+        return DirectPanelStore(n, np.float64, path=str(tmp_path / name), panel=panel,
+                                ram_cache=True)
+
+    def lower(st):
+        return np.tril(st.array) if kind == "flat" else _factor_of(st)
+
+    def crash_after_two(j, npan):
+        if j == 1:
+            raise RuntimeError("crash")
+
+    got = {}
+    for name, mesh in (("spread", spread), ("one", one)):
+        log = _cudart_register_log(monkeypatch)
+        with store(f"{name}.bin") as st:
+            st.fill_plgsy(seed=51)
+            stats = potrf_outofcore(st, panel=panel, nb=nb, mesh=mesh)
+            got[name] = lower(st)
+            assert stats["panels"] == n // panel
+            if kind == "panel":
+                ptrs = [p for p, _ in log["register"]]
+                assert ptrs and len(set(ptrs)) == len(ptrs), "a pool buffer registered twice"
+                assert {f for _, f in log["register"]} == {1}  # cudaHostRegisterPortable
+                assert sorted(log["unregister"]) == sorted(ptrs) and not st._out
+        monkeypatch.undo()
+    assert np.array_equal(got["spread"], got["one"])
+    a = T.plgsy(n, seed=51, dtype=torch.float64, device="cpu")
+    assert float(T.residual_potrf(a, torch.from_numpy(got["spread"]))) < 1e-10
+    prog = str(tmp_path / "progress.json")
+    with store("resumed.bin") as st:
+        st.fill_plgsy(seed=51)
+        with pytest.raises(RuntimeError, match="crash"):
+            potrf_outofcore(st, panel=panel, nb=nb, mesh=spread, progress_path=prog,
+                            on_panel=crash_after_two)
+    with store("resumed.bin") as st:
+        stats = potrf_outofcore(st, panel=panel, nb=nb, mesh=spread, progress_path=prog)
+        assert stats["panels"] == n // panel - 2
+        assert np.array_equal(lower(st), got["one"])
+
+
+def test_serving_across_processes_over_nccl_on_several_cards(several_cards, tmp_path):
+    """solve_inverse_sharded across one process per card over NCCL, one
+    member each (``tests/torch_serving_child.py``, fp64 n=4096, nrhs=8):
+    every process returns X, the bits of one process on as many members."""
+    import os
+    import re
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = len(several_cards)
+    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(procs), "--members", "1",
+            "--n", "4096", "--nrhs", "8", "--dtype", "float64", "--device", "cuda",
+            "--backend", "nccl", "--timeout", "120", "--queries", "3", "--compare",
+            "--save", str(tmp_path)]
+    root = Path(__file__).resolve().parents[1]
+    children = [subprocess.Popen([sys.executable, str(root / "tests" / "torch_serving_child.py"),
+                                  "--pid", str(pid)] + argv, cwd=root, env=dict(os.environ),
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for pid in range(procs)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in children]
+    finally:
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in children] == [0] * procs, outs
+    assert re.search(r"^\[serve 0\] in one process on \d+ members: \S+ ms a query block; the "
+                     r"same bits: True$", outs[0], re.M), outs[0]
+    assert re.search(r" \(gate 1e-10\) PASS$", outs[0], re.M), outs[0]
+    xs = [np.load(tmp_path / f"x{pid}.npy") for pid in range(procs)]
+    assert all(np.array_equal(x, xs[0]) for x in xs)
+    for pid, out in enumerate(outs):
+        assert re.search(rf"^\[serve {pid}\] {procs} processes x 1 members on cuda:{pid}, backend "
+                         rf"nccl: .* boundary {procs} broadcasts", out, re.M), out

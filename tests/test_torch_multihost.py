@@ -16,6 +16,10 @@ assembled result (``--save``), which this process holds:
   (tests/test_torch_parallel.py);
 - and the 1e-10 gate line of process 0.
 
+The serving apply runs across processes too (2 processes × 2 members,
+``tests/torch_serving_child.py``, n=256, nrhs=3, fp64): every process's X
+must be the bits of the one-process mesh of 4 members here.
+
 Sizes are JAX's test sizes (block N=64, the others N=128, NB=8, 2×4), but
 packed df64 runs at N=64 (JAX's demo default): JAX's df64 plane compiles for
 about a minute at N=128. The super-stepped block plane runs at N=160, NB=2
@@ -90,6 +94,23 @@ def _start(planes, argv, nproc, save, timeout=COLLECTIVE_TIMEOUT, pids=None):
             for pid in (range(nproc) if pids is None else pids)]
 
 
+SERVING = {"nproc": 2, "members": 2, "n": 256, "nrhs": 3}
+
+
+def _start_serving(save, timeout=COLLECTIVE_TIMEOUT):
+    """The serving child as SERVING's processes, as :func:`_start` starts the demo's."""
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(SERVING["nproc"]),
+            "--members", str(SERVING["members"]), "--n", str(SERVING["n"]), "--nrhs",
+            str(SERVING["nrhs"]), "--dtype", "float64", "--device", "cpu", "--backend", "gloo",
+            "--timeout", str(timeout), "--queries", "2", "--compare", "--save", str(save)]
+    return [subprocess.Popen([sys.executable, str(REPO / "tests" / "torch_serving_child.py"),
+                              "--pid", str(pid)] + argv, cwd=REPO, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in range(SERVING["nproc"])]
+
+
 def _finish(procs, deadline):
     """(return codes, outputs); a child still running at the deadline is
     killed and counts as failed (None)."""
@@ -121,6 +142,8 @@ class _Runs:
         killed = _start("block", ["--n", "64", "--nb", "8"], 2, None, timeout=KILLED_TIMEOUT)
         killed[1].kill()
         self.started["killed"] = (killed, None)
+        save = tmp_path_factory.mktemp("mh_serving")
+        self.started["serving"] = (_start_serving(save), save)
         self.deadline = time.monotonic() + RUN_TIMEOUT
 
     def __getitem__(self, name):
@@ -366,12 +389,46 @@ def test_shards_are_checked_on_this_process_only():
 
 
 def test_planes_without_a_multi_process_form_refuse_a_spanning_mesh():
+    """Out of core has no multi-process form (nor in the JAX package)."""
     from dla_tpu_torch.algos.oocore import potrf_outofcore
 
     with pytest.raises(NotImplementedError, match="across processes"):
-        TP.sharded_apply(_spanning("flat", 0))
-    with pytest.raises(NotImplementedError, match="across processes"):
         potrf_outofcore(None, panel=8, nb=8, mesh=_spanning("block", 0))
+
+
+# ---- the serving apply across processes ---------------------------------------------------
+
+def _serving_one_process():
+    """X on the one-process CPU mesh of all SERVING's members."""
+    from dla_tpu_torch.algos import potrf_blocked, potri
+
+    n = SERVING["n"]
+    a = plgsy(n, seed=51, dtype=torch.float64, device="cpu")
+    b = np.random.default_rng(5).standard_normal((n, SERVING["nrhs"]))
+    mesh = TP.make_serving_mesh(SERVING["nproc"] * SERVING["members"], device="cpu")
+    return TP.solve_inverse_sharded(potri(potrf_blocked(a, nb=min(512, n))), b, mesh).numpy()
+
+
+def test_serving_across_processes_gives_every_process_the_one_process_bits(runs):
+    """Each process computes its 2 members' slabs and receives the other
+    process's by one broadcast a member: every process holds X, with the bits
+    of one process on 4 members; process 0's residual passes 1e-10."""
+    want = _serving_one_process()
+    rcs, outs, save = runs["serving"]
+    assert rcs == [0, 0], outs
+    for pid, out in enumerate(outs):
+        np.testing.assert_array_equal(np.load(save / f"x{pid}.npy"), want)
+        line = re.search(rf"^\[serve {pid}\] 2 processes x 2 members on cpu, backend gloo: n=256 "
+                         r"nrhs=3 float64: \S+ ms a query block over 2; boundary (\d+) "
+                         r"broadcasts, (\S+) MB", out, re.M)
+        assert line, out
+        # one broadcast of each member's (n/4, nrhs) fp64 slab a query block
+        assert int(line.group(1)) == 4 and float(line.group(2)) == pytest.approx(
+            256 * 3 * 8 / 1e6, abs=5e-4)
+    assert re.search(r"^\[serve 0\] \|\|B - AX\|\| / \(\|\|A\|\| \|\|X\|\|\) = (\S+) "
+                     r"\(gate 1e-10\) PASS$", outs[0], re.M), outs[0]
+    assert "in one process on 4 members" in outs[0] and outs[0].rstrip().endswith(
+        "the same bits: True")
 
 
 def test_multihost_names_stay_out_of_parallel():

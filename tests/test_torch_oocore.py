@@ -21,7 +21,11 @@ Tolerances:
   in both packages, and x within 1e-9 of JAX's;
 - the distributed path (``mesh=``, each panel split by rows over the
   members) against JAX's on the 8 virtual CPU devices of tests/conftest.py,
-  and against the port's path without a mesh: the device path's tolerances.
+  and against the port's path without a mesh: the device path's tolerances;
+- members on several cards (pretended here: the tensors stay on the CPU,
+  ``member_comm.copy_to`` logs each block it is asked to move): the panel
+  steps give the bits of the same mesh on one card, and each block crosses
+  to exactly the cards whose members read it, once.
 
 The Freivalds gates this path uses (``freivalds_streaming`` and
 ``HostTileStore.freivalds_residual``) must rise with a known relative
@@ -48,6 +52,7 @@ from dla_tpu_torch.cli import oocore_driver, potrf_driver
 from dla_tpu_torch.ops import plgsy
 from dla_tpu_torch.parallel import make_flat_mesh, make_mesh
 from dla_tpu_torch.runtime import staging as TS
+from test_torch_block_cyclic import _pretend_cards, _routes, _spread
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = {np.float64: 1e-12, np.float32: 2e-5}
@@ -195,6 +200,162 @@ class TestMesh:
                 T.potrf_outofcore(st, panel=32, nb=16, mesh=mesh, device="meta")
 
 
+def _steps(a, panel, nb, devices):
+    """The device loop's panel steps (``_update`` against every earlier panel,
+    then ``_factor_panel``) on the dense matrix ``a``, each panel split by rows
+    over the members on ``devices``; tril(L)."""
+    n, members = a.shape[0], len(devices)
+    l = a.clone()
+    for j0 in range(0, n, panel):
+        h = (n - j0) // members
+        slabs = list(l[j0:, j0 : j0 + panel].clone().split(h))
+        for k0 in range(0, j0, panel):
+            slabs = T._update(slabs, list(l[j0:, k0 : k0 + panel].clone().split(h)), panel,
+                              devices)
+        T._factor_panel(slabs, nb, devices)
+        l[j0:, j0 : j0 + panel] = torch.cat(slabs)
+    return torch.tril(l)
+
+
+def _seeded(n, dtype):
+    with TS.HostTileStore(n, dtype) as st:
+        st.fill_plgsy(seed=51)
+        return torch.from_numpy(st.array.copy())
+
+
+def _origin(block, base):
+    """(row, column) of ``block`` within ``base`` where it is a view of it, else None."""
+    if block.untyped_storage().data_ptr() != base.untyped_storage().data_ptr():
+        return None
+    return divmod(block.storage_offset() - base.storage_offset(), base.stride(0))
+
+
+class TestAcrossCards:
+    """Members on several cards (ROADMAP A9d), on pretended cards: mesh
+    (p, q) over p·q/per_card cards, member m on card m // per_card."""
+
+    BITS = [(2, 2, 1, 32), (2, 2, 2, 32), (2, 4, 1, 48), (2, 4, 2, 48), (4, 2, 1, 32),
+            (4, 2, 2, 48)]  # (p, q, members per card, nb); nb=48: diagonal blocks span members
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("p,q,per_card,nb", BITS)
+    def test_factor_same_bits_as_one_card(self, monkeypatch, dtype, p, q, per_card, nb):
+        """The whole factorization's panel steps on the spread mesh give the
+        bits of the same mesh on one card, which are the bits of
+        ``potrf_outofcore`` on that mesh (the stager stays out: it needs
+        cards)."""
+        n, panel = 256, 64
+        a = _seeded(n, dtype)
+        one = make_mesh(p, q, device="cpu")
+        want = _steps(a, panel, nb, one.devices)
+        with TS.HostTileStore(n, dtype) as st:
+            st.array[:] = a.numpy()
+            T.potrf_outofcore(st, panel=panel, nb=nb, mesh=one)
+            np.testing.assert_array_equal(np.tril(st.array), want.numpy())
+        mesh, log = _spread(monkeypatch, p, q, per_card)
+        assert len(mesh.cards) == p * q // per_card
+        assert torch.equal(_steps(a, panel, nb, mesh.devices), want)
+        assert log  # blocks did cross between the cards
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_spread_factor_within_the_tolerance_of_jax(self, monkeypatch, dtype):
+        """The 2×4 mesh with two members a card and diagonal blocks spanning
+        members, against JAX's mesh path on the 8 CPU devices."""
+        n, panel, nb = 256, 64, 48
+        a, b = _stores("flat", n, dtype, None, panel)
+        with a, b:
+            J.potrf_outofcore(a, panel=panel, nb=nb, mesh=JPAR.make_mesh(2, 4))
+            ref = _lower(a).astype(np.float64)
+            mesh, _ = _spread(monkeypatch, 2, 4, 2)
+            got = _steps(torch.from_numpy(b.array.copy()), panel, nb, mesh.devices).numpy()
+        assert got.dtype == dtype and _rel(got, ref) <= TOL[dtype]
+
+    @pytest.mark.parametrize("p,q,per_card,height", [(2, 2, 1, 256), (2, 4, 2, 64),
+                                                     (4, 2, 1, 64)])
+    def test_update_sends_the_top_rows_once_to_each_other_card(self, monkeypatch, p, q,
+                                                               per_card, height):
+        """One update: Lk[:w]'s pieces (each member's rows of it) reach each
+        card but their holder's, once; every member's product runs."""
+        w = 64
+        lk = torch.from_numpy(np.random.default_rng(1).standard_normal((height, w)))
+        pj = torch.from_numpy(np.random.default_rng(2).standard_normal((height, w)))
+        h = height // (p * q)
+        want = torch.cat(T._update(list(pj.split(h)), list(lk.split(h)), w,
+                                   make_mesh(p, q, device="cpu").devices))
+        mesh, log = _spread(monkeypatch, p, q, per_card)
+        got = torch.cat(T._update(list(pj.split(h)), list(lk.split(h)), w, mesh.devices))
+        assert torch.equal(got, want)
+        card = mesh.device_of
+        sent = set()
+        for block, dests in _routes(log):
+            row, col = _origin(block, lk)
+            assert col == 0 and row < w and block.shape == (min(h, w - row), w)
+            sent |= {(row // h, d) for d in dests}
+        assert sent == {(m, c) for m in range(-(-w // h)) for c in mesh.cards if c != card(m)}
+        assert len(log) == len(sent)
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("p,q,per_card,nb,height", [(2, 2, 1, 32, 256), (2, 4, 2, 48, 64),
+                                                        (4, 2, 1, 48, 64), (2, 4, 1, 32, 256)])
+    def test_factor_sends_each_block_once_to_its_readers(self, monkeypatch, dtype, p, q,
+                                                         per_card, nb, height):
+        """One panel factor: each diagonal block's rows reach the card that
+        factors it (its first row's member's); its factor reaches each other
+        card holding its rows, and (fp64) rows below it; its inverse (fp32)
+        each other card holding rows below; the solved rows the in-panel
+        update reads each card holding rows below but their holder's; each
+        once. Who reads what is derived from the rows each member holds."""
+        w = 64
+        base = _seeded(height, dtype)[:, :w].contiguous()
+        h = height // (p * q)
+        ref = base.clone()
+        T._factor_panel(list(ref.split(h)), nb, make_mesh(p, q, device="cpu").devices)
+        mesh, log = _spread(monkeypatch, p, q, per_card)
+        panel = base.clone()
+        T._factor_panel(list(panel.split(h)), nb, mesh.devices)
+        assert torch.equal(panel, ref)
+        card, fp64 = mesh.device_of, dtype == np.float64
+
+        def holders(r0, r1):
+            return [m for m in range(p * q) if m * h < r1 and (m + 1) * h > r0]
+
+        want = set()
+        for off in range(0, w, nb):
+            bw, src = min(nb, w - off), card(off // h)
+            diag, below = holders(off, off + bw), holders(off + bw, height)
+            want |= {(("rows", off, m), src) for m in diag if card(m) != src}
+            want |= {(("lkk", off), c) for c in {card(m) for m in diag + below * fp64}} - {
+                (("lkk", off), src)}
+            if not fp64:
+                want |= {(("inv", off), c) for c in {card(m) for m in below}} - {
+                    (("inv", off), src)}
+            if off + bw < w:
+                want |= {(("solved", off, m), c) for m in holders(off + bw, w)
+                         for c in {card(x) for x in below} if c != card(m)}
+            if not below:
+                break
+        lkks = {o: torch.tril(ref[o : o + min(nb, w - o), o : o + min(nb, w - o)])
+                for o in range(0, w, nb)}
+
+        def named(block):
+            where = _origin(block, panel)
+            if where is not None:  # a piece of a member's rows
+                row, off = where
+                return ("rows" if row < off + min(nb, w - off) else "solved", off, row // h)
+            for off, lkk in lkks.items():
+                if block.shape == lkk.shape:
+                    if torch.equal(block, lkk):
+                        return ("lkk", off)
+                    if torch.allclose(block @ lkk, torch.eye(len(lkk), dtype=lkk.dtype),
+                                      atol=1e-4):
+                        return ("inv", off)
+            raise AssertionError(f"an unknown block of shape {tuple(block.shape)} crossed")
+
+        got = {(named(block), d) for block, dests in _routes(log) for d in dests}
+        assert got == want
+        assert len(log) == len(want)
+
+
 class TestHostPath:
     @pytest.mark.parametrize("dtype", DTYPES)
     @pytest.mark.parametrize("kind,n,panel,nb,prefetch", [
@@ -314,21 +475,27 @@ class TestRejections:
                 T.potrf_outofcore(st, panel=32, nb=16, host_blas=True, mesh=object())
 
     def test_mesh_names_a9(self, monkeypatch):
-        """A mesh on one device runs (``TestMesh``); one whose members span
-        several cards (constructed here without allocating on them) is what
-        still raises, naming ROADMAP A9d: the panel is not quietly put on
-        card 0."""
+        """A mesh whose members span several cards (constructed here without
+        allocating on them) gets past the refusal it met until ROADMAP A9d:
+        without a card it stops at the missing card, and with ``device=`` it
+        raises instead of quietly putting the panel on one card. A mesh
+        across processes still raises, citing the JAX package's own limit."""
         from dla_tpu_torch.parallel import MemberMesh, member_comm
 
         monkeypatch.setattr(member_comm, "_peer_access", lambda a, b: True)
         spread = MemberMesh((torch.device("cuda", 0), torch.device("cuda", 1)), (1, 2))
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with TS.HostTileStore(64, np.float64) as st:
-            with pytest.raises(NotImplementedError, match="ROADMAP A9d"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
                 T.potrf_outofcore(st, panel=32, nb=16, mesh=spread)
+            with pytest.raises(ValueError, match="several cards"):
+                T.potrf_outofcore(st, panel=32, nb=16, mesh=spread, device="cuda:0")
+        across = MemberMesh((torch.device("cpu"),) * 4, (2, 2), processes=2, process=0)
         with TS.HostTileStore(64, np.float64) as st:
-            st.fill_plgsy(seed=51)
-            T.potrf_outofcore(st, panel=32, nb=16, mesh=make_mesh(2, 2, device="cpu"))
-            assert np.isfinite(np.tril(st.array)).all()
+            with pytest.raises(NotImplementedError,
+                               match=r"JAX package cannot run it either .*"
+                                     r"dla_tpu/algos/oocore\.py:499-508"):
+                T.potrf_outofcore(st, panel=32, nb=16, mesh=across)
 
     def test_bucket_needs_a_panel_store(self):
         with TS.HostTileStore(64, np.float64) as st:
@@ -536,6 +703,38 @@ class TestDriver:
         assert "[oocore] distributed: panels sharded over a 2x2 mesh" in cap.out
         assert "PASS (gate 1e-10)" in cap.out and "A9" not in cap.out + cap.err
 
+    @pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+    def test_mesh_over_the_cards_or_on_one(self, capsys, monkeypatch, device):
+        """With 4 cards, ``--p 2 --q 2 --device cuda`` builds the mesh over
+        them, one member a card, as the JAX driver's mesh spans
+        ``jax.devices()``; ``--device cuda:0`` keeps every member on card 0.
+        The factorization is patched to record the mesh it is given (nothing
+        lies on a card here)."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "card")
+        monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+        _pretend_cards(monkeypatch, 4)
+        seen = []
+
+        class Reached(Exception):
+            pass
+
+        def factor(store, **kw):
+            seen.append(kw)
+            raise Reached
+
+        monkeypatch.setattr(T, "potrf_outofcore", factor)
+        with pytest.raises(Reached):
+            oocore_driver.main(["--n", "256", "--panel", "64", "--nb", "32", "--p", "2", "--q",
+                                "2", "--device", device])
+        (kw,) = seen
+        cards = [torch.device("cuda", i) for i in range(4)] if device == "cuda" else [
+            torch.device("cuda", 0)]
+        assert kw["device"] is None and kw["mesh"].shape == (2, 2)
+        assert list(kw["mesh"].devices) == (cards if device == "cuda" else cards * 4)
+        assert (f"[oocore] distributed: panels sharded over a 2x2 mesh on "
+                f"{','.join(map(str, cards))}") in capsys.readouterr().out
+
     def test_host_blas_excludes_a_mesh(self, capsys):
         with pytest.raises(SystemExit) as e:
             oocore_driver.main(["--n", "256", "--panel", "64", "--host-blas", "--p", "2"])
@@ -546,7 +745,8 @@ class TestDriver:
         rc, cap = _drive(capsys, "--n", 256, "--panel", 64)
         assert rc == 2 and "no CUDA device" in cap.err
 
-    @pytest.mark.parametrize("argv", [["--host-blas", "--bucket", "64"], ["--store", "panel"]])
+    @pytest.mark.parametrize("argv", [["--host-blas", "--bucket", "64"], ["--store", "panel"],
+                                      ["--device", "cuda:x"], ["--device", "cpu:0"]])
     def test_usage_errors_exit_2(self, capsys, argv):
         with pytest.raises(SystemExit) as e:
             oocore_driver.main(["--n", "256", "--panel", "64", "--device", "cpu", *argv])
