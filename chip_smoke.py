@@ -2790,24 +2790,32 @@ def phase_tools(dev, tag):
 
 
 # ---- 38. the distributed planes across a process boundary ---------------------------------
-def free_port() -> int:
-    import socket
+def run_processes(prefix: str, what: str, argv: list, procs: int) -> list[str]:
+    """``procs`` processes of ``python argv --coordinator <store> --pid i``,
+    started together from the repository's root; each one's output, printed
+    with ``prefix`` and its index. Fails unless every process exits 0 within
+    MH_TIMEOUT seconds.
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    The run's rendezvous store is held here, on a port the kernel picks,
+    until every child has exited, and ``TORCHELASTIC_USE_AGENT_STORE=True``
+    makes every rank its client, rank 0 too: the port is never free between
+    being chosen and being used, as it would be if chosen by binding port 0
+    and closing the socket."""
+    import datetime
 
+    import torch.distributed as dist
 
-def run_processes(prefix: str, what: str, cmds: list) -> list[str]:
-    """One process per command, started together from the repository's root;
-    each one's output, printed with ``prefix`` and its index. Fails unless
-    every process exits 0 within MH_TIMEOUT seconds."""
     root = os.path.dirname(os.path.abspath(__file__))
-    procs = [subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for cmd in cmds]
+    store = dist.TCPStore("127.0.0.1", 0, procs, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=MH_TIMEOUT))
+    env = dict(os.environ, TORCHELASTIC_USE_AGENT_STORE="True")
+    children = [subprocess.Popen([sys.executable, *argv, "--coordinator",
+                                  f"127.0.0.1:{store.port}", "--pid", str(pid)], cwd=root,
+                                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for pid in range(procs)]
     deadline, outs, rcs = time.monotonic() + MH_TIMEOUT, [], []
     try:
-        for p in procs:
+        for p in children:
             try:
                 outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
                 rcs.append(p.returncode)
@@ -2815,15 +2823,16 @@ def run_processes(prefix: str, what: str, cmds: list) -> list[str]:
                 rcs.append(None)
                 outs.append("")
     finally:
-        for p in procs:
+        for p in children:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+        del store  # every child has exited: stop the store's server
     for pid, out in enumerate(outs):
         for line in out.splitlines():
             if "socket.cpp" not in line:  # c10d's warnings about the client's host name
                 print(f"{prefix}{pid}| {line}")
-    require(rcs == [0] * len(cmds), f"{what} processes exited {rcs} (None: killed at the "
+    require(rcs == [0] * procs, f"{what} processes exited {rcs} (None: killed at the "
             f"{MH_TIMEOUT} s timeout)")
     return outs
 
@@ -2834,13 +2843,11 @@ def mh_run(tag, planes: str, n: int, nb: int, procs: int = MH_PROCS, members: in
     all on this card; nccl: a card each), each plane compared with one
     process on process 0; each process's output, printed with its process
     index. Fails unless every process exits 0 within MH_TIMEOUT seconds."""
-    argv = ["--coordinator", f"127.0.0.1:{free_port()}", "--nproc", str(procs),
-            "--local-devices", str(members), "--n", str(n), "--nb", str(nb), "--p", str(grid[0]),
-            "--q", str(grid[1]), "--plane", planes, "--device", "cuda", "--backend", backend,
+    argv = ["-m", "dla_tpu_torch.parallel.multihost", "--nproc", str(procs), "--local-devices",
+            str(members), "--n", str(n), "--nb", str(nb), "--p", str(grid[0]), "--q",
+            str(grid[1]), "--plane", planes, "--device", "cuda", "--backend", backend,
             "--timeout", str(MH_TIMEOUT), "--compare"]
-    outs = run_processes("mh", "multihost", [
-        [sys.executable, "-m", "dla_tpu_torch.parallel.multihost", "--pid", str(pid)] + argv
-        for pid in range(procs)])
+    outs = run_processes("mh", "multihost", argv, procs)
     print(f"multihost numbers above: {tag}", flush=True)
     return outs
 
@@ -2910,12 +2917,11 @@ def serving_run(tag, procs: int, members: int, n: int, backend: str) -> None:
     child = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                          "torch_serving_child.py")
     with tempfile.TemporaryDirectory(prefix="dla_serve_") as save:
-        argv = ["--coordinator", f"127.0.0.1:{free_port()}", "--nproc", str(procs), "--members",
-                str(members), "--n", str(n), "--nrhs", str(SERVE_NRHS), "--dtype", "float32",
-                "--device", "cuda", "--backend", backend, "--timeout", str(MH_TIMEOUT),
-                "--queries", str(SERVE_QUERIES), "--compare", "--save", save]
-        outs = run_processes("serve", "serving", [
-            [sys.executable, child, "--pid", str(pid)] + argv for pid in range(procs)])
+        argv = [child, "--nproc", str(procs), "--members", str(members), "--n", str(n), "--nrhs",
+                str(SERVE_NRHS), "--dtype", "float32", "--device", "cuda", "--backend", backend,
+                "--timeout", str(MH_TIMEOUT), "--queries", str(SERVE_QUERIES), "--compare",
+                "--save", save]
+        outs = run_processes("serve", "serving", argv, procs)
         xs = [np.load(os.path.join(save, f"x{pid}.npy")) for pid in range(procs)]
     ranks = []
     for pid, out in enumerate(outs):

@@ -2428,29 +2428,22 @@ def test_multihost_planes_across_two_processes_on_card(cuda, tmp_path):
     """The demo's five planes as 2 processes × 4 members sharing the card over
     gloo: every gate passes, each result equals the one-process plane's bits,
     and each process launches #11 2·nt − 1 times on each ring plane."""
-    import os
     import re
-    import socket
-    import subprocess
-    import sys
     from pathlib import Path
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", "2", "--n", "256", "--nb", "16",
-            "--plane", "block,potrs,column,packed,packed-df64", "--device", "cuda",
+    from torch_rendezvous import HeldRendezvous
+
+    argv = ["-m", "dla_tpu_torch.parallel.multihost", "--nproc", "2", "--n", "256", "--nb",
+            "16", "--plane", "block,potrs,column,packed,packed-df64", "--device", "cuda",
             "--backend", "gloo", "--timeout", "120", "--compare"]
-    procs = [subprocess.Popen([sys.executable, "-m", "dla_tpu_torch.parallel.multihost",
-                               "--pid", str(pid)] + argv, cwd=Path(__file__).resolve().parents[1],
-                              env=dict(os.environ), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
-    try:
-        outs = [p.communicate(timeout=300)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    with HeldRendezvous(2) as rdv:
+        procs = rdv.start(argv, (0, 1), cwd=Path(__file__).resolve().parents[1])
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
     assert [p.returncode for p in procs] == [0, 0], outs
     assert len(re.findall(r" = \S+ PASS$", outs[0], re.M)) == 5, outs[0]
     assert len(re.findall(r"the same bits: True$", outs[0], re.M)) == 5, outs[0]
@@ -2690,32 +2683,25 @@ def test_serving_across_processes_over_nccl_on_several_cards(several_cards, tmp_
     """solve_inverse_sharded across one process per card over NCCL, one
     member each (``tests/torch_serving_child.py``, fp64 n=4096, nrhs=8):
     every process returns X, the bits of one process on as many members."""
-    import os
     import re
-    import socket
-    import subprocess
-    import sys
     from pathlib import Path
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    from torch_rendezvous import HeldRendezvous
+
     procs = len(several_cards)
-    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(procs), "--members", "1",
-            "--n", "4096", "--nrhs", "8", "--dtype", "float64", "--device", "cuda",
+    root = Path(__file__).resolve().parents[1]
+    argv = [str(root / "tests" / "torch_serving_child.py"), "--nproc", str(procs), "--members",
+            "1", "--n", "4096", "--nrhs", "8", "--dtype", "float64", "--device", "cuda",
             "--backend", "nccl", "--timeout", "120", "--queries", "3", "--compare",
             "--save", str(tmp_path)]
-    root = Path(__file__).resolve().parents[1]
-    children = [subprocess.Popen([sys.executable, str(root / "tests" / "torch_serving_child.py"),
-                                  "--pid", str(pid)] + argv, cwd=root, env=dict(os.environ),
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for pid in range(procs)]
-    try:
-        outs = [p.communicate(timeout=300)[0] for p in children]
-    finally:
-        for p in children:
-            if p.poll() is None:
-                p.kill()
+    with HeldRendezvous(procs) as rdv:
+        children = rdv.start(argv, range(procs), cwd=root)
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in children]
+        finally:
+            for p in children:
+                if p.poll() is None:
+                    p.kill()
     assert [p.returncode for p in children] == [0] * procs, outs
     assert re.search(r"^\[serve 0\] in one process on \d+ members: \S+ ms a query block; the "
                      r"same bits: True$", outs[0], re.M), outs[0]

@@ -5,7 +5,8 @@ members over gloo on the CPU, as tests/test_multihost.py runs JAX's with
 
 Every child process starts with ``python -m dla_tpu_torch.parallel.multihost``
 and imports only the port. The children of one run start together, each run
-on a free port with a timeout of its own; process 0 saves each plane's
+with a timeout of its own and its rendezvous held by this process until they
+exit (``tests/torch_rendezvous.py``); process 0 saves each plane's
 assembled result (``--save``), which this process holds:
 - bit for bit to the same plane in one process on an 8-member CPU mesh here
   (and a run of one process, whose world of one takes that path);
@@ -30,9 +31,7 @@ minute to compile at 80 steps.
 
 import os
 import re
-import socket
 import subprocess
-import sys
 import time
 from pathlib import Path
 
@@ -49,6 +48,7 @@ from dla_tpu_torch.ops import plgsy
 from dla_tpu_torch.ops.df64 import to_df64
 from dla_tpu_torch.parallel import block_cyclic, member_comm, multihost
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+from torch_rendezvous import HeldRendezvous
 
 REPO = Path(__file__).resolve().parents[1]
 RUN_TIMEOUT = 240  # seconds a run's children may take in all
@@ -75,23 +75,16 @@ CASES = {
 }
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _start(planes, argv, nproc, save, timeout=COLLECTIVE_TIMEOUT, pids=None):
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    common = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(nproc), "--p", "2",
-              "--q", "4", "--plane", planes, "--device", "cpu", "--backend", "gloo",
-              "--timeout", str(timeout), "--compare"] + (["--save", str(save)] if save else [])
-    return [subprocess.Popen([sys.executable, "-m", "dla_tpu_torch.parallel.multihost",
-                              "--pid", str(pid)] + common + argv,
-                             cwd=REPO, env=env, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-            for pid in (range(nproc) if pids is None else pids)]
+    """The demo's children of one run on a rendezvous of their own, held here
+    until they exit: (the rendezvous, the children)."""
+    rdv = HeldRendezvous(nproc)
+    common = ["--nproc", str(nproc), "--p", "2", "--q", "4", "--plane", planes, "--device",
+              "cpu", "--backend", "gloo", "--timeout", str(timeout), "--compare"]
+    common += ["--save", str(save)] if save else []
+    return rdv, rdv.start(["-m", "dla_tpu_torch.parallel.multihost"] + common + argv,
+                          range(nproc) if pids is None else pids, cwd=REPO,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 SERVING = {"nproc": 2, "members": 2, "n": 256, "nrhs": 3}
@@ -99,16 +92,14 @@ SERVING = {"nproc": 2, "members": 2, "n": 256, "nrhs": 3}
 
 def _start_serving(save, timeout=COLLECTIVE_TIMEOUT):
     """The serving child as SERVING's processes, as :func:`_start` starts the demo's."""
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    argv = ["--coordinator", f"127.0.0.1:{port}", "--nproc", str(SERVING["nproc"]),
-            "--members", str(SERVING["members"]), "--n", str(SERVING["n"]), "--nrhs",
-            str(SERVING["nrhs"]), "--dtype", "float64", "--device", "cpu", "--backend", "gloo",
-            "--timeout", str(timeout), "--queries", "2", "--compare", "--save", str(save)]
-    return [subprocess.Popen([sys.executable, str(REPO / "tests" / "torch_serving_child.py"),
-                              "--pid", str(pid)] + argv, cwd=REPO, env=env,
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for pid in range(SERVING["nproc"])]
+    rdv = HeldRendezvous(SERVING["nproc"])
+    argv = ["--nproc", str(SERVING["nproc"]), "--members", str(SERVING["members"]), "--n",
+            str(SERVING["n"]), "--nrhs", str(SERVING["nrhs"]), "--dtype", "float64", "--device",
+            "cpu", "--backend", "gloo", "--timeout", str(timeout), "--queries", "2", "--compare",
+            "--save", str(save)]
+    return rdv, rdv.start([str(REPO / "tests" / "torch_serving_child.py")] + argv,
+                          range(SERVING["nproc"]), cwd=REPO,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 def _finish(procs, deadline):
@@ -128,28 +119,30 @@ def _finish(procs, deadline):
 
 
 class _Runs:
-    """Every run's children, started together; ``runs[name]`` waits for that
-    run's children (rcs, outputs, save dir), so JAX's planes compile here
-    while the children run."""
+    """Every run's children, started together, each run on a rendezvous held
+    here; ``runs[name]`` waits for that run's children (rcs, outputs, save
+    dir) and then closes its rendezvous, so JAX's planes compile here while
+    the children run."""
 
     def __init__(self, tmp_path_factory):
         self.started, self.done = {}, {}
         for name, (planes, argv, nproc) in RUNS.items():
             save = tmp_path_factory.mktemp(f"mh_{name}")
-            self.started[name] = (_start(planes, argv, nproc, save), save)
+            self.started[name] = (*_start(planes, argv, nproc, save), save)
         # rank 1 killed before it can join: rank 0 must give up at its 5 s timeout
         self.t_killed = time.monotonic()
-        killed = _start("block", ["--n", "64", "--nb", "8"], 2, None, timeout=KILLED_TIMEOUT)
+        rdv, killed = _start("block", ["--n", "64", "--nb", "8"], 2, None, timeout=KILLED_TIMEOUT)
         killed[1].kill()
-        self.started["killed"] = (killed, None)
+        self.started["killed"] = (rdv, killed, None)
         save = tmp_path_factory.mktemp("mh_serving")
-        self.started["serving"] = (_start_serving(save), save)
+        self.started["serving"] = (*_start_serving(save), save)
         self.deadline = time.monotonic() + RUN_TIMEOUT
 
     def __getitem__(self, name):
         if name not in self.done:
-            procs, save = self.started[name]
+            rdv, procs, save = self.started[name]
             self.done[name] = (*_finish(procs, self.deadline), save)
+            rdv.close()
         return self.done[name]
 
     def close(self):
@@ -303,10 +296,12 @@ def test_a_world_of_one_takes_the_one_process_path(runs):
 
 def test_a_killed_rank_fails_the_run_within_its_timeout(runs):
     """Rank 1 is killed before it joins: rank 0 gives up at the rendezvous
-    timeout with an error, and nothing hangs."""
+    timeout with an error, and nothing hangs. The held store is up, so rank 0
+    waits in gloo's rendezvous for rank 1's key in that store, whose wait
+    times out after the 5 s given."""
     rcs, outs, _ = runs["killed"]
     assert rcs[0] not in (0, None), outs[0]
-    assert "Timed out" in outs[0] and "PASS" not in outs[0]
+    assert "wait timeout after 5000ms, keys: /default_pg/" in outs[0] and "PASS" not in outs[0]
     assert time.monotonic() - runs.t_killed < RUN_TIMEOUT
 
 
