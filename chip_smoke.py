@@ -2125,9 +2125,11 @@ def ring_case(dev, tag, kind, m, n, ndev, iters, **kw):
     q = row["queued"]
     label = f"group={group}" + (f" root={root}" if kind == "broadcast" else "")
     chunks = C.broadcast_chunks(m, group) if kind == "broadcast" else 1
-    plan = C.ring_plan(gather=kind != "broadcast", ndev=ndev, group=group, chunks=chunks,
-                       block_bytes=m * n * 8,
-                       sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    gather = kind != "broadcast"
+    per_card = sum(C.member_roles(d, gather=gather, group=group,
+                                  root=0 if gather else root % group)[0] for d in range(ndev))
+    plan = C.ring_plan(gather=gather, group=group, block_bytes=m * n * 8, per_card=per_card,
+                       sms=torch.cuda.get_device_properties(dev).multi_processor_count, **C.CUT)
     print(f"ring_{kind} D={ndev} {m}x{n} fp64 {label} chunks={chunks} {plan}: bits of the "
           f"plain version, back to back: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
           f"ms, library {row['library_ms']:.4f} ms; queued: kernel {q['ms']:.4f} ms, plain "
@@ -3018,11 +3020,10 @@ def ring_cards_bound(gather: bool, member_card, group: int, root: int, block_byt
     from dla_tpu_torch.kernels import collectives as C
 
     ndev = len(member_card)
-    per_ring = group if gather or group == 1 else group - 1
     sent, local = {}, {}
-    for w in range(ndev // group * per_ring):
-        d = C.sender_member(w, gather=gather, group=group, root=root, per_ring=per_ring)
-        if member_card[C.right_of(d, group)] != member_card[d]:
+    for d in range(ndev):
+        if (C.member_roles(d, gather=gather, group=group, root=root)[0]
+                and member_card[C.right_of(d, group)] != member_card[d]):
             sent[member_card[d]] = sent.get(member_card[d], 0) + (
                 (group - 1) * block_bytes if gather else block_bytes)
     for d in range(ndev):

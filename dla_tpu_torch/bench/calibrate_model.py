@@ -47,12 +47,15 @@ Parts (``--only``, comma-separated; each fits one call of about 20 minutes):
 - ``nvlink`` (two or more cards, built for four): #11 ``ring_broadcast``
   across D cards, one fp64 member each, at V = m·1024·8 bytes for m ∈
   ``NVLINK_ROWS``, with the caller's chunk count C = ``broadcast_chunks(m,
-  D)``, at each cut of ``NVLINK_CUTS`` (blocks per SM, least bytes a block
-  copies between flags), the mean of back-to-back calls between two waits
+  D)`` (the plain version's; the kernel pipelines its own segments), at each
+  cut of ``NVLINK_CUTS`` (blocks per SM, least bytes a block copies between
+  flags: ``collectives.ring_plan``), the mean of back-to-back
+  calls between two waits
   for every card and the cards' time (calls queued behind a sleeping kernel
   on every card, the longest card's CUDA-event span); per cut, over the
   cards' times, ``(C + D − 2)·(V/(C·bw) + lat)`` fitted by least
-  squares (linear in 1/bw and lat) over the sizes; the fastest cut's fit →
+  squares (linear in 1/bw and lat) over the sizes; the fastest cut (the
+  least sum of the cards' times) → ``collectives.NVLINK_CUT``, its fit →
   ``link_efficiency`` (bw over the spec's 450 GB/s) and ``latency_us``. Then
   the block plane's per-step broadcast (the strips of a step delivered to
   the cards that read them, ``potrf_dist._stacked``) on 2×2 over the cards
@@ -117,7 +120,7 @@ ITERS = 3  # timed factorizations a curve point, after one warm-up
 # nvlink: the broadcast's rows (× 1024 fp64 columns), the cuts tried (blocks per SM, least bytes a
 # block copies between two flags), the calls timed a point; the block plane's step layout
 NVLINK_ROWS, NVLINK_N = (128, 512, 1024, 4096, 15360), 1024
-NVLINK_CUTS = ((2, 32 * 1024), (2, 128 * 1024), (1, 128 * 1024), (2, 512 * 1024), (4, 64 * 1024))
+NVLINK_CUTS = ((1, 8 * 1024), (1, 16 * 1024), (1, 32 * 1024), (1, 64 * 1024), (2, 16 * 1024))
 NVLINK_ITERS = 20
 NVLINK_STEP = (49152, 2048, 2, 2)  # n, nb, p, q: the driver's 2x2 run of chip_smoke.py phase 41
 
@@ -586,6 +589,7 @@ def part_nvlink(card: str) -> dict:
     spec = model.CHIPS["h100"]
     fits = {}
     for bps, seg in NVLINK_CUTS:
+        cut = {"blocks_per_sm": bps, "min_segment": seg}
         points = []
         for m in NVLINK_ROWS:
             xs = [torch.randn(m, NVLINK_N, device=c, dtype=torch.float64) for c in cards]
@@ -593,14 +597,13 @@ def part_nvlink(card: str) -> dict:
             chunks = C.broadcast_chunks(m, d)
 
             def launch():
-                C._launch("ring_broadcast", xs, outs, gather=False, group=d, root=0,
-                          chunks=chunks, cut={"blocks_per_sm": bps, "min_segment": seg})
+                C._launch("ring_broadcast", xs, outs, gather=False, group=d, root=0, cut=cut)
             ms = _cards_ms(launch, cards, NVLINK_ITERS)
             card_ms = _queued_cards_ms(launch, cards, NVLINK_ITERS)
             ref = C.ring_broadcast_plain(xs, 0, chunks=chunks)
             same = all(torch.equal(o, r) for o, r in zip(outs, ref))
             if not same:
-                raise RuntimeError(f"ring_broadcast at cut {bps}/{seg}, m={m}: off the plain bits")
+                raise RuntimeError(f"ring_broadcast at cut {cut}, m={m}: off the plain bits")
             v = m * NVLINK_N * 8
             points.append((v, chunks, d, card_ms / 1e3))
             emit("nvlink", what="ring_broadcast", cards=d, m=m, bytes=v, chunks=chunks,
@@ -668,8 +671,8 @@ def literals(got: dict, card: str) -> str:
     if "link_efficiency" in got:
         lines.append(f"link_efficiency={got['link_efficiency']:.3f}, "
                      f"latency_us={got['latency_us']:.2f}")
-        lines.append(f"NVLINK_BLOCKS_PER_SM, NVLINK_MIN_SEGMENT = {got['nvlink_cut'][0]}, "
-                     f"{got['nvlink_cut'][1]}")
+        bps, seg = got["nvlink_cut"]
+        lines.append(f"NVLINK_CUT = dict(blocks_per_sm={bps}, min_segment={seg})")
     return "\n".join(lines)
 
 

@@ -3,6 +3,7 @@
     python -m dla_tpu_torch.bench.kernel_ab --other DIR
         --entry lower|packed|df64|packed_df64|potrf_tile|panel_factor|ring|tile_ops|panel_apply
         [--tier high|default|highest] [--dtype f32|f64|bf16] [--iters 3]
+        [--spread] [--cuts 1:16K,2:32K]
 
 ``DIR`` holds another version of the kernel sources (the entry's ``.cu`` and
 the headers it includes), for example an earlier commit's
@@ -40,11 +41,20 @@ the same inputs at its path's shape, in turns: other, this, this, other.
   of the planes' largest panel (15360 × 1024, C=48) and of the factor tile
   (1024 × 1024, C=32), the tile in two sub-rings (roots 0 and 1), and the
   all-gather of the tile with group 4 and 2. Each build is called through
-  its own C signature (one whose protocol forwards through comm slots gets
-  its slots, allocated beforehand); each case's two outputs must have the
-  same bits, and those of the plain version. A ring time is the mean of 10
-  launches queued behind a sleeping kernel: the card's time, without the
-  host's enqueue between launches;
+  its own C signature and host path (one whose protocol forwards through
+  comm slots gets its slots, allocated beforehand; one that takes a card's
+  sender table, the earlier design, through a copy of that wrapper's
+  per-call path, events included); each case's outputs must have the same bits in
+  both builds, and those of the plain version. A ring time is the mean of
+  10 launches queued behind a sleeping kernel: the card's time, without the
+  host's enqueue between launches. ``--spread`` puts one member on each
+  visible card (phase 41's cases: the sub-rings of 2 where the count is
+  even) and adds each build's time back to back (10 calls between two waits
+  for every card: what a caller pays) and its steady cards' time (10 calls
+  queued after 10 others, each card's span between two events: the queued
+  time less how far apart the sleeping kernels end on the cards);
+  ``--cuts bps:segment,...`` adds this build at those cuts of
+  ``collectives.ring_plan``;
 - ``tile_ops``: ``dla_<op>_tile_<dtype>`` (kernels #6, #7, #8) at 512³,
   256³ and m=4096, n=k=2048 (#7: m=n), fp32 ``high``, ``default``,
   ``highest``, fp64 and bf16 in one call (``--tier`` and ``--dtype``
@@ -356,31 +366,132 @@ def _queued_ms(launch, n: int = 10) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def _ring_launcher(lib, signature: str):
+def _plan_senders(*, gather: bool, ndev: int, group: int, chunks: int, block_bytes: int, sms: int,
+              per_card: int, blocks_per_sm: int, min_segment: int):
+    """The cut of the earlier ``ring_plan`` (a build whose pipeline unit is a
+    whole number of the caller's chunks): (senders, blocks, units,
+    unit_bytes, stripe)."""
+    per_ring = group if gather or group == 1 else group - 1
+    blocks = max(1, min(-(-blocks_per_sm * sms // per_card), -(-block_bytes // min_segment)))
+    if gather:
+        units, unit_bytes = max(group - 1, 1), block_bytes
+    else:
+        chunk_bytes = block_bytes // chunks
+        k = next((k for k in range(1, chunks + 1)
+                  if chunks % k == 0 and k * chunk_bytes >= blocks * min_segment), chunks)
+        units, unit_bytes = chunks // k, k * chunk_bytes
+    stripe = (-(-unit_bytes // blocks) + 15) & ~15
+    return ndev // group * per_ring, blocks, units, unit_bytes, stripe
+
+
+#: the earlier cuts: (blocks per SM, least bytes a block copies between flags)
+CUT_SENDERS, NVLINK_CUT_SENDERS = (2, 32 * 1024), (1, 128 * 1024)
+
+
+def _ring_cards_senders(lib, sms: int):
+    """prepare(xs, outs, gather, group, root, chunks) -> launch() for a build
+    whose ``dla_ring_launch`` takes one card's sender table (the earlier design):
+    its wrapper's host path as it ran every call (senders per card, the
+    plan, the tables, and across cards an event on each written card that
+    the writers' streams wait on before the launches, and a ``done`` event
+    that the written cards' streams wait on after them); its own flags and
+    epoch."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    fn = lib.dla_ring_launch
+    fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    flags, epoch = {}, [0]
+
+    def prepare(xs, outs, gather, group, root, chunks):
+        ndev, cards = len(xs), [x.device for x in xs]
+        spans = len(set(cards)) > 1
+        block_bytes = xs[0].numel() * xs[0].element_size()
+        per_ring = group if gather or group == 1 else group - 1
+        member = lambda w: w // per_ring * group + (  # noqa: E731
+            w % per_ring if gather else (root + w % per_ring) % group)
+        C._enable_peers(sorted({(cards[d].index, cards[C.right_of(d, group)].index)
+                                for d in range(ndev) if cards[d] != cards[C.right_of(d, group)]}))
+
+        def launch():
+            launches = {}
+            for w in range(ndev // group * per_ring):
+                launches.setdefault(cards[member(w)], []).append(w)
+            senders, blocks, units, unit_bytes, stripe = _plan_senders(
+                gather=gather, ndev=ndev, group=group, chunks=chunks, block_bytes=block_bytes,
+                sms=sms, per_card=max(len(ws) for ws in launches.values()),
+                **dict(zip(("blocks_per_sm", "min_segment"),
+                           NVLINK_CUT_SENDERS if spans else CUT_SENDERS)))
+            ptrs = ctypes.c_void_p * ndev
+            xp, op = ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs))
+            rows = []
+            for d, card in enumerate(cards):
+                if card not in flags:
+                    flags[card] = torch.zeros(1 << 16, dtype=torch.int64, device=card)
+                rows.append(flags[card].data_ptr() + 8 * d * blocks)
+            fp = ptrs(*rows)
+            writes = {card: sorted({cards[C.right_of(member(w), group)] for w in ws} - {card},
+                                   key=str) for card, ws in launches.items()} if spans else {}
+            if spans:
+                ready = {}
+                for card in {c for ws in writes.values() for c in ws}:
+                    ready[card] = torch.cuda.Event()
+                    ready[card].record(torch.cuda.current_stream(card))
+                for card, dst in writes.items():
+                    for other in dst:
+                        torch.cuda.current_stream(card).wait_event(ready[other])
+            for card, ws in launches.items():
+                with torch.cuda.device(card):
+                    err = fn(int(gather), ndev, group, root, per_ring, units, xp, op, fp,
+                             block_bytes, unit_bytes, stripe, epoch[0], blocks, len(ws),
+                             (ctypes.c_int * len(ws))(*ws), int(spans),
+                             torch.cuda.current_stream(card).cuda_stream)
+                if err != 0:
+                    return err
+            epoch[0] += units
+            for card, dst in writes.items():
+                if dst:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(card))
+                    for other in dst:
+                        torch.cuda.current_stream(other).wait_event(done)
+            return 0
+        launch.plan = "the sender-table cut"
+        return launch
+    return prepare
+
+
+def _ring_launcher(lib, signature: str, cut: dict | None = None):
     """prepare(xs, outs, gather, group, root, chunks) -> launch() -> CUDA
-    error, through the build's own C signature (``signature``: ``cards``, one
-    launch per card with a sender table and per-member flag rows; ``flat``,
-    one launch over the members of one card; ``slots``, a protocol that
-    forwards through comm slots); each build keeps its flags and epoch. A
-    build of this signature is called as the wrapper calls it
-    (``collectives._call``); the others through their own arguments."""
+    error, through the build's own C signature (``parts``: one call for
+    every card's part, as this package's wrapper makes it, ``cut`` its cut,
+    default the wrapper's; ``cards``: one call per card with a sender table;
+    ``flat``, one launch over the members of one card; ``slots``, a protocol
+    that forwards through comm slots); each build keeps its flags and epoch.
+    A build of this signature is called as the wrapper calls it
+    (``collectives._record`` and ``_call``); the others through their own
+    arguments."""
     from dla_tpu_torch.kernels import collectives as C
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if signature == "cards":
+    if signature == "parts":
         fn, flags = C._bind(lib.dla_ring_launch), {}
 
         def prepare(xs, outs, gather, group, root, chunks):
-            plan = C.ring_plan(gather=gather, ndev=len(xs), group=group, chunks=chunks,
-                               block_bytes=xs[0].numel() * xs[0].element_size(), sms=sms)
+            rec = C._record(tuple(x.device for x in xs), xs[0].numel() * xs[0].element_size(),
+                            gather=gather, group=group, root=root, cut=cut, flags=flags)
+            C._enable_peers(sorted(rec.pairs))
 
             def launch():
-                return C._call(fn, flags, xs, outs, gather=gather, group=group, root=root,
-                               plan=plan)
-            launch.plan = plan
+                return C._call(fn, rec, xs, outs)
+            launch.plan = rec.plan
             return launch
         return prepare
+    if signature == "cards":
+        return _ring_cards_senders(lib, sms)
 
     flags = [torch.zeros(1 << 13, dtype=torch.int64, device=dev), 0]
     if signature == "flat":
@@ -392,19 +503,22 @@ def _ring_launcher(lib, signature: str):
 
         def prepare(xs, outs, gather, group, root, chunks):
             ndev = len(xs)
-            plan = C.ring_plan(gather=gather, ndev=ndev, group=group, chunks=chunks,
-                               block_bytes=xs[0].numel() * xs[0].element_size(), sms=sms)
+            senders, blocks, units, unit_bytes, stripe = _plan_senders(
+                gather=gather, ndev=ndev, group=group, chunks=chunks,
+                block_bytes=xs[0].numel() * xs[0].element_size(), sms=sms,
+                per_card=ndev // group * (group if gather or group == 1 else group - 1),
+                blocks_per_sm=CUT_SENDERS[0], min_segment=CUT_SENDERS[1])
             ptrs = ctypes.c_void_p * ndev
             xp, op = ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs))
 
             def launch():
-                err = fn(int(gather), ndev, group, root, plan.senders, plan.units, xp, op,
+                err = fn(int(gather), ndev, group, root, senders, units, xp, op,
                          flags[0].data_ptr(), flags[0].numel(),
-                         xs[0].numel() * xs[0].element_size(), plan.unit_bytes, plan.stripe,
-                         flags[1], plan.blocks, stream)
-                flags[1] += plan.units
+                         xs[0].numel() * xs[0].element_size(), unit_bytes, stripe,
+                         flags[1], blocks, stream)
+                flags[1] += units
                 return err
-            launch.plan = plan
+            launch.plan = "the one-card cut"
             return launch
         return prepare
 
@@ -434,13 +548,73 @@ def _ring_launcher(lib, signature: str):
     return prepare
 
 
+def _steady_cards_ms(fn, cards, iters: int) -> float:
+    """The cards' time of ``fn`` a call in steady state: ``iters`` calls
+    queued behind a sleeping kernel on every card, then ``iters`` more
+    between two CUDA events on each card; the longest card's span over
+    ``iters``. Unlike a span from before the first call, it leaves out how
+    far apart the sleeping kernels end on the cards."""
+    fn()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda._sleep(50_000_000)
+    for _ in range(iters):
+        fn()
+    marks = []
+    for c in cards:
+        with torch.cuda.device(c):
+            marks.append([torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)])
+            marks[-1][0].record()
+    for _ in range(iters):
+        fn()
+    for c, (start, end) in zip(cards, marks):
+        with torch.cuda.device(c):
+            end.record()
+    spans = []
+    for start, end in marks:
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    return max(spans) / iters
+
+
+def _raising(launch):
+    """``launch`` that raises on a CUDA error (its ``plan`` kept)."""
+    def call():
+        err = launch()
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+    call.plan = getattr(launch, "plan", "slots")
+    return call
+
+
+def _parse_cut(spec: str) -> dict:
+    """``bps:segment`` (segment in bytes, with an optional K) -> a cut."""
+    bps, seg = spec.split(":")
+    seg = int(seg[:-1]) * 1024 if seg.upper().endswith("K") else int(seg)
+    return dict(blocks_per_sm=float(bps), min_segment=seg)
+
+
 def _ring_ab(args, card: str) -> int:
-    """#11 and #12 of two builds at phase 29's shapes: times, and whether the
-    bits agree with each other and with the plain version."""
+    """#11 and #12 of two builds at phase 29's shapes (``--spread``: one
+    member on each visible card, phase 41's): times, and whether the bits
+    agree with each other and with the plain version; with ``--cuts``, this
+    build at those cuts too."""
+    from dla_tpu_torch.bench.calibrate_model import _cards_ms, _queued_cards_ms
     from dla_tpu_torch.kernels import _build
     from dla_tpu_torch.kernels import collectives as C
 
-    dev, ndev, n = torch.device("cuda"), 4, 1024
+    if args.spread:
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if len(cards) < 2:
+            print("kernel_ab --spread: needs two or more cards", file=sys.stderr)
+            return 1
+    else:
+        cards = [torch.device("cuda", torch.cuda.current_device())] * 4
+    ndev, n = len(cards), 1024
+    cuts = [_parse_cut(c) for c in args.cuts.split(",")] if args.cuts else []
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         preps = {}
@@ -448,35 +622,68 @@ def _ring_ab(args, card: str) -> int:
             lib = _build_lib(csrc, Path(tmp) / f"{version}.so", "ring")
             text = (csrc / SOURCE["ring"]).read_text()
             signature = ("slots" if "void* const* comms" in text
+                         else "parts" if "const int* part_card" in text
                          else "cards" if "const int* senders" in text else "flat")
+            if args.spread and signature in ("slots", "flat"):
+                raise SystemExit(f"kernel_ab --spread: the {version} build runs on one card only")
             preps[version] = _ring_launcher(lib, signature)
-        for kind, m, root, group in RING_CASES:
+            if version == "this":
+                for cut in cuts:
+                    preps[f"this {cut['blocks_per_sm']}:{cut['min_segment']}"] = \
+                        _ring_launcher(lib, signature, cut)
+        cases = RING_CASES if not args.spread else [
+            c for c in RING_CASES if ndev % c[3] == 0 and c[3] <= ndev]
+        for kind, m, root, group in cases:
             gather = kind == "gather"
-            g = torch.Generator(device=dev).manual_seed(m + n + ndev)
-            xs = [torch.randn(m, n, generator=g, device=dev, dtype=torch.float64)
-                  for _ in range(ndev)]
+            group = min(group, ndev)
+            xs = [torch.randn(m, n, generator=torch.Generator(device=c).manual_seed(m + n + i),
+                              device=c, dtype=torch.float64) for i, c in enumerate(cards)]
+            if not gather:
+                for d in range(ndev):  # a non-root block is never read
+                    if d % group != root:
+                        xs[d].fill_(float("nan"))
             chunks = 1 if gather else C.broadcast_chunks(m, group)
             rows = group * m if gather else m
-            outs = {v: [torch.empty(rows, n, device=dev, dtype=torch.float64) for _ in xs]
-                    for v in preps}
-            launches = {v: preps[v](xs, outs[v], gather, group, root, chunks) for v in preps}
-            times = {"other": [], "this": []}
-            for version in ["other", "this", "this", "other"] * args.iters:
-                times[version].append(_queued_ms(launches[version]))
+            outs = {v: [torch.full((rows, n), float("nan"), device=c, dtype=torch.float64)
+                        for c in cards] for v in preps}
+            launches = {v: _raising(preps[v](xs, outs[v], gather, group, root, chunks))
+                        for v in preps}
+            times = {v: [] for v in preps}
+            walls = {v: [] for v in preps}
+            steady = {v: [] for v in preps}
+            turn = ["other"] + [v for v in preps if v != "other"]
+            for version in (turn + turn[::-1]) * args.iters:
+                times[version].append(_queued_cards_ms(launches[version], cards, 10)
+                                      if args.spread else _queued_ms(launches[version]))
+                if args.spread:
+                    walls[version].append(_cards_ms(launches[version], cards, 10))
+                    steady[version].append(_steady_cards_ms(launches[version], cards, 10))
+            for v in preps:
+                for c in cards:
+                    torch.cuda.synchronize(c)
             ref = (C.ring_all_gather_plain(xs, group=group) if gather
                    else C.ring_broadcast_plain(xs, root, group=group, chunks=chunks))
             bits = lambda t: t.view(torch.int64)  # noqa: E731
-            same = all(torch.equal(bits(a), bits(b)) for a, b in zip(outs["other"], outs["this"]))
-            plain = all(torch.equal(bits(a), bits(b)) for a, b in zip(outs["this"], ref))
+            same = all(torch.equal(bits(a), bits(b)) for v in preps if v != "other"
+                       for a, b in zip(outs["other"], outs[v]))
+            plain = all(torch.equal(bits(a), bits(b)) for v in preps if v != "other"
+                        for a, b in zip(outs[v], ref))
             ok = ok and same and plain
-            med = {v: sorted(ts[1:])[len(ts[1:]) // 2] for v, ts in times.items()}
+            med = lambda ts: sorted(ts[1:])[len(ts[1:]) // 2]  # noqa: E731
             label = f"group={group}" + ("" if gather else f" root={root} chunks={chunks}")
-            print(f"ring {kind} D={ndev} {m}x{n} fp64 {label}: same bits {same}, plain's bits "
-                  f"{plain}; other median {med['other']:.4f} ms of "
-                  f"{[round(t, 4) for t in times['other']]}, this median {med['this']:.4f} ms "
-                  f"of {[round(t, 4) for t in times['this']]}, x{med['other'] / med['this']:.2f}; "
-                  f"this build's {getattr(launches['this'], 'plan', 'slots')} [{card}]",
-                  flush=True)
+            where = f"across {ndev} cards (one member each)" if args.spread else "on one card"
+            line = (f"ring {kind} D={ndev} {m}x{n} fp64 {label} {where}: same bits {same}, "
+                    f"plain's bits {plain}")
+            for v in preps:
+                line += (f"; {v}: card time median {med(times[v]):.4f} ms of "
+                         f"{[round(t, 4) for t in times[v]]}")
+                if args.spread:
+                    line += (f", steady {med(steady[v]):.4f} ms, back to back median "
+                             f"{med(walls[v]):.4f} ms")
+                if v != "other":
+                    line += f", x{med(times['other']) / med(times[v]):.2f} card time"
+            line += f"; this build's {getattr(launches['this'], 'plan', 'slots')} [{card}]"
+            print(line, flush=True)
             del xs, outs, launches, ref
             torch.cuda.empty_cache()
     print(f"ring: every case bit-identical to the other build and to the plain version: {ok} "
@@ -720,6 +927,10 @@ def main(argv=None) -> int:
                          "the matrix's size")
     ap.add_argument("--k", type=int, default=0, help="packed_df64, packed: the step")
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--spread", action="store_true",
+                    help="ring: one fp64 member on each visible card")
+    ap.add_argument("--cuts", default="",
+                    help="ring: this build at these cuts too, bps:segment,... (e.g. 1:16K,2:32K)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)

@@ -10,11 +10,11 @@ device d) and returns the list of their outputs, each on its member's device.
 Data crosses between members only through the ring:
 
 - on CUDA tensors each call is one cooperative launch of the hand-written
-  Hopper kernel ``csrc/ring.cu`` per card that holds senders
-  (:func:`card_launches`), all enqueued back to back; every hop writes
-  straight into the receiving member's output, through a peer pointer over
-  NVLink where the receiver lies on another card (:func:`ring_plan` sets the
-  pipeline);
+  Hopper kernel ``csrc/ring.cu`` per card that holds members taking part
+  (:func:`card_launches`), all enqueued by one call into the library; every
+  hop writes straight into the receiving member's output, through a peer
+  pointer over NVLink where the receiver lies on another card, block by
+  block in segments (:func:`ring_plan`);
 - on CPU tensors the ``*_plain`` versions simulate the Pallas protocol step
   by step in torch, with per-member comm slots and the same capture
   arithmetic (not a bare copy, so that the arithmetic itself is tested
@@ -29,19 +29,23 @@ nothing else.
 
 Each card holds one flag buffer that is never cleared, and every launch of the
 process compares against one epoch (flags of a launch across cards lie on
-several cards). A card's launches run on its current stream. Where a ring
-spans cards, each card's launch first waits for the earlier work of every card
-that it writes into, and each card then waits for every launch that wrote into
-it: no card reads an output before its bytes have landed (the last member of
-a broadcast launches nothing of its own), no launch writes into memory that
-its card's caching allocator may still hand to earlier work, and no late flag
-of one launch reaches the next.
+several cards). A card's part runs on its current stream. Across cards the
+parts order themselves on the devices (``csrc/ring.cu``'s header): a sender
+writes into another card's output only after that card's stream has reached
+the collective, and each card's part ends only when its bytes have landed; so
+no card reads an output before its bytes have landed, no hop writes into
+memory that the receiver's caching allocator may still hand to earlier work,
+and no late flag of one launch reaches the next. A call looks its launch
+record up by its cards, size, kind, group and root (:func:`_record`, made at
+the first call), so a repeated call only fills in the pointers, the streams
+and the epoch; the record is not shared between threads.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -53,79 +57,79 @@ ring_broadcast_launches = 0
 ring_all_gather_launches = 0
 
 #: most members one launch takes (``kMaxMembers`` of ``csrc/ring.cu``, whose
-#: pointer table fits the 4 KB of kernel parameters)
+#: pointer table fits the 4 KB of kernel parameters), and the most cards
+#: (``kMaxDevices``: the flag buffers travel by device index)
 MAX_MEMBERS = 128
+MAX_DEVICES = 64
 
-_FLAG_WORDS = 1 << 16  # 64-bit flags per card: a row of blocks per member index
+# a card's flag buffer (``csrc/ring.cu``): member d's row of data flags at
+# d·blocks in the first _DATA_WORDS, then one ready word per (card, member)
+_DATA_WORDS = 1 << 16
+_FLAG_WORDS = _DATA_WORDS + MAX_DEVICES * MAX_MEMBERS
 _flags: dict[torch.device, torch.Tensor] = {}  # card -> its flag buffer
 _epoch = [0]  # the next launch's base, one for every card of the process
 _peers: set[tuple[int, int]] = set()  # (from, to) cards whose peer access is on
+_records: dict = {}  # (cards, bytes, kind, group, root, blocks, cut) -> _Record
 
-#: sender blocks per SM a launch aims at, and the fewest bytes a block copies
-#: between two flags (``csrc/ring.cu``'s header says why): on one card, and
-#: across cards over NVLink, the fastest of the cuts that
+#: how a launch cuts its work (:func:`ring_plan`): blocks per SM it aims at
+#: and the fewest bytes a block copies between two flags; on one card, and
+#: across cards over NVLink the fastest of the cuts that
 #: ``bench/calibrate_model.py --only nvlink`` times (PERF.md, the NVLink fit)
-BLOCKS_PER_SM = 2
-MIN_SEGMENT = 32 * 1024
-NVLINK_BLOCKS_PER_SM = 1
-NVLINK_MIN_SEGMENT = 128 * 1024
+CUT = dict(blocks_per_sm=2, min_segment=32 * 1024)
+NVLINK_CUT = dict(blocks_per_sm=1, min_segment=32 * 1024)
 
 
 class RingPlan(NamedTuple):
-    """How one launch of ``csrc/ring.cu`` cuts its work. ``senders`` members
-    copy (every member for the all-gather; all but the last of each sub-ring
-    for the broadcast, and every member of a sub-ring of one), each with
-    ``blocks`` thread blocks. A sender copies ``units`` units of
-    ``unit_bytes``, block b the bytes ``[b·stripe, (b+1)·stripe)`` of each, and
-    after each unit that its right neighbour forwards it raises that
-    neighbour's flag of block b by one."""
+    """How one launch of ``csrc/ring.cu`` cuts its work. Each member that
+    takes part runs ``blocks`` thread blocks; block b owns the bytes
+    ``[b·stripe, (b+1)·stripe)`` of the member block (and of every block it
+    forwards) and walks them in segments of ``segment`` bytes, raising its
+    right neighbour's flag after each. A sender copies ``units`` member
+    blocks (group − 1 for the all-gather: its own, then those it forwards;
+    1 for the broadcast); ``steps`` = units·⌈stripe/segment⌉, the most flags
+    one block raises, is how far the launch moves the epoch."""
 
-    senders: int
     blocks: int
-    units: int
-    unit_bytes: int
     stripe: int
+    segment: int
+    units: int
+    steps: int
 
 
-def ring_plan(*, gather: bool, ndev: int, group: int, chunks: int, block_bytes: int,
-              sms: int, blocks: int = 0, per_card: int | None = None,
-              blocks_per_sm: int | None = None, min_segment: int | None = None) -> RingPlan:
-    """The cut of one collective over ``ndev`` members of ``block_bytes``
-    each, on cards of ``sms`` SMs, whose busiest card launches ``per_card``
-    senders (default: all of them, one card); ``blocks`` > 0 fixes the blocks
-    per sender.
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
 
-    Blocks: about ``blocks_per_sm``·sms sender blocks on the busiest card
-    (default BLOCKS_PER_SM), but no block with less than ``min_segment``
-    bytes of the member's block (default MIN_SEGMENT). Units: the
-    all-gather's unit is one member block, and a sender copies group − 1 of
-    them (its own, then those it forwards); the broadcast's unit is the
-    fewest of the caller's ``chunks`` that give each block ``min_segment``
-    bytes (all of them if none do), so that a short pipeline carries few
-    flags."""
-    bps = BLOCKS_PER_SM if blocks_per_sm is None else blocks_per_sm
-    seg = MIN_SEGMENT if min_segment is None else min_segment
-    per_ring = group if gather or group == 1 else group - 1
-    senders = ndev // group * per_ring
-    per_card = senders if per_card is None else per_card
+
+def ring_plan(*, gather: bool, group: int, block_bytes: int, sms: int, per_card: int,
+              blocks: int = 0, blocks_per_sm: float = 2,
+              min_segment: int = 32 * 1024) -> RingPlan:
+    """The cut of one collective over members of ``block_bytes`` each, on
+    cards of ``sms`` SMs, whose busiest card launches ``per_card`` members;
+    ``blocks`` > 0 fixes the blocks per member.
+
+    Blocks: about ``blocks_per_sm``·sms on the busiest card, but no block
+    with less than ``min_segment`` bytes of the member block. Segments: the
+    block's slice cut into as many equal pieces of at least ``min_segment``
+    bytes as fit (one if none do), each a multiple of 16 bytes so that the
+    16-byte copies stay aligned."""
     if blocks <= 0:
-        blocks = max(1, min(-(-bps * sms // per_card), -(-block_bytes // seg)))
-    if gather:
-        units, unit_bytes = max(group - 1, 1), block_bytes
-    else:
-        chunk_bytes = block_bytes // chunks
-        k = next((k for k in range(1, chunks + 1)
-                  if chunks % k == 0 and k * chunk_bytes >= blocks * seg), chunks)
-        units, unit_bytes = chunks // k, k * chunk_bytes
-    stripe = (-(-unit_bytes // blocks) + 15) & ~15  # a multiple of 16: 16-byte copies stay aligned
-    return RingPlan(senders, blocks, units, unit_bytes, stripe)
+        blocks = max(1, min(math.ceil(blocks_per_sm * sms / per_card),
+                            -(-block_bytes // min_segment)))
+    stripe = _round16(-(-block_bytes // blocks))
+    nseg = max(1, stripe // min_segment)
+    segment = _round16(-(-stripe // nseg))
+    units = max(group - 1, 1) if gather else 1
+    return RingPlan(blocks, stripe, segment, units, units * -(-stripe // segment))
 
 
-def sender_member(w: int, *, gather: bool, group: int, root: int, per_ring: int) -> int:
-    """The member that sender ``w`` (r·per_ring + k) of a launch is: k is its
-    distance from the root (broadcast) or its place c (all-gather)."""
-    r, k = divmod(w, per_ring)
-    return r * group + (k if gather else (root + k) % group)
+def member_roles(d: int, *, gather: bool, group: int, root: int) -> tuple[bool, bool]:
+    """(sends, receives) of member d: it sends into its right neighbour's
+    output (or, in a sub-ring of one, its own) unless it is the last member
+    of a broadcast's sub-ring; it receives from its left neighbour unless it
+    is a broadcast's root or alone in its sub-ring."""
+    dist = d % group if gather else (d % group - root) % group
+    return (gather or group == 1 or dist != group - 1,
+            group > 1 and (gather or dist != 0))
 
 
 def right_of(d: int, group: int) -> int:
@@ -133,30 +137,27 @@ def right_of(d: int, group: int) -> int:
     return d // group * group + (d % group + 1) % group
 
 
+def left_of(d: int, group: int) -> int:
+    """Member d's left neighbour in its sub-ring."""
+    return d // group * group + (d % group - 1) % group
+
+
 def card_launches(*, gather: bool, ndev: int, group: int, root: int,
                   cards) -> list[tuple[object, tuple[int, ...]]]:
-    """The launches of one collective: [(card, its senders)], one entry per
-    card that holds senders, in the order of their first sender; ``cards[d]``
-    is member d's card (any hashable label). A sender is r·per_ring + k, as
-    :func:`sender_member` reads it."""
-    per_ring = group if gather or group == 1 else group - 1
+    """The launches of one collective: [(card, its members)], one entry per
+    card that holds members taking part, in ring order from the root (by
+    their members' distance from it, then sub-ring: the order in which the
+    data reaches them, so a part is enqueued before the bytes that it waits
+    for can arrive); ``cards[d]`` is member d's card (any hashable label). A
+    member takes part if it sends, or if it receives from a member on
+    another card (the last member of a broadcast then only waits for its
+    bytes)."""
     out: dict = {}
-    for w in range(ndev // group * per_ring):
-        d = sender_member(w, gather=gather, group=group, root=root, per_ring=per_ring)
-        out.setdefault(cards[d], []).append(w)
-    return [(card, tuple(ws)) for card, ws in out.items()]
-
-
-def card_writes(launches, *, gather: bool, group: int, root: int, cards) -> dict:
-    """{card: the other cards whose members' outputs or flags its launch
-    writes}: the cards of its senders' right neighbours, its own left out."""
-    per_ring = group if gather or group == 1 else group - 1
-    out = {}
-    for card, ws in launches:
-        dst = {cards[right_of(sender_member(w, gather=gather, group=group, root=root,
-                                            per_ring=per_ring), group)] for w in ws}
-        out[card] = sorted(dst - {card}, key=str)
-    return out
+    for d in sorted(range(ndev), key=lambda d: ((d % group - root) % group, d)):
+        sends, receives = member_roles(d, gather=gather, group=group, root=root)
+        if sends or (receives and cards[left_of(d, group)] != cards[d]):
+            out.setdefault(cards[d], []).append(d)
+    return [(card, tuple(ms)) for card, ms in out.items()]
 
 
 def broadcast_chunks(m: int, group: int) -> int:
@@ -282,9 +283,9 @@ def ring_all_gather_plain(xs, *, group: int | None = None) -> list[torch.Tensor]
 def _bind(fn):
     """``fn``, the ``dla_ring_launch`` of a build of ``csrc/ring.cu``, with its
     C signature."""
-    fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int])
     fn.restype = ctypes.c_int
     return fn
 
@@ -305,32 +306,16 @@ def _new_flags(dev: torch.device) -> torch.Tensor:
     return torch.zeros(_FLAG_WORDS, dtype=torch.int64, device=dev)
 
 
-def _flag_rows(cards, blocks: int, flags: dict) -> list[int]:
-    """Member d's row of ``blocks`` flags, in its own card's buffer of
-    ``flags`` (made at first use), as a device pointer."""
-    if len(cards) * blocks > _FLAG_WORDS:
-        raise ValueError(f"{len(cards)} members x {blocks} blocks need more than the "
-                         f"{_FLAG_WORDS} ring flags of a card")
-    rows = []
-    for d, card in enumerate(cards):
-        buf = flags.get(card)
-        if buf is None:
-            buf = flags[card] = _new_flags(card)
-        rows.append(buf.data_ptr() + 8 * d * blocks)
-    return rows
-
-
 def _peer_access(a: int, b: int) -> bool:
     """Whether card ``a`` can reach card ``b``'s memory."""
     return torch.cuda.can_device_access_peer(a, b)
 
 
-def _enable_peers(cards, group: int) -> None:
-    """Peer access from each member's card to its right neighbour's, once per
-    pair and process; raises naming a pair that cannot reach each other."""
-    for d, card in enumerate(cards):
-        pair = (card.index, cards[right_of(d, group)].index)
-        if pair[0] == pair[1] or pair in _peers:
+def _enable_peers(pairs) -> None:
+    """Peer access for each (from, to) pair of cards, once per pair and
+    process; raises naming a pair that cannot reach each other."""
+    for pair in pairs:
+        if pair in _peers:
             continue
         if not _peer_access(*pair):
             raise RuntimeError(f"the ring needs card {pair[0]} to write card {pair[1]}'s "
@@ -344,93 +329,110 @@ def _enable_peers(cards, group: int) -> None:
         _peers.add(pair)
 
 
-def _call(fn, flags: dict, xs, outs, *, gather: bool, group: int, root: int,
-          plan: RingPlan) -> int:
-    """One collective of ``fn`` (:func:`_bind`) over the members ``xs`` into
-    ``outs``, cut by ``plan``: one launch per card that holds senders, each
-    on that card's current stream, on the flag buffers ``flags`` (card ->
-    buffer, made at first use) and the process's epoch; the CUDA error, 0
-    when every card launched. The epoch then lies above every flag that the
-    launch raises. Where the ring spans cards, each card's launch waits for
-    the earlier work of the cards it writes into, and those cards then wait
-    for it."""
-    ndev = len(xs)
-    cards = [x.device for x in xs]
+class _Record(NamedTuple):
+    """What every call of one collective shape passes to ``dla_ring_launch``
+    but its pointers, streams and epoch: the plan, the parts, each member's
+    card, the flag buffers by device index, and the ctypes arrays that a call
+    fills in (``xp``, ``op``, ``streams``)."""
+
+    head: tuple  # (gather, ndev, group, root)
+    plan: RingPlan
+    block_bytes: int
+    cards: list  # the parts' cards, torch devices, in launch order
+    pairs: frozenset  # (from, to) cards that a hop joins, both ways
+    sys: int
+    args: tuple  # the ctypes arrays: cards, flags, part_card, part_size, members
+    xp: object
+    op: object
+    streams: object
+
+
+def _record(cards, block_bytes: int, *, gather: bool, group: int, root: int, blocks: int = 0,
+            cut: dict | None = None, flags: dict | None = None) -> _Record:
+    """The launch record of one collective over members on ``cards`` (torch
+    devices, one a member) of ``block_bytes`` each, cut by ``cut`` (default
+    :data:`CUT` on one card, :data:`NVLINK_CUT` across cards) with ``blocks``
+    thread blocks a member (0: the plan's); ``flags`` (card -> buffer, made
+    at first use, default this process's) holds the flags."""
+    flags = _flags if flags is None else flags
+    ndev = len(cards)
     spans = len(set(cards)) > 1
-    per_ring = plan.senders // (ndev // group)
+    cut = dict(NVLINK_CUT if spans else CUT) if cut is None else cut
     launches = card_launches(gather=gather, ndev=ndev, group=group, root=root, cards=cards)
-    ptrs = ctypes.c_void_p * ndev
-    xp, op = ptrs(*(x.data_ptr() for x in xs)), ptrs(*(o.data_ptr() for o in outs))
-    fp = ptrs(*_flag_rows(cards, plan.blocks, flags))
-    writes = card_writes(launches, gather=gather, group=group, root=root, cards=cards) \
-        if spans else {}
-    if spans:
-        ready = {}
-        for card in {c for ws in writes.values() for c in ws}:
-            ready[card] = torch.cuda.Event()
-            ready[card].record(torch.cuda.current_stream(card))
-        for card, dst in writes.items():
-            for other in dst:
-                torch.cuda.current_stream(card).wait_event(ready[other])
-    block_bytes = xs[0].numel() * xs[0].element_size()
-    for card, ws in launches:
-        with torch.cuda.device(card):
-            err = fn(int(gather), ndev, group, root, per_ring, plan.units, xp, op, fp,
-                     block_bytes, plan.unit_bytes, plan.stripe, _epoch[0], plan.blocks, len(ws),
-                     (ctypes.c_int * len(ws))(*ws), int(spans),
-                     torch.cuda.current_stream(card).cuda_stream)
-        if err != 0:
-            return err
-    _epoch[0] += plan.units
-    for card, dst in writes.items():
-        if dst:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(card))
-            for other in dst:
-                torch.cuda.current_stream(other).wait_event(done)
-    return 0
+    plan = ring_plan(gather=gather, group=group, block_bytes=block_bytes,
+                     sms=_sms(cards[0].index), blocks=blocks,
+                     per_card=max(len(ms) for _, ms in launches), **cut)
+    if ndev * plan.blocks > _DATA_WORDS:
+        raise ValueError(f"{ndev} members x {plan.blocks} blocks need more than the "
+                         f"{_DATA_WORDS} ring flags of a card")
+    if any(c.index >= MAX_DEVICES for c in cards):
+        raise ValueError(f"the ring takes cards 0 to {MAX_DEVICES - 1}; got {sorted(set(cards))}")
+    table = (ctypes.c_void_p * MAX_DEVICES)()
+    for card in cards:
+        if card not in flags:
+            flags[card] = _new_flags(card)
+        table[card.index] = flags[card].data_ptr()
+    # a hop writes its receiver's card; the receiver's ready word, its sender's card
+    hops = {(cards[d].index, cards[right_of(d, group)].index) for d in range(ndev)
+            if cards[d] != cards[right_of(d, group)]}
+    pairs = frozenset(hops | {(b, a) for a, b in hops})
+    members = [m for _, ms in launches for m in ms]
+    ints = lambda v: (ctypes.c_int * len(v))(*v)  # noqa: E731
+    args = (ints([c.index for c in cards]), table, ints([c.index for c, _ in launches]),
+            ints([len(ms) for _, ms in launches]), ints(members))
+    return _Record((int(gather), ndev, group, root), plan, block_bytes,
+                   [c for c, _ in launches], pairs, int(spans), args,
+                   (ctypes.c_void_p * ndev)(), (ctypes.c_void_p * ndev)(),
+                   (ctypes.c_void_p * len(launches))())
 
 
-@functools.cache
-def _resident(index: int) -> int:
-    """Ring blocks that card ``index`` holds at once (0: no cooperative launch)."""
-    fn = _build.load().dla_ring_resident
-    fn.restype = ctypes.c_longlong
-    with torch.cuda.device(index):
-        return int(fn())
+def _call(fn, rec: _Record, xs, outs) -> int:
+    """One collective of ``fn`` (:func:`_bind`) over the members ``xs`` into
+    ``outs`` by the record ``rec``: every card's part on that card's current
+    stream, on the process's epoch; the CUDA error, 0 when every part
+    launched. The epoch then lies above every flag that the launch raises."""
+    rec.xp[:] = [x.data_ptr() for x in xs]
+    rec.op[:] = [o.data_ptr() for o in outs]
+    rec.streams[:] = [torch.cuda.current_stream(c).cuda_stream for c in rec.cards]
+    cards, table, part_card, part_size, members = rec.args
+    gather, ndev, group, root = rec.head
+    plan = rec.plan
+    err = fn(gather, ndev, group, root, rec.xp, rec.op, cards, table, rec.block_bytes,
+             plan.stripe, plan.segment, _epoch[0], plan.blocks, len(rec.cards), part_card,
+             part_size, members, rec.streams, rec.sys)
+    if err == 0:
+        _epoch[0] += plan.steps
+    return err
 
 
-def _launch(name: str, xs, outs, *, gather: bool, group: int, root: int, chunks: int,
-            blocks: int = 0, cut: dict | None = None) -> None:
+def _launch(name: str, xs, outs, *, gather: bool, group: int, root: int, blocks: int = 0,
+            cut: dict | None = None) -> None:
     """One collective of ``csrc/ring.cu`` over the members ``xs`` into
-    ``outs``, cut by :func:`ring_plan` (``cut``: its ``blocks_per_sm`` and
-    ``min_segment``, by default this module's for one card or across cards);
-    ``blocks`` thread blocks per sender, 0 for the plan's choice. It
+    ``outs``, by the launch record of its shape (made at its first call);
+    ``blocks`` thread blocks per member, 0 for the plan's; ``cut`` a cut of
+    :func:`ring_plan`, by default :data:`CUT` or :data:`NVLINK_CUT`. It
     allocates nothing but, once per card, the flags."""
     ndev = len(xs)
     if ndev > MAX_MEMBERS:
         raise ValueError(f"{name} on CUDA devices takes at most {MAX_MEMBERS} members (the "
                          f"kernel's pointer table in its 4 KB of parameters); got {ndev}")
-    if any(not x.is_contiguous() for x in xs):
+    read = xs if gather else xs[root::group]
+    if any(not x.is_contiguous() for x in read) or any(not o.is_contiguous() for o in outs):
         raise ValueError(f"{name} needs contiguous member blocks on a CUDA device")
-    cards = [x.device for x in xs]
-    spans = len(set(cards)) > 1
-    launches = card_launches(gather=gather, ndev=ndev, group=group, root=root, cards=cards)
-    if cut is None:
-        cut = (dict(blocks_per_sm=NVLINK_BLOCKS_PER_SM, min_segment=NVLINK_MIN_SEGMENT) if spans
-               else {})
-    plan = ring_plan(gather=gather, ndev=ndev, group=group, chunks=chunks,
-                     block_bytes=xs[0].numel() * xs[0].element_size(), sms=_sms(cards[0].index),
-                     blocks=blocks, per_card=max(len(ws) for _, ws in launches), **cut)
-    # every card's part is checked before any launches: a part launched alone would spin
-    for card, ws in launches:
-        if len(ws) * plan.blocks > _resident(card.index):
-            raise RuntimeError(f"{name} kernel launch failed: {len(ws)} senders x {plan.blocks} "
-                               f"blocks on {card} (the members' blocks cannot all be resident "
-                               "at once)")
-    if spans:
-        _enable_peers(cards, group)
-    err = _call(_entry(), _flags, xs, outs, gather=gather, group=group, root=root, plan=plan)
+    cards = tuple(x.device for x in xs)
+    block_bytes = xs[0].numel() * xs[0].element_size()
+    key = (cards, block_bytes, gather, group, root, blocks,
+           None if cut is None else tuple(sorted(cut.items())))
+    rec = _records.get(key)
+    if rec is None:
+        rec = _record(cards, block_bytes, gather=gather, group=group, root=root, blocks=blocks,
+                      cut=cut)
+        if len(_records) >= 512:
+            _records.clear()
+        _records[key] = rec
+    if not rec.pairs <= _peers:
+        _enable_peers(sorted(rec.pairs))
+    err = _call(_entry(), rec, xs, outs)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}"
                            + (" (the members' blocks cannot all be resident at once)"
@@ -440,24 +442,26 @@ def _launch(name: str, xs, outs, *, gather: bool, group: int, root: int, chunks:
 def ring_broadcast(xs, root: int, *, group: int | None = None,
                    chunks: int | None = None) -> list[torch.Tensor]:
     """Broadcast each sub-ring's ``root`` member block (m, n) to every member
-    of that sub-ring by chunk-pipelined forwarding; returns the D outputs,
-    new tensors. ``xs`` is the list of the D member blocks, of one shape and
-    dtype; non-root contents are ignored (JAX's non-owners pass zeros).
-    ``root`` is the group-local index (taken modulo ``group``, as JAX's ring
-    distance does). ``group`` (default: D) runs independent sub-rings of that
-    size, member id = r·group + c; ``chunks`` (default :func:`broadcast_chunks`)
-    splits the block into row chunks so that the hops pipeline, C + group − 2
-    steps of the plain version (the kernel pipelines whole numbers of them,
+    of that sub-ring by pipelined forwarding; returns the D outputs, new
+    tensors. ``xs`` is the list of the D member blocks, of one shape and
+    dtype; non-root contents are ignored (JAX's non-owners pass zeros), and
+    on a card only the roots' blocks need be contiguous (the others may be
+    expanded views: only their card counts). ``root`` is the group-local
+    index (taken modulo ``group``, as JAX's ring distance does). ``group``
+    (default: D) runs independent sub-rings of that size, member id =
+    r·group + c; ``chunks`` (default :func:`broadcast_chunks`) splits the
+    block into row chunks so that the hops pipeline, C + group − 2 steps of
+    the plain version (the kernel pipelines its own segments,
     :func:`ring_plan`). The reference's errors for a block that is not 2-D, a
     group that does not divide D, or chunks that do not divide m."""
     global ring_broadcast_launches
     ndev, m, group, root, chunks = _bcast_args(xs, root, group, chunks)
     if _on_cpu("ring_broadcast", xs):
         return ring_broadcast_plain(xs, root, group=group, chunks=chunks)
-    outs = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in xs]
+    outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in xs]
     if xs[0].numel() == 0:
         return outs
-    _launch("ring_broadcast", xs, outs, gather=False, group=group, root=root, chunks=chunks)
+    _launch("ring_broadcast", xs, outs, gather=False, group=group, root=root)
     ring_broadcast_launches += 1
     return outs
 
@@ -475,6 +479,6 @@ def ring_all_gather(xs, *, group: int | None = None) -> list[torch.Tensor]:
     outs = [x.new_empty((group * m, n)) for x in xs]
     if xs[0].numel() == 0:
         return outs
-    _launch("ring_all_gather", xs, outs, gather=True, group=group, root=0, chunks=1)
+    _launch("ring_all_gather", xs, outs, gather=True, group=group, root=0)
     ring_all_gather_launches += 1
     return outs

@@ -39,6 +39,7 @@ JAX. Numerics meet the 1e-10 fp64 gate of every other factorization path.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -147,6 +148,12 @@ def _dot_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b.mT
 
 
+@functools.cache
+def _placeholder(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """One element on ``device``: a non-root member's block for the ring."""
+    return torch.zeros((), dtype=dtype, device=device)
+
+
 def _broadcast_from(owner: int, block, mesh: FlatMesh, shape, dtype) -> list:
     """Ring-broadcast the owner's block: every other member hands the ring a
     block of its own, whose contents the ring ignores. Every plane broadcasts
@@ -156,11 +163,13 @@ def _broadcast_from(owner: int, block, mesh: FlatMesh, shape, dtype) -> list:
     (:func:`~dla_tpu_torch.parallel.member_comm.share`), then the ring runs
     among the process's members from the one in the owner's position; the
     list holds None for other processes' members. Each output lies on its
-    member's card."""
+    member's card. The other members hand the ring one element of their own
+    card, expanded to the block's shape (made once per card and dtype): the
+    ring reads only the root's block."""
     blk = comm.share(block, owner, shape, dtype, mesh)
     root = owner % mesh.per_process
-    outs = ring_broadcast([blk if i == root else torch.empty_like(blk, device=mesh.device_of(d))
-                           for i, d in enumerate(mesh.local_members())], root)
+    outs = ring_broadcast([blk if i == root else _placeholder(mesh.device_of(d), blk.dtype)
+                           .expand(blk.shape) for i, d in enumerate(mesh.local_members())], root)
     full = [None] * mesh.size
     for d, out in zip(mesh.local_members(), outs):
         full[d] = out

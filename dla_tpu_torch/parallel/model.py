@@ -85,12 +85,13 @@ BASE_CHIP = "h100"
 # link_efficiency, latency_us: measured by `python -m dla_tpu_torch.bench.calibrate_model
 # --only nvlink` on four NVIDIA H100 80GB HBM3 cards of one host at a 700.00 W power
 # limit (PERF.md, the NVLink fit): ring_broadcast (#11) across the 4 cards, one fp64
-# member each, at 1 MB to 126 MB, the cards' time fitted to (C + D − 2)·(V/(C·bw) + lat):
-# bw 382.6 GB/s = 0.850 of the 450 GB/s spec, lat 2.12 µs.
+# member each, at 1 MB to 126 MB, the cards' time fitted to (C + D − 2)·(V/(C·bw) + lat)
+# at the fastest of five cuts (1 block per SM, 32 KB segments, collectives.NVLINK_CUT):
+# bw 388.1 GB/s = 0.863 of the 450 GB/s spec, lat 1.91 µs.
 CHIPS = {
     "h100": ChipSpec(
         tflops={"default": 432.3, "high": 228.4, "highest": 45.5},
-        ici_gbps=450.0, link_efficiency=0.850, latency_us=2.12, hbm_gib=79.18,
+        ici_gbps=450.0, link_efficiency=0.863, latency_us=1.91, hbm_gib=79.18,
         hbm_gbps=3350.0, ici_links=1,
     ),
 }

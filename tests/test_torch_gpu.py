@@ -2032,21 +2032,20 @@ def test_ring_broadcast_planes_panel_same_bits_as_plain(cuda):
 
 @pytest.mark.parametrize("min_segment,blocks", [(16, 1), (16, 2), (48, 3), (16, 40)])
 def test_ring_small_units_and_ragged_stripes(cuda, monkeypatch, min_segment, blocks):
-    """Pipelines of units a few bytes long, ragged stripes and blocks with
+    """Pipelines of segments a few bytes long, ragged stripes and blocks with
     no bytes (the cuts of tests/test_torch_ring_schedule.py) through the
     kernel: the byte path and every flag."""
     from dla_tpu_torch.kernels import collectives as C
 
-    monkeypatch.setattr(C, "MIN_SEGMENT", min_segment)
+    cut = dict(C.CUT, min_segment=min_segment)
     xs = _ring_members(cuda, 4, 48, 5, torch.bfloat16, seed=14)
     cpu = [x.cpu() for x in xs]
     outs = [torch.empty_like(x) for x in xs]
-    C._launch("ring_broadcast", xs, outs, gather=False, group=4, root=2, chunks=16,
-              blocks=blocks)
+    C._launch("ring_broadcast", xs, outs, gather=False, group=4, root=2, blocks=blocks, cut=cut)
     ys = _ring_members(cuda, 4, 7, 3, torch.float32, seed=15)
     gathered = [y.new_empty((28, 3)) for y in ys]
-    C._launch("ring_all_gather", ys, gathered, gather=True, group=4, root=0, chunks=1,
-              blocks=blocks)
+    C._launch("ring_all_gather", ys, gathered, gather=True, group=4, root=0, blocks=blocks,
+              cut=cut)
     torch.cuda.synchronize()
     ref = C.ring_broadcast_plain(cpu, 2, chunks=16)
     assert all(_same_bits(o.cpu(), r) for o, r in zip(outs, ref))
@@ -2060,31 +2059,35 @@ def test_ring_raises_when_blocks_cannot_be_resident(cuda):
     xs = _ring_members(cuda, 4, 64, 16, torch.float32, seed=5)
     outs = [torch.empty_like(x) for x in xs]
     with pytest.raises(RuntimeError, match="cannot all be resident"):
-        C._launch("ring_broadcast", xs, outs, gather=False, group=4, root=0, chunks=4,
-                  blocks=1 << 16)
+        C._launch("ring_broadcast", xs, outs, gather=False, group=4, root=0, blocks=1 << 14)
     out = C.ring_broadcast(xs, 2)  # the context still works
     assert all(_same_bits(o, xs[2]) for o in out)
 
 
 @pytest.mark.parametrize("gather,group", [(False, 4), (False, 2), (False, 1), (True, 4)])
 def test_ring_launcher_takes_only_the_plans_sender_count(cuda, gather, group):
-    """``ring_plan``'s sender count is the one the launcher takes: one sender
-    more or fewer in each sub-ring is refused (cudaErrorInvalidValue) without a
-    launch, and the epoch stays; the plan's own count then gives the plain
+    """The launcher takes only the collective's own member table (the
+    members that send, as ``card_launches`` lists them): a table one member
+    short or one member long is refused (cudaErrorInvalidValue) without a
+    launch, and the epoch stays; the record's own table then gives the plain
     version's bits."""
+    import ctypes
+
     from dla_tpu_torch.kernels import collectives as C
 
     xs = _ring_members(cuda, 4, 64, 16, torch.float32, seed=6)
     outs = [x.new_empty((group * 64, 16)) if gather else torch.empty_like(x) for x in xs]
-    plan = C.ring_plan(gather=gather, ndev=4, group=group, chunks=1 if gather else 4,
-                       block_bytes=64 * 16 * 4, sms=C._sms(xs[0].device.index))
-    flags, epoch, rings = {}, C._epoch[0], 4 // group
-    for senders in (plan.senders - rings, plan.senders + rings):
-        err = C._call(C._entry(), flags, xs, outs, gather=gather, group=group, root=0,
-                      plan=plan._replace(senders=senders))
-        assert err == 1 and C._epoch[0] == epoch
-    assert C._call(C._entry(), flags, xs, outs, gather=gather, group=group, root=0,
-                   plan=plan) == 0
+    rec = C._record(tuple(x.device for x in xs), 64 * 16 * 4, gather=gather, group=group,
+                    root=0, flags={})
+    epoch = C._epoch[0]
+    cards, table, part_card, part_size, members = rec.args
+    listed = list(members)
+    missing = [d for d in range(4) if d not in listed]
+    for wrong in (listed[:-1], listed + missing[:1] if missing else listed + listed[:1]):
+        bad = rec._replace(args=(cards, table, part_card, (ctypes.c_int * 1)(len(wrong)),
+                                 (ctypes.c_int * len(wrong))(*wrong)))
+        assert C._call(C._entry(), bad, xs, outs) == 1 and C._epoch[0] == epoch
+    assert C._call(C._entry(), rec, xs, outs) == 0
     torch.cuda.synchronize()
     cpu = [x.cpu() for x in xs]
     ref = (C.ring_all_gather_plain(cpu, group=group) if gather
@@ -2529,6 +2532,51 @@ def test_ring_on_several_cards_20_launches_back_to_back(several_cards):
             refs.append(C.ring_broadcast_plain(cpu, i % len(xs), group=group))
     for out, ref in zip(outs, refs):
         assert all(_same_bits(o.cpu(), r) for o, r in zip(out, ref))
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_ring_on_several_cards_while_a_receiver_runs_a_long_kernel(several_cards, gather):
+    """Every card but the first is busy with a long kernel (about 50 ms) on
+    its stream when the collective is enqueued: the senders wait on the
+    device for each receiver's stream to reach the collective, and every
+    output has the plain version's bits."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    xs = _spread_members(several_cards, 1, 1024, 1024, torch.float64, seed=21)
+    cpu = [x.cpu() for x in xs]
+    for c in several_cards[1:]:
+        with torch.cuda.device(c):
+            torch.cuda._sleep(100_000_000)
+    out = C.ring_all_gather(xs) if gather else C.ring_broadcast(xs, 0)
+    ref = C.ring_all_gather_plain(cpu) if gather else C.ring_broadcast_plain(cpu, 0)
+    assert all(_same_bits(o.cpu(), r) for o, r in zip(out, ref))
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_ring_on_several_cards_output_reuses_memory_just_freed(several_cards, gather):
+    """On every card a tensor of the output's size is filled by a kernel
+    queued behind a long one, then freed at once: the collective's outputs
+    take that memory from the caching allocator while the fill has not run
+    yet. No hop writes into it before the receiver's stream has passed the
+    fill, so every output has the plain version's bits."""
+    from dla_tpu_torch.kernels import collectives as C
+
+    m, n, d = 1024, 1024, len(several_cards)
+    xs = _spread_members(several_cards, 1, m, n, torch.float64, seed=22)
+    cpu = [x.cpu() for x in xs]
+    torch.cuda.synchronize()
+    freed = []
+    for c in several_cards:
+        with torch.cuda.device(c):
+            junk = torch.empty(((d if gather else 1) * m, n), dtype=torch.float64, device=c)
+            torch.cuda._sleep(100_000_000)
+            junk.fill_(7.0)
+            freed.append(junk.data_ptr())
+            del junk
+    out = C.ring_all_gather(xs) if gather else C.ring_broadcast(xs, 0)
+    assert [o.data_ptr() for o in out] == freed, "the outputs did not reuse the freed memory"
+    ref = C.ring_all_gather_plain(cpu) if gather else C.ring_broadcast_plain(cpu, 0)
+    assert all(_same_bits(o.cpu(), r) for o, r in zip(out, ref))
 
 
 def test_several_cards_without_peer_access_raise(several_cards, monkeypatch):
